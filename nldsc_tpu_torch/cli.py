@@ -1,0 +1,167 @@
+"""Command-line interface of the port: the ``ld`` command.
+
+Flag-compatible with ``nldsc_tpu``'s ``ld`` for the single-device
+in-core route, plus ``--device``.  Every other flag and command of the
+JAX CLI is recognised and refused with the ROADMAP item that will port
+it.  Needs only the standard library (argparse) and numpy.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from .core.errors import NLDSCParameterError
+from .core.logging import log
+from .version import __version__
+
+__header__ = (
+    f"\n==============================================================\n"
+    f"* Non-additive LD Score Regression (nldsc-tpu-torch)\tv{__version__}\n"
+    f"* PyTorch/CUDA port of nldsc-tpu (bayarpark/nldsc)\n"
+    f"* GNU General Public License v3\n"
+    f"==============================================================\n"
+)
+
+#: flags of the JAX CLI not ported yet -> (takes a value, where)
+_UNPORTED_LD_FLAGS = {
+    "--pallas": (False, "the fused kernel is the default engine here; "
+                        "use --engine pallas"),
+    "--symmetric": (False, "ROADMAP queue 1 item 7 (full-band engine)"),
+    "--no-symmetric": (False, "ROADMAP queue 1 item 7 (full-band engine)"),
+    "--split-missing": (False, "ROADMAP queue 1 item 5 (split-missing)"),
+    "--no-split-missing": (False, "ROADMAP queue 1 item 5 (split-missing)"),
+    "--n-devices": (True, "ROADMAP queue 1 item 10 (multi-GPU)"),
+    "--shard-axis": (True, "ROADMAP queue 1 item 10 (multi-GPU)"),
+    "--profile-dir": (True, "ROADMAP queue 1 item 8 (user surface)"),
+    "--streaming": (False, "ROADMAP queue 1 item 6 (streaming)"),
+    "--no-streaming": (False, "ROADMAP queue 1 item 6 (streaming)"),
+    "--chunk-rows": (True, "ROADMAP queue 1 item 6 (streaming)"),
+    "--resume": (True, "ROADMAP queue 1 item 6 (streaming)"),
+    "--annot": (True, "ROADMAP queue 1 item 7 (partitioned LD)"),
+    "--log-file": (False, "ROADMAP queue 1 item 8 (user surface)"),
+}
+_UNPORTED_COMMANDS = {
+    "ld-genome": "ROADMAP queue 1 item 8 (user surface)",
+    "h2": "ROADMAP queue 1 item 4 (h2)",
+    "convert": "ROADMAP queue 1 item 8 (user surface)",
+}
+
+
+class _Unported(argparse.Action):
+    """Refuse a flag of the JAX CLI that the port does not have yet."""
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        where = _UNPORTED_LD_FLAGS[option_string][1]
+        raise NLDSCParameterError(
+            f"{option_string} is not ported to nldsc_tpu_torch yet: {where}")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="nldsc-tpu-torch", allow_abbrev=False,
+        description="Additive and non-additive LD scores on PyTorch/CUDA")
+    parser.add_argument("--version", action="version", version=__version__)
+    parser.add_argument("--log-file", action=_Unported, nargs=0,
+                        help=argparse.SUPPRESS)
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    ld = sub.add_parser("ld", allow_abbrev=False,
+                        help="Estimate additive and non-additive LD Scores")
+    ld.add_argument("--bfile", metavar="FILE", required=True,
+                    help="Path prefix for PLINK .bed/.bim/.fam file or path "
+                         "to one of them")
+    ld.add_argument("-o", "--out", metavar="FILE",
+                    help="Path prefix for output. If not specified the "
+                         "table is printed")
+    ld.add_argument("-kb", "--ld-wind-kb", metavar="W", type=float,
+                    help="Window size in kilo-base pairs (kb)")
+    ld.add_argument("-cm", "--ld-wind-cm", metavar="W", type=float,
+                    help="Window size in centi-morgans (cM)")
+    ld.add_argument("-maf", "--maf-thr", metavar="F", type=float,
+                    default=1e-5, help="Minor allele frequency threshold")
+    ld.add_argument("-std", "--std-thr", metavar="F", type=float,
+                    default=1e-4,
+                    help="Standard deviation threshold for regression "
+                         "residuals")
+    ld.add_argument("-rsq", "--rsq-thr", metavar="F", type=float,
+                    default=None,
+                    help="R-squared threshold for regression residuals. "
+                         "Default: 1/n_snp")
+    ld.add_argument("--extra", action="store_true",
+                    help="Include MAF WSA WSD WSDE RSTD in the .L2 file")
+    ld.add_argument("--block-size", metavar="B", type=int, default=512,
+                    help="SNP rows per pivot block of the CPU path (the "
+                         "CUDA kernel tiles by its own size)")
+    ld.add_argument("--engine", choices=["int8", "f32", "pallas"],
+                    default=None,
+                    help="int8 (default) and pallas both run the fused "
+                         "symmetric int8 kernel; f32 is not ported yet")
+    ld.add_argument("--dot-dtype", choices=["int8", "bf16"], default="int8",
+                    help="Tensor-core operand type (bf16 not ported yet)")
+    ld.add_argument("--progress", dest="progress", action="store_true",
+                    default=None, help="Log progress of the LD pass "
+                                       "(default: on above 20k SNPs)")
+    ld.add_argument("--no-progress", dest="progress", action="store_false")
+    ld.add_argument("--device", default="cuda",
+                    help="torch device: cuda (default; the CUDA kernel) or "
+                         "cpu (the plain PyTorch path)")
+    ld.add_argument("--display", action="store_true",
+                    help="Display traceback")
+    for flag, (takes_value, _) in _UNPORTED_LD_FLAGS.items():
+        ld.add_argument(flag, action=_Unported, nargs="?" if takes_value
+                        else 0, help=argparse.SUPPRESS)
+
+    for name, where in _UNPORTED_COMMANDS.items():
+        sub.add_parser(name, help=f"not ported yet ({where})")
+    return parser
+
+
+def run_ld(args) -> None:
+    if sum(map(bool, [args.ld_wind_kb, args.ld_wind_cm])) != 1:
+        raise RuntimeError("Please, specify exactly one --ld-wind option")
+    if args.ld_wind_kb:
+        wind_metric, ld_wind = "kbp", args.ld_wind_kb
+    else:
+        wind_metric, ld_wind = "cm", args.ld_wind_cm
+    if args.engine == "f32":
+        raise NLDSCParameterError(
+            "--engine f32 is not ported to nldsc_tpu_torch yet: ROADMAP "
+            "queue 1 item 9 (f32 engine)")
+
+    from .ld.pipeline import estimate_lds  # noqa: PLC0415
+
+    table = estimate_lds(
+        args.bfile, ld_wind=ld_wind, wind_metric=wind_metric,
+        maf_thr=args.maf_thr, std_thr=args.std_thr, rsq_thr=args.rsq_thr,
+        out=args.out, extra=args.extra, summary=True,
+        block_size=args.block_size, int8_dot_dtype=args.dot_dtype,
+        progress=args.progress, device=args.device)
+    if table is not None and args.out is None:
+        from .io.ldscores import format_table  # noqa: PLC0415
+
+        print(format_table(table), end="")
+
+
+def main(argv: list[str] | None = None) -> None:
+    """Entry point; exits with status 1 on any error (``--display``
+    shows the traceback)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    print(__header__)
+    try:
+        command = next((a for a in argv if not a.startswith("-")), None)
+        if command in _UNPORTED_COMMANDS:
+            raise NLDSCParameterError(
+                f"the {command} command is not ported to nldsc_tpu_torch "
+                f"yet: {_UNPORTED_COMMANDS[command]}")
+        run_ld(build_parser().parse_args(argv))
+    except Exception as ex:
+        log.critical("The program crashed with %s, what: %s\n"
+                     "Use `--display` flag for traceback",
+                     ex.__class__.__name__, ex,
+                     exc_info="--display" in argv)
+        raise SystemExit(1) from ex
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,259 @@
+"""PLINK .bed/.bim/.fam IO with numpy and the standard library only.
+
+Genotype codes (counting A2 alleles, reference ``encoder.h:11-16,34-40``):
+hom-A1 -> 0, het -> 1, hom-A2 -> 2, missing -> -1.  Bitpairs are
+unpacked low-to-high per the PLINK spec.  The main path ships the packed
+rows to the device (:meth:`BedReader.read_raw`) and unpacks them there
+(:func:`nldsc_tpu_torch.ld.preprocess.unpack_bed`).
+
+The .bim/.fam readers return a :class:`Table`: an ordered mapping of
+column name to numpy array, typed the way ``pandas.read_csv`` would type
+it (int64 when every field is an integer, float64 when every field is a
+number, str otherwise), so that written tables print identically.
+Floats are parsed correctly rounded; pandas' default C parser can differ
+from that near 1e-13 relative.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from pathlib import Path
+
+import numpy as np
+
+from ..core.errors import NLDSCDataError, NLDSCParameterError
+
+PLINK_MAGIC = bytes([0x6C, 0x1B, 0x01])
+
+BIM_COLUMNS = ("CHR", "SNP", "CM", "BP", "A1", "A2")
+FAM_COLUMNS = ("FID", "IID", "FATHER", "MOTHER", "SEX", "TRAIT")
+
+#: field spellings that pandas reads as NaN
+_NA_VALUES = frozenset({"", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN",
+                        "-NaN", "-nan", "1.#IND", "1.#QNAN", "<NA>", "N/A",
+                        "NA", "NULL", "NaN", "None", "n/a", "nan", "null"})
+
+
+def encode_bed_bytes(genotypes: np.ndarray) -> np.ndarray:
+    """Additive codes (n_snp, n_samples) -> packed .bed rows (uint8)."""
+    codes = np.asarray(genotypes, dtype=np.int8)
+    n_snp, n_samples = codes.shape
+    to_bits = np.zeros_like(codes, dtype=np.uint8)
+    to_bits[codes == -1] = 0b01
+    to_bits[codes == 1] = 0b10
+    to_bits[codes == 2] = 0b11
+    n_bytes = (n_samples + 3) // 4
+    padded = np.zeros((n_snp, n_bytes * 4), dtype=np.uint8)
+    padded[:, :n_samples] = to_bits
+    padded = padded.reshape(n_snp, n_bytes, 4)
+    shifts = np.array([0, 2, 4, 6], dtype=np.uint8)
+    return (padded << shifts).sum(axis=2, dtype=np.uint8)
+
+
+def _read_exact(f, n: int) -> np.ndarray:
+    """Read exactly ``n`` bytes from an unbuffered file (a single
+    ``read(2)`` is capped near 2 GiB, so loop on ``readinto``)."""
+    out = np.empty(n, dtype=np.uint8)
+    view = memoryview(out)
+    got = 0
+    while got < n:
+        r = f.readinto(view[got:])
+        if not r:
+            raise NLDSCDataError(
+                f".bed read truncated: wanted {n} bytes, got {got}")
+        got += r
+    return out
+
+
+class BedReader:
+    """Reader of the packed rows of a SNP-major .bed file."""
+
+    def __init__(self, path: str | os.PathLike, n_snp: int, n_samples: int):
+        self.path = str(path)
+        self.n_snp = int(n_snp)
+        self.n_samples = int(n_samples)
+        self.bytes_per_snp = (self.n_samples + 3) // 4
+        with open(self.path, "rb") as f:
+            magic = f.read(3)
+        if magic != PLINK_MAGIC:
+            raise NLDSCDataError(
+                "Invalid PLINK magic number in BED file. The file is incorrect, "
+                "or it was created using an incompatible version of PLINK."
+            )
+        expected = 3 + self.bytes_per_snp * self.n_snp
+        actual = os.path.getsize(self.path)
+        if actual < expected:
+            raise NLDSCDataError(
+                f".bed file too small: {actual} bytes, expected {expected} "
+                f"(n_snp={self.n_snp}, n_samples={self.n_samples})"
+            )
+
+    def read_raw(self, start: int = 0, count: int | None = None) -> "PackedBed":
+        """Packed 2-bit rows [start, start+count) without decoding."""
+        count = self.n_snp - start if count is None else count
+        if start < 0 or start + count > self.n_snp:
+            raise ValueError(f"block [{start}, {start + count}) out of range")
+        with open(self.path, "rb", buffering=0) as f:
+            f.seek(3 + start * self.bytes_per_snp)
+            raw = _read_exact(f, count * self.bytes_per_snp)
+        arr = raw.reshape(count, self.bytes_per_snp)
+        return PackedBed(arr, count, self.n_samples,
+                         _packed_has_missing(arr, self.n_samples))
+
+
+def _miss_bytes(raw: np.ndarray, n_samples: int) -> np.ndarray:
+    """uint8 array, nonzero where a byte holds a valid missing (01)
+    bitpair: pair = b1 b0 is missing iff b0 and not b1, so
+    ``raw & 0x55 & ~(raw >> 1)`` lights bit 2i of pair i."""
+    miss = (raw & np.uint8(0x55)) & ~(raw >> 1)
+    tail_pairs = n_samples - (raw.shape[1] - 1) * 4
+    if tail_pairs < 4:
+        # pad bitpairs in the last byte are ignored
+        miss[:, -1] &= np.uint8((1 << (2 * tail_pairs)) - 1)
+    return miss
+
+
+def _packed_has_missing(raw: np.ndarray, n_samples: int) -> bool:
+    """True iff any valid bitpair is the missing code."""
+    return bool(_miss_bytes(raw, n_samples).any())
+
+
+@dataclass
+class PackedBed:
+    """Un-decoded SNP-major .bed rows (device-decode input)."""
+
+    raw: np.ndarray        # (n_snp, bytes_per_snp) uint8
+    n_snp: int
+    n_samples: int
+    has_missing: bool
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.n_snp, self.n_samples)
+
+    @property
+    def bytes_per_snp(self) -> int:
+        return self.raw.shape[1]
+
+
+class Table(dict):
+    """Ordered column name -> 1-D numpy array, all of one length."""
+
+    def __len__(self) -> int:  # number of rows, like a DataFrame
+        return len(next(iter(self.values()))) if dict.__len__(self) else 0
+
+
+def _column(fields: list[str]) -> np.ndarray:
+    """Type one whitespace-split column as ``pandas.read_csv`` would."""
+    try:
+        return np.array([int(f) for f in fields], dtype=np.int64)
+    except ValueError:
+        pass
+    try:
+        return np.array([np.nan if f in _NA_VALUES else float(f)
+                         for f in fields], dtype=np.float64)
+    except ValueError:
+        return np.array(fields, dtype=object)
+
+
+def _read_table(path: str | os.PathLike, names: tuple[str, ...]) -> Table:
+    with open(path) as f:
+        rows = [line.split() for line in f if line.strip()]
+    bad = [i for i, r in enumerate(rows) if len(r) != len(names)]
+    if bad:
+        raise NLDSCDataError(
+            f"{path}: line {bad[0] + 1} has {len(rows[bad[0]])} fields, "
+            f"expected {len(names)}")
+    cols = list(zip(*rows)) if rows else [()] * len(names)
+    return Table((name, _column(list(c))) for name, c in zip(names, cols))
+
+
+def read_bim(path: str | os.PathLike, single_chromosome: bool = True) -> Table:
+    """Read a .bim file (reference: ``nldsc/ldscore/common.py:76-117``).
+
+    Enforces a single chromosome per file like the reference does.
+    """
+    bim = _read_table(path, BIM_COLUMNS)
+    n_chr = len(np.unique(bim["CHR"].astype(str)))
+    if single_chromosome and n_chr != 1:
+        raise NLDSCParameterError(
+            "Expected a single-chromosome bfile, but the .bim lists "
+            f"{n_chr} chromosomes — split the input per "
+            "chromosome (same constraint as the reference)."
+        )
+    return bim
+
+
+def read_fam(path: str | os.PathLike) -> Table:
+    return _read_table(path, FAM_COLUMNS)
+
+
+@dataclass
+class PlinkDataset:
+    """A resolved .bed/.bim/.fam triple (reference ``PLINKFile.parse``)."""
+
+    bed_path: str
+    bim: Table
+    fam: Table
+    bed: BedReader
+
+    @classmethod
+    def parse(cls, bfile: str | os.PathLike) -> "PlinkDataset":
+        path = Path(bfile).resolve()
+        if path.suffix in (".bed", ".bim", ".fam"):
+            path = path.with_suffix("")
+        elif path.is_dir():
+            raise NLDSCParameterError(f"'{bfile}' is a directory, expected a file prefix")
+        bed_path, bim_path, fam_path = (str(path) + s for s in (".bed", ".bim", ".fam"))
+        for p in (bed_path, bim_path, fam_path):
+            if not os.path.exists(p):
+                raise FileNotFoundError(f'No such file: "{p}"')
+        bim = read_bim(bim_path)
+        fam = read_fam(fam_path)
+        bed = BedReader(bed_path, n_snp=len(bim), n_samples=len(fam))
+        return cls(bed_path=bed_path, bim=bim, fam=fam, bed=bed)
+
+    @property
+    def n_snp(self) -> int:
+        return len(self.bim)
+
+    @property
+    def n_samples(self) -> int:
+        return len(self.fam)
+
+    def positions(self, metric: str) -> np.ndarray:
+        """Window coordinates: BP for 'bp' metric, CM for 'cm' (float64)."""
+        col = {"bp": "BP", "cm": "CM"}[metric]
+        return np.asarray(self.bim[col], dtype=np.float64)
+
+
+def write_plink(prefix: str | os.PathLike, genotypes: np.ndarray,
+                chrom: int = 22, bp: np.ndarray | None = None,
+                cm: np.ndarray | None = None) -> str:
+    """Write a synthetic .bed/.bim/.fam triple (test and tool helper).
+
+    ``genotypes``: int8 (n_snp, n_samples), codes {0,1,2,-1}.  The .bim
+    and .fam text matches what ``nldsc_tpu.io.plink.write_plink`` writes.
+    """
+    prefix = str(prefix)
+    codes = np.asarray(genotypes, dtype=np.int8)
+    n_snp, n_samples = codes.shape
+
+    with open(prefix + ".bed", "wb") as f:
+        f.write(PLINK_MAGIC)
+        f.write(encode_bed_bytes(codes).tobytes())
+
+    if bp is None:
+        bp = np.arange(1, n_snp + 1) * 1000
+    if cm is None:
+        cm = np.asarray(bp, dtype=np.float64) * 1e-6
+    bp = np.asarray(bp)
+    cm = np.asarray(cm, dtype=np.float64)
+    with open(prefix + ".bim", "w") as f:
+        f.writelines(f"{chrom}\trs{i + 1}\t{c!r}\t{p}\tA\tG\n"
+                     for i, (c, p) in enumerate(zip(cm.tolist(),
+                                                    bp.tolist())))
+    with open(prefix + ".fam", "w") as f:
+        f.writelines(f"F{i}\tI{i}\t0\t0\t0\t-9\n" for i in range(n_samples))
+    return prefix

@@ -1,0 +1,41 @@
+"""Carry the JAX package's engine inputs across to the port's tensors.
+
+The tests feed both packages identical inputs this way: the dict that
+``nldsc_tpu.ld.ld_int8.preprocess_int8`` returns, the window bounds and
+the dominance mask, all as numpy arrays, become the arguments of
+:func:`nldsc_tpu_torch.ld.ld_int8.sym_scan_segment` and of the kernel
+wrapper.  Nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ld_int8 import SCAL_FIELDS
+
+
+def from_jax_inputs(pre: dict, lo, hi, dom_ok, device="cpu") -> dict:
+    """Engine inputs as tensors on ``device``.
+
+    Returns ``g``, ``m``, ``h`` (int8), ``scal`` (f32 (M, 9)), ``lo``,
+    ``hi`` (int32), ``usable``, ``dom_ok``, ``add_sd_zero`` (bool) and
+    ``has_missing`` (bool).
+    """
+    def t(x, dtype):
+        return torch.from_numpy(np.array(x)).to(device=device, dtype=dtype)
+
+    scal = np.stack([np.asarray(pre[k], dtype=np.float32)
+                     for k in SCAL_FIELDS], axis=1)
+    return {
+        "g": t(pre["g"], torch.int8),
+        "m": t(pre["m"], torch.int8),
+        "h": t(pre["h"], torch.int8),
+        "scal": t(scal, torch.float32),
+        "lo": t(lo, torch.int32),
+        "hi": t(hi, torch.int32),
+        "usable": t(pre["usable"], torch.bool),
+        "dom_ok": t(dom_ok, torch.bool),
+        "add_sd_zero": t(pre["add_sd_zero"], torch.bool),
+        "has_missing": bool(np.asarray(pre["has_missing"])),
+    }

@@ -1,0 +1,296 @@
+"""Integer-exact banded LD engine: preprocessing and the plain twin (torch).
+
+Genotypes are small integers, so every pairwise dot product the LD pass
+needs is an int8×int8→int32 matrix product plus analytic corrections
+(the algebra is documented in ``nldsc_tpu/ld/ld_int8.py``).  With ``g``
+the additive codes (0 at missing), ``m`` the missing indicator and
+``h = 2·min(g, 1)``, the products Sgg, Sgh, Shg (and Sgm, Smg, Smm, Smh,
+Shm when genotypes are missing) are exact, and :func:`corr_from_dots`
+turns them into the additive and both dominance correlations.
+
+:func:`sym_scan_segment` is the plain PyTorch twin of the hand-written
+CUDA kernel (``csrc/ld_sym.cu``): the same pair algebra, one pivot block
+at a time, in f32 operations in the same order as the kernel's epilogue.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+#: per-SNP f32 scalar fields the engines consume, in stacking order
+SCAL_FIELDS = ("am", "inv_sd", "inv_rstd", "v0", "v1", "v2",
+               "gsum", "hsum", "cm")
+
+
+def f32(x: float) -> float:
+    """``x`` rounded to float32, as a Python float.
+
+    Thresholds and constants pass through this so that comparing or
+    multiplying a float32 tensor with them gives the float32 result
+    whatever precision torch computes the scalar operation in.
+    """
+    return float(np.float32(x))
+
+
+def adj_constant(n_samples: int) -> float:
+    """(n−1)/(n−2) in float32: the adjusted-r² factor."""
+    n = np.float32(n_samples)
+    return float((n - np.float32(1.0)) / (n - np.float32(2.0)))
+
+
+def dom_class_stats(c0, c1, c2):
+    """Exact closed forms of the dominance statistics in class counts.
+
+    c0/c1/c2 : f32 exact-integer counts of genotype codes 0/1/2 among the
+    valid samples of each SNP.  Returns ``(va, slope, rvar_sum, v0, v1,
+    v2)``: ``va = n_valid²·var(a)``, ``rvar_sum = Σ residual²`` and the
+    residual values at codes 0/1/2.
+    """
+    va = c0 * c1 + 4.0 * c0 * c2 + c1 * c2
+    inv = 1.0 / torch.where(va > 0, va, torch.ones_like(va))
+    v0 = -2.0 * c1 * c2 * inv
+    v1 = 4.0 * c0 * c2 * inv
+    v2 = -2.0 * c0 * c1 * inv
+    rvar_sum = 4.0 * c0 * c1 * c2 * inv
+    slope = 2.0 * c0 * (c1 + 2.0 * c2) * inv
+    return va, slope, rvar_sum, v0, v1, v2
+
+
+def finish_preprocess_int8(n_valid_raw, c1, c2, cm, pos_ok, maf_thr: float,
+                           n_samples: int) -> dict[str, torch.Tensor]:
+    """Per-SNP scalar statistics from the three class counts."""
+    n = float(n_samples)
+    maf_thr = f32(maf_thr)
+    # an all-missing SNP has a NaN mean in the reference, so the MAF drop
+    # test is false: it stays usable, as an additive-sum poison
+    all_missing = n_valid_raw == 0
+    n_valid = torch.clamp(n_valid_raw, min=1.0)
+    c0 = n_valid - c1 - c2
+    gsum = c1 + 2.0 * c2
+    hsum = 2.0 * (c1 + c2)
+    am = gsum / n_valid
+
+    f2 = am * 0.5
+    maf = torch.minimum(f2, 1.0 - f2)
+    usable = pos_ok & ((maf > maf_thr) | all_missing)
+
+    va, _slope, rvar_sum, v0, v1, v2 = dom_class_stats(c0, c1, c2)
+    var_a_sum = va / n_valid
+    add_sd = torch.sqrt(var_a_sum / n)
+    add_sd_zero = usable & ((va <= 0.0) | all_missing)
+    rstd = torch.sqrt(rvar_sum / n)
+
+    zero = torch.zeros_like(am)
+    one = torch.ones_like(am)
+    inv_sd = torch.where((add_sd > 0) & usable,
+                         1.0 / torch.where(add_sd > 0, add_sd, one), zero)
+    inv_rstd = torch.where((rstd > 0) & usable & ~add_sd_zero,
+                           1.0 / torch.where(rstd > 0, rstd, one), zero)
+
+    nan = torch.full_like(am, float("nan"))
+    return {
+        "am": am, "inv_sd": inv_sd, "inv_rstd": inv_rstd,
+        "v0": v0, "v1": v1, "v2": v2,
+        "gsum": gsum, "hsum": hsum, "cm": cm,
+        "maf": torch.where(pos_ok & ~all_missing, maf, nan),
+        "rstd": torch.where(usable & ~add_sd_zero, rstd, nan),
+        "usable": usable, "add_sd_zero": add_sd_zero,
+    }
+
+
+def preprocess_int8(genotypes: torch.Tensor, pos_ok: torch.Tensor,
+                    maf_thr: float, n_samples: int,
+                    assume_no_missing: bool = False) -> dict[str, torch.Tensor]:
+    """int8 ``g``/``m``/``h`` matrices plus per-SNP f32 scalars.
+
+    ``genotypes``: int8 (M_pad, N_pad) codes.  Sample padding must be
+    negative (missing) unless ``assume_no_missing``, where the caller
+    guarantees no negative code anywhere (zero padding): ``g`` is then
+    used as it is and ``m`` aliases it — the clean kernels never read it.
+    """
+    g = genotypes
+    n_pad = g.shape[1]
+    if assume_no_missing:
+        gq = g
+        mq = g                      # alias; never read on the clean path
+        hq = 2 * torch.clamp(g, max=1)
+        cm = torch.full((g.shape[0],), float(n_pad - n_samples),
+                        dtype=torch.float32, device=g.device)
+        n_valid_raw = torch.full_like(cm, float(n_samples))
+    else:
+        valid = g >= 0
+        gq = torch.where(valid, g, torch.zeros_like(g))
+        mq = (~valid).to(torch.int8)
+        hq = 2 * torch.clamp(gq, max=1)
+        cm = (~valid).sum(dim=1, dtype=torch.float32)    # incl. padding
+        n_valid_raw = float(n_pad) - cm
+    c1 = (gq == 1).sum(dim=1, dtype=torch.float32)
+    c2 = (gq == 2).sum(dim=1, dtype=torch.float32)
+
+    out = finish_preprocess_int8(n_valid_raw, c1, c2, cm, pos_ok, maf_thr,
+                                 n_samples)
+    out.update({"g": gq, "m": mq, "h": hq})
+    return out
+
+
+def stack_scalars(pre: dict) -> torch.Tensor:
+    """Stack the per-SNP engine scalars into one (M, 9) f32 matrix."""
+    return torch.stack([pre[k] for k in SCAL_FIELDS], dim=1).contiguous()
+
+
+def scal_views(mat: torch.Tensor, orient: str) -> dict[str, torch.Tensor]:
+    """Broadcastable per-field views of a (rows, 9) scalar matrix:
+    ``'col'`` gives (rows, 1) pivot-side vectors, ``'row'`` (1, rows)."""
+    if orient == "row":
+        return {k: mat[:, i][None, :] for i, k in enumerate(SCAL_FIELDS)}
+    return {k: mat[:, i][:, None] for i, k in enumerate(SCAL_FIELDS)}
+
+
+def idot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x · yᵀ over the sample axis: int8×int8→int32, exact, then f32."""
+    return torch._int_mm(x, y.t()).to(torch.float32)
+
+
+def _dom_dot(sgg, sgh, sgu, sug, suh, suu, am_i, v0_j, v1_j, v2_j):
+    """dot(a_c_i, r_j) over the genotype classes of j."""
+    a1 = (sgh - sgg) - am_i * (suh - sug)
+    a2 = (sgg - 0.5 * sgh) - am_i * (sug - 0.5 * suh)
+    a0 = (sgu - 0.5 * sgh) - am_i * (suu - 0.5 * suh)
+    return v0_j * a0 + v1_j * a1 + v2_j * a2
+
+
+def corr_from_dots(dots: dict, sc_i: dict, sc_j: dict, n: float,
+                   n_padf: float, has_missing: bool, symmetric: bool = False):
+    """(r_add, r_domA[, r_domB]) tiles from exact integer S-matrices.
+
+    ``dots`` needs sgg, sgh (+ shg when symmetric; + sgm, smg, smm, smh
+    (+ shm when symmetric) when has_missing), as f32.  r_domA pairs the
+    additive of pivot i with the residual of neighbour j (reference
+    orientation, ldscalc.h:38-41); r_domB the mirror.
+    """
+    sgg, sgh = dots["sgg"], dots["sgh"]
+    am_i, am_j = sc_i["am"], sc_j["am"]
+    if has_missing:
+        sgu = sc_i["gsum"] - dots["sgm"]
+        sug = sc_j["gsum"] - dots["smg"]
+        suh = sc_j["hsum"] - dots["smh"]
+        suu = n_padf - sc_i["cm"] - sc_j["cm"] + dots["smm"]
+    else:
+        sgu = sc_i["gsum"]
+        sug = sc_j["gsum"]
+        suh = sc_j["hsum"]
+        suu = n
+
+    ac = sgg - am_i * sug - am_j * sgu + am_i * am_j * suu
+    r_add = ac * sc_i["inv_sd"] * sc_j["inv_sd"] / n
+    dom_a = _dom_dot(sgg, sgh, sgu, sug, suh, suu, am_i,
+                     sc_j["v0"], sc_j["v1"], sc_j["v2"])
+    r_dom_a = dom_a * sc_i["inv_sd"] * sc_j["inv_rstd"] / n
+    if not symmetric:
+        return r_add, r_dom_a
+
+    shg = dots["shg"]
+    shu = (sc_i["hsum"] - dots["shm"]) if has_missing else sc_i["hsum"]
+    dom_b = _dom_dot(sgg, shg, sug, sgu, shu, suu, am_j,
+                     sc_i["v0"], sc_i["v1"], sc_i["v2"])
+    r_dom_b = dom_b * sc_i["inv_rstd"] * sc_j["inv_sd"] / n
+    return r_add, r_dom_a, r_dom_b
+
+
+def band_extent(hi: torch.Tensor, block_size: int) -> tuple[torch.Tensor, int]:
+    """Per pivot block, the last block its rows' windows reach (int32;
+    -1 for padding blocks, whose rows carry hi = -1), and the right
+    half-band depth in blocks (at least 1, at most the block count)."""
+    nb = hi.shape[0] // block_size
+    blk_hi = torch.div(hi.view(nb, block_size).amax(dim=1), block_size,
+                       rounding_mode="floor").to(torch.int32).contiguous()
+    reach = blk_hi - torch.arange(nb, device=hi.device, dtype=torch.int32)
+    return blk_hi, min(max(int(reach.max().item()) + 1, 1), nb)
+
+
+def sym_scan_segment(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
+                     rsq_thr: float, blk0: int = 0, *, block_size: int,
+                     right_k: int, n_samples: int, n_scan_blocks: int,
+                     has_missing: bool):
+    """Credit accumulation of the symmetric pass over the pivot blocks
+    ``[blk0, blk0 + n_scan_blocks)``: the plain twin of the CUDA kernel.
+
+    Each pivot block multiplies only its right half-band; one tile
+    credits both directions of every pair: row sums to the pivot rows
+    (every j ≥ r0, j ≠ i) and mirrored column sums to the band rows
+    (j ≥ r0 + B).  Returns the six un-finalized full-length credit
+    vectors ``(l2, ws, poison, l2d, wsd, wse)``.
+    """
+    m_pad, n_pad = g.shape
+    B = block_size
+    right_rows = min(right_k * B, m_pad)
+    n = float(n_samples)
+    n_padf = float(n_pad)
+    adj_c = adj_constant(n_samples)
+    rsq = f32(rsq_thr)
+    dev = g.device
+
+    l2_f = torch.zeros(m_pad, dtype=torch.float32, device=dev)
+    l2d_f = torch.zeros_like(l2_f)
+    ws_f, poi_f, wsd_f, wse_f = (torch.zeros(m_pad, dtype=torch.int32,
+                                             device=dev) for _ in range(4))
+
+    def isum(mask, dim):
+        return mask.sum(dim=dim, dtype=torch.int32)
+
+    for b in range(blk0, blk0 + n_scan_blocks):
+        r0 = b * B
+        gi = r0 + torch.arange(B, device=dev)
+        rows = slice(r0, r0 + B)
+        lo_i, hi_i = lo[rows][:, None], hi[rows][:, None]
+        usable_i = usable[rows][:, None]
+        poison_i = add_sd_zero[rows][:, None]
+        dom_ok_i = dom_ok[rows][:, None]
+        sc_i = scal_views(scal[rows], "col")
+
+        j0 = min(r0, m_pad - right_rows)
+        cols = slice(j0, j0 + right_rows)
+        gj = (j0 + torch.arange(right_rows, device=dev))[None, :]
+        usable_j = usable[cols][None, :]
+        poison_j = add_sd_zero[cols][None, :]
+        dom_ok_j = dom_ok[cols][None, :]
+        sc_j = scal_views(scal[cols], "row")
+
+        g_i, h_i, g_j, h_j = g[rows], h[rows], g[cols], h[cols]
+        dots = {"sgg": idot(g_i, g_j), "sgh": idot(g_i, h_j),
+                "shg": idot(h_i, g_j)}
+        if has_missing:
+            m_i, m_j = m[rows], m[cols]
+            dots.update(sgm=idot(g_i, m_j), smg=idot(m_i, g_j),
+                        smm=idot(m_i, m_j), smh=idot(m_i, h_j),
+                        shm=idot(h_i, m_j))
+        r_add, r_dom_a, r_dom_b = corr_from_dots(
+            dots, sc_i, sc_j, n, n_padf, has_missing, symmetric=True)
+
+        adj_add = 1.0 - (1.0 - r_add * r_add) * adj_c
+        adj_da = 1.0 - (1.0 - r_dom_a * r_dom_a) * adj_c
+        adj_db = 1.0 - (1.0 - r_dom_b * r_dom_b) * adj_c
+
+        upair = (gj >= lo_i) & (gj <= hi_i) & usable_j & usable_i
+        fwd = gj >= r0
+        row_base = upair & fwd & (gj != gi[:, None])
+        col_base = upair & (gj >= r0 + B)
+        dm_a = row_base & dom_ok_j
+        dm_b = col_base & dom_ok_i
+        rowf, colf = row_base.to(torch.float32), col_base.to(torch.float32)
+        dmaf, dmbf = dm_a.to(torch.float32), dm_b.to(torch.float32)
+
+        l2_f[rows] += (adj_add * rowf).sum(dim=1)
+        l2_f[cols] += (adj_add * colf).sum(dim=0)
+        ws_f[rows] += isum(row_base, 1)
+        ws_f[cols] += isum(col_base, 0)
+        poi_f[rows] += isum(upair & fwd & poison_j, 1)
+        poi_f[cols] += isum(col_base & poison_i, 0)
+        l2d_f[rows] += (adj_da * dmaf).sum(dim=1)
+        l2d_f[cols] += (adj_db * dmbf).sum(dim=0)
+        wsd_f[rows] += isum(dm_a, 1)
+        wsd_f[cols] += isum(dm_b, 0)
+        wse_f[rows] += isum((adj_da > rsq) & dm_a, 1)
+        wse_f[cols] += isum((adj_db > rsq) & dm_b, 0)
+    return l2_f, ws_f, poi_f, l2d_f, wsd_f, wse_f

@@ -1,0 +1,153 @@
+"""Fused symmetric int8 LD pass: the wrapper of the hand-written kernel.
+
+The kernel (``csrc/ld_sym.cu``) is the Hopper port of
+``nldsc_tpu/ld/ld_pallas_sym.py::_kernel``.  One CTA takes a pivot tile
+and one neighbour tile of its right half-band, accumulates the exact
+int8 products over all samples on the tensor cores and keeps the whole
+adjusted-r² epilogue in registers; it writes only per-tile row and
+mirrored-column partial sums, which :func:`_fold` reduces in a fixed
+order (bitwise-reproducible, no float atomics).
+
+Geometry: pivot and neighbour tiles are ``TILE`` rows.  Each pivot
+tile's right extent comes from its rows' window ends (``hi``), not from
+a static band depth.  The rows must be padded to a multiple of ``TILE``
+and the samples to a multiple of 128, as the pipeline does.
+
+On a CPU tensor the wrapper runs the plain twin
+(:func:`nldsc_tpu_torch.ld.ld_int8.sym_scan_segment`); on a CUDA tensor
+it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from . import ld_int8
+
+#: pivot and neighbour rows per CTA of the kernel
+TILE = 64
+
+#: kernel launches made by :func:`sym_credits` (CUDA tensors only)
+launches = 0
+
+_P = ctypes.c_void_p
+_ARGTYPES = [_P] * 12 + [ctypes.c_int] * 3 + [ctypes.c_float] * 4 + [
+    ctypes.c_int, _P]
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load("ld_sym")
+    if lib.ld_sym_launch.argtypes is None:
+        lib.ld_sym_launch.argtypes = _ARGTYPES
+        lib.ld_sym_launch.restype = ctypes.c_int
+        lib.ld_sym_tile.argtypes = []
+        lib.ld_sym_tile.restype = ctypes.c_int
+    if lib.ld_sym_tile() != TILE:
+        raise RuntimeError("ld_sym.cu and ld_pallas_sym.TILE disagree")
+    return lib
+
+
+def _check_inputs(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
+                  has_missing: bool) -> None:
+    m_pad, n_pad = g.shape
+    mats = (g, h, m) if has_missing else (g, h)
+    vecs = {"lo": (lo, torch.int32), "hi": (hi, torch.int32),
+            "usable": (usable, torch.bool), "dom_ok": (dom_ok, torch.bool),
+            "add_sd_zero": (add_sd_zero, torch.bool)}
+    for x in (*mats, scal, *(v for v, _ in vecs.values())):
+        if x.device != g.device:
+            raise ValueError("all inputs must be on one device")
+        if not x.is_contiguous():
+            raise ValueError("inputs must be contiguous")
+    for x in mats:
+        if x.dtype != torch.int8 or tuple(x.shape) != (m_pad, n_pad):
+            raise ValueError(f"g/m/h must be int8 ({m_pad}, {n_pad})")
+        if x.data_ptr() % 16:
+            raise ValueError("g/m/h must be 16-byte aligned")
+    if scal.dtype != torch.float32 or tuple(scal.shape) != (
+            m_pad, len(ld_int8.SCAL_FIELDS)):
+        raise ValueError(f"scal must be float32 ({m_pad}, 9)")
+    for name, (v, dtype) in vecs.items():
+        if v.dtype != dtype or tuple(v.shape) != (m_pad,):
+            raise ValueError(f"{name} must be {dtype} ({m_pad},)")
+    if m_pad % TILE or n_pad % 128:
+        raise ValueError(f"rows must be padded to a multiple of {TILE} and "
+                         f"samples to a multiple of 128, got {g.shape}")
+    if n_pad > (1 << 22) or m_pad // TILE > 65535:
+        raise ValueError(f"shape {tuple(g.shape)} exceeds the kernel's range")
+
+
+def _fold(fpart, ipart):
+    """Sum the per-tile partials in a fixed order.
+
+    Row credits of tile x are its own band slots; column credits come
+    from slot ``(x - k, k)`` of every pivot tile whose band reaches x.
+    Returns ``(l2, ws, poison, l2d, wsd, wse)``, full length.
+    """
+    nt, band = fpart.shape[:2]
+    dev = fpart.device
+    x = torch.arange(nt, device=dev)[:, None]
+    k = torch.arange(band, device=dev)[None, :]
+    src = x - k
+    ok = (src >= 0)[:, :, None, None]
+    src = src.clamp(min=0)
+    col_f = torch.where(ok, fpart[src, k, 1], 0.0).sum(dim=1)
+    col_i = torch.where(ok, ipart[src, k, 1], 0).sum(dim=1, dtype=torch.int32)
+    tot_f = fpart[:, :, 0].sum(dim=1) + col_f                # (nt, 2, TILE)
+    tot_i = ipart[:, :, 0].sum(dim=1, dtype=torch.int32) + col_i
+    l2, l2d = (tot_f[:, q].reshape(-1) for q in range(2))
+    ws, wsd, wse, poi = (tot_i[:, q].reshape(-1) for q in range(4))
+    return l2, ws, poi, l2d, wsd, wse
+
+
+def _launch(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
+            rsq_thr: float, n_samples: int, has_missing: bool):
+    global launches
+    _check_inputs(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
+                  has_missing)
+    m_pad, n_pad = g.shape
+    nt = m_pad // TILE
+    tile_hi, band = ld_int8.band_extent(hi, TILE)
+    fpart = torch.zeros((nt, band, 2, 2, TILE), dtype=torch.float32,
+                        device=g.device)
+    ipart = torch.zeros((nt, band, 2, 4, TILE), dtype=torch.int32,
+                        device=g.device)
+    lib = _library()
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    mm = m if has_missing else g                # clean: never read
+    err = lib.ld_sym_launch(
+        g.data_ptr(), mm.data_ptr(), h.data_ptr(), scal.data_ptr(),
+        lo.data_ptr(), hi.data_ptr(), usable.data_ptr(), dom_ok.data_ptr(),
+        add_sd_zero.data_ptr(), tile_hi.data_ptr(), fpart.data_ptr(),
+        ipart.data_ptr(), nt, band, n_pad, float(n_samples), float(n_pad),
+        ld_int8.adj_constant(n_samples), ld_int8.f32(rsq_thr),
+        int(has_missing), stream)
+    if err != 0:
+        raise RuntimeError(f"ld_sym kernel launch failed: CUDA error {err}")
+    launches += 1
+    return _fold(fpart, ipart)
+
+
+def sym_credits(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
+                rsq_thr: float, *, n_samples: int, has_missing: bool,
+                block_size: int):
+    """Un-finalized credit vectors ``(l2, ws, poison, l2d, wsd, wse)`` of
+    the symmetric pass over all pivot rows.
+
+    CPU tensors run the twin with ``block_size`` pivot blocks; CUDA
+    tensors run the kernel, whose tile is :data:`TILE`.
+    """
+    if g.device.type == "cpu":
+        m_pad = g.shape[0]
+        _, right_k = ld_int8.band_extent(hi, block_size)
+        return ld_int8.sym_scan_segment(
+            g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero, rsq_thr, 0,
+            block_size=block_size, right_k=right_k, n_samples=n_samples,
+            n_scan_blocks=m_pad // block_size, has_missing=has_missing)
+    if g.device.type != "cuda":
+        raise ValueError(f"no LD kernel for device {g.device}")
+    return _launch(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
+                   rsq_thr, n_samples, has_missing)

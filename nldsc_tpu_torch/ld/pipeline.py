@@ -1,0 +1,273 @@
+"""End-to-end LD-score estimation (the ``ld`` command), in core, on one
+device, through the symmetric int8 engine.
+
+  host:   parse .bim/.fam -> window bounds (exact f64 -> index intervals)
+          -> read the packed .bed rows
+  device: unpack the 2-bit codes -> class counts and per-SNP scalars
+          -> symmetric banded pass (the CUDA kernel on a GPU, its plain
+          twin on the CPU) -> NaN/-1 sentinel finalization
+  host:   .L2 TSV + .M/.M_5_50
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..config import LDConfig
+from ..core.errors import NLDSCParameterError
+from ..core.logging import log
+from ..core.timing import STAGE_TIMES, elapsed_time, stage_add
+from ..io.ldscores import make_output, write_l2, write_m_files
+from ..io.plink import PackedBed, PlinkDataset
+from . import ld_int8, ld_pallas_sym, preprocess, windows
+from .ld_xla import finalize_outputs
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch device; a CUDA device must exist (no silent
+    fall back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise NLDSCParameterError(
+            f"device {device!r} requested but no CUDA device is available; "
+            "pass --device cpu to run the plain CPU path")
+    if dev.type not in ("cuda", "cpu"):
+        raise NLDSCParameterError(f"unsupported device {device!r}")
+    return dev
+
+
+def _pad_to(x: np.ndarray, size: int, fill) -> np.ndarray:
+    if x.shape[0] == size:
+        return x
+    pad_shape = (size - x.shape[0],) + x.shape[1:]
+    return np.concatenate([x, np.full(pad_shape, fill, dtype=x.dtype)], axis=0)
+
+
+def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    t0 = time.time()
+    out = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    stage_add("transfer_s", t0)
+    return out
+
+
+def to_host_result(l2, l2d, ws, wsd, wse, maf, rstd, m: int) -> dict:
+    """Assemble the reference ``LDScoreResult`` fields on host (first m rows)."""
+    def host(x, dtype):
+        return x[:m].cpu().numpy().astype(dtype)
+
+    return {
+        "l2": host(l2, np.float64),
+        "l2d": host(l2d, np.float64),
+        "maf": host(maf, np.float64),
+        "residuals_std": host(rstd, np.float64),
+        "l2_ws": host(ws, np.int64),
+        "l2d_ws": host(wsd, np.int64),
+        "l2d_wse": host(wse, np.int64),
+    }
+
+
+def compute_ld_scores(genotypes, positions: np.ndarray, config: LDConfig, *,
+                      device="cuda", progress=None) -> dict:
+    """LD scores for an in-core genotype matrix.
+
+    Parameters
+    ----------
+    genotypes : int8 (M, N) codes {0,1,2,-1}, or a
+        :class:`~nldsc_tpu_torch.io.plink.PackedBed` of un-decoded 2-bit
+        rows, unpacked on the device.
+    positions : float64 (M,); negative = skip sentinel
+    config : LDConfig with ``rsq_thr`` resolved
+    device : 'cuda' (the kernel) or 'cpu' (the plain twin)
+    progress : optional callable ``progress(done_rows, total_rows)``,
+        called before and after the pass.
+
+    Returns
+    -------
+    dict of host float64/int64 arrays: l2, l2d, maf, residuals_std,
+    l2_ws, l2d_ws, l2d_wse — the reference ``LDScoreResult`` fields.
+    """
+    if config.int8_dot_dtype != "int8":
+        raise NLDSCParameterError(
+            "--dot-dtype bf16 is not ported yet (ROADMAP queue 2: bf16 MMA "
+            "variant of K1); use --dot-dtype int8")
+    if config.rsq_thr is None:
+        raise NLDSCParameterError("resolve rsq_thr first (LDConfig.resolve_rsq)")
+    dev = resolve_device(device)
+    packed = isinstance(genotypes, PackedBed)
+    m, n = genotypes.shape
+    # the CUDA kernel tiles by its own size; the CPU twin by block_size
+    B = ld_pallas_sym.TILE if dev.type == "cuda" else config.block_size
+    m_pad = -(-m // B) * B
+    n_pad = -(-n // 128) * 128
+
+    lo, hi, pos_ok = windows.window_bounds(positions, config.ld_wind)
+    # only real missing genotypes force the 8-product branch; without
+    # them pad with zeros and let g alias m
+    has_missing = (genotypes.has_missing if packed
+                   else bool((genotypes < 0).any()))
+    pad_val = -1 if has_missing else 0
+
+    pos_ok_pad = _pad_to(pos_ok, m_pad, False)
+    lo_pad = _pad_to(lo, m_pad, np.int32(m_pad))   # empty window for padding
+    hi_pad = _pad_to(hi, m_pad, np.int32(-1))
+
+    if packed:
+        # pad rows in byte space (0x55 = four missing bitpairs, 0x00 =
+        # four zero codes); columns are padded inside the unpack
+        pad_byte = np.uint8(0x55) if has_missing else np.uint8(0x00)
+        raw_dev = _to_device(_pad_to(genotypes.raw, m_pad, pad_byte), dev)
+        t_dev = time.time()
+        g_dev = preprocess.unpack_bed(raw_dev, n_samples=n, n_pad=n_pad,
+                                      pad_val=pad_val)
+        del raw_dev
+    else:
+        g = np.full((m_pad, n_pad), pad_val, dtype=np.int8)
+        g[:m, :n] = genotypes
+        g_dev = _to_device(g, dev)
+        t_dev = time.time()
+
+    pre = ld_int8.preprocess_int8(
+        g_dev, torch.from_numpy(pos_ok_pad).to(dev), config.maf_thr,
+        n_samples=n, assume_no_missing=not has_missing)
+    dom_ok = pre["usable"] & (pre["rstd"] > ld_int8.f32(config.std_thr))
+    lo_dev = torch.from_numpy(lo_pad).to(dev)
+    hi_dev = torch.from_numpy(hi_pad).to(dev)
+
+    if progress is not None:
+        progress(0, m)
+    l2_c, ws_c, poi_c, l2d_c, wsd_c, wse_c = ld_pallas_sym.sym_credits(
+        pre["g"], pre["m"], pre["h"], ld_int8.stack_scalars(pre), lo_dev,
+        hi_dev, pre["usable"], dom_ok, pre["add_sd_zero"], config.rsq_thr,
+        n_samples=n, has_missing=has_missing, block_size=B)
+    l2, l2d, ws, wsd, wse = finalize_outputs(
+        l2_c, l2d_c, ws_c, wsd_c, wse_c, poi_c, pre["usable"],
+        pre["add_sd_zero"])
+    out = to_host_result(l2, l2d, ws, wsd, wse, pre["maf"], pre["rstd"], m)
+    if progress is not None:
+        progress(m, m)
+    stage_add("device_s", t_dev)
+    return out
+
+
+def show_summary(result: dict) -> str:
+    """Post-run sanity summary (reference show_summary, routine.py:15-29):
+    the L2/L2D/MAF correlation matrix over rows where all three are set,
+    non-null counts and per-column statistics."""
+    cols = {"L2": result["l2"], "L2D": result["l2d"], "MAF": result["maf"]}
+    data = np.stack([np.asarray(v, dtype=np.float64) for v in cols.values()])
+    names = list(cols)
+    lines = ["=" * 62, "L2/L2D/MAF Correlation matrix",
+             "      " + "".join(f"{k:>12}" for k in names)]
+    for i, a in enumerate(names):
+        row = []
+        for j in range(len(names)):
+            ok = ~np.isnan(data[i]) & ~np.isnan(data[j])
+            with np.errstate(invalid="ignore", divide="ignore"):
+                c = (np.corrcoef(data[i][ok], data[j][ok])[0, 1]
+                     if ok.sum() > 1 else np.nan)
+            row.append(f"{c:>12.6f}")
+        lines.append(f"{a:<6}" + "".join(row))
+    lines += ["", "Short summary:",
+              f"- Number of additive non-null LD: {int((~np.isnan(data[0])).sum())}",
+              f"- Number of non-additive non-null LD: "
+              f"{int((~np.isnan(data[1])).sum())}",
+              "      " + "".join(f"{k:>12}" for k in names)]
+    stats = {"mean": np.nanmean, "std": lambda v: np.nanstd(v, ddof=1),
+             "min": np.nanmin, "25%": lambda v: np.nanpercentile(v, 25),
+             "50%": np.nanmedian, "75%": lambda v: np.nanpercentile(v, 75),
+             "max": np.nanmax}
+    for label, fn in stats.items():
+        vals = []
+        for v in data:
+            with np.errstate(invalid="ignore"):
+                vals.append(fn(v) if (~np.isnan(v)).sum() > 1 else np.nan)
+        lines.append(f"{label:<6}" + "".join(f"{x:>12.6f}" for x in vals))
+    lines.append("=" * 62)
+    text = "\n".join(lines)
+    print(text)
+    return text
+
+
+def _progress_logger():
+    """Percent/elapsed logger for :func:`compute_ld_scores` progress."""
+    t0 = time.time()
+
+    def cb(done: int, total: int) -> None:
+        log.info("LD pass: %d/%d SNPs (%.0f%%) | elapsed %.1fs",
+                 done, total, 100.0 * done / max(total, 1), time.time() - t0)
+
+    return cb
+
+
+@elapsed_time
+def estimate_lds(
+    bfile: str,
+    ld_wind: float,
+    wind_metric: str,
+    maf_thr: float = 1e-5,
+    std_thr: float = 1e-5,
+    rsq_thr: float | None = None,
+    *,
+    out: str | None = None,
+    extra: bool = False,
+    summary: bool = False,
+    block_size: int = 512,
+    write_m: bool = True,
+    int8_dot_dtype: str = "int8",
+    progress: bool | None = None,
+    device="cuda",
+):
+    """Estimate additive + dominance LD scores from a PLINK bfile.
+
+    API parity with the reference ``estimate_lds``
+    (``nldsc/ldscore/routine.py:51-102``) for the single-device in-core
+    route; returns the .L2 table when ``out`` is None, else writes
+    ``<out>`` (and ``.M``/``.M_5_50``) and returns None.
+    """
+    STAGE_TIMES.clear()
+    dev = resolve_device(device)
+    t_parse = time.time()
+    ds = PlinkDataset.parse(bfile)
+    stage_add("disk_s", t_parse)
+
+    config = LDConfig(
+        ld_wind=ld_wind, wind_metric=wind_metric, maf_thr=maf_thr,
+        std_thr=std_thr, rsq_thr=rsq_thr, block_size=block_size,
+        int8_dot_dtype=int8_dot_dtype,
+    ).resolve_rsq(ds.n_snp)
+
+    log.info("Input: %s, size: (M=%d, N=%d)", ds.bed_path, ds.n_snp,
+             ds.n_samples)
+    positions = ds.positions(config.wind_metric)
+
+    t0 = time.time()
+    genotypes = ds.bed.read_raw()
+    stage_add("disk_s", t0)
+    log.info("Running the LD estimator on %s...", dev)
+    want_prog = progress if progress is not None else ds.n_snp >= 20000
+    result = compute_ld_scores(genotypes, positions, config, device=dev,
+                               progress=_progress_logger() if want_prog
+                               else None)
+    dt = time.time() - t0
+    log.info("Estimation completed: %d SNPs in %.2fs (%.0f SNPs/s)",
+             ds.n_snp, dt, ds.n_snp / max(dt, 1e-9))
+    log.info("Stage decomposition: %s",
+             {k: round(v, 3) for k, v in sorted(STAGE_TIMES.items())})
+
+    if summary:
+        show_summary(result)
+
+    table = make_output(ds.bim, result, extra=extra)
+    if out:
+        t_w = time.time()
+        write_l2(table, out)
+        if write_m:
+            write_m_files(result, out)
+        stage_add("write_s", t_w)
+        return None
+    return table

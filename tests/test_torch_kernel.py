@@ -1,0 +1,117 @@
+"""The hand-written CUDA LD kernel against its plain PyTorch twin.
+
+Needs a CUDA device (``gpu`` marker): every test skips without one.  The
+file imports no JAX, so on a machine with a card and no JAX it runs as
+
+    python -m pytest --noconftest -m gpu tests/test_torch_kernel.py
+"""
+
+import zlib
+
+import numpy as np
+import pytest
+import torch
+
+from nldsc_tpu_torch.ld import ld_int8, ld_pallas_sym, preprocess, windows
+from nldsc_tpu_torch.io.plink import encode_bed_bytes
+from nldsc_tpu_torch.ld.ld_xla import finalize_outputs
+
+from utils import adversarial_genotypes, make_positions, random_genotypes
+
+RSQ = 1e-3
+# kernel and twin round every float32 operation alike: pair values are
+# bitwise equal, only the row/column sums run in another order
+TOL = dict(rtol=1e-5, atol=1e-5, equal_nan=True)
+
+# (m, n, missing_rate, spacing bp, window bp)
+CASES = {
+    "clean": (300, 203, 0.0, 800, 6000.0),
+    "missing": (300, 203, 0.05, 800, 6000.0),
+    "edge_clamp": (150, 150, 0.02, 100, 1e6),
+    "multi_tile_band": (700, 389, 0.02, 100, 20000.0),
+}
+
+
+@pytest.fixture()
+def rng(request):
+    return np.random.default_rng(zlib.crc32(request.node.nodeid.encode()))
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def engine_args(rng, case, device):
+    """Unpacked, preprocessed engine inputs for one case, on ``device``."""
+    m, n, rate, spacing, wind = CASES[case]
+    g = random_genotypes(rng, m, n, missing_rate=rate)
+    adv = adversarial_genotypes(rng, n)
+    g[10:15] = adv[:5]
+    if rate > 0:
+        g[20] = adv[5]
+        g[30] = -1
+    pos = make_positions(m, spacing=spacing, jitter_rng=rng, skip_idx=(3,))
+    T = ld_pallas_sym.TILE
+    m_pad, n_pad = -(-m // T) * T, -(-n // 128) * 128
+    lo, hi, pos_ok = windows.window_bounds(pos, wind)
+    raw = np.full((m_pad, (n + 3) // 4), 0x55 if rate else 0, np.uint8)
+    raw[:m] = encode_bed_bytes(g)
+    gd = preprocess.unpack_bed(torch.from_numpy(raw).to(device), n, n_pad,
+                               -1 if rate else 0)
+    ok = np.zeros(m_pad, bool)
+    ok[:m] = pos_ok
+    pre = ld_int8.preprocess_int8(gd, torch.from_numpy(ok).to(device), 0.01,
+                                  n, assume_no_missing=rate == 0)
+    lo_p = np.full(m_pad, m_pad, np.int32)
+    hi_p = np.full(m_pad, -1, np.int32)
+    lo_p[:m], hi_p[:m] = lo, hi
+    dom_ok = pre["usable"] & (pre["rstd"] > ld_int8.f32(1e-4))
+    args = (pre["g"], pre["m"], pre["h"], ld_int8.stack_scalars(pre),
+            torch.from_numpy(lo_p).to(device),
+            torch.from_numpy(hi_p).to(device), pre["usable"], dom_ok,
+            pre["add_sd_zero"])
+    return args, n, rate > 0, m
+
+
+def finalized(credits, args):
+    l2, ws, poi, l2d, wsd, wse = credits
+    return [x.cpu().numpy() for x in finalize_outputs(
+        l2, l2d, ws, wsd, wse, poi, args[6], args[8])]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(CASES))
+def test_kernel_matches_twin(rng, cuda, case):
+    args, n, has_missing, m = engine_args(rng, case, cuda)
+    T = ld_pallas_sym.TILE
+    before = ld_pallas_sym.launches
+    kern = ld_pallas_sym.sym_credits(*args, RSQ, n_samples=n,
+                                     has_missing=has_missing, block_size=T)
+    again = ld_pallas_sym.sym_credits(*args, RSQ, n_samples=n,
+                                      has_missing=has_missing, block_size=T)
+    torch.cuda.synchronize()
+    assert ld_pallas_sym.launches == before + 2
+    for a, b in zip(kern, again):
+        assert torch.equal(a, b)                 # bitwise run to run
+    twin = ld_int8.sym_scan_segment(
+        *args, RSQ, 0, block_size=T,
+        right_k=ld_int8.band_extent(args[5], T)[1], n_samples=n,
+        n_scan_blocks=args[0].shape[0] // T, has_missing=has_missing)
+    ours, ref = finalized(kern, args), finalized(twin, args)
+    for a, b in zip(ours[:2], ref[:2]):
+        np.testing.assert_allclose(a, b, **TOL)
+    for a, b in zip(ours[2:], ref[2:]):
+        np.testing.assert_array_equal(a, b)
+    assert np.isfinite(ours[1][:m]).sum() > m // 2      # l2d of usable rows
+
+
+@pytest.mark.gpu
+def test_kernel_rejects_bad_inputs(rng, cuda):
+    args, n, _, _ = engine_args(rng, "clean", cuda)
+    bad = (args[0][:, :-64].contiguous(),) + args[1:]
+    with pytest.raises(ValueError):
+        ld_pallas_sym.sym_credits(*bad, RSQ, n_samples=n, has_missing=False,
+                                  block_size=64)

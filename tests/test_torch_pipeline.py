@@ -1,0 +1,177 @@
+"""The PyTorch port's ``ld`` main path against the JAX package, the
+golden fixture and its own CLI contract (run on the CPU: the plain twin)."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from nldsc_tpu.config import LDConfig as JaxLDConfig
+from nldsc_tpu.ld import pipeline as jax_pipeline
+from nldsc_tpu_torch import cli
+from nldsc_tpu_torch.config import LDConfig
+from nldsc_tpu_torch.core.errors import NLDSCParameterError
+from nldsc_tpu_torch.io.plink import PlinkDataset, write_plink
+from nldsc_tpu_torch.ld import pipeline
+
+from test_golden import GOLDEN, MAF, RSQ, STD, WIND, check
+from utils import adversarial_genotypes, make_positions, random_genotypes
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _data(rng, missing_rate, m=150, n=203):
+    g = random_genotypes(rng, m, n, missing_rate=missing_rate)
+    adv = adversarial_genotypes(rng, n)
+    g[40:45] = adv[:5]
+    if missing_rate:
+        g[50] = adv[5]
+        g[60] = -1
+    pos = make_positions(m, spacing=700, jitter_rng=rng, skip_idx=(5, 90))
+    return g, pos
+
+
+def _assert_parity(ours, theirs):
+    check(ours, theirs)
+    np.testing.assert_allclose(ours["residuals_std"], theirs["residuals_std"],
+                               rtol=1e-6, equal_nan=True)
+
+
+@pytest.mark.parametrize("missing_rate", [0.0, 0.03])
+@pytest.mark.parametrize("block_size", [32, 64])
+def test_compute_ld_scores_matches_jax(rng, missing_rate, block_size):
+    g, pos = _data(rng, missing_rate)
+    kw = dict(ld_wind=5000, wind_metric="bp", maf_thr=0.01, std_thr=1e-4,
+              rsq_thr=1e-3, block_size=block_size)
+    ours = pipeline.compute_ld_scores(g, pos, LDConfig(**kw), device="cpu")
+    theirs = jax_pipeline.compute_ld_scores(
+        g, pos, JaxLDConfig(**kw, split_missing=False))
+    _assert_parity(ours, theirs)
+
+
+def test_packed_input_matches_codes(rng, tmp_path):
+    g, _ = _data(rng, 0.03, n=301)
+    bp = make_positions(g.shape[0], spacing=700).astype(np.int64)
+    ds = PlinkDataset.parse(write_plink(tmp_path / "p", g, bp=bp))
+    cfg = LDConfig(ld_wind=5000, maf_thr=0.01, std_thr=1e-4, rsq_thr=1e-3,
+                   block_size=32)
+    packed = pipeline.compute_ld_scores(ds.bed.read_raw(), ds.positions("bp"),
+                                        cfg, device="cpu")
+    codes = pipeline.compute_ld_scores(g, ds.positions("bp"), cfg,
+                                       device="cpu")
+    for k in packed:
+        np.testing.assert_array_equal(packed[k], codes[k], err_msg=k)
+
+
+@pytest.mark.parametrize("block_size", [8, 32])
+def test_golden_fixture(block_size):
+    gold = dict(np.load(GOLDEN))
+    cfg = LDConfig(ld_wind=WIND, wind_metric="bp", maf_thr=MAF, std_thr=STD,
+                   rsq_thr=RSQ, block_size=block_size)
+    res = pipeline.compute_ld_scores(gold["genotypes"], gold["positions"],
+                                     cfg, device="cpu")
+    check(res, gold)
+
+
+def _read_l2(path):
+    with open(path) as f:
+        header = f.readline().rstrip("\n").split("\t")
+        rows = [line.rstrip("\n").split("\t") for line in f]
+    cols = list(zip(*rows))
+    return {h: np.array([float(v) if v else np.nan for v in c])
+            for h, c in zip(header, cols) if h not in ("SNP",)}
+
+
+@pytest.mark.parametrize("extra", [False, True])
+def test_cli_end_to_end_matches_jax(rng, tmp_path, extra):
+    g = random_genotypes(rng, 300, 203, missing_rate=0.02)
+    bp = make_positions(300, spacing=600, jitter_rng=rng).astype(np.int64)
+    prefix = write_plink(tmp_path / "chr22", g, bp=bp)
+    ours, theirs = str(tmp_path / "ours.L2"), str(tmp_path / "theirs.L2")
+    argv = ["ld", "--bfile", prefix, "-kb", "5", "-maf", "0.01", "-o", ours,
+            "--device", "cpu", "--block-size", "64"]
+    cli.main(argv + (["--extra"] if extra else []))
+    jax_pipeline.estimate_lds(prefix, ld_wind=5, wind_metric="kbp",
+                              maf_thr=0.01, std_thr=1e-4, out=theirs,
+                              extra=extra, block_size=64,
+                              split_missing=False)
+    a, b = _read_l2(ours), _read_l2(theirs)
+    assert list(a) == list(b)
+    for k in ("CHR", "BP", "WSA", "WSD", "WSDE"):
+        if k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    for k in ("L2", "L2D", "MAF", "RSTD"):
+        if k in a:
+            np.testing.assert_allclose(a[k], b[k], rtol=2e-5, atol=2e-4,
+                                       equal_nan=True, err_msg=k)
+    for suffix in (".M", ".M_5_50"):
+        with open(ours[:-3] + suffix, "rb") as fa, \
+                open(theirs[:-3] + suffix, "rb") as fb:
+            assert fa.read() == fb.read()
+
+
+def test_cuda_without_gpu_raises(rng, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(NLDSCParameterError, match="--device cpu"):
+        pipeline.resolve_device("cuda")
+    g, pos = _data(rng, 0.0, m=100, n=30)
+    with pytest.raises(NLDSCParameterError):
+        pipeline.compute_ld_scores(g, pos, LDConfig(ld_wind=5000,
+                                                    rsq_thr=1e-3))
+    prefix = write_plink(tmp_path / "t", g)
+    with pytest.raises(SystemExit) as ex:
+        cli.main(["ld", "--bfile", prefix, "-kb", "5", "-o",
+                  str(tmp_path / "t.L2")])
+    assert ex.value.code == 1
+    assert not os.path.exists(tmp_path / "t.L2")
+
+
+@pytest.mark.parametrize("argv, item", [
+    (["--annot", "a.txt"], "item 7"),
+    (["--streaming"], "item 6"),
+    (["--n-devices", "2"], "item 10"),
+    (["--split-missing"], "item 5"),
+    (["--engine", "f32"], "item 9"),
+    (["--dot-dtype", "bf16"], "bf16 MMA"),
+])
+def test_unported_flags_name_their_roadmap_item(tmp_path, caplog, argv, item):
+    g = random_genotypes(np.random.default_rng(0), 20, 30, missing_rate=0.0)
+    prefix = write_plink(tmp_path / "t", g)
+    with pytest.raises(SystemExit) as ex:
+        cli.main(["ld", "--bfile", prefix, "-kb", "5", "--device", "cpu",
+                  *argv])
+    assert ex.value.code == 1
+    assert "ROADMAP" in str(ex.value.__cause__)
+    assert item in str(ex.value.__cause__)
+
+
+@pytest.mark.parametrize("command", ["h2", "ld-genome", "convert"])
+def test_unported_commands_raise(command):
+    with pytest.raises(SystemExit) as ex:
+        cli.main([command, "--anything"])
+    assert "ROADMAP" in str(ex.value.__cause__)
+
+
+def test_port_never_imports_jax():
+    code = ("import sys, nldsc_tpu_torch, nldsc_tpu_torch.cli, "
+            "nldsc_tpu_torch.ld.pipeline, nldsc_tpu_torch.ld.convert; "
+            "bad = [k for k in sys.modules if k == 'jax' or "
+            "k.startswith('jax.') or k == 'nldsc_tpu' or "
+            "k.startswith('nldsc_tpu.')]; print(bad); sys.exit(bool(bad))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_show_summary(rng, capsys):
+    g, pos = _data(rng, 0.0)
+    res = pipeline.compute_ld_scores(
+        g, pos, LDConfig(ld_wind=5000, maf_thr=0.01, rsq_thr=1e-3,
+                         block_size=32), device="cpu")
+    text = pipeline.show_summary(res)
+    assert "Correlation matrix" in text
+    assert f"non-null LD: {int((~np.isnan(res['l2'])).sum())}" in text
