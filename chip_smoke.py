@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py          # from the root of a checkout
 
-Phases, one line each:
+Phases, one line each (or a few):
   1. the device, and ``nvidia-smi``'s name and power limit;
-  2. build the hand-written CUDA kernel (``csrc/ld_sym.cu``) with nvcc;
+  2. build the hand-written CUDA kernels (``csrc/ld_sym.cu``, K1, and
+     ``csrc/split_corr.cu``, K2 and the δ epilogue), one nvcc each, all
+     started together;
   3. kernel against its plain PyTorch twin at M=4096, N=3001, clean and
      2% missing, adversarial rows included: counters exactly equal,
      l2/l2d within rtol 1e-5 and atol 1e-5, two kernel runs bitwise equal;
@@ -18,7 +20,21 @@ Phases, one line each:
      and the kernel's launches counted in that run;
   6. the same at M=16,384 with 2% missing genotypes (8-product branch);
   7. the kernel's and the twin's time at phase 5's shape, and their
-     agreement there.
+     agreement there;
+  8. the split-missing kernels at M=4096, N=3001, 5% of the rows
+     contaminated, adversarial rows included: K2's products exactly equal
+     to the integer products on the CPU, ``split_corrections`` on the card
+     against its torch twin (wse δ equal, l2/l2d δ within 1e-5, two runs
+     bitwise equal), and the split route against the global route through
+     ``compute_ld_scores`` (counters equal, l2/l2d within 1e-5); plus a
+     probe of ATen's division by a Python scalar against true division;
+  9. the ``ld`` command on phase 5's genotypes with 2% missing genotypes
+     injected in 5% of the rows: the split route, with K1's clean branch,
+     K2 and the δ epilogue launched and K1's 8-product branch not;
+ 10. at that shape: K2 and the δ epilogue against their plain versions,
+     the split route's LD pass against the global one (device times), and
+     both routes through ``compute_ld_scores`` (equal counters, peak
+     device memory).
 
 Then one JSON line of the kernels, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the
@@ -28,6 +44,7 @@ CUDA device, or a directory without the port beside this script.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -81,8 +98,22 @@ def adversarial_rows(rng, n: int) -> np.ndarray:
                      rng.binomial(2, 0.3, n).astype(np.int8), heavy])
 
 
-def engine_inputs(torch, g: np.ndarray, pos: np.ndarray, wind: float, dev):
-    """Preprocessed kernel arguments on ``dev`` for int8 codes ``g``."""
+def inject_row_missing(rng, g: np.ndarray, row_frac: float,
+                       entry_rate: float) -> None:
+    """Set ``entry_rate`` of the genotypes of ``row_frac`` of the rows to
+    missing, in place."""
+    rows = np.sort(rng.choice(g.shape[0], int(g.shape[0] * row_frac),
+                              replace=False))
+    for s in range(0, len(rows), 4096):
+        r = rows[s:s + 4096]
+        miss = rng.random((len(r), g.shape[1]), dtype=np.float32) < entry_rate
+        g[r] = np.where(miss, np.int8(-1), g[r])
+
+
+def engine_inputs(torch, g: np.ndarray, pos: np.ndarray, wind: float, dev,
+                  materialize_m: bool = True):
+    """Preprocessed kernel arguments on ``dev`` for int8 codes ``g``, the
+    sample count, whether data is missing, and the raw codes."""
     from nldsc_tpu_torch.io.plink import encode_bed_bytes
     from nldsc_tpu_torch.ld import ld_int8, ld_pallas_sym, preprocess, windows
 
@@ -99,7 +130,8 @@ def engine_inputs(torch, g: np.ndarray, pos: np.ndarray, wind: float, dev):
     ok = np.zeros(m_pad, bool)
     ok[:m] = pos_ok
     pre = ld_int8.preprocess_int8(gd, torch.from_numpy(ok).to(dev), 0.01, n,
-                                  assume_no_missing=not has_missing)
+                                  assume_no_missing=not has_missing,
+                                  materialize_m=materialize_m)
     lo_p = np.full(m_pad, m_pad, np.int32)
     hi_p = np.full(m_pad, -1, np.int32)
     lo_p[:m], hi_p[:m] = lo, hi
@@ -107,7 +139,40 @@ def engine_inputs(torch, g: np.ndarray, pos: np.ndarray, wind: float, dev):
     args = (pre["g"], pre["m"], pre["h"], ld_int8.stack_scalars(pre),
             torch.from_numpy(lo_p).to(dev), torch.from_numpy(hi_p).to(dev),
             pre["usable"], dom_ok, pre["add_sd_zero"])
-    return args, n, has_missing
+    return args, n, has_missing, gd
+
+
+def split_args(args, raw, n: int):
+    """``split_corrections`` arguments for engine inputs with missing data:
+    the contaminated rows, the plan, the compact indicators."""
+    from nldsc_tpu_torch.ld import ld_split
+
+    g, _, h, scal, lo, hi, usable, dom_ok, _ = args
+    m_pad, n_pad = g.shape
+    rowmiss = (scal[:, 8] > float(n_pad - n)) & usable      # cm: padding
+    plan = ld_split.plan_split_v2(
+        rowmiss.cpu().numpy(), lo.cpu().numpy(), hi.cpu().numpy(),
+        min(ld_split.SEG_ROWS_DEFAULT, m_pad), m_pad)
+    m_c = ld_split.compact_missing_rows(raw, plan["miss_idx"])
+    return (g, m_c, h, scal, lo, hi, usable, dom_ok, rowmiss, RSQ, m_pad, plan)
+
+
+def compare_deltas(ours, ref) -> float:
+    """wse δ exactly equal, l2/l2d δ within KERNEL_TOL; max abs error."""
+    np.testing.assert_array_equal(ours[2].cpu().numpy(), ref[2].cpu().numpy())
+    err = 0.0
+    for a, b in zip(ours[:2], ref[:2]):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        np.testing.assert_allclose(a, b, **KERNEL_TOL)
+        err = max(err, float(np.abs(a - b).max(initial=0.0)))
+    return err
+
+
+def compare_results(ours: dict, ref: dict) -> float:
+    """Two ``compute_ld_scores`` results: counters exactly equal, l2/l2d
+    within KERNEL_TOL; max abs error."""
+    keys = ("l2", "l2d", "l2_ws", "l2d_ws", "l2d_wse")
+    return compare([ours[k] for k in keys], [ref[k] for k in keys])
 
 
 def finalized(credits, args):
@@ -154,16 +219,32 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def run_cli(ld_pallas_sym, prefix: str, out: str):
-    """One ``ld`` run through the port's CLI; returns its kernel launches
-    and wall seconds."""
+def launch_counts() -> dict:
+    from nldsc_tpu_torch.ld import ld_pallas_sym, ld_split
+
+    return {"ld_sym": ld_pallas_sym.launches,
+            "ld_sym_8prod": ld_pallas_sym.missing_launches,
+            "split_corr": ld_split.corr_launches,
+            "split_delta": ld_split.delta_launches}
+
+
+def reset_counts() -> None:
+    from nldsc_tpu_torch.ld import ld_pallas_sym, ld_split
+
+    ld_pallas_sym.launches = ld_pallas_sym.missing_launches = 0
+    ld_split.corr_launches = ld_split.delta_launches = 0
+
+
+def run_cli(prefix: str, out: str):
+    """One ``ld`` run through the port's CLI; returns the kernel launches
+    counted in it and its wall seconds."""
     from nldsc_tpu_torch.cli import main as cli_main
 
-    ld_pallas_sym.launches = 0
+    reset_counts()
     t0 = time.time()
     cli_main(["ld", "--bfile", prefix, "-kb", "100", "-maf", "0.01",
               "--extra", "-o", out])
-    return ld_pallas_sym.launches, time.time() - t0
+    return launch_counts(), time.time() - t0
 
 
 def check_outputs(out: str, m: int) -> np.ndarray:
@@ -197,8 +278,8 @@ def main() -> int:
     from nldsc_tpu_torch import _build
     from nldsc_tpu_torch.config import LDConfig
     from nldsc_tpu_torch.core.timing import STAGE_TIMES
-    from nldsc_tpu_torch.io.plink import write_plink
-    from nldsc_tpu_torch.ld import ld_pallas_sym
+    from nldsc_tpu_torch.io.plink import PlinkDataset, write_plink
+    from nldsc_tpu_torch.ld import ld_int8, ld_pallas_sym, ld_split
     from nldsc_tpu_torch.ld.pipeline import compute_ld_scores
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -217,15 +298,16 @@ def main() -> int:
         f"nvidia-smi: {smi}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
 
-    # 2. build
+    # 2. build, one nvcc per source, all started together
     t0 = time.time()
-    _build.load("ld_sym")
-    info = _build.BUILD_INFO.get("ld_sym", {})
-    ptxas = [ln.strip() for ln in info.get("log", "").splitlines()
-             if "registers" in ln or "spill" in ln]
-    say("2 build", f"ld_sym.cu built and loaded in {time.time() - t0:.2f} s "
-        f"(nvcc {info.get('seconds', 0.0):.2f} s); ptxas: "
-        + " | ".join(ptxas))
+    _build.build("ld_sym", "split_corr")
+    for name in ("ld_sym", "split_corr"):
+        info = _build.BUILD_INFO.get(name, {})
+        ptxas = [ln.strip() for ln in info.get("log", "").splitlines()
+                 if "registers" in ln or "spill" in ln]
+        say("2 build", f"{name}.cu built and loaded (nvcc "
+            f"{info.get('seconds', 0.0):.2f} s); ptxas: " + " | ".join(ptxas))
+    say("2 build", f"both built and loaded in {time.time() - t0:.2f} s")
 
     # 3. kernel against twin, clean and 2% missing, adversarial rows
     errs = []
@@ -238,7 +320,8 @@ def main() -> int:
             g[300] = -1
         pos = np.arange(1, 4097, dtype=np.float64) * 100
         pos[7] = -1.0                                     # skip sentinel
-        args, n, has_missing = engine_inputs(torch, g, pos, 100_000.0, dev)
+        args, n, has_missing, _ = engine_inputs(torch, g, pos, 100_000.0,
+                                                dev)
         kern = ld_pallas_sym.sym_credits(*args, RSQ, n_samples=n,
                                          has_missing=has_missing,
                                          block_size=ld_pallas_sym.TILE)
@@ -283,11 +366,13 @@ def main() -> int:
             f"({os.path.getsize(prefix5 + '.bed') / 1e6:.0f} MB .bed) in "
             f"{time.time() - t0:.1f} s")
         out5 = os.path.join(tmp, "chr_clean.L2")
-        n_launch, wall = run_cli(ld_pallas_sym, prefix5, out5)
+        counts5, wall = run_cli(prefix5, out5)
+        n_launch = counts5["ld_sym"]
         stages = dict(STAGE_TIMES)
         check_outputs(out5, M5)
-        if n_launch < 1:
-            raise RuntimeError("the main path did not launch the kernel")
+        if n_launch < 1 or counts5["ld_sym_8prod"]:
+            raise RuntimeError("the main path did not launch the clean "
+                               f"kernel: {counts5}")
         launches["ld_sym"] = n_launch
         say("5 ld clean", f"M={M5} N={N5} -kb 100: {n_launch} kernel "
             f"launch(es); {wall:.2f} s wall, {M5 / wall:.0f} SNPs/s; "
@@ -300,21 +385,23 @@ def main() -> int:
         prefix6 = write_plink(os.path.join(tmp, "chr_miss"), g6,
                               bp=bp5[:M6])
         out6 = os.path.join(tmp, "chr_miss.L2")
-        n6, wall6 = run_cli(ld_pallas_sym, prefix6, out6)
+        counts6, wall6 = run_cli(prefix6, out6)
+        n6 = counts6["ld_sym_8prod"]
         stages6 = dict(STAGE_TIMES)
         check_outputs(out6, M6)
-        if n6 < 1:
-            raise RuntimeError("the missing-data run did not launch the kernel")
-        say("6 ld missing", f"M={M6} N={N5} 2% missing: {n6} launch(es); "
+        if n6 < 1 or counts6["split_corr"]:
+            raise RuntimeError("the missing-data run did not take the global "
+                               f"8-product route: {counts6}")
+        say("6 ld missing", f"M={M6} N={N5} 2% missing: global route, "
+            f"{n6} 8-product launch(es); "
             f"{wall6:.2f} s wall, {M6 / wall6:.0f} SNPs/s; stages "
             f"{ {k: round(v, 3) for k, v in sorted(stages6.items())} } "
             f"on {card}")
         del g6
 
         # 7. kernel and twin at phase 5's shape
-        args, n, has_missing = engine_inputs(
+        args, n, has_missing, _ = engine_inputs(
             torch, g5, bp5.astype(np.float64), 100_000.0, dev)
-        del g5
         T = ld_pallas_sym.TILE
 
         def kernel():
@@ -334,6 +421,182 @@ def main() -> int:
             f"twin {plain[T]:.3f} ms (B={T}), {plain[512]:.3f} ms (B=512); "
             f"max |diff| vs twin {err5:.3g}; peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {card}")
+        del args
+        torch.cuda.empty_cache()
+
+        # 8. the split-missing kernels against their plain versions
+        g = synthetic_genotypes(rng, 4096, 3001)
+        inject_row_missing(rng, g, 0.05, 0.1)
+        g[100:106] = adversarial_rows(rng, 3001)
+        g[300] = -1
+        pos = np.arange(1, 4097, dtype=np.float64) * 100
+        pos[7] = -1.0
+        args, n, _, raw = engine_inputs(torch, g, pos, 100_000.0, dev,
+                                        materialize_m=False)
+        sargs = split_args(args, raw, n)
+        plan = sargs[-1]
+        P = plan["p_band"]
+        k2_err = 0
+        for *_, x, cat3, m_xc in ld_split.segments(*sargs[:3], plan):
+            xi, ci, mi = (t.cpu().double() for t in (x, cat3, m_xc))
+            refs = (xi @ ci.T, 2 * xi.clamp(max=1) @ ci[:2 * P].T, mi @ ci.T)
+            outs = (*ld_split.corr_products(x, cat3, 2 * P),
+                    ld_split.corr_products(m_xc, cat3)[0])
+            for o, r in zip(outs, refs):
+                k2_err = max(k2_err, int((o.cpu().long() - r.long()).abs()
+                                         .max()))
+        if k2_err:
+            raise RuntimeError(f"K2 products differ by up to {k2_err}")
+        kern = ld_split.split_corrections(*sargs, n_samples=n)
+        again = ld_split.split_corrections(*sargs, n_samples=n)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(kern, again)):
+            raise RuntimeError("two split_corrections runs differ")
+        cpu_args = tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                         for a in sargs)
+        err8 = compare_deltas(kern, ld_split.split_corrections_plain(
+            *cpu_args, n_samples=n))
+        say("8 K2=plain", f"M=4096 N=3001, {plan['n_miss']} contaminated "
+            f"rows, P={P}, p_x={plan['p_x']}, {plan['n_segs']} segment(s): "
+            "a, b, d exactly equal to the integer products; δ kernel vs "
+            f"twin: wse equal, max |l2,l2d| diff {err8:.3g}, runs bitwise "
+            "equal")
+        cfg8 = LDConfig(ld_wind=100_000.0, maf_thr=0.01, std_thr=1e-4,
+                        rsq_thr=RSQ)
+        reset_counts()
+        res_split = compute_ld_scores(g, pos, cfg8, device="cuda")
+        c_split = launch_counts()
+        reset_counts()
+        res_glob = compute_ld_scores(
+            g, pos, dataclasses.replace(cfg8, split_missing=False),
+            device="cuda")
+        c_glob = launch_counts()
+        if not (c_split["split_delta"] and not c_split["ld_sym_8prod"]
+                and c_glob["ld_sym_8prod"] and not c_glob["split_corr"]):
+            raise RuntimeError(f"wrong routes: split {c_split}, "
+                               f"global {c_glob}")
+        err8r = compare_results(res_split, res_glob)
+        say("8 split=global", f"compute_ld_scores at M=4096: split route "
+            f"(launches {c_split}) vs global route (launches {c_glob}): "
+            f"counters equal, max |l2,l2d| diff {err8r:.3g}")
+        x = torch.randn(1 << 22, device=dev) * 1000.0
+        q_scalar = x / float(n)
+        q_true = x / torch.full_like(x, float(n))
+        say("8 division probe", f"x / {n}.0 (Python scalar) differs from "
+            f"true division (tensor divisor) in "
+            f"{int((q_scalar != q_true).sum())} of {x.numel()} f32 values "
+            "on the card; the tensor divisor differs from the CPU's "
+            f"x / {n}.0 in {int((q_true.cpu() != x.cpu() / float(n)).sum())}")
+        del args, sargs, raw, kern, again, x, q_scalar, q_true
+
+        # 9. the split route through the ld command, chromosome shape
+        inject_row_missing(rng, g5, 0.05, 0.02)
+        t0 = time.time()
+        prefix9 = write_plink(os.path.join(tmp, "chr_split"), g5, bp=bp5)
+        say("9 data", f"phase 5's genotypes, 2% missing in 5% of the rows: "
+            f"wrote the bfile in {time.time() - t0:.1f} s")
+        out9 = os.path.join(tmp, "chr_split.L2")
+        counts9, wall9 = run_cli(prefix9, out9)
+        stages9 = dict(STAGE_TIMES)
+        check_outputs(out9, M5)
+        if (counts9["ld_sym"] - counts9["ld_sym_8prod"] < 1
+                or counts9["split_corr"] < 1 or counts9["split_delta"] < 1
+                or counts9["ld_sym_8prod"]):
+            raise RuntimeError(f"the ld run did not take the split route: "
+                               f"{counts9}")
+        launches.update(split_corr=counts9["split_corr"],
+                        split_delta=counts9["split_delta"])
+        say("9 ld split", f"M={M5} N={N5} -kb 100, 5% contaminated rows: "
+            f"launches {counts9}; {wall9:.2f} s wall, {M5 / wall9:.0f} "
+            f"SNPs/s; stages "
+            f"{ {k: round(v, 3) for k, v in sorted(stages9.items())} } "
+            f"on {card}")
+
+        # 10. the split route's kernels and routes at that shape
+        args, n, _, raw = engine_inputs(torch, g5, bp5.astype(np.float64),
+                                        100_000.0, dev, materialize_m=False)
+        del g5
+        sargs = split_args(args, raw, n)
+        plan = sargs[-1]
+        P = plan["p_band"]
+        ops = [(x, cat3, m_xc) for *_, x, cat3, m_xc
+               in ld_split.segments(*sargs[:3], plan)]
+
+        def k2():
+            for x, cat3, m_xc in ops:
+                ld_split.corr_products(x, cat3, 2 * P)
+                ld_split.corr_products(m_xc, cat3)
+
+        def k2_plain():
+            for x, cat3, m_xc in ops:
+                ld_split.corr_products_plain(x, cat3, 2 * P)
+                ld_split.corr_products_plain(m_xc, cat3, 0)
+
+        def corrections():
+            return ld_split.split_corrections(*sargs, n_samples=n)
+
+        def corrections_plain():
+            return ld_split.split_corrections_plain(*sargs, n_samples=n)
+
+        def k1(has_missing, m=args[1]):
+            return ld_pallas_sym.sym_credits(
+                args[0], m, *args[2:], RSQ, n_samples=n,
+                has_missing=has_missing, block_size=T)
+
+        for x, cat3, m_xc in ops:               # K2 = plain, exactly
+            for o, r in zip((*ld_split.corr_products(x, cat3, 2 * P),
+                             ld_split.corr_products(m_xc, cat3)[0]),
+                            (*ld_split.corr_products_plain(x, cat3, 2 * P),
+                             ld_split.corr_products_plain(m_xc, cat3, 0)[0])):
+                k2_err = max(k2_err, int((o - r).abs().max()))
+        if k2_err:
+            raise RuntimeError(f"K2 products differ by up to {k2_err}")
+        err10 = compare_deltas(corrections(), corrections_plain())
+        ms_k2, ms_k2_plain = cuda_ms(torch, k2, 5), cuda_ms(torch, k2_plain, 2)
+        ms_corr = cuda_ms(torch, corrections, 5)
+        ms_corr_plain = cuda_ms(torch, corrections_plain, 2)
+        ms_k1_clean = cuda_ms(torch, lambda: k1(False), 5)
+        del ops
+        m_full = ld_int8.materialize_missing(raw)
+        ms_k1_miss = cuda_ms(torch, lambda: k1(True, m_full), 5)
+        say("10 timing", f"M={M5} N={N5} +-1000 SNPs, {plan['n_miss']} "
+            f"contaminated rows, P={P}, p_x={plan['p_x']}, "
+            f"{plan['n_segs']} segments of {plan['seg_rows']} rows: "
+            f"K2 {ms_k2:.3f} ms vs plain products {ms_k2_plain:.3f} ms "
+            "(equal); "
+            f"split_corrections (K2 + δ + folds) {ms_corr:.3f} ms vs twin "
+            f"{ms_corr_plain:.3f} ms (wse equal, max |l2,l2d| diff "
+            f"{err10:.3g}); LD pass: split {ms_k1_clean:.3f} + "
+            f"{ms_corr:.3f} = {ms_k1_clean + ms_corr:.3f} ms vs global "
+            f"8-product {ms_k1_miss:.3f} ms; on {card}")
+        del args, sargs, raw, m_full
+        torch.cuda.empty_cache()
+
+        ds9 = PlinkDataset.parse(prefix9)
+        packed, pos9 = ds9.bed.read_raw(), ds9.positions("bp")
+        cfg10 = LDConfig(ld_wind=100_000.0, maf_thr=0.01, std_thr=1e-4,
+                         rsq_thr=1.0 / M5)
+        runs = {}
+        for route, flag in (("split", None), ("global", False)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.time()
+            res = compute_ld_scores(
+                packed, pos9, dataclasses.replace(cfg10, split_missing=flag),
+                device="cuda")
+            torch.cuda.synchronize()
+            runs[route] = (res, time.time() - t0,
+                           (torch.cuda.max_memory_allocated() - base) / 2**30)
+        err10r = compare_results(runs["split"][0], runs["global"][0])
+        say("10 routes", "compute_ld_scores on the phase 9 bfile: split "
+            f"{runs['split'][1]:.3f} s, peak {runs['split'][2]:.2f} GiB; "
+            f"global {runs['global'][1]:.3f} s, peak "
+            f"{runs['global'][2]:.2f} GiB; counters equal, max |l2,l2d| "
+            f"diff {err10r:.3g}; on {card}")
+        if runs["split"][2] >= runs["global"][2]:
+            raise RuntimeError("the split route's peak device memory is not "
+                               "below the global route's")
 
     if "jax" in sys.modules or any(k.startswith("nldsc_tpu.")
                                    or k == "nldsc_tpu" for k in sys.modules):
@@ -343,7 +606,20 @@ def main() -> int:
         "source": "nldsc_tpu_torch/csrc/ld_sym.cu",
         "replaces": "nldsc_tpu/ld/ld_pallas_sym.py:52",
         "launches": launches["ld_sym"], "max_abs_err": max(errs + [err5]),
-        "ms": ms, "plain_ms": plain[best_b]}]}))
+        "ms": ms, "plain_ms": plain[best_b]}, {
+        "name": "split_corr", "route": "cuda",
+        "source": "nldsc_tpu_torch/csrc/split_corr.cu",
+        "replaces": "scripts/pallas_corr_probe.py:54",
+        "launches": launches["split_corr"], "max_abs_err": float(k2_err),
+        "ms": ms_k2, "plain_ms": ms_k2_plain}, {
+        # the δ epilogue and its folds: split_corrections less its K2
+        # products, each side timed in this run
+        "name": "split_delta", "route": "cuda",
+        "source": "nldsc_tpu_torch/csrc/split_corr.cu",
+        "replaces": "scripts/pallas_corr_probe.py:54",
+        "launches": launches["split_delta"],
+        "max_abs_err": max(err8, err10),
+        "ms": ms_corr - ms_k2, "plain_ms": ms_corr_plain - ms_k2_plain}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

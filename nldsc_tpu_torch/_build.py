@@ -2,9 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles into a shared library with a plain C
 interface, ``build/nldsc_tpu_torch/lib<name>-<hash>.so`` beside the
-package, and is loaded with ``ctypes``.  The hash covers the source and
-the flags, so an edited kernel rebuilds and an unchanged one loads at
-once.  A failed build raises with the compiler's output.
+package, and is loaded with ``ctypes``.  The hash covers the source,
+every shared header ``csrc/*.cuh`` and the flags, so an edited kernel or
+header rebuilds and an unchanged one loads at once.  A failed build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -44,35 +44,59 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The library of ``csrc/<name>.cu``, built first if needed."""
+def build(*names: str) -> None:
+    """Build the libraries of ``csrc/<name>.cu`` that are missing, one
+    nvcc process each, all started together, and load them."""
+    started = {}
+    for name in names:
+        if name in _LIBS:
+            continue
+        out = library_path(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        started[name] = (proc, tmp, out, time.time())
+    failed = []
+    for name, (proc, tmp, out, t0) in started.items():
+        _, stderr = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed to build {name}.cu "
+                          f"(exit {proc.returncode}):\n{stderr}")
+            continue
+        out.with_name(out.name + ".log").write_text(stderr)
+        os.replace(tmp, out)
+        BUILD_INFO[name] = {"seconds": time.time() - t0}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name in names:
+        _load_built(name)
+
+
+def _load_built(name: str) -> ctypes.CDLL:
     if name in _LIBS:
         return _LIBS[name]
     out = library_path(name)
     log_path = out.with_name(out.name + ".log")
-    seconds = 0.0
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        t0 = time.time()
-        proc = subprocess.run(
-            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed to build {name}.cu "
-                               f"(exit {proc.returncode}):\n{proc.stderr}")
-        log_path.write_text(proc.stderr)
-        os.replace(tmp, out)
-        seconds = time.time() - t0
-    BUILD_INFO[name] = {"seconds": seconds,
-                        "log": log_path.read_text() if log_path.exists()
-                        else ""}
+    info = BUILD_INFO.setdefault(name, {"seconds": 0.0})
+    info["log"] = log_path.read_text() if log_path.exists() else ""
     lib = ctypes.CDLL(str(out))
     _LIBS[name] = lib
     return lib
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu``, built first if needed."""
+    build(name)
+    return _LIBS[name]

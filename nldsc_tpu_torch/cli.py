@@ -29,8 +29,6 @@ _UNPORTED_LD_FLAGS = {
                         "use --engine pallas"),
     "--symmetric": (False, "ROADMAP queue 1 item 7 (full-band engine)"),
     "--no-symmetric": (False, "ROADMAP queue 1 item 7 (full-band engine)"),
-    "--split-missing": (False, "ROADMAP queue 1 item 5 (split-missing)"),
-    "--no-split-missing": (False, "ROADMAP queue 1 item 5 (split-missing)"),
     "--n-devices": (True, "ROADMAP queue 1 item 10 (multi-GPU)"),
     "--shard-axis": (True, "ROADMAP queue 1 item 10 (multi-GPU)"),
     "--profile-dir": (True, "ROADMAP queue 1 item 8 (user surface)"),
@@ -96,9 +94,17 @@ def build_parser() -> argparse.ArgumentParser:
     ld.add_argument("--engine", choices=["int8", "f32", "pallas"],
                     default=None,
                     help="int8 (default) and pallas both run the fused "
-                         "symmetric int8 kernel; f32 is not ported yet")
+                         "symmetric int8 kernel; pallas never takes the "
+                         "split-missing route; f32 is not ported yet")
     ld.add_argument("--dot-dtype", choices=["int8", "bf16"], default="int8",
                     help="Tensor-core operand type (bf16 not ported yet)")
+    ld.add_argument("--split-missing", dest="split_missing",
+                    action="store_true", default=None,
+                    help="Per-row missing-data specialization: clean-rate "
+                         "pass + exact compact corrections (default: auto, "
+                         "on when <=25%% of rows carry missing genotypes)")
+    ld.add_argument("--no-split-missing", dest="split_missing",
+                    action="store_false")
     ld.add_argument("--progress", dest="progress", action="store_true",
                     default=None, help="Log progress of the LD pass "
                                        "(default: on above 20k SNPs)")
@@ -136,7 +142,9 @@ def run_ld(args) -> None:
         maf_thr=args.maf_thr, std_thr=args.std_thr, rsq_thr=args.rsq_thr,
         out=args.out, extra=args.extra, summary=True,
         block_size=args.block_size, int8_dot_dtype=args.dot_dtype,
-        progress=args.progress, device=args.device)
+        split_missing=args.split_missing,
+        use_pallas=args.engine == "pallas", progress=args.progress,
+        device=args.device)
     if table is not None and args.out is None:
         from .io.ldscores import format_table  # noqa: PLC0415
 

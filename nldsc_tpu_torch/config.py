@@ -34,6 +34,12 @@ class LDConfig:
     # by its own fixed size (ld_pallas_sym.TILE)
     block_size: int = 512
     int8_dot_dtype: str = "int8"   # 'int8'; 'bf16' is not ported yet
+    # --engine pallas: always the single global pass (never split)
+    use_pallas: bool = False
+    # per-row missing specialization: clean pass + compact exact
+    # corrections (ld/ld_split.py); None = auto (on when <= 25% of the
+    # usable rows carry a missing genotype)
+    split_missing: bool | None = None
 
     def __post_init__(self):
         wind = float(self.ld_wind)

@@ -18,10 +18,11 @@
 // outside the kernel folds (no float atomics, so run-to-run results are
 // bitwise equal).
 //
-// The epilogue follows the float32 operation order of corr_from_dots
-// (nldsc_tpu_torch/ld/ld_int8.py); built with -fmad=false, each pair's
-// values equal the plain twin's bit for bit, so the WSE threshold count
-// agrees exactly.
+// The per-pair expressions live in pair_epilogue.cuh, shared with the
+// split engine's delta epilogue (split_corr.cu).  They follow the float32
+// operation order of corr_from_dots (nldsc_tpu_torch/ld/ld_int8.py);
+// built with -fmad=false, each pair's values equal the plain twin's bit
+// for bit, so the WSE threshold count agrees exactly.
 //
 // Layouts: g, m, h int8 (M_pad, N_pad) row-major; scal f32 (M_pad, 9);
 // lo, hi int32 (M_pad); usable, dom_ok, poison uint8 (M_pad); tile_hi
@@ -33,13 +34,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "pair_epilogue.cuh"
+
 namespace {
+
+using namespace nldsc;
 
 constexpr int TILE = 64;          // pivot rows = neighbour rows per CTA
 constexpr int KC = 64;            // samples per shared-memory stage
 constexpr int LDS = KC + 16;      // padded smem row stride (bytes)
-constexpr int NSCAL = 9;
-enum { AM, INV_SD, INV_RSTD, V0, V1, V2, GSUM, HSUM, CMISS };
 enum { OG, OH, OM };              // operand slots: g, h, m
 enum { FL_USABLE = 1, FL_DOM_OK = 2, FL_POISON = 4 };
 
@@ -118,17 +121,6 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],
 
 __device__ __forceinline__ unsigned lds32(const int8_t* p) {
   return *reinterpret_cast<const unsigned*>(p);
-}
-
-// dot(a_c_i, r_j) over the genotype classes of j (ld_int8._dom_dot)
-__device__ __forceinline__ float dom_dot(float sgg, float sgh, float sgu,
-                                         float sug, float suh, float suu,
-                                         float am_i, float v0, float v1,
-                                         float v2) {
-  float a1 = (sgh - sgg) - am_i * (suh - sug);
-  float a2 = (sgg - 0.5f * sgh) - am_i * (sug - 0.5f * suh);
-  float a0 = (sgu - 0.5f * sgh) - am_i * (suu - 0.5f * suh);
-  return v0 * a0 + v1 * a1 + v2 * a2;
 }
 
 template <int WARPS_M, int WARPS_N>
@@ -310,18 +302,9 @@ __global__ void __launch_bounds__(Cfg<MISSING>::THREADS)
           suu = n;
           shu = si[HSUM];
         }
-        const float am_i = si[AM], am_j = sj[AM];
-        const float ac = sgg - am_i * sug - am_j * sgu + am_i * am_j * suu;
-        const float r_add = ac * si[INV_SD] * sj[INV_SD] / n;
-        const float dom_a = dom_dot(sgg, sgh, sgu, sug, suh, suu, am_i,
-                                    sj[V0], sj[V1], sj[V2]);
-        const float r_da = dom_a * si[INV_SD] * sj[INV_RSTD] / n;
-        const float dom_b = dom_dot(sgg, shg, sug, sgu, shu, suu, am_j,
-                                    si[V0], si[V1], si[V2]);
-        const float r_db = dom_b * si[INV_RSTD] * sj[INV_SD] / n;
-        const float adj_add = 1.0f - (1.0f - r_add * r_add) * adj_c;
-        const float adj_da = 1.0f - (1.0f - r_da * r_da) * adj_c;
-        const float adj_db = 1.0f - (1.0f - r_db * r_db) * adj_c;
+        const PairAdj v = pair_adj(sgg, sgh, shg, sgu, sug, suh, suu, shu,
+                                   si, sj, n, adj_c);
+        const float adj_add = v.add, adj_da = v.da, adj_db = v.db;
 
         const bool upair = gj >= es.lo[lr] && gj <= es.hi[lr] &&
                            (fi & FL_USABLE) && (fj & FL_USABLE);

@@ -99,39 +99,67 @@ def finish_preprocess_int8(n_valid_raw, c1, c2, cm, pos_ok, maf_thr: float,
     }
 
 
+#: rows per step of the per-row counts: ``sum(dtype=float32)`` of a bool
+#: matrix first casts the whole of it to float32, so the rows go in steps
+#: that bound that temporary (256 MB at N = 16,384)
+_COUNT_ROWS = 4096
+
+
+def _row_counts(g: torch.Tensor, pred) -> torch.Tensor:
+    """Exact float32 count, per row of ``g``, of the samples where
+    ``pred(rows)`` holds."""
+    return torch.cat([pred(g[r:r + _COUNT_ROWS]).sum(dim=1,
+                                                     dtype=torch.float32)
+                      for r in range(0, g.shape[0], _COUNT_ROWS)])
+
+
 def preprocess_int8(genotypes: torch.Tensor, pos_ok: torch.Tensor,
                     maf_thr: float, n_samples: int,
-                    assume_no_missing: bool = False) -> dict[str, torch.Tensor]:
+                    assume_no_missing: bool = False,
+                    materialize_m: bool = True) -> dict[str, torch.Tensor]:
     """int8 ``g``/``m``/``h`` matrices plus per-SNP f32 scalars.
 
     ``genotypes``: int8 (M_pad, N_pad) codes.  Sample padding must be
     negative (missing) unless ``assume_no_missing``, where the caller
     guarantees no negative code anywhere (zero padding): ``g`` is then
     used as it is and ``m`` aliases it — the clean kernels never read it.
+
+    ``materialize_m=False`` skips the O(M·N) missing-indicator matrix on
+    the missing path too (``m`` aliases ``g`` and is never read): the
+    split engine reads the indicators only through the contaminated rows
+    (:func:`nldsc_tpu_torch.ld.ld_split.compact_missing_rows`), and the
+    global route builds them later with :func:`materialize_missing`.  The
+    per-SNP statistics do not depend on it.
     """
     g = genotypes
     n_pad = g.shape[1]
     if assume_no_missing:
         gq = g
-        mq = g                      # alias; never read on the clean path
-        hq = 2 * torch.clamp(g, max=1)
         cm = torch.full((g.shape[0],), float(n_pad - n_samples),
                         dtype=torch.float32, device=g.device)
         n_valid_raw = torch.full_like(cm, float(n_samples))
     else:
-        valid = g >= 0
-        gq = torch.where(valid, g, torch.zeros_like(g))
-        mq = (~valid).to(torch.int8)
-        hq = 2 * torch.clamp(gq, max=1)
-        cm = (~valid).sum(dim=1, dtype=torch.float32)    # incl. padding
+        # codes are {-1, 0, 1, 2}: clamping at 0 masks the missing ones
+        gq = torch.clamp(g, min=0)
+        cm = _row_counts(g, lambda x: x < 0)             # incl. padding
         n_valid_raw = float(n_pad) - cm
-    c1 = (gq == 1).sum(dim=1, dtype=torch.float32)
-    c2 = (gq == 2).sum(dim=1, dtype=torch.float32)
+    missing_m = materialize_m and not assume_no_missing
+    mq = materialize_missing(g) if missing_m else gq   # alias: never read
+    hq = torch.clamp(gq, max=1).mul_(2)      # in place: one M·N buffer
+    c1 = _row_counts(gq, lambda x: x == 1)
+    c2 = _row_counts(gq, lambda x: x == 2)
 
     out = finish_preprocess_int8(n_valid_raw, c1, c2, cm, pos_ok, maf_thr,
                                  n_samples)
     out.update({"g": gq, "m": mq, "h": hq})
     return out
+
+
+def materialize_missing(genotypes: torch.Tensor) -> torch.Tensor:
+    """Full (M, N) int8 missing-indicator matrix from the raw codes: the
+    deferred ``m`` of ``preprocess_int8(materialize_m=False)``, built only
+    when the global 8-product epilogue is selected."""
+    return (genotypes < 0).view(torch.int8)      # bool bytes are 0 or 1
 
 
 def stack_scalars(pre: dict) -> torch.Tensor:

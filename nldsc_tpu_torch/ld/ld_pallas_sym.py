@@ -30,8 +30,10 @@ from . import ld_int8
 #: pivot and neighbour rows per CTA of the kernel
 TILE = 64
 
-#: kernel launches made by :func:`sym_credits` (CUDA tensors only)
+#: kernel launches made by :func:`sym_credits` (CUDA tensors only), and
+#: how many of them ran the 8-product (missing-data) branch
 launches = 0
+missing_launches = 0
 
 _P = ctypes.c_void_p
 _ARGTYPES = [_P] * 12 + [ctypes.c_int] * 3 + [ctypes.c_float] * 4 + [
@@ -105,7 +107,7 @@ def _fold(fpart, ipart):
 
 def _launch(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
             rsq_thr: float, n_samples: int, has_missing: bool):
-    global launches
+    global launches, missing_launches
     _check_inputs(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
                   has_missing)
     m_pad, n_pad = g.shape
@@ -128,6 +130,7 @@ def _launch(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
     if err != 0:
         raise RuntimeError(f"ld_sym kernel launch failed: CUDA error {err}")
     launches += 1
+    missing_launches += int(has_missing)
     return _fold(fpart, ipart)
 
 

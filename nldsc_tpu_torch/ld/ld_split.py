@@ -1,0 +1,430 @@
+"""Split-missing symmetric integer engine: clean-rate LD with sparse missing.
+
+Port of ``nldsc_tpu/ld/ld_split.py`` (the algebra and its exactness
+argument are documented there).  The global engine pays the 8-product
+missing epilogue on every tile once any genotype is missing; this engine
+makes the missing cost proportional to the contaminated rows:
+
+  pass 1 — the clean symmetric pass over all pairs (kernel K1,
+      ``ld_pallas_sym.sym_credits(has_missing=False)``);
+  pass 2 — :func:`split_corrections`: exact corrections
+      ``δ = adj(r_exact) − adj(r_clean)`` for every pair with a
+      contaminated member, x swept in row segments against the compact
+      operand ``cat3 = [g_c; m_c; h_c]`` of the contaminated rows in reach.
+
+On a CUDA tensor the products run in kernel K2 (``csrc/split_corr.cu``,
+the Hopper port of ``scripts/pallas_corr_probe.py::kernel``) and the
+per-pair epilogue in that file's δ kernel, which shares K1's per-pair
+function (``csrc/pair_epilogue.cuh``) so the clean baseline cancels
+pass 1 bit for bit.  On a CPU tensor the whole computation is the plain
+torch twin :func:`split_corrections_plain`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .. import _build
+from . import ld_int8, ld_pallas_sym
+from .ld_xla import finalize_outputs
+
+#: default row-segment width of the corrections sweep (callers clamp to
+#: the row count: ``min(SEG_ROWS_DEFAULT, m_pad)``)
+SEG_ROWS_DEFAULT = 4096
+
+#: launches of K2 (the product kernel) and of the δ epilogue kernel made
+#: by :func:`corr_products` and :func:`split_corrections` (CUDA only)
+corr_launches = 0
+delta_launches = 0
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+def plan_split_v2(rowmiss: np.ndarray, lo: np.ndarray, hi: np.ndarray,
+                  seg_rows: int, m_pad: int, pad_to: int = 8) -> dict:
+    """Host-side plan for :func:`split_corrections` (v2 segmented form):
+    the contaminated rows in order (``miss_idx``, padded with ``m_pad − 1``)
+    and, per segment of x rows, the compact range of contaminated rows in
+    its windows (``cs``, ``c_cnt``) and among its own rows (``xs``,
+    ``x_cnt``); ``p_band``/``p_x`` pad those counts to ``pad_to``."""
+    miss = np.flatnonzero(rowmiss).astype(np.int32)
+    n_segs = max(1, -(-m_pad // seg_rows))
+    cs = np.zeros(n_segs, np.int32)
+    ce = np.zeros(n_segs, np.int32)
+    xs = np.zeros(n_segs, np.int32)
+    xe = np.zeros(n_segs, np.int32)
+    for s in range(n_segs):
+        s0, s1 = s * seg_rows, min((s + 1) * seg_rows, m_pad)
+        cl = int(lo[s0:s1].min()) if s1 > s0 else m_pad
+        ch = int(hi[s0:s1].max()) if s1 > s0 else -1
+        cs[s] = np.searchsorted(miss, cl)
+        ce[s] = np.searchsorted(miss, ch + 1)
+        xs[s] = np.searchsorted(miss, s0)
+        xe[s] = np.searchsorted(miss, s1)
+
+    def pad_dim(count):
+        p = int(count.max()) if len(count) else 0
+        return max(pad_to, -(-p // pad_to) * pad_to)
+
+    p_band = pad_dim(ce - cs)
+    p_x = pad_dim(xe - xs)
+    mm_pad = len(miss) + max(p_band, p_x)
+    miss_idx = np.full(mm_pad, m_pad - 1, dtype=np.int32)
+    miss_idx[: len(miss)] = miss
+    return {"miss_idx": miss_idx, "cs": cs, "c_cnt": (ce - cs).astype(np.int32),
+            "xs": xs, "x_cnt": (xe - xs).astype(np.int32),
+            "p_band": p_band, "p_x": p_x, "mm_pad": mm_pad,
+            "n_miss": len(miss), "n_segs": n_segs, "seg_rows": seg_rows}
+
+
+def compact_missing_rows(g_raw: torch.Tensor, miss_idx) -> torch.Tensor:
+    """(mm_pad, N) int8 missing indicators of the contaminated rows only.
+
+    Built from the raw (pre-mask) codes, so the split route never holds a
+    full-M indicator matrix: the gathered rows equal ``m[miss_idx]`` of
+    ``preprocess_int8(materialize_m=True)`` bitwise (the padding entries,
+    ``m_pad − 1``, gather a row that the plan's counts mask).
+    """
+    idx = torch.as_tensor(np.asarray(miss_idx), dtype=torch.long,
+                          device=g_raw.device)
+    return (g_raw.index_select(0, idx) < 0).view(torch.int8)
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load("split_corr")
+    if lib.split_corr_launch.argtypes is None:
+        lib.split_corr_launch.argtypes = [_P] * 4 + [_I] * 4 + [_P]
+        lib.split_corr_launch.restype = _I
+        lib.split_delta_launch.argtypes = ([_P] * 18 + [_I] * 6 + [_F] * 5
+                                           + [_P])
+        lib.split_delta_launch.restype = _I
+        lib.split_corr_tiles.argtypes = [ctypes.POINTER(_I)] * 4
+        lib.split_corr_tiles.restype = _I
+    return lib
+
+
+def corr_products_plain(x: torch.Tensor, cat: torch.Tensor, p2: int):
+    """Exact int32 ``x·catᵀ`` and, when ``p2``, ``h(x)·cat[:p2]ᵀ``, in
+    plain torch: int8 matrix products on the CPU; on a GPU float32 products
+    (exact: codes ≤ 2, so every sum stays below 2²⁴ while N_pad ≤ 2²²;
+    TF32 must be off)."""
+    def mm(u, v):
+        if u.device.type == "cpu":
+            return torch._int_mm(u, v.t().contiguous())
+        return (u.float() @ v.float().t()).to(torch.int32)
+
+    a = mm(x, cat)
+    b = mm(2 * torch.clamp(x, max=1), cat[:p2]) if p2 else None
+    return a, b
+
+
+def _check_int8(name: str, t: torch.Tensor, n_pad: int) -> None:
+    if t.dtype != torch.int8 or t.dim() != 2 or t.shape[1] != n_pad:
+        raise ValueError(f"{name} must be int8 (rows, {n_pad})")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def corr_products(x: torch.Tensor, cat: torch.Tensor, p2: int = 0):
+    """``(a, b)``: exact int32 ``a = x·catᵀ`` and, when ``p2 > 0``,
+    ``b = h(x)·cat[:p2]ᵀ`` with ``h(x) = 2·min(x, 1)`` (else ``b`` is None).
+
+    ``x`` (rows_x, N_pad) and ``cat`` (rows_cat, N_pad) are int8 codes in
+    {0, 1, 2}.  On a CUDA tensor this launches kernel K2; on a CPU tensor
+    it runs the plain products.
+    """
+    if x.device.type == "cpu":
+        return corr_products_plain(x, cat, p2)
+    if x.device.type != "cuda":
+        raise ValueError(f"no split-corrections kernel for device {x.device}")
+    global corr_launches
+    n_pad = x.shape[1]
+    _check_int8("x", x, n_pad)
+    _check_int8("cat", cat, n_pad)
+    if cat.device != x.device:
+        raise ValueError("x and cat must be on one device")
+    rows_x, rows_cat = x.shape[0], cat.shape[0]
+    if n_pad % 128 or not 0 <= p2 <= rows_cat or rows_x < 1 or rows_cat < 1:
+        raise ValueError(f"bad shapes x {tuple(x.shape)}, cat "
+                         f"{tuple(cat.shape)}, p2 {p2}")
+    a = torch.empty((rows_x, rows_cat), dtype=torch.int32, device=x.device)
+    b = (torch.empty((rows_x, p2), dtype=torch.int32, device=x.device)
+         if p2 else None)
+    err = _library().split_corr_launch(
+        x.data_ptr(), cat.data_ptr(), a.data_ptr(),
+        b.data_ptr() if p2 else a.data_ptr(), rows_x, rows_cat, p2, n_pad,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"split_corr kernel launch failed: CUDA error {err}")
+    corr_launches += 1
+    return a, b
+
+
+def segments(g, m_c, h, plan: dict):
+    """Per segment of x rows, its bounds and the operands of its products:
+    ``(s, s0, c0, c_cnt, x0, x_cnt, x, cat3, m_xc)``.
+
+    ``s0`` is the clamped first row (the last segment overlaps the one
+    before it; the overlap is masked), ``x = g[s0:s0 + S]``, ``cat3`` the
+    compact rows ``[g_c; m_c; h_c]`` in reach of the segment's windows
+    (``c0`` on, ``p_band`` of them, ``c_cnt`` real) and ``m_xc`` the
+    compact indicators of the segment's own contaminated rows (``x0`` on,
+    ``p_x`` of them, ``x_cnt`` real).  The row gathers are data movement.
+    """
+    m_pad = g.shape[0]
+    S, P, p_x = plan["seg_rows"], plan["p_band"], plan["p_x"]
+    idx = torch.as_tensor(plan["miss_idx"], dtype=torch.long, device=g.device)
+    g_c, h_c = g.index_select(0, idx), h.index_select(0, idx)
+    for s in range(plan["n_segs"]):
+        s0 = min(s * S, m_pad - S)
+        c0, x0 = int(plan["cs"][s]), int(plan["xs"][s])
+        crange = slice(c0, c0 + P)
+        cat3 = torch.cat([g_c[crange], m_c[crange], h_c[crange]])
+        yield (s, s0, c0, int(plan["c_cnt"][s]), x0, int(plan["x_cnt"][s]),
+               g[s0:s0 + S], cat3, m_c[x0:x0 + p_x])
+
+
+def _compact(scal, usable, dom_ok, miss_idx):
+    idx = torch.as_tensor(miss_idx, dtype=torch.long, device=scal.device)
+    return idx, scal.index_select(0, idx).contiguous(), usable[idx], dom_ok[idx]
+
+
+def split_corrections_plain(g, m_c, h, scal, lo, hi, usable, dom_ok, rowmiss,
+                            rsq_thr: float, own_hi: int, plan: dict, *,
+                            n_samples: int):
+    """The plain torch twin of :func:`split_corrections`, on any device.
+
+    Mirrors ``nldsc_tpu/ld/ld_split.py:137-317`` without the annot branch:
+    the two big products and the compact product per segment, the four
+    ``corr_from_dots`` evaluations (exact and clean, x as i and c as i),
+    the orientation selection, the masks and the threshold counts.
+    """
+    m_pad, n_pad = g.shape
+    dev = g.device
+    S, P, p_x = plan["seg_rows"], plan["p_band"], plan["p_x"]
+    n, n_padf = float(n_samples), float(n_pad)
+    adj_c = ld_int8.adj_constant(n_samples)
+    rsq = ld_int8.f32(rsq_thr)
+    pad_const = ld_int8.f32(n_padf - n)       # smm of a clean x: padding
+    idx, scal_c, usable_c, dom_ok_c = _compact(scal, usable, dom_ok,
+                                               plan["miss_idx"])
+    i32 = torch.int32
+    (l2_f, l2d_f, wse_f), (l2_cf, l2d_cf, wse_cf) = _zero_credits(
+        m_pad, idx.shape[0], dev)
+
+    def adj(r):
+        return 1.0 - (1.0 - r * r) * adj_c
+
+    for s, s0, c0, c_cnt, x0, x_cnt, x, cat3, m_xc in segments(
+            g, m_c, h, plan):
+        rows = slice(s0, s0 + S)
+        xidx = torch.arange(s0, s0 + S, device=dev)
+        xvalid = (xidx >= s * S)[:, None]
+        lo_x, hi_x = lo[rows][:, None], hi[rows][:, None]
+        usable_x, dom_ok_x = usable[rows][:, None], dom_ok[rows][:, None]
+        cln_x = ~rowmiss[rows][:, None]
+        sc_x = ld_int8.scal_views(scal[rows], "col")
+
+        crange = slice(c0, c0 + P)
+        cidx = idx[crange]
+        vc = (torch.arange(P, device=dev) < c_cnt)[None, :]
+        sc_c = ld_int8.scal_views(scal_c[crange], "row")
+        usable_cc = usable_c[crange][None, :]
+        dom_ok_cc = dom_ok_c[crange][None, :]
+
+        a_i, b_i = corr_products_plain(x, cat3, 2 * P)
+        a_t, b_t = a_i.float(), b_i.float()
+        xcid = idx[x0:x0 + p_x]
+        vx = (torch.arange(p_x, device=dev) < x_cnt) & (xcid >= s0) & (
+            xcid < s0 + S)
+        d_t = corr_products_plain(m_xc, cat3, 0)[0].float()
+        locs = torch.clamp(xcid - s0, 0, S - 1)
+        d_full = torch.zeros((S, 3 * P), dtype=torch.float32, device=dev)
+        d_full.index_add_(0, locs, torch.where(vx[:, None], d_t, 0.0))
+
+        dots_x = {"sgg": a_t[:, :P], "sgm": a_t[:, P:2 * P],
+                  "sgh": a_t[:, 2 * P:], "shg": b_t[:, :P],
+                  "shm": b_t[:, P:2 * P], "smg": d_full[:, :P],
+                  "smm": torch.where(cln_x, pad_const, d_full[:, P:2 * P]),
+                  "smh": d_full[:, 2 * P:]}
+        rAx, rDax, rDbx = ld_int8.corr_from_dots(
+            dots_x, sc_x, sc_c, n, n_padf, True, symmetric=True)
+        rA0, rDa0, rDb0 = ld_int8.corr_from_dots(
+            dots_x, sc_x, sc_c, n, n_padf, False, symmetric=True)
+        # pass 1 evaluated each pair with its left member as i: entries
+        # with c < x re-evaluate on the role-swapped dots and select
+        dots_s = {"sgg": dots_x["sgg"], "sgh": dots_x["shg"],
+                  "shg": dots_x["sgh"], "sgm": dots_x["smg"],
+                  "smg": dots_x["sgm"], "smm": dots_x["smm"],
+                  "smh": dots_x["shm"], "shm": dots_x["smh"]}
+        rAxs, rDaxs, rDbxs = ld_int8.corr_from_dots(
+            dots_s, sc_c, sc_x, n, n_padf, True, symmetric=True)
+        rA0s, rDa0s, rDb0s = ld_int8.corr_from_dots(
+            dots_s, sc_c, sc_x, n, n_padf, False, symmetric=True)
+        swap = cidx[None, :] < xidx[:, None]
+
+        def sel(direct, swapped):
+            return torch.where(swap, swapped, direct)
+
+        d_add = sel(adj(rAx) - adj(rA0), adj(rAxs) - adj(rA0s))
+        aDax, aDa0 = sel(adj(rDax), adj(rDbxs)), sel(adj(rDa0), adj(rDb0s))
+        aDbx, aDb0 = sel(adj(rDbx), adj(rDaxs)), sel(adj(rDb0), adj(rDa0s))
+
+        in_win = (cidx[None, :] >= lo_x) & (cidx[None, :] <= hi_x)
+        own = torch.minimum(xidx[:, None], cidx[None, :]) < own_hi
+        pair = (in_win & usable_cc & usable_x & vc & xvalid & own
+                & (cidx[None, :] != xidx[:, None]))
+        dmA = pair & dom_ok_cc
+        mirror = pair & cln_x
+        dmB = mirror & dom_ok_x
+        cnt_a = (aDax > rsq).to(i32) - (aDa0 > rsq).to(i32)
+        cnt_b = (aDbx > rsq).to(i32) - (aDb0 > rsq).to(i32)
+
+        l2_f[rows] += (d_add * pair).sum(dim=1)
+        l2d_f[rows] += ((aDax - aDa0) * dmA).sum(dim=1)
+        wse_f[rows] += torch.where(dmA, cnt_a, 0).sum(dim=1, dtype=i32)
+        l2_cf[crange] += (d_add * mirror).sum(dim=0)
+        l2d_cf[crange] += ((aDbx - aDb0) * dmB).sum(dim=0)
+        wse_cf[crange] += torch.where(dmB, cnt_b, 0).sum(dim=0, dtype=i32)
+    return _scatter_columns(idx, (l2_f, l2d_f, wse_f), (l2_cf, l2d_cf, wse_cf))
+
+
+def _zero_credits(m_pad: int, mm_pad: int, dev):
+    """Zeroed (l2, l2d, wse) accumulators: full length and compact."""
+    def three(size):
+        return (torch.zeros(size, dtype=torch.float32, device=dev),
+                torch.zeros(size, dtype=torch.float32, device=dev),
+                torch.zeros(size, dtype=torch.int32, device=dev))
+
+    return three(m_pad), three(mm_pad)
+
+
+def _scatter_columns(idx, full, compact):
+    # the real entries of miss_idx are unique rows; its padding entries
+    # all point at row m_pad − 1 and carry credits that are exactly zero
+    # (no pair is ever counted for them), so scattering them is harmless
+    # and the result does not depend on the order of the additions
+    return tuple(f.index_put_((idx,), c, accumulate=True)
+                 for f, c in zip(full, compact))
+
+
+def _kernel_corrections(g, m_c, h, scal, lo, hi, usable, dom_ok, rowmiss,
+                        rsq_thr: float, own_hi: int, plan: dict, *,
+                        n_samples: int):
+    global delta_launches
+    m_pad, n_pad = g.shape
+    dev = g.device
+    S, P = plan["seg_rows"], plan["p_band"]
+    for name, t in (("g", g), ("h", h), ("m_c", m_c)):
+        _check_int8(name, t, n_pad)
+    if scal.dtype != torch.float32 or tuple(scal.shape) != (
+            m_pad, len(ld_int8.SCAL_FIELDS)) or not scal.is_contiguous():
+        raise ValueError(f"scal must be contiguous float32 ({m_pad}, 9)")
+    vecs = {"lo": (lo, torch.int32), "hi": (hi, torch.int32),
+            "usable": (usable, torch.bool), "dom_ok": (dom_ok, torch.bool),
+            "rowmiss": (rowmiss, torch.bool)}
+    for name, (v, dtype) in vecs.items():
+        if v.dtype != dtype or tuple(v.shape) != (m_pad,) or (
+                not v.is_contiguous() or v.device != dev):
+            raise ValueError(f"{name} must be contiguous {dtype} ({m_pad},)")
+    if m_c.shape[0] != len(plan["miss_idx"]) or S > m_pad:
+        raise ValueError("m_c and the plan disagree with g")
+
+    idx, scal_c, usable_c, dom_ok_c = _compact(scal, usable, dom_ok,
+                                               plan["miss_idx"])
+    cidx_all = idx.to(torch.int32)
+    # per segment, the row of the compact product d that holds each x row
+    # (or -1), from the host plan in one copy
+    drow = np.full((plan["n_segs"], S), -1, np.int32)
+    for s in range(plan["n_segs"]):
+        s0, x0, x_cnt = (min(s * S, m_pad - S), int(plan["xs"][s]),
+                         int(plan["x_cnt"][s]))
+        loc = plan["miss_idx"][x0:x0 + x_cnt] - s0
+        ok = (loc >= 0) & (loc < S)
+        drow[s, loc[ok]] = np.arange(x_cnt, dtype=np.int32)[ok]
+    drow_dev = torch.from_numpy(drow).to(dev)
+
+    lib = _library()
+    tm, tn, er, ec = (ctypes.c_int() for _ in range(4))
+    lib.split_corr_tiles(*(ctypes.byref(v) for v in (tm, tn, er, ec)))
+    n_ct, n_xt = -(-P // ec.value), -(-S // er.value)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    n = float(n_samples)
+    consts = (n, float(n_pad), ld_int8.f32(float(n_pad) - n),
+              ld_int8.adj_constant(n_samples), ld_int8.f32(rsq_thr))
+
+    (l2_f, l2d_f, wse_f), (l2_cf, l2d_cf, wse_cf) = _zero_credits(
+        m_pad, idx.shape[0], dev)
+    for s, s0, c0, c_cnt, _, _, x, cat3, m_xc in segments(g, m_c, h, plan):
+        crange = slice(c0, c0 + P)
+        a, b = corr_products(x, cat3, 2 * P)
+        d, _ = corr_products(m_xc, cat3)
+        rpf = torch.empty((n_ct, 2, S), dtype=torch.float32, device=dev)
+        rpi = torch.empty((n_ct, S), dtype=torch.int32, device=dev)
+        cpf = torch.empty((n_xt, 2, P), dtype=torch.float32, device=dev)
+        cpi = torch.empty((n_xt, P), dtype=torch.int32, device=dev)
+        xs_ = slice(s0, s0 + S)
+        ptrs = [t.data_ptr() for t in (
+            a, b, d, drow_dev[s], scal[xs_], scal_c[crange], lo[xs_],
+            hi[xs_], usable[xs_], dom_ok[xs_], rowmiss[xs_],
+            cidx_all[crange], usable_c[crange], dom_ok_c[crange],
+            rpf, rpi, cpf, cpi)]
+        err = lib.split_delta_launch(*ptrs, S, P, c_cnt, s0, s * S,
+                                     int(own_hi), *consts, stream)
+        if err != 0:
+            raise RuntimeError(
+                f"split_delta kernel launch failed: CUDA error {err}")
+        delta_launches += 1
+        # fixed-order folds of the per-tile partials
+        l2_f[xs_] += rpf[:, 0].sum(dim=0)
+        l2d_f[xs_] += rpf[:, 1].sum(dim=0)
+        wse_f[xs_] += rpi.sum(dim=0, dtype=torch.int32)
+        l2_cf[crange] += cpf[:, 0].sum(dim=0)
+        l2d_cf[crange] += cpf[:, 1].sum(dim=0)
+        wse_cf[crange] += cpi.sum(dim=0, dtype=torch.int32)
+    return _scatter_columns(idx, (l2_f, l2d_f, wse_f), (l2_cf, l2d_cf, wse_cf))
+
+
+def split_corrections(g, m_c, h, scal, lo, hi, usable, dom_ok, rowmiss,
+                      rsq_thr: float, own_hi: int, plan: dict, annot=None, *,
+                      n_samples: int):
+    """δ-credit vectors ``(l2_δ f32, l2d_δ f32, wse_δ int32)``, full
+    length, to add to the clean pass's un-finalized credits.
+
+    ``m_c`` is the compact (mm_pad, N_pad) missing-indicator matrix of the
+    contaminated rows in ``plan["miss_idx"]`` order
+    (:func:`compact_missing_rows`); ``plan`` comes from
+    :func:`plan_split_v2`.  ``own_hi`` credits a pair only when its left
+    member is below it (in core: ``m_pad``).  CPU tensors run the plain
+    twin; CUDA tensors run K2 and the δ epilogue kernel, or raise.
+    """
+    if annot is not None:
+        raise NotImplementedError(
+            "annotation δ-credits are not ported yet: ROADMAP queue 1 item 7 "
+            "(partitioned LD)")
+    fn = {"cpu": split_corrections_plain, "cuda": _kernel_corrections}.get(
+        g.device.type)
+    if fn is None:
+        raise ValueError(f"no split-corrections engine for device {g.device}")
+    return fn(g, m_c, h, scal, lo, hi, usable, dom_ok, rowmiss, rsq_thr,
+              own_hi, plan, n_samples=n_samples)
+
+
+def ld_scores_split(g, m_c, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
+                    rowmiss, rsq_thr: float, plan: dict, *, block_size: int,
+                    n_samples: int):
+    """Finalized clean pass + segmented corrections: the split route of
+    ``compute_ld_scores`` as one call."""
+    l2_c, ws_c, poi_c, l2d_c, wsd_c, wse_c = ld_pallas_sym.sym_credits(
+        g, g, h, scal, lo, hi, usable, dom_ok, add_sd_zero, rsq_thr,
+        n_samples=n_samples, has_missing=False, block_size=block_size)
+    l2_d, l2d_d, wse_d = split_corrections(
+        g, m_c, h, scal, lo, hi, usable, dom_ok, rowmiss, rsq_thr,
+        g.shape[0], plan, n_samples=n_samples)
+    return finalize_outputs(l2_c + l2_d, l2d_c + l2d_d, ws_c, wsd_c,
+                            wse_c + wse_d, poi_c, usable, add_sd_zero)

@@ -4,9 +4,15 @@ device, through the symmetric int8 engine.
   host:   parse .bim/.fam -> window bounds (exact f64 -> index intervals)
           -> read the packed .bed rows
   device: unpack the 2-bit codes -> class counts and per-SNP scalars
-          -> symmetric banded pass (the CUDA kernel on a GPU, its plain
-          twin on the CPU) -> NaN/-1 sentinel finalization
+          -> symmetric banded pass (the CUDA kernels on a GPU, their
+          plain twins on the CPU) -> NaN/-1 sentinel finalization
   host:   .L2 TSV + .M/.M_5_50
+
+Routes, as in ``nldsc_tpu``: ``clean`` (no counted pair touches a missing
+genotype: the 3-product pass), ``split`` (at most 25% of the usable rows
+contaminated, or ``split_missing=True``: the clean pass plus exact
+compact corrections, ``ld_split.py``) and ``global`` (the 8-product
+pass).
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ from ..core.logging import log
 from ..core.timing import STAGE_TIMES, elapsed_time, stage_add
 from ..io.ldscores import make_output, write_l2, write_m_files
 from ..io.plink import PackedBed, PlinkDataset
-from . import ld_int8, ld_pallas_sym, preprocess, windows
+from . import ld_int8, ld_pallas_sym, ld_split, preprocess, windows
 from .ld_xla import finalize_outputs
 
 
@@ -82,7 +88,7 @@ def compute_ld_scores(genotypes, positions: np.ndarray, config: LDConfig, *,
         rows, unpacked on the device.
     positions : float64 (M,); negative = skip sentinel
     config : LDConfig with ``rsq_thr`` resolved
-    device : 'cuda' (the kernel) or 'cpu' (the plain twin)
+    device : 'cuda' (the kernels) or 'cpu' (the plain twins)
     progress : optional callable ``progress(done_rows, total_rows)``,
         called before and after the pass.
 
@@ -131,19 +137,57 @@ def compute_ld_scores(genotypes, positions: np.ndarray, config: LDConfig, *,
         g_dev = _to_device(g, dev)
         t_dev = time.time()
 
+    # the split route reads the missing indicators only through the
+    # contaminated rows, and the global route decides it needs all of them
+    # only after the per-row missing counts: defer the full m to that
+    lazy_m = has_missing and not config.use_pallas
     pre = ld_int8.preprocess_int8(
         g_dev, torch.from_numpy(pos_ok_pad).to(dev), config.maf_thr,
-        n_samples=n, assume_no_missing=not has_missing)
+        n_samples=n, assume_no_missing=not has_missing,
+        materialize_m=not lazy_m)
     dom_ok = pre["usable"] & (pre["rstd"] > ld_int8.f32(config.std_thr))
     lo_dev = torch.from_numpy(lo_pad).to(dev)
     hi_dev = torch.from_numpy(hi_pad).to(dev)
+    scal = ld_int8.stack_scalars(pre)
+
+    route, m_mat, split = "global" if has_missing else "clean", pre["m"], None
+    if lazy_m:
+        rowmiss = (pre["cm"] > float(n_pad - n)) & pre["usable"]
+        rowmiss_h = rowmiss.cpu().numpy()
+        frac = float(rowmiss_h.mean())
+        want_split = (config.split_missing if config.split_missing is not None
+                      else frac <= 0.25)
+        if not rowmiss_h.any():
+            # every contaminated row is unusable: no counted pair touches
+            # missing data, so the clean epilogue is exact
+            route = "clean"
+        elif want_split:
+            route = "split"
+            plan = ld_split.plan_split_v2(
+                rowmiss_h, lo_pad, hi_pad,
+                min(ld_split.SEG_ROWS_DEFAULT, m_pad), m_pad)
+            log.info("Split-missing engine: %.2f%% contaminated rows "
+                     "(P=%d, Px=%d, %d segments)", 100.0 * frac,
+                     plan["p_band"], plan["p_x"], plan["n_segs"])
+            split = (ld_split.compact_missing_rows(g_dev, plan["miss_idx"]),
+                     rowmiss, plan)
+        else:
+            m_mat = ld_int8.materialize_missing(g_dev)
+    del g_dev                      # the raw codes are not read past here
+    log.info("LD route: %s", route)
 
     if progress is not None:
         progress(0, m)
     l2_c, ws_c, poi_c, l2d_c, wsd_c, wse_c = ld_pallas_sym.sym_credits(
-        pre["g"], pre["m"], pre["h"], ld_int8.stack_scalars(pre), lo_dev,
-        hi_dev, pre["usable"], dom_ok, pre["add_sd_zero"], config.rsq_thr,
-        n_samples=n, has_missing=has_missing, block_size=B)
+        pre["g"], m_mat, pre["h"], scal, lo_dev, hi_dev, pre["usable"],
+        dom_ok, pre["add_sd_zero"], config.rsq_thr, n_samples=n,
+        has_missing=route == "global", block_size=B)
+    if split is not None:
+        m_c, rowmiss, plan = split
+        l2_d, l2d_d, wse_d = ld_split.split_corrections(
+            pre["g"], m_c, pre["h"], scal, lo_dev, hi_dev, pre["usable"],
+            dom_ok, rowmiss, config.rsq_thr, m_pad, plan, n_samples=n)
+        l2_c, l2d_c, wse_c = l2_c + l2_d, l2d_c + l2d_d, wse_c + wse_d
     l2, l2d, ws, wsd, wse = finalize_outputs(
         l2_c, l2d_c, ws_c, wsd_c, wse_c, poi_c, pre["usable"],
         pre["add_sd_zero"])
@@ -219,6 +263,8 @@ def estimate_lds(
     block_size: int = 512,
     write_m: bool = True,
     int8_dot_dtype: str = "int8",
+    split_missing: bool | None = None,
+    use_pallas: bool = False,
     progress: bool | None = None,
     device="cuda",
 ):
@@ -228,6 +274,10 @@ def estimate_lds(
     (``nldsc/ldscore/routine.py:51-102``) for the single-device in-core
     route; returns the .L2 table when ``out`` is None, else writes
     ``<out>`` (and ``.M``/``.M_5_50``) and returns None.
+
+    ``split_missing``: None picks the split-missing route when at most
+    25% of the usable rows carry a missing genotype; ``use_pallas``
+    (``--engine pallas``) always runs the single global pass.
     """
     STAGE_TIMES.clear()
     dev = resolve_device(device)
@@ -238,7 +288,8 @@ def estimate_lds(
     config = LDConfig(
         ld_wind=ld_wind, wind_metric=wind_metric, maf_thr=maf_thr,
         std_thr=std_thr, rsq_thr=rsq_thr, block_size=block_size,
-        int8_dot_dtype=int8_dot_dtype,
+        int8_dot_dtype=int8_dot_dtype, split_missing=split_missing,
+        use_pallas=use_pallas,
     ).resolve_rsq(ds.n_snp)
 
     log.info("Input: %s, size: (M=%d, N=%d)", ds.bed_path, ds.n_snp,

@@ -134,7 +134,7 @@ def test_cuda_without_gpu_raises(rng, tmp_path):
     (["--annot", "a.txt"], "item 7"),
     (["--streaming"], "item 6"),
     (["--n-devices", "2"], "item 10"),
-    (["--split-missing"], "item 5"),
+    (["--resume", "x"], "item 6"),
     (["--engine", "f32"], "item 9"),
     (["--dot-dtype", "bf16"], "bf16 MMA"),
 ])

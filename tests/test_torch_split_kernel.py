@@ -1,0 +1,146 @@
+"""The split-missing kernels (K2 and the δ epilogue) against their plain
+PyTorch versions.
+
+Needs a CUDA device (``gpu`` marker): every test skips without one.  The
+file imports no JAX, so on a machine with a card and no JAX it runs as
+
+    python -m pytest --noconftest -m gpu tests/test_torch_split_kernel.py
+"""
+
+import zlib
+
+import numpy as np
+import pytest
+import torch
+
+from nldsc_tpu_torch.config import LDConfig
+from nldsc_tpu_torch.ld import ld_int8, ld_pallas_sym, ld_split, pipeline
+from nldsc_tpu_torch.ld import windows
+
+from utils import adversarial_genotypes, make_positions, random_genotypes
+
+RSQ = 1e-3
+# the δ kernel and the twin round every pair's float32 operations alike;
+# only the order of the row and column sums differs
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture()
+def rng(request):
+    return np.random.default_rng(zlib.crc32(request.node.nodeid.encode()))
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def row_level_missing(rng, m, n, row_frac, entry_rate):
+    """Genotypes where only ``row_frac`` of the SNPs carry missing entries."""
+    g = random_genotypes(rng, m, n, missing_rate=0.0)
+    for r in rng.choice(m, size=max(1, int(m * row_frac)), replace=False):
+        g[r] = np.where(rng.random(n) < entry_rate, np.int8(-1), g[r])
+    adv = adversarial_genotypes(rng, n)
+    g[10:16] = adv
+    g[30] = -1                              # all missing: a poison row
+    return g
+
+
+def split_inputs(rng, m, n, seg_rows, device, wind=20000.0):
+    """Port engine inputs, plan and compact indicators on ``device``."""
+    g = row_level_missing(rng, m, n, 0.05, 0.2)
+    pos = make_positions(m, spacing=100, jitter_rng=rng, skip_idx=(3,))
+    T = ld_pallas_sym.TILE
+    m_pad, n_pad = -(-m // T) * T, -(-n // 128) * 128
+    gp = np.full((m_pad, n_pad), -1, np.int8)
+    gp[:m, :n] = g
+    lo, hi, pos_ok = windows.window_bounds(pos, wind)
+    ok = np.zeros(m_pad, bool)
+    ok[:m] = pos_ok
+    lo_p = np.full(m_pad, m_pad, np.int32)
+    hi_p = np.full(m_pad, -1, np.int32)
+    lo_p[:m], hi_p[:m] = lo, hi
+    raw = torch.from_numpy(gp).to(device)
+    pre = ld_int8.preprocess_int8(raw, torch.from_numpy(ok).to(device), 0.01,
+                                  n, materialize_m=False)
+    dom_ok = pre["usable"] & (pre["rstd"] > ld_int8.f32(1e-4))
+    rowmiss = (pre["cm"] > float(n_pad - n)) & pre["usable"]
+    plan = ld_split.plan_split_v2(rowmiss.cpu().numpy(), lo_p, hi_p,
+                                  min(seg_rows, m_pad), m_pad)
+    m_c = ld_split.compact_missing_rows(raw, plan["miss_idx"])
+    args = (pre["g"], m_c, pre["h"], ld_int8.stack_scalars(pre),
+            torch.from_numpy(lo_p).to(device),
+            torch.from_numpy(hi_p).to(device), pre["usable"], dom_ok,
+            rowmiss, RSQ, m_pad, plan)
+    return args, n, g, pos
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows_x, rows_cat, p2, n_pad", [
+    (8, 24, 0, 128), (200, 72, 48, 384), (64, 64, 64, 256)])
+def test_corr_products_are_exact(rng, cuda, rows_x, rows_cat, p2, n_pad):
+    x = rng.integers(0, 3, (rows_x, n_pad), dtype=np.int8)
+    cat = rng.integers(0, 3, (rows_cat, n_pad), dtype=np.int8)
+    before = ld_split.corr_launches
+    a, b = ld_split.corr_products(torch.from_numpy(x).to(cuda),
+                                  torch.from_numpy(cat).to(cuda), p2)
+    torch.cuda.synchronize()
+    assert ld_split.corr_launches == before + 1
+    xi, ci = x.astype(np.int64), cat.astype(np.int64)
+    np.testing.assert_array_equal(a.cpu().numpy(), xi @ ci.T)
+    if p2:
+        np.testing.assert_array_equal(b.cpu().numpy(),
+                                      2 * np.minimum(xi, 1) @ ci[:p2].T)
+    else:
+        assert b is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m, n, seg_rows", [(700, 389, 256), (300, 203, 4096)])
+def test_split_corrections_kernel_matches_twin(rng, cuda, m, n, seg_rows):
+    args, n, _, _ = split_inputs(rng, m, n, seg_rows, cuda)
+    before = (ld_split.corr_launches, ld_split.delta_launches)
+    kern = ld_split.split_corrections(*args, n_samples=n)
+    again = ld_split.split_corrections(*args, n_samples=n)
+    torch.cuda.synchronize()
+    n_segs = args[-1]["n_segs"]
+    assert ld_split.corr_launches == before[0] + 4 * n_segs
+    assert ld_split.delta_launches == before[1] + 2 * n_segs
+    for a, b in zip(kern, again):
+        assert torch.equal(a, b)                   # bitwise run to run
+    cpu = tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)
+    twin = ld_split.split_corrections(*cpu, n_samples=n)
+    np.testing.assert_array_equal(kern[2].cpu().numpy(), twin[2].numpy())
+    for a, b in zip(kern[:2], twin[:2]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), **TOL)
+    assert twin[0].abs().max() > 0
+
+
+@pytest.mark.gpu
+def test_split_route_equals_global_on_card(rng, cuda):
+    _, _, g, pos = split_inputs(rng, 700, 389, 4096, "cpu")
+    kw = dict(ld_wind=20000, maf_thr=0.01, std_thr=1e-4, rsq_thr=RSQ)
+    before = (ld_pallas_sym.launches, ld_split.delta_launches)
+    split = pipeline.compute_ld_scores(g, pos, LDConfig(**kw), device=cuda)
+    assert ld_split.delta_launches > before[1]
+    glob = pipeline.compute_ld_scores(
+        g, pos, LDConfig(**kw, split_missing=False), device=cuda)
+    assert ld_pallas_sym.launches == before[0] + 2
+    for k in ("l2_ws", "l2d_ws", "l2d_wse"):
+        np.testing.assert_array_equal(split[k], glob[k], err_msg=k)
+    for k in ("l2", "l2d"):
+        np.testing.assert_allclose(split[k], glob[k], equal_nan=True,
+                                   err_msg=k, **TOL)
+
+
+@pytest.mark.gpu
+def test_corr_products_rejects_bad_inputs(cuda):
+    x = torch.zeros((8, 200), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):
+        ld_split.corr_products(x, x)
+    x = torch.zeros((8, 256), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):
+        ld_split.corr_products(x, x.float())
