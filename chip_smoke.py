@@ -16,8 +16,9 @@ Phases, one line each (or a few):
      tolerances;
   5. the main path through the ``ld`` command on a synthetic clean bfile
      of M=65,536 SNPs x N=16,384 samples, 100 bp apart, ``-kb 100``
-     (a window of +-1000 SNPs): the .L2/.M/.M_5_50 files, M finite rows,
-     and the kernel's launches counted in that run;
+     (a window of +-1000 SNPs), its LD strength drawn per 512 SNPs: the
+     .L2/.M/.M_5_50 files, M finite rows, and the kernel's launches
+     counted in that run;
   6. the same at M=16,384 with 2% missing genotypes (8-product branch);
   7. the kernel's and the twin's time at phase 5's shape, and their
      agreement there;
@@ -34,7 +35,18 @@ Phases, one line each (or a few):
  10. at that shape: K2 and the δ epilogue against their plain versions,
      the split route's LD pass against the global one (device times), and
      both routes through ``compute_ld_scores`` (equal counters, peak
-     device memory).
+     device memory);
+ 11. ``h2`` at full width: phase 5's .L2 copied to 18 chromosome files
+     (1,179,648 regression SNPs, the size of the HapMap3 regression
+     list), sumstats simulated from the LD-score model (N = 100,000,
+     h² = 0.3, d² = 0.05, shuffled, 3,000 SNPs absent from the LD files);
+     the ``h2`` command with ``--device cuda`` twice (bitwise equal JSON)
+     and ``--device cpu`` (every field within rtol 1e-8, atol 1e-12), the
+     additive h² within 6 std of 0.3 with a std below 0.05, and the
+     regression's own wall and CUDA-event times;
+ 12. ``--strategy one-stg`` and ``--partitioned`` (two annotations
+     splitting L2, phase 11's files as ``--w-ld``) on cuda and cpu, at
+     the same tolerance, each recovering h² as phase 11 does.
 
 Then one JSON line of the kernels, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the
@@ -58,6 +70,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 RSQ = 1e-3
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
+H2_TOL = dict(rtol=1e-8, atol=1e-12)
 
 
 def say(phase: str, msg: str) -> None:
@@ -65,18 +78,20 @@ def say(phase: str, msg: str) -> None:
 
 
 def synthetic_genotypes(rng, m: int, n: int, missing_rate: float = 0.0,
-                        chunk: int = 4096) -> np.ndarray:
+                        chunk: int = 4096, copy_rate=0.8) -> np.ndarray:
     """int8 (m, n) codes with MAF in [0.05, 0.5] and local LD: each SNP
-    copies its predecessor at 80% of the samples."""
+    copies its predecessor at ``copy_rate`` of the samples (a scalar, or
+    one rate per SNP)."""
     out = np.empty((m, n), dtype=np.int8)
     mafs = rng.uniform(0.05, 0.5, m).astype(np.float32)
+    rate = np.broadcast_to(np.asarray(copy_rate, np.float32), (m,))
     prev = None
     for s in range(0, m, chunk):
         c = min(chunk, m - s)
         p = mafs[s:s + c, None]
         fresh = ((rng.random((c, n), dtype=np.float32) < p).astype(np.int8)
                  + (rng.random((c, n), dtype=np.float32) < p))
-        keep = rng.random((c, n), dtype=np.float32) < 0.8
+        keep = rng.random((c, n), dtype=np.float32) < rate[s:s + c, None]
         for i in range(c):
             row = fresh[i] if prev is None else np.where(keep[i], prev,
                                                          fresh[i])
@@ -264,6 +279,216 @@ def check_outputs(out: str, m: int) -> np.ndarray:
     return l2
 
 
+def write_h2_inputs(l2_path: str, root: str, rng, n_chr: int = 18,
+                    n_gwas: float = 100_000.0, h2: float = 0.3,
+                    d2: float = 0.05, n_absent: int = 3000) -> dict:
+    """The ``h2`` inputs of phases 11-12, built from one ``.L2`` file:
+
+    * ``root/ld``: ``n_chr`` copies of it as chromosomes 1..n_chr with
+      unique SNP ids, each with the file's own .M/.M_5_50;
+    * ``root/part``: the same rows split into two annotations,
+      A.L2 = a·L2 and B.L2 = (1−a)·L2 with a ~ U[0, 1] per SNP, with
+      headered per-annotation .M_5_50 sidecars (the sums of a and 1−a);
+    * ``root/trait.sumstats``: Z ~ N(0, 1 + N·h²·L2/M + N·d²·L2D/MD) for
+      every LD row (M, MD: the .M_5_50 totals), plus ``n_absent`` SNPs
+      the LD directory lacks, rows shuffled.
+    """
+    from nldsc_tpu_torch.io.ldscores import format_table, read_l2_file, read_m
+    from nldsc_tpu_torch.io.plink import Table
+
+    src = read_l2_file(l2_path)
+    m = len(src)
+    base = Path(l2_path)
+    sidecars = {s: base.with_suffix(s).read_text() for s in (".M", ".M_5_50")}
+    M, MD = (n_chr * v for v in read_m(str(base.with_suffix(".M_5_50"))))
+    ld_dir, part_dir = Path(root, "ld"), Path(root, "part")
+    ld_dir.mkdir(parents=True)
+    part_dir.mkdir()
+    snps = []
+    for c in range(1, n_chr + 1):
+        snp = np.array([f"rs{c}_{i}" for i in range(m)], dtype=object)
+        chrom = np.full(m, c)
+        (ld_dir / f"chr{c}.L2").write_text(format_table(Table(
+            CHR=chrom, SNP=snp, BP=src["BP"], L2=src["L2"], L2D=src["L2D"])))
+        for suffix, text in sidecars.items():
+            (ld_dir / f"chr{c}{suffix}").write_text(text)
+        a = rng.uniform(0.0, 1.0, m)
+        (part_dir / f"chr{c}.L2").write_text(format_table(Table(
+            CHR=chrom, SNP=snp, BP=src["BP"],
+            **{"A.L2": a * src["L2"], "B.L2": (1.0 - a) * src["L2"]})))
+        (part_dir / f"chr{c}.M_5_50").write_text(
+            f"A.L2\tB.L2\n{float(a.sum())!r}\t{float((1.0 - a).sum())!r}\n")
+        snps.append(snp)
+    var = 1.0 + n_gwas * (h2 * np.tile(src["L2"], n_chr) / M
+                          + d2 * np.tile(src["L2D"], n_chr) / MD)
+    if not (var > 0).all():
+        raise RuntimeError("non-positive chi-square expectation")
+    snp = np.concatenate(snps + [np.array(
+        [f"rsabsent_{i}" for i in range(n_absent)], dtype=object)])
+    z = np.concatenate([rng.standard_normal(len(var)) * np.sqrt(var),
+                        rng.standard_normal(n_absent)]).tolist()
+    ss = Path(root, "trait.sumstats")
+    with open(ss, "w") as f:
+        f.write("SNP\tZ\tN\n")
+        f.writelines(f"{snp[i]}\t{z[i]!r}\t{n_gwas!r}\n"
+                     for i in rng.permutation(len(snp)).tolist())
+    return {"ld": str(ld_dir), "part": str(part_dir), "ss": str(ss),
+            "files": n_chr, "rows": n_chr * m, "n_ss": len(snp),
+            "M": M, "MD": MD,
+            "l2_mean": float(src["L2"].mean()), "l2_sd": float(src["L2"].std())}
+
+
+def run_h2_cli(args: list, json_path: str):
+    """One ``h2`` run through the port's CLI, saving to ``json_path``;
+    the summary and the wall seconds."""
+    from nldsc_tpu_torch.cli import main as cli_main
+
+    t0 = time.time()
+    cli_main(["h2", *args, "-s", json_path])
+    return json.loads(Path(json_path).read_text()), time.time() - t0
+
+
+def compare_summaries(ours: dict, ref: dict, where: str = "") -> tuple:
+    """Every field of two h2 summaries within H2_TOL (flags and names
+    equal); the worst relative difference, and the worst share of the
+    tolerance ``|ours - ref| / (atol + rtol·|ref|)`` (at most 1)."""
+    if set(ours) != set(ref):
+        raise RuntimeError(f"summary keys differ at {where or 'top'}")
+    worst, share = 0.0, 0.0
+    for key, want in ref.items():
+        got = ours[key]
+        if isinstance(want, dict):
+            w, s = compare_summaries(got, want, f"{where}.{key}")
+            worst, share = max(worst, w), max(share, s)
+        elif isinstance(want, (bool, str)):
+            if got != want:
+                raise RuntimeError(f"{where}.{key}: {got!r} != {want!r}")
+        else:
+            np.testing.assert_allclose(got, want, equal_nan=True,
+                                       err_msg=f"{where}.{key}", **H2_TOL)
+            if np.isfinite(want):
+                share = max(share, abs(got - want) / (
+                    H2_TOL["atol"] + H2_TOL["rtol"] * abs(want)))
+                if want != 0:
+                    worst = max(worst, abs(got - want) / abs(want))
+    return worst, share
+
+
+def check_recovery(name: str, hsq: float, std: float, true: float = 0.3,
+                   max_std: float = 0.05) -> None:
+    """An estimate within 6 of its std of the simulated value, with a std
+    small enough for that to bind."""
+    if not (np.isfinite(std) and 0 < std < max_std
+            and abs(hsq - true) <= 6 * std):
+        raise RuntimeError(f"{name}: h2 {hsq} +- {std} is not within 6 std "
+                           f"of {true}, or the std is not in (0, {max_std})")
+
+
+def h2_phases(torch, tmp: str, l2_path: str, rng, card: str) -> None:
+    """Phases 11-12: the ``h2`` command at full width on 18 copies of the
+    .L2 at ``l2_path``, on the card against the CPU."""
+    from nldsc_tpu_torch.h2.pipeline import (drop_large_chisq,
+                                             merge_ld_sumstats)
+    from nldsc_tpu_torch.h2.regression import hsq_estimate
+    from nldsc_tpu_torch.io.ldscores import read_ld_scores
+    from nldsc_tpu_torch.io.sumstats import read_sumstats
+    from nldsc_tpu_torch.ld.pipeline import resolve_device
+
+    # 11. cuda against cpu, two cuda runs bitwise equal
+    t0 = time.time()
+    h2in = write_h2_inputs(l2_path, os.path.join(tmp, "h2"), rng)
+    say("11 data", f"{h2in['rows']} LD rows in {h2in['files']} files "
+        f"(M={h2in['M']}, MD={h2in['MD']}; L2 mean {h2in['l2_mean']:.3f}, "
+        f"sd {h2in['l2_sd']:.3f}), {h2in['n_ss']} shuffled sumstats rows, "
+        f"written in {time.time() - t0:.1f} s")
+    base = ["--sumstats", h2in["ss"], "--ref-ld", h2in["ld"], "--w-ld",
+            h2in["ld"]]
+    h2 = {tag: run_h2_cli(base + ["--device", dev],
+                          os.path.join(tmp, f"h2_{tag}.json"))
+          for tag, dev in (("cuda", "cuda"), ("cuda2", "cuda"),
+                           ("cpu", "cpu"))}
+    if (Path(tmp, "h2_cuda.json").read_bytes()
+            != Path(tmp, "h2_cuda2.json").read_bytes()):
+        raise RuntimeError("two CUDA h2 runs differ")
+    worst11, share11 = compare_summaries(h2["cuda"][0], h2["cpu"][0])
+    add = h2["cuda"][0]["additive"]
+    check_recovery("additive", add["hsq"], add["hsq.std"])
+    # the regression alone, on the merged and filtered rows
+    t0 = time.time()
+    ss_t = read_sumstats(h2in["ss"])
+    t1 = time.time()
+    ld_t, m_t, md_t = read_ld_scores(h2in["ld"])
+    t2 = time.time()
+    rows, chisq = drop_large_chisq(merge_ld_sumstats(ss_t, ld_t),
+                                    max(ss_t["N"].max() * 1e-3, 80))
+    host = (f"host: read sumstats {t1 - t0:.2f} s, read LD {t2 - t1:.2f} s, "
+            f"join and filter {time.time() - t2:.2f} s")
+
+    def regression(dev):
+        dev = resolve_device(dev)
+        col = {k: torch.as_tensor(np.asarray(v, np.float64).reshape(-1, 1),
+                                  device=dev)
+               for k, v in (("y", chisq), ("l2", rows["L2"]),
+                            ("l2d", rows["L2D"]), ("n", rows["N"]))}
+        m_add, m_dom = (torch.tensor([[v]], dtype=torch.float64, device=dev)
+                        for v in (m_t, md_t))
+        return hsq_estimate(col["y"], col["l2"], col["l2"], col["l2d"],
+                            col["l2d"], col["n"], m_add, m_dom,
+                            n_blocks=200, two_step=30)["summary"]
+
+    spans = []
+    for dev in ("cuda", "cpu", "cuda", "cpu"):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        start.record()
+        regression(dev)
+        end.record()
+        torch.cuda.synchronize()
+        spans.append(f"{dev} {time.time() - t0:.3f} s wall" + (
+            f" ({start.elapsed_time(end):.1f} ms between CUDA events)"
+            if dev == "cuda" else ""))
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        regression("cuda")
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    reg = "; ".join(spans) + (
+        f"; profiled cuda run: {busy:.1f} ms of device time in "
+        f"{sum(e.count for e in kernels)} kernel and copy launches")
+    dom = h2["cuda"][0]["dominant"]
+    say("11 h2", f"{h2in['rows']} LD rows: h2 command wall cuda "
+        f"{h2['cuda'][1]:.2f} s, again {h2['cuda2'][1]:.2f} s (bitwise "
+        f"equal), cpu {h2['cpu'][1]:.2f} s; regression alone "
+        f"(hsq_estimate, {len(rows)} rows): {reg}; {host}; cuda vs cpu worst relative "
+        f"difference {worst11:.3g}, worst share of the tolerance "
+        f"{share11:.3g}; additive h2 {add['hsq']:.4f} +- "
+        f"{add['hsq.std']:.4f} (true 0.3), intercept "
+        f"{add['intercept']:.4f}; dominant h2 {dom['hsq']:.4g} +- "
+        f"{dom['hsq.std']:.4g} (true 0.05); on {card}")
+
+    # 12. --strategy one-stg and --partitioned on the card
+    for name, args in (
+            ("one-stg", base + ["--strategy", "one-stg"]),
+            ("partitioned", ["--partitioned", "--sumstats", h2in["ss"],
+                             "--ref-ld", h2in["part"], "--w-ld",
+                             h2in["ld"]])):
+        runs = {dev: run_h2_cli(args + ["--device", dev], os.path.join(
+            tmp, f"h2_{name}_{dev}.json")) for dev in ("cuda", "cpu")}
+        worst, share = compare_summaries(runs["cuda"][0], runs["cpu"][0])
+        est = runs["cuda"][0]["additive" if name == "one-stg" else "total"]
+        check_recovery(name, est["hsq"], est["hsq.std"])
+        say("12 h2 " + name, f"cuda {runs['cuda'][1]:.2f} s, cpu "
+            f"{runs['cpu'][1]:.2f} s wall; worst relative difference "
+            f"{worst:.3g}, worst share of the tolerance {share:.3g} "
+            f"(rtol 1e-8, atol 1e-12); h2 "
+            f"{est['hsq']:.4f} +- {est['hsq.std']:.4f} (true 0.3); on {card}")
+
+
 def main() -> int:
     if not (ROOT / "nldsc_tpu_torch" / "csrc" / "ld_sym.cu").exists():
         print("chip_smoke.py must run from a checkout that holds "
@@ -359,7 +584,10 @@ def main() -> int:
         # 5. main path, clean, chromosome scale
         M5, N5 = 65_536, 16_384
         t0 = time.time()
-        g5 = synthetic_genotypes(rng, M5, N5)
+        # LD that varies along the chromosome, so that phase 11's L2 has
+        # the spread the regression needs to identify h²
+        g5 = synthetic_genotypes(rng, M5, N5, copy_rate=np.repeat(
+            rng.uniform(0.3, 0.97, M5 // 512), 512))
         bp5 = np.arange(1, M5 + 1, dtype=np.int64) * 100
         prefix5 = write_plink(os.path.join(tmp, "chr_clean"), g5, bp=bp5)
         say("5 data", f"wrote {M5}x{N5} bfile "
@@ -598,9 +826,13 @@ def main() -> int:
             raise RuntimeError("the split route's peak device memory is not "
                                "below the global route's")
 
-    if "jax" in sys.modules or any(k.startswith("nldsc_tpu.")
-                                   or k == "nldsc_tpu" for k in sys.modules):
-        raise RuntimeError("the port imported JAX or nldsc_tpu")
+        # 11-12. h2 at full width on phase 5's LD scores
+        h2_phases(torch, tmp, out5, rng, card)
+
+    bad = sorted({k.split(".")[0] for k in sys.modules}
+                 & {"jax", "nldsc_tpu", "pandas"})
+    if bad:
+        raise RuntimeError(f"the port imported {bad}")
     print(json.dumps({"kernels": [{
         "name": "ld_sym", "route": "cuda",
         "source": "nldsc_tpu_torch/csrc/ld_sym.cu",

@@ -1,9 +1,11 @@
-"""Command-line interface of the port: the ``ld`` command.
+"""Command-line interface of the port: the ``ld``, ``h2`` and
+``convert`` commands.
 
-Flag-compatible with ``nldsc_tpu``'s ``ld`` for the single-device
-in-core route, plus ``--device``.  Every other flag and command of the
-JAX CLI is recognised and refused with the ROADMAP item that will port
-it.  Needs only the standard library (argparse) and numpy.
+Flag-compatible with ``nldsc_tpu``'s CLI (``ld`` for the single-device
+in-core route), plus ``--device`` on ``ld`` and ``h2``.  Every other flag
+and command of the JAX CLI is recognised and refused with the ROADMAP
+item that will port it.  Needs only the standard library (argparse)
+and numpy until a command runs.
 """
 
 from __future__ import annotations
@@ -41,8 +43,6 @@ _UNPORTED_LD_FLAGS = {
 }
 _UNPORTED_COMMANDS = {
     "ld-genome": "ROADMAP queue 1 item 8 (user surface)",
-    "h2": "ROADMAP queue 1 item 4 (h2)",
-    "convert": "ROADMAP queue 1 item 8 (user surface)",
 }
 
 
@@ -118,6 +118,66 @@ def build_parser() -> argparse.ArgumentParser:
         ld.add_argument(flag, action=_Unported, nargs="?" if takes_value
                         else 0, help=argparse.SUPPRESS)
 
+    h2 = sub.add_parser("h2", allow_abbrev=False,
+                        help="Estimate additive and non-additive heritability")
+    h2.add_argument("--sumstats", metavar="FILE", required=True,
+                    help="Path to the GWAS sumstats file")
+    h2.add_argument("--ref-ld", metavar="PTH", required=True,
+                    help="File/path with LD Scores used as regression "
+                         "predictors")
+    h2.add_argument("--w-ld", metavar="PTH", required=True,
+                    help="LD Scores for regression weights (may differ from "
+                         "--ref-ld)")
+    h2.add_argument("--strategy", choices=["one-stg", "two-stg"],
+                    default="two-stg", help="Heritability estimation method")
+    h2.add_argument("--chisq-max", metavar="F", type=float, default=None,
+                    help="Drop SNPs with chi-square above this "
+                         "(default: max(1e-3*N_max, 80))")
+    h2.add_argument("--n-blocks", metavar="N", type=int, default=200,
+                    help="Number of jackknife blocks")
+    h2.add_argument("--intercept-h2", metavar="F", type=float, default=None,
+                    help="Constrain the additive LD-score regression "
+                         "intercept")
+    h2.add_argument("--two-step", metavar="F", type=float, default=None,
+                    help="Two-step estimator chi-square cutoff (default: 30 "
+                         "when the intercept is free, disabled with "
+                         "--intercept-h2)")
+    h2.add_argument("--use-M", dest="use_m", action="store_true",
+                    help="Use .M file instead of .M_5_50")
+    h2.add_argument("--partitioned", action="store_true",
+                    help="Partitioned (multi-annotation) h2: --ref-ld "
+                         "columns other than CHR/SNP/BP are per-annotation "
+                         "LD scores (with per-annotation .M/.M_5_50 "
+                         "sidecars); --w-ld may differ from --ref-ld")
+    h2.add_argument("--device", default=None,
+                    help="torch device of the float64 regression: cuda "
+                         "(default) or cpu")
+    h2.add_argument("--on-device", action="store_true",
+                    help="Same as --device cuda (float64 on the GPU)")
+    h2.add_argument("--samp-prev", metavar="P", type=float, default=None,
+                    help="Sample prevalence (with --pop-prev: report "
+                         "liability-scale h2)")
+    h2.add_argument("--pop-prev", metavar="K", type=float, default=None,
+                    help="Population prevalence")
+    h2.add_argument("-s", "--save-to-json", metavar="W", default=None,
+                    help="Path to file where to write results")
+    h2.add_argument("--display", action="store_true",
+                    help="Display traceback")
+
+    conv = sub.add_parser(
+        "convert", allow_abbrev=False,
+        help="Convert LD scores between .L2 and ldsc .l2.ldscore.gz formats")
+    conv.add_argument("--to-ldsc", metavar="OUT_PREFIX", default=None,
+                      help="Write ldsc-format files at this prefix")
+    conv.add_argument("--from-ldsc", metavar="PREFIX", default=None,
+                      help="Read ldsc-format files from this prefix")
+    conv.add_argument("-i", "--input", metavar="FILE", default=None,
+                      help="Input .L2 file (with --to-ldsc)")
+    conv.add_argument("-o", "--out", metavar="FILE", default=None,
+                      help="Output .L2 file (with --from-ldsc)")
+    conv.add_argument("--display", action="store_true",
+                      help="Display traceback")
+
     for name, where in _UNPORTED_COMMANDS.items():
         sub.add_parser(name, help=f"not ported yet ({where})")
     return parser
@@ -151,6 +211,45 @@ def run_ld(args) -> None:
         print(format_table(table), end="")
 
 
+def run_h2(args) -> None:
+    device = args.device or "cuda"
+    if args.on_device and not device.startswith("cuda"):
+        raise NLDSCParameterError(
+            f"--on-device runs on the GPU; it contradicts --device {device}")
+    from .h2.pipeline import estimate_h2, estimate_h2_partitioned  # noqa: PLC0415
+
+    if args.partitioned:
+        estimate_h2_partitioned(
+            sumstats=args.sumstats, ref_ld=args.ref_ld, w_ld=args.w_ld,
+            n_blocks=args.n_blocks, intercept_h2=args.intercept_h2,
+            chisq_max=args.chisq_max, use_m=args.use_m,
+            save_to_json=args.save_to_json, device=device)
+        return
+    estimate_h2(
+        sumstats=args.sumstats, ldscore=args.ref_ld, n_blocks=args.n_blocks,
+        intercept_h2=args.intercept_h2, chisq_max=args.chisq_max,
+        use_m=args.use_m, two_step=args.two_step, strategy=args.strategy,
+        save_to_json=args.save_to_json, samp_prev=args.samp_prev,
+        pop_prev=args.pop_prev,
+        w_ldscore=args.w_ld if args.w_ld != args.ref_ld else None,
+        device=device)
+
+
+def run_convert(args) -> None:
+    from .io.convert import from_ldsc, to_ldsc  # noqa: PLC0415
+
+    if (args.to_ldsc is None) == (args.from_ldsc is None):
+        raise RuntimeError("Specify exactly one of --to-ldsc / --from-ldsc")
+    if args.to_ldsc is not None:
+        if args.input is None:
+            raise RuntimeError("--to-ldsc requires -i/--input <file.L2>")
+        to_ldsc(args.input, args.to_ldsc)
+    else:
+        if args.out is None:
+            raise RuntimeError("--from-ldsc requires -o/--out <file.L2>")
+        from_ldsc(args.from_ldsc, args.out)
+
+
 def main(argv: list[str] | None = None) -> None:
     """Entry point; exits with status 1 on any error (``--display``
     shows the traceback)."""
@@ -162,7 +261,9 @@ def main(argv: list[str] | None = None) -> None:
             raise NLDSCParameterError(
                 f"the {command} command is not ported to nldsc_tpu_torch "
                 f"yet: {_UNPORTED_COMMANDS[command]}")
-        run_ld(build_parser().parse_args(argv))
+        args = build_parser().parse_args(argv)
+        {"ld": run_ld, "h2": run_h2, "convert": run_convert}[
+            args.command](args)
     except Exception as ex:
         log.critical("The program crashed with %s, what: %s\n"
                      "Use `--display` flag for traceback",

@@ -1,4 +1,4 @@
-"""Validated configuration of the LD-score pass.
+"""Validated configuration of the LD-score pass and the h2 regression.
 
 Validation bounds mirror the reference value-classes
 (``nldsc/ldscore/common.py:10-36,146-182``):
@@ -13,6 +13,8 @@ Validation bounds mirror the reference value-classes
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+
+import torch
 
 from .core.errors import NLDSCParameterError
 
@@ -79,3 +81,33 @@ class LDConfig:
         if self.rsq_thr is not None:
             return self
         return replace(self, rsq_thr=1.0 / n_snp)
+
+
+@dataclass(frozen=True)
+class H2Config:
+    """Parameters of the h2 regression (reference ``estimate_h2`` signature)."""
+
+    n_blocks: int = 200
+    intercept_h2: float | None = None
+    chisq_max: float | None = None  # None -> max(1e-3 * N_max, 80)
+    two_step: float | None = None   # None -> 30 when intercept free
+    strategy: str = "two-stg"
+    use_m: bool = False             # prefer .M over .M_5_50 sidecar
+    slow_jackknife: bool = False
+    # torch device of the float64 regression: 'cuda' (an error without a
+    # GPU) or 'cpu'
+    device: str = "cuda"
+
+    def __post_init__(self):
+        if self.strategy not in ("one-stg", "two-stg"):
+            raise NLDSCParameterError(
+                "Unknown estimation strategy. Only `one-stg` and `two-stg` are allowed"
+            )
+        if self.n_blocks < 2:
+            raise NLDSCParameterError("n_blocks must be >= 2")
+        try:
+            kind = torch.device(self.device).type
+        except RuntimeError as ex:
+            raise NLDSCParameterError(f"invalid device {self.device!r}") from ex
+        if kind not in ("cuda", "cpu"):
+            raise NLDSCParameterError(f"unsupported device {self.device!r}")

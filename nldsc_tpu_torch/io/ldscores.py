@@ -1,4 +1,5 @@
-"""Writing .L2 score tables and .M / .M_5_50 sidecars with numpy.
+"""Reading and writing .L2 score tables and .M / .M_5_50 sidecars with
+numpy.
 
 Output contract (reference ``nldsc/ldscore/routine.py:32-48,97-100``):
 tab-separated, ``%.5f`` floats, columns ``CHR SNP BP L2 L2D`` plus
@@ -9,6 +10,11 @@ NaN is an empty field, integers print without decimals.
 ``.M`` counts all usable SNPs, ``.M_5_50`` those with MAF > 5%; ``MD``
 is the reference's estimator ``M * mean(WSDE / WSA)``
 (``nldsc/h2/common.py:128-131``) over the same SNP set.
+
+The readers return the rows, in the order, that ``nldsc_tpu``'s pandas
+readers give: each file sorted by (CHR, BP), rows with any NA dropped,
+then duplicate SNPs (first kept); a directory's files concatenated and
+sorted again.  The jackknife blocks follow that order.
 """
 
 from __future__ import annotations
@@ -18,7 +24,8 @@ from pathlib import Path
 import numpy as np
 
 from ..core.logging import log
-from .plink import Table
+from .tables import (Table, concat, first_occurrences, na_rows,
+                     read_delimited, sort_rows, typed_column)
 
 L2_COLUMNS = ["CHR", "SNP", "BP", "L2", "L2D"]
 EXTRA_COLUMNS = ["MAF", "WSA", "WSD", "WSDE", "RSTD"]
@@ -41,7 +48,7 @@ def _format_column(col: np.ndarray, float_format: str) -> list[str]:
     col = np.asarray(col)
     if col.dtype.kind == "f":
         return ["" if v != v else float_format % v for v in col.tolist()]
-    return [str(v) for v in col.tolist()]
+    return ["" if v is None else str(v) for v in col.tolist()]
 
 
 def format_table(table: Table, float_format: str = "%.5f") -> str:
@@ -86,3 +93,146 @@ def write_m_files(result: dict, l2_path: str) -> None:
         base.with_suffix(suffix).write_text(f"M\tMD\n{m}\t{md}\n")
     log.info("Wrote SNP counts: %s / %s",
              base.with_suffix(".M"), base.with_suffix(".M_5_50"))
+
+
+def read_m(path: str) -> tuple[int, int]:
+    """(M, MD) of a headered ``.M``/``.M_5_50`` sidecar."""
+    tab = read_delimited(path, sep="\t")
+    return int(tab["M"][0]), int(tab["MD"][0])
+
+
+def read_l2_file(path: str) -> Table:
+    """One .L2 table, sorted by CHR,BP (SEs depend on it — common.py:137),
+    rows with an NA dropped, then duplicate SNPs."""
+    score = sort_rows(read_delimited(path, sep="\t"), ["CHR", "BP"])
+    score = score.take(~na_rows(score))
+    return score.take(first_occurrences(score["SNP"]))
+
+
+def _sidecar(path: Path, use_m: bool) -> Path:
+    """The .M_5_50 (``use_m``: .M) beside ``path``, else the .M."""
+    sidecar = path.with_suffix(".M" if use_m else ".M_5_50")
+    if not sidecar.exists() and not use_m:
+        sidecar = path.with_suffix(".M")
+    return sidecar
+
+
+def _l2_files(path: Path) -> list[Path]:
+    files = sorted(path.glob("*.L2")) if path.is_dir() else [path]
+    if not files:
+        raise FileNotFoundError(f"no *.L2 files in directory {path}")
+    return files
+
+
+def _read_one(path: Path, use_m: bool) -> tuple[Table, int, int]:
+    sidecar = _sidecar(path, use_m)
+    score = read_l2_file(str(path))
+    if sidecar.exists():
+        m, md = read_m(str(sidecar))
+    else:
+        if "WSDE" not in score or "WSA" not in score:
+            raise ValueError(
+                f"no .M/.M_5_50 sidecar for {path} and the .L2 lacks the "
+                "--extra columns needed for the M/MD fallback")
+        m = len(score)
+        with np.errstate(invalid="ignore", divide="ignore"):
+            ratio = score["WSDE"] / score["WSA"]
+        md = int(m * np.nanmean(ratio))
+    return score, m, int(md)
+
+
+def read_ld_scores(path: str, use_m: bool = False) -> tuple[Table, int, int]:
+    """File-or-directory LD score reader (reference LDScoreReader).
+
+    Returns (scores, M, MD).  M/MD per reference
+    ``nldsc/h2/common.py:119-131``: the requested sidecar (.M with
+    ``use_m``, else .M_5_50 falling back to .M), else ``M = #rows``,
+    ``MD = M * mean(WSDE/WSA)`` from the ``--extra`` columns.
+    """
+    p = Path(path)
+    if not p.is_dir():
+        return _read_one(p, use_m)
+    frames, m_tot, md_tot = [], 0, 0
+    for f in _l2_files(p):
+        score, m, md = _read_one(f, use_m)
+        frames.append(Table((k, score[k]) for k in L2_COLUMNS))
+        m_tot += m
+        md_tot += md
+    return sort_rows(concat(frames), ["CHR", "BP"]), m_tot, md_tot
+
+
+# columns of a .L2 table that are never annotations
+_NON_ANNOT = {"CHR", "SNP", "BP", "CM", "L2D", *EXTRA_COLUMNS}
+
+
+def annotation_columns(score: Table) -> list[str]:
+    """Annotation (per-category LD score) columns of a partitioned .L2
+    table: every column that is not a key/extra column and not a
+    per-annotation dominance column ``*.L2D``.  A plain file yields
+    ``["L2"]``."""
+    annots = [c for c in score
+              if c not in _NON_ANNOT and not c.endswith(".L2D")]
+    if not annots:
+        raise ValueError("no LD-score annotation columns found "
+                         "(expected `L2` or per-annotation columns)")
+    return annots
+
+
+def read_m_partitioned(path: str, annots: list[str]) -> np.ndarray:
+    """A (1, p) SNP-count row: a headered sidecar (columns named as the
+    annotations, or the single-annotation ``M``/``MD`` pair) or a
+    headerless whitespace-separated row of p numbers (ldsc's
+    ``.l2.M_5_50``)."""
+    with open(path) as f:
+        first = next(ln for ln in f if ln.strip()).split()
+    if all(typed_column([t]).dtype.kind in "if" for t in first):
+        vals = np.array([typed_column([t])[0] for t in first],
+                        dtype=np.float64)
+        if vals.size != len(annots):
+            raise ValueError(
+                f"M file {path} has {vals.size} counts but the .L2 has "
+                f"{len(annots)} annotation columns")
+        return vals.reshape(1, -1)
+    tab = read_delimited(path)
+    if len(annots) == 1 and "M" in tab:
+        return np.array([[tab["M"][0]]], dtype=np.float64)
+    missing = [a for a in annots if a not in tab]
+    if missing:
+        raise ValueError(f"M file {path} lacks counts for annotations "
+                         f"{missing}")
+    return np.array([[tab[a][0] for a in annots]], dtype=np.float64)
+
+
+def read_ld_scores_partitioned(
+    path: str, use_m: bool = False,
+) -> tuple[Table, np.ndarray, list[str]]:
+    """File-or-directory reader of partitioned (multi-annotation) scores.
+
+    Returns ``(scores, M_annot, annot_names)``: ``scores`` has the
+    columns SNP, CHR, BP and one LD-score column per annotation;
+    ``M_annot`` is the (1, p) per-annotation SNP-count row summed across
+    files.
+    """
+    frames, m_tot, annots = [], None, None
+    for f in _l2_files(Path(path)):
+        score = read_l2_file(str(f))
+        cur = annotation_columns(score)
+        if annots is None:
+            annots = cur
+        elif cur != annots:
+            raise ValueError(
+                f"annotation columns differ across files: {annots} vs "
+                f"{cur} in {f}")
+        sidecar = _sidecar(f, use_m)
+        if sidecar.exists():
+            m = read_m_partitioned(str(sidecar), annots)
+        elif annots == ["L2"]:
+            m = np.array([[len(score)]], dtype=np.float64)
+        else:
+            raise ValueError(
+                f"no .M/.M_5_50 sidecar for partitioned file {f}; "
+                "per-annotation SNP counts cannot be derived from rows")
+        frames.append(Table((k, score[k]) for k in ("SNP", "CHR", "BP",
+                                                     *annots)))
+        m_tot = m if m_tot is None else m_tot + m
+    return sort_rows(concat(frames), ["CHR", "BP"]), m_tot, annots

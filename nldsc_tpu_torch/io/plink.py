@@ -6,12 +6,9 @@ unpacked low-to-high per the PLINK spec.  The main path ships the packed
 rows to the device (:meth:`BedReader.read_raw`) and unpacks them there
 (:func:`nldsc_tpu_torch.ld.preprocess.unpack_bed`).
 
-The .bim/.fam readers return a :class:`Table`: an ordered mapping of
-column name to numpy array, typed the way ``pandas.read_csv`` would type
-it (int64 when every field is an integer, float64 when every field is a
-number, str otherwise), so that written tables print identically.
-Floats are parsed correctly rounded; pandas' default C parser can differ
-from that near 1e-13 relative.
+The .bim/.fam readers return a :class:`~.tables.Table` typed the way
+``pandas.read_csv`` would type it (:func:`~.tables.read_delimited`), so
+that written tables print identically.
 """
 
 from __future__ import annotations
@@ -23,16 +20,12 @@ from pathlib import Path
 import numpy as np
 
 from ..core.errors import NLDSCDataError, NLDSCParameterError
+from .tables import Table, read_delimited
 
 PLINK_MAGIC = bytes([0x6C, 0x1B, 0x01])
 
 BIM_COLUMNS = ("CHR", "SNP", "CM", "BP", "A1", "A2")
 FAM_COLUMNS = ("FID", "IID", "FATHER", "MOTHER", "SEX", "TRAIT")
-
-#: field spellings that pandas reads as NaN
-_NA_VALUES = frozenset({"", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN",
-                        "-NaN", "-nan", "1.#IND", "1.#QNAN", "<NA>", "N/A",
-                        "NA", "NULL", "NaN", "None", "n/a", "nan", "null"})
 
 
 def encode_bed_bytes(genotypes: np.ndarray) -> np.ndarray:
@@ -137,44 +130,12 @@ class PackedBed:
         return self.raw.shape[1]
 
 
-class Table(dict):
-    """Ordered column name -> 1-D numpy array, all of one length."""
-
-    def __len__(self) -> int:  # number of rows, like a DataFrame
-        return len(next(iter(self.values()))) if dict.__len__(self) else 0
-
-
-def _column(fields: list[str]) -> np.ndarray:
-    """Type one whitespace-split column as ``pandas.read_csv`` would."""
-    try:
-        return np.array([int(f) for f in fields], dtype=np.int64)
-    except ValueError:
-        pass
-    try:
-        return np.array([np.nan if f in _NA_VALUES else float(f)
-                         for f in fields], dtype=np.float64)
-    except ValueError:
-        return np.array(fields, dtype=object)
-
-
-def _read_table(path: str | os.PathLike, names: tuple[str, ...]) -> Table:
-    with open(path) as f:
-        rows = [line.split() for line in f if line.strip()]
-    bad = [i for i, r in enumerate(rows) if len(r) != len(names)]
-    if bad:
-        raise NLDSCDataError(
-            f"{path}: line {bad[0] + 1} has {len(rows[bad[0]])} fields, "
-            f"expected {len(names)}")
-    cols = list(zip(*rows)) if rows else [()] * len(names)
-    return Table((name, _column(list(c))) for name, c in zip(names, cols))
-
-
 def read_bim(path: str | os.PathLike, single_chromosome: bool = True) -> Table:
     """Read a .bim file (reference: ``nldsc/ldscore/common.py:76-117``).
 
     Enforces a single chromosome per file like the reference does.
     """
-    bim = _read_table(path, BIM_COLUMNS)
+    bim = read_delimited(path, names=BIM_COLUMNS)
     n_chr = len(np.unique(bim["CHR"].astype(str)))
     if single_chromosome and n_chr != 1:
         raise NLDSCParameterError(
@@ -186,7 +147,7 @@ def read_bim(path: str | os.PathLike, single_chromosome: bool = True) -> Table:
 
 
 def read_fam(path: str | os.PathLike) -> Table:
-    return _read_table(path, FAM_COLUMNS)
+    return read_delimited(path, names=FAM_COLUMNS)
 
 
 @dataclass
