@@ -7,10 +7,14 @@ Phases, one line each (or a few):
   1. the device, and ``nvidia-smi``'s name and power limit;
   2. build the hand-written CUDA kernels (``csrc/ld_sym.cu``, K1, and
      ``csrc/split_corr.cu``, K2 and the δ epilogue), one nvcc each, all
-     started together;
-  3. kernel against its plain PyTorch twin at M=4096, N=3001, clean and
-     2% missing, adversarial rows included: counters exactly equal,
-     l2/l2d within rtol 1e-5 and atol 1e-5, two kernel runs bitwise equal;
+     started together, with ptxas's registers and spills of each kernel.
+     K1 runs its int8 products on ``wgmma`` fed by a TMA ring (one
+     producer thread, two consumer warpgroups): 128 x 128 tiles with 3
+     products on the clean branch, 64 x 64 with 8 on the missing one;
+  3. K1 against its plain PyTorch twin at M=4096, N=3001, clean and
+     2% missing (both branches), adversarial rows included: counters
+     exactly equal, l2/l2d within rtol 1e-5 and atol 1e-5, two kernel
+     runs bitwise equal;
   4. the golden fixture (tests/data/golden_chr22_toy.npz) through
      ``compute_ld_scores`` on the card, at tests/test_golden.py's
      tolerances;
@@ -20,8 +24,12 @@ Phases, one line each (or a few):
      .L2/.M/.M_5_50 files, M finite rows, and the kernel's launches
      counted in that run;
   6. the same at M=16,384 with 2% missing genotypes (8-product branch);
-  7. the kernel's and the twin's time at phase 5's shape, and their
-     agreement there;
+  7. at phase 5's shape: K1's clean branch and its 8-product branch
+     (on the same genotypes, with an all-zero missing matrix: every pair
+     equals the clean one) against the twin, their times, int8 TOPS and
+     share of the bound, the twin's time, and ``torch._int_mm`` on a
+     dense 8,192 x 16,384 by 16,384 x 8,192 int8 product as a yardstick
+     of the card's int8 rate (the port never calls it);
   8. the split-missing kernels at M=4096, N=3001, 5% of the rows
      contaminated, adversarial rows included: K2's products exactly equal
      to the integer products on the CPU, ``split_corrections`` on the card
@@ -48,7 +56,10 @@ Phases, one line each (or a few):
      splitting L2, phase 11's files as ``--w-ld``) on cuda and cpu, at
      the same tolerance, each recovering h² as phase 11 does.
 
-Then one JSON line of the kernels, the ``nvidia-smi`` line, and last
+Then one JSON line of the kernels (each with its time, its plain
+version's, its bound from this run's shapes, and ``library_ms`` null:
+no single PyTorch call computes any of them), the ``nvidia-smi`` line,
+and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the
 script exits non-zero without the last line; so does a machine with no
 CUDA device, or a directory without the port beside this script.
@@ -131,11 +142,11 @@ def engine_inputs(torch, g: np.ndarray, pos: np.ndarray, wind: float, dev,
     sample count, whether data is missing, and the raw codes."""
     from nldsc_tpu_torch.io.plink import encode_bed_bytes
     from nldsc_tpu_torch.ld import ld_int8, ld_pallas_sym, preprocess, windows
+    from nldsc_tpu_torch.ld.pipeline import padded_shape
 
     m, n = g.shape
     has_missing = bool((g < 0).any())
-    T = ld_pallas_sym.TILE
-    m_pad, n_pad = -(-m // T) * T, -(-n // 128) * 128
+    m_pad, n_pad = padded_shape(m, n, "cuda", ld_pallas_sym.ROW_ALIGN)
     lo, hi, pos_ok = windows.window_bounds(pos, wind)
     raw = np.full((m_pad, (n + 3) // 4), 0x55 if has_missing else 0,
                   np.uint8)
@@ -218,6 +229,46 @@ def twin_credits(args, n, has_missing, block_size):
         right_k=ld_int8.band_extent(args[5], block_size)[1], n_samples=n,
         n_scan_blocks=args[0].shape[0] // block_size,
         has_missing=has_missing)
+
+
+#: published dense peaks of one H100 SXM (int8 tensor cores, float32
+#: outside the tensor cores, HBM3)
+INT8_OPS = 1979e12
+FP32_OPS = 67e12
+HBM_BYTES = 3.35e12
+
+
+def bound(ops: float, nbytes: float, peak_ops: float = INT8_OPS) -> dict:
+    """The least time the card could take for ``ops`` operations that
+    must move ``nbytes``: the larger of the two times, and which it is."""
+    t_ops, t_bytes = ops / peak_ops, nbytes / HBM_BYTES
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def k1_work(hi, n_pad: int, has_missing: bool, tile: int) -> dict:
+    """K1's work on inputs with window ends ``hi`` (int32, padding rows
+    -1): ``ops``, the int8 operations of the in-window pairs i <= j
+    (2 per sample per product: 3 products clean, 8 missing); ``tile_ops``,
+    those of the tiles the kernel computes; ``bytes``, each input read
+    once (g, h and m if missing; the per-row scalars and flags) and the
+    six credit vectors written once; and its ``bound``."""
+    import torch
+
+    m_pad = hi.shape[0]
+    rows = torch.arange(m_pad, device=hi.device)
+    pairs = int((hi.long() - rows + 1).clamp(min=0).sum())
+    nprod = 8 if has_missing else 3
+    nt = m_pad // tile
+    blk_hi = torch.div(hi.view(nt, tile).amax(dim=1), tile,
+                       rounding_mode="floor").clamp(max=nt - 1)
+    ctas = int((blk_hi - torch.arange(nt, device=hi.device) + 1)
+               .clamp(min=0).sum())
+    ops = 2.0 * nprod * n_pad * pairs
+    nbytes = (3 if has_missing else 2) * m_pad * n_pad + m_pad * (
+        9 * 4 + 2 * 4 + 3) + 6 * 4 * m_pad
+    return {"ops": ops, "tile_ops": 2.0 * nprod * n_pad * ctas * tile * tile,
+            "ctas": ctas, "bytes": nbytes, **bound(ops, nbytes)}
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -547,20 +598,22 @@ def main() -> int:
         pos[7] = -1.0                                     # skip sentinel
         args, n, has_missing, _ = engine_inputs(torch, g, pos, 100_000.0,
                                                 dev)
+        T = ld_pallas_sym.tile(has_missing)
         kern = ld_pallas_sym.sym_credits(*args, RSQ, n_samples=n,
                                          has_missing=has_missing,
-                                         block_size=ld_pallas_sym.TILE)
+                                         block_size=T)
         again = ld_pallas_sym.sym_credits(*args, RSQ, n_samples=n,
                                           has_missing=has_missing,
-                                          block_size=ld_pallas_sym.TILE)
+                                          block_size=T)
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(kern, again)):
             raise RuntimeError("two kernel runs differ")
-        twin = twin_credits(args, n, has_missing, ld_pallas_sym.TILE)
+        twin = twin_credits(args, n, has_missing, T)
         err = compare(finalized(kern, args), finalized(twin, args))
         errs.append(err)
-        say("3 kernel=twin", f"M=4096 N=3001 missing={rate}: counters "
-            f"equal, max |l2,l2d| diff {err:.3g}, runs bitwise equal")
+        say("3 kernel=twin", f"M=4096 N=3001 missing={rate} ({T}-row "
+            f"tiles): counters equal, max |l2,l2d| diff {err:.3g}, runs "
+            "bitwise equal")
         del args, kern, again, twin
 
     # 4. golden fixture through compute_ld_scores on the card
@@ -627,29 +680,58 @@ def main() -> int:
             f"on {card}")
         del g6
 
-        # 7. kernel and twin at phase 5's shape
+        # 7. both branches of K1 at phase 5's shape, the twin, and the
+        # card's int8 yardstick
         args, n, has_missing, _ = engine_inputs(
             torch, g5, bp5.astype(np.float64), 100_000.0, dev)
-        T = ld_pallas_sym.TILE
+        Tc, Tm = ld_pallas_sym.TILE_CLEAN, ld_pallas_sym.TILE_MISSING
+        if has_missing or n != args[0].shape[1]:
+            raise RuntimeError("phase 7 needs clean genotypes with N = N_pad")
+        # no genotype is missing and no sample is padding: with m = 0 the
+        # 8-product branch gives every pair the clean branch's values
+        m0 = torch.zeros_like(args[0])
 
         def kernel():
             return ld_pallas_sym.sym_credits(*args, RSQ, n_samples=n,
-                                             has_missing=has_missing,
-                                             block_size=T)
+                                             has_missing=False,
+                                             block_size=Tc)
 
-        kern = kernel()
-        twin = twin_credits(args, n, has_missing, T)
-        err5 = compare(finalized(kern, args), finalized(twin, args))
-        del kern, twin
-        ms = cuda_ms(torch, kernel, reps=5)
+        def kernel8():
+            return ld_pallas_sym.sym_credits(args[0], m0, *args[2:], RSQ,
+                                             n_samples=n, has_missing=True,
+                                             block_size=Tm)
+
+        twin = twin_credits(args, n, False, Tc)
+        err5 = compare(finalized(kernel(), args), finalized(twin, args))
+        err5m = compare(finalized(kernel8(), args), finalized(twin, args))
+        del twin
+        ms = cuda_ms(torch, kernel, reps=10)
+        ms8 = cuda_ms(torch, kernel8, reps=5)
         plain = {B: cuda_ms(torch, lambda B=B: twin_credits(
-            args, n, has_missing, B), reps=2) for B in (T, 512)}
+            args, n, False, B), reps=2) for B in (Tc, 512)}
         best_b = min(plain, key=plain.get)
-        say("7 timing", f"M={M5} N={N5} +-1000 SNPs: kernel {ms:.3f} ms; "
-            f"twin {plain[T]:.3f} ms (B={T}), {plain[512]:.3f} ms (B=512); "
-            f"max |diff| vs twin {err5:.3g}; peak device memory "
+        work = k1_work(args[5], args[0].shape[1], False, Tc)
+        work8 = k1_work(args[5], args[0].shape[1], True, Tm)
+        k1_line = {"ld_sym": (ms, work), "ld_sym 8-product": (ms8, work8)}
+        for name, (t, w) in k1_line.items():
+            say("7 timing", f"M={M5} N={N5} +-1000 SNPs, {name}: {t:.3f} ms "
+                f"over {w['ctas']} tiles, {w['tile_ops'] / t / 1e9:.0f} "
+                f"int8 TOPS in its tiles ({w['ops'] / t / 1e9:.0f} on the "
+                f"{w['ops'] / 1e12:.3f} T ops of the in-window pairs); bound "
+                f"{w['bound_ms']:.3f} ms ({w['bound_by']}), "
+                f"{100 * w['bound_ms'] / t:.1f}% of it; on {card}")
+        say("7 timing", f"twin {plain[Tc]:.3f} ms (B={Tc}), {plain[512]:.3f} "
+            f"ms (B=512); max |l2,l2d| diff vs twin {err5:.3g} clean, "
+            f"{err5m:.3g} 8-product (counters equal); peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {card}")
-        del args
+        del args, m0
+        a8 = torch.randint(-2, 3, (8192, 16384), dtype=torch.int8, device=dev)
+        b8 = torch.randint(-2, 3, (8192, 16384), dtype=torch.int8, device=dev)
+        ms_mm = cuda_ms(torch, lambda: torch._int_mm(a8, b8.t()), reps=20)
+        say("7 yardstick", f"torch._int_mm (cuBLASLt) 8192x16384 . "
+            f"16384x8192 int8: {ms_mm:.3f} ms, "
+            f"{2.0 * 8192 * 16384 * 8192 / ms_mm / 1e9:.0f} TOPS; on {card}")
+        del a8, b8
         torch.cuda.empty_cache()
 
         # 8. the split-missing kernels against their plain versions
@@ -749,6 +831,21 @@ def main() -> int:
         P = plan["p_band"]
         ops = [(x, cat3, m_xc) for *_, x, cat3, m_xc
                in ld_split.segments(*sargs[:3], plan)]
+        # this run's work: K2's int32 products of each segment (int8
+        # operands read once, products written once); the δ epilogue
+        # reads those products and both sides' scalars, writes each
+        # side's three credits, and evaluates pair_adj twice (the exact
+        # and the clean value, 70 float32 operations each) per pair
+        k2_ops = k2_bytes = delta_ops = delta_bytes = 0.0
+        for x, cat3, m_xc in ops:
+            rx, rc, rm = x.shape[0], cat3.shape[0], m_xc.shape[0]
+            outs = rx * rc + rx * 2 * P + rm * rc
+            k2_ops += 2.0 * x.shape[1] * outs
+            k2_bytes += (rx + rc + rm) * x.shape[1] + 4 * outs
+            delta_ops += 2 * 70.0 * rx * P
+            delta_bytes += 4 * outs + (9 * 4 + 3 * 4) * (rx + P)
+        k2_bound = bound(k2_ops, k2_bytes)
+        delta_bound = bound(delta_ops, delta_bytes, FP32_OPS)
 
         def k2():
             for x, cat3, m_xc in ops:
@@ -769,7 +866,8 @@ def main() -> int:
         def k1(has_missing, m=args[1]):
             return ld_pallas_sym.sym_credits(
                 args[0], m, *args[2:], RSQ, n_samples=n,
-                has_missing=has_missing, block_size=T)
+                has_missing=has_missing,
+                block_size=ld_pallas_sym.tile(has_missing))
 
         for x, cat3, m_xc in ops:               # K2 = plain, exactly
             for o, r in zip((*ld_split.corr_products(x, cat3, 2 * P),
@@ -797,6 +895,12 @@ def main() -> int:
             f"{err10:.3g}); LD pass: split {ms_k1_clean:.3f} + "
             f"{ms_corr:.3f} = {ms_k1_clean + ms_corr:.3f} ms vs global "
             f"8-product {ms_k1_miss:.3f} ms; on {card}")
+        say("10 bounds", f"K2 {k2_ops / 1e12:.3f} T int8 ops, "
+            f"{k2_bytes / 1e9:.3f} GB: bound {k2_bound['bound_ms']:.3f} ms "
+            f"({k2_bound['bound_by']}), {k2_ops / ms_k2 / 1e9:.0f} TOPS; δ "
+            f"epilogue {delta_ops / 1e9:.3f} G f32 ops, "
+            f"{delta_bytes / 1e9:.3f} GB: bound "
+            f"{delta_bound['bound_ms']:.3f} ms ({delta_bound['bound_by']})")
         del args, sargs, raw, m_full
         torch.cuda.empty_cache()
 
@@ -837,13 +941,19 @@ def main() -> int:
         "name": "ld_sym", "route": "cuda",
         "source": "nldsc_tpu_torch/csrc/ld_sym.cu",
         "replaces": "nldsc_tpu/ld/ld_pallas_sym.py:52",
-        "launches": launches["ld_sym"], "max_abs_err": max(errs + [err5]),
-        "ms": ms, "plain_ms": plain[best_b]}, {
+        "launches": launches["ld_sym"],
+        "max_abs_err": max(errs + [err5, err5m]),
+        "ms": ms, "plain_ms": plain[best_b], "bound_ms": work["bound_ms"],
+        "bound_by": work["bound_by"], "library_ms": None,
+        "tops": work["tile_ops"] / ms / 1e9, "ms_8prod": ms8,
+        "bound_ms_8prod": work8["bound_ms"],
+        "tops_8prod": work8["tile_ops"] / ms8 / 1e9}, {
         "name": "split_corr", "route": "cuda",
         "source": "nldsc_tpu_torch/csrc/split_corr.cu",
         "replaces": "scripts/pallas_corr_probe.py:54",
         "launches": launches["split_corr"], "max_abs_err": float(k2_err),
-        "ms": ms_k2, "plain_ms": ms_k2_plain}, {
+        "ms": ms_k2, "plain_ms": ms_k2_plain, **k2_bound,
+        "library_ms": None}, {
         # the δ epilogue and its folds: split_corrections less its K2
         # products, each side timed in this run
         "name": "split_delta", "route": "cuda",
@@ -851,7 +961,8 @@ def main() -> int:
         "replaces": "scripts/pallas_corr_probe.py:54",
         "launches": launches["split_delta"],
         "max_abs_err": max(err8, err10),
-        "ms": ms_corr - ms_k2, "plain_ms": ms_corr_plain - ms_k2_plain}]}))
+        "ms": ms_corr - ms_k2, "plain_ms": ms_corr_plain - ms_k2_plain,
+        **delta_bound, "library_ms": None}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

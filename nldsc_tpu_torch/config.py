@@ -33,7 +33,7 @@ class LDConfig:
     rsq_thr: float | None = None  # None -> 1/n_snp
 
     # SNP rows per pivot block of the CPU twin; the CUDA kernel tiles
-    # by its own fixed size (ld_pallas_sym.TILE)
+    # by its own fixed sizes (ld_pallas_sym.TILE_CLEAN, TILE_MISSING)
     block_size: int = 512
     int8_dot_dtype: str = "int8"   # 'int8'; 'bf16' is not ported yet
     # --engine pallas: always the single global pass (never split)

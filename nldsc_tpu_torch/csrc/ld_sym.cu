@@ -1,36 +1,55 @@
-// Fused symmetric int8 LD kernel for Hopper (sm_90a).
+// Fused symmetric int8 LD kernel for Hopper (sm_90a): K1.
 //
 // Replaces nldsc_tpu/ld/ld_pallas_sym.py::_kernel (the TPU's fused
-// symmetric Pallas kernel).  One CTA takes a 64-row pivot tile b and a
-// 64-row neighbour tile t >= b of the right half-band, accumulates the
-// exact int8 x int8 -> int32 products over the whole sample axis
-// (Sgg, Sgh, Shg; plus Sgm, Smg, Smm, Smh, Shm when genotypes are
-// missing) with mma.sync m16n8k32 on the tensor cores, and runs the
-// whole epilogue in registers: corr_from_dots, adjusted r^2, the window,
-// usable, dom_ok and poison masks, and the row and mirrored column sums.
+// symmetric Pallas kernel).  One CTA takes a pivot tile b and a
+// neighbour tile t >= b of the right half-band, accumulates the exact
+// int8 x int8 -> int32 products over the whole sample axis (Sgg, Sgh,
+// Shg; plus Sgm, Smg, Smm, Smh, Shm when genotypes are missing) on the
+// tensor cores, and runs the whole epilogue in registers: corr_from_dots,
+// adjusted r^2, the window, usable, dom_ok and poison masks, and the row
+// and mirrored column sums.
 //
-// What bounds it: at chromosome shapes (N ~ 16k samples, windows of
-// ~2000 SNPs) the work is int8 tensor-core operations -- every operand
-// byte loaded into shared memory feeds 64 products per product matrix.
-// The design keeps everything after the products out of device memory:
-// no (B x W) correlation tile is ever written; a CTA writes only its
-// 64-entry row and column partial sums, which a fixed-order reduction
-// outside the kernel folds (no float atomics, so run-to-run results are
-// bitwise equal).
+// What bounds it: int8 tensor-core operations, fed from L2.  Every
+// operand byte a CTA loads feeds TILE products of each product matrix,
+// so the tile sets the operations per byte of L2 traffic.  The design:
+//   * products on wgmma (m64nNk32.s32.s8.s8) with both operands in
+//     shared memory: the row-major (rows, samples) matrices are K-major
+//     on both sides, as int8 wgmma requires;
+//   * stacked neighbour operands, so that one wgmma yields several
+//     products: clean, A = g_i against B = [g_j; h_j] gives Sgg|Sgh and
+//     A = h_i against B = g_j gives Shg; missing, each consumer
+//     warpgroup keeps B = [h_j; g_j; m_j] for its neighbour rows, which
+//     A = g_i and A = m_i take whole and A = h_i takes as [g_j; m_j];
+//   * a ring of shared-memory stages of KC = 128 samples (one row of the
+//     128-byte swizzle), filled with TMA by one producer thread and
+//     handed over through mbarriers; two consumer warpgroups issue the
+//     wgmmas, and setmaxnreg moves registers from the producer
+//     warpgroup to them;
+//   * 128 x 128 tiles on the clean branch (192 accumulator registers a
+//     consumer thread: each warpgroup takes 64 pivot rows), 64 x 64 on
+//     the missing branch (8 products, 128 registers: each warpgroup
+//     takes 32 neighbour rows).
+// No (tile x tile) correlation block is ever written: a CTA writes only
+// its row and column partial sums, which a fixed-order reduction outside
+// the kernel folds (no float atomics, so run-to-run results are bitwise
+// equal).
 //
 // The per-pair expressions live in pair_epilogue.cuh, shared with the
 // split engine's delta epilogue (split_corr.cu).  They follow the float32
 // operation order of corr_from_dots (nldsc_tpu_torch/ld/ld_int8.py);
 // built with -fmad=false, each pair's values equal the plain twin's bit
-// for bit, so the WSE threshold count agrees exactly.
+// for bit, so the WSE threshold count agrees exactly.  The int32 sums are
+// exact, and exact in float32: |S| <= 4 * N_pad <= 2^24.
 //
-// Layouts: g, m, h int8 (M_pad, N_pad) row-major; scal f32 (M_pad, 9);
-// lo, hi int32 (M_pad); usable, dom_ok, poison uint8 (M_pad); tile_hi
-// int32 (M_pad / 64), the last neighbour tile of each pivot tile.
-// Partial outputs (zero-filled by the caller):
-//   fpart f32  [n_tiles][band][2 (row, col)][2 (l2, l2d)][64]
-//   ipart int32[n_tiles][band][2 (row, col)][4 (ws, wsd, wse, poison)][64]
+// Layouts: g, m, h int8 (M_pad, N_pad) row-major, 16-byte aligned, N_pad
+// a multiple of 128; scal f32 (M_pad, 9); lo, hi int32 (M_pad); usable,
+// dom_ok, poison uint8 (M_pad); tile_hi int32 (M_pad / TILE), the last
+// neighbour tile of each pivot tile.  Partial outputs (zero-filled by
+// the caller):
+//   fpart f32  [n_tiles][band][2 (row, col)][2 (l2, l2d)][TILE]
+//   ipart int32[n_tiles][band][2 (row, col)][4 (ws, wsd, wse, poison)][TILE]
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -40,16 +59,31 @@ namespace {
 
 using namespace nldsc;
 
-constexpr int TILE = 64;          // pivot rows = neighbour rows per CTA
-constexpr int KC = 64;            // samples per shared-memory stage
-constexpr int LDS = KC + 16;      // padded smem row stride (bytes)
-enum { OG, OH, OM };              // operand slots: g, h, m
+constexpr int KC = 128;                  // samples (bytes) per ring stage
+constexpr int CONSUMERS = 256;           // two consumer warpgroups
+constexpr int THREADS = CONSUMERS + 128; // and the producer warpgroup
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+constexpr int ATOM = 1024;               // 8 rows x 128 B: one swizzle atom
 enum { FL_USABLE = 1, FL_DOM_OK = 2, FL_POISON = 4 };
 
+template <bool MISSING>
+struct Cfg {
+  static constexpr int TILE = MISSING ? 64 : 128;   // pivot = neighbour rows
+  static constexpr int NSIDE = MISSING ? 3 : 2;     // g, h (, m) per side
+  static constexpr int STAGES = MISSING ? 4 : 3;
+  static constexpr int BOX = MISSING ? 32 : 128;    // rows per TMA box
+  static constexpr int WG_COLS = MISSING ? TILE / 2 : TILE;  // per warpgroup
+  static constexpr int SIDE_BYTES = NSIDE * TILE * KC;
+  static constexpr int STAGE_BYTES = 2 * SIDE_BYTES;
+  // partial sums reaching one pivot row: one per warpgroup that splits
+  // the neighbour rows; reaching one neighbour row: one per 16-row warp
+  static constexpr int ROW_SLOTS = MISSING ? 2 : 1;
+  static constexpr int COL_SLOTS = TILE / 16;
+};
+
 struct Params {
-  const int8_t* g;
-  const int8_t* m;
-  const int8_t* h;
+  CUtensorMap tm_g, tm_h, tm_m;   // boxes of Cfg::BOX rows x KC samples
   const float* scal;
   const int32_t* lo;
   const int32_t* hi;
@@ -68,62 +102,8 @@ struct Params {
   float rsq_thr;
 };
 
-template <bool MISSING>
-struct Cfg {
-  static constexpr int WARPS_M = 2;
-  static constexpr int WARPS_N = MISSING ? 4 : 2;
-  static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
-  static constexpr int WM = TILE / WARPS_M;   // rows per warp
-  static constexpr int WN = TILE / WARPS_N;   // cols per warp
-  static constexpr int MT = WM / 16;          // m16 tiles per warp
-  static constexpr int NT = WN / 8;           // n8 tiles per warp
-  static constexpr int NSIDE = MISSING ? 3 : 2;   // operands per side
-  static constexpr int NOPS = 2 * NSIDE;
-  static constexpr int NPROD = MISSING ? 8 : 3;
-  static constexpr int STAGE_BYTES = NOPS * TILE * LDS;
-  static constexpr int SMEM_BYTES = 2 * STAGE_BYTES;
-};
-
-// products in the order sgg, sgh, shg, sgm, smg, smm, smh, shm;
-// prod_a / prod_b name their pivot and neighbour operands (constant
-// after unrolling, so the fragment arrays stay in registers)
-enum { P_GG, P_GH, P_HG, P_GM, P_MG, P_MM, P_MH, P_HM };
-__device__ __forceinline__ constexpr int prod_a(int pr) {
-  return (pr == P_HG || pr == P_HM) ? OH
-         : (pr == P_MG || pr == P_MM || pr == P_MH) ? OM : OG;
-}
-__device__ __forceinline__ constexpr int prod_b(int pr) {
-  return (pr == P_GH || pr == P_MH) ? OH
-         : (pr == P_GM || pr == P_MM || pr == P_HM) ? OM : OG;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],
-                                       const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ unsigned lds32(const int8_t* p) {
-  return *reinterpret_cast<const unsigned*>(p);
-}
-
-template <int WARPS_M, int WARPS_N>
+// the epilogue's per-row inputs, staged while the ring fills
+template <int TILE>
 struct EpiSmem {
   float si[TILE][NSCAL];
   float sj[TILE][NSCAL];
@@ -131,297 +111,605 @@ struct EpiSmem {
   int hi[TILE];
   unsigned char fi[TILE];
   unsigned char fj[TILE];
-  float rowf[WARPS_N][2][TILE];
-  int rowi[WARPS_N][4][TILE];
-  float colf[WARPS_M][2][TILE];
-  int coli[WARPS_M][4][TILE];
 };
 
+// the row and column partial sums, written over the ring after the
+// last product
 template <bool MISSING>
-__global__ void __launch_bounds__(Cfg<MISSING>::THREADS)
-    ld_sym_kernel(Params p) {
+struct RedSmem {
   using C = Cfg<MISSING>;
-  extern __shared__ __align__(16) int8_t smem[];
+  float rowf[C::ROW_SLOTS][2][C::TILE];
+  int rowi[C::ROW_SLOTS][4][C::TILE];
+  float colf[C::COL_SLOTS][2][C::TILE];
+  int coli[C::COL_SLOTS][4][C::TILE];
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// until the phase of parity `parity` of the barrier has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+// one box of the map at (sample x, row y) into shared memory at dst,
+// completing on the barrier's transaction count
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x),
+      "r"(y) : "memory");
+}
+
+// 16 bytes to and from shared memory, opaque to the compiler (which would
+// otherwise keep the values in registers instead)
+__device__ __forceinline__ void st_shared4(uint32_t addr, int a, int b, int c,
+                                           int d) {
+  asm volatile("st.shared.v4.s32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(a), "r"(b), "r"(c), "r"(d) : "memory");
+}
+__device__ __forceinline__ void ld_shared4(uint32_t addr, int (&v)[4]) {
+  asm volatile("ld.shared.v4.s32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+               : "r"(addr) : "memory");
+}
+
+// wgmma operand descriptor of a K-major tile in the 128-byte swizzle:
+// rows of 128 bytes, 8-row atoms ATOM bytes apart (the stride offset);
+// the leading offset is unused in this layout.  Adding 2 to the result
+// steps 32 bytes (one k32 slice) along K inside the atom.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(ATOM >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving accumulator reads or writes across the
+// asynchronous products
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// D(64 x N, s32) = A(64 x 32, s8, K-major) . B(N x 32, s8, K-major)^T
+// + (scale_d ? D : 0), both operands in shared memory.  Accumulator
+// layout: register 4j + 2u + v of lane (4 gq + tq) in warp w of the
+// warpgroup holds row 16w + gq + 8u, column 8j + 2tq + v.
+__device__ __forceinline__ void wgmma_n64(int (&d)[32], uint64_t a,
+                                          uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n96(int (&d)[48], uint64_t a,
+                                          uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n128(int (&d)[64], uint64_t a,
+                                          uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+
+__device__ __forceinline__ void wgmma_n256(int (&d)[128], uint64_t a,
+                                          uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+        "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+        "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]),
+        "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]),
+        "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]),
+        "+r"(d[126]), "+r"(d[127])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <bool MISSING>
+__global__ void __launch_bounds__(THREADS, 1)
+    ld_sym_kernel(const __grid_constant__ Params p) {
+  using C = Cfg<MISSING>;
+  constexpr int T = C::TILE;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
 
   const int k = blockIdx.x;
   const int b = blockIdx.y;
   const int t = b + k;
   if (t >= p.n_tiles || t > p.tile_hi[b]) return;   // outside the band
 
+  // the ring first, on a swizzle-atom boundary; then the barriers and
+  // the epilogue's inputs
+  uint8_t* ring =
+      smem_raw + (ATOM - smem_u32(smem_raw) % ATOM) % ATOM;
+  const uint32_t ring_s = smem_u32(ring);
+  const uint32_t full0 = ring_s + C::STAGES * C::STAGE_BYTES;
+  const uint32_t empty0 = full0 + 8 * C::STAGES;
+  auto& es = *reinterpret_cast<EpiSmem<T>*>(
+      ring + C::STAGES * C::STAGE_BYTES + 16 * C::STAGES);
+
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int wm = warp / C::WARPS_N, wn = warp % C::WARPS_N;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int r0 = b * TILE, c0 = t * TILE;
-  const size_t n_pad = static_cast<size_t>(p.n_pad);
-
-  // stage s <- samples [kk, kk + KC) of the 2*NSIDE operand tiles
-  auto load_stage = [&](int s, int kk) {
-    constexpr int CHUNKS = C::NOPS * TILE * (KC / 16);
-    for (int c = tid; c < CHUNKS; c += C::THREADS) {
-      const int op = c / (TILE * (KC / 16));
-      const int rem = c % (TILE * (KC / 16));
-      const int r = rem / (KC / 16), q = rem % (KC / 16);
-      const int side = op / C::NSIDE, which = op % C::NSIDE;
-      const int row = (side == 0 ? r0 : c0) + r;
-      const int8_t* mat = which == OG ? p.g : (which == OH ? p.h : p.m);
-      const int8_t* src = mat + row * n_pad + kk + q * 16;
-      int8_t* dst = smem + s * C::STAGE_BYTES + (op * TILE + r) * LDS + q * 16;
-      cp_async16(dst, src);
-    }
-  };
-
-  int acc[C::NPROD][C::MT][C::NT][4];
-#pragma unroll
-  for (int pr = 0; pr < C::NPROD; ++pr)
-#pragma unroll
-    for (int i = 0; i < C::MT; ++i)
-#pragma unroll
-      for (int j = 0; j < C::NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[pr][i][j][e] = 0;
-
+  const int r0 = b * T, c0 = t * T;
   const int nk = p.n_pad / KC;
-  load_stage(0, 0);
-  cp_async_commit();
-  for (int kc = 0; kc < nk; ++kc) {
-    if (kc + 1 < nk) load_stage((kc + 1) & 1, (kc + 1) * KC);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
 
-    const int8_t* st = smem + (kc & 1) * C::STAGE_BYTES;
-#pragma unroll
-    for (int ks = 0; ks < KC; ks += 32) {
-      unsigned af[C::NSIDE][C::MT][4];
-      unsigned bf[C::NSIDE][C::NT][2];
-#pragma unroll
-      for (int o = 0; o < C::NSIDE; ++o) {
-        const int8_t* a_t = st + o * TILE * LDS;
-        const int8_t* b_t = st + (C::NSIDE + o) * TILE * LDS;
-#pragma unroll
-        for (int i = 0; i < C::MT; ++i) {
-          const int row = wm * C::WM + i * 16 + gq;
-          const int8_t* base = a_t + row * LDS + ks + tq * 4;
-          af[o][i][0] = lds32(base);
-          af[o][i][1] = lds32(base + 8 * LDS);
-          af[o][i][2] = lds32(base + 16);
-          af[o][i][3] = lds32(base + 8 * LDS + 16);
-        }
-#pragma unroll
-        for (int j = 0; j < C::NT; ++j) {
-          const int col = wn * C::WN + j * 8 + gq;
-          const int8_t* base = b_t + col * LDS + ks + tq * 4;
-          bf[o][j][0] = lds32(base);
-          bf[o][j][1] = lds32(base + 16);
-        }
-      }
-#pragma unroll
-      for (int pr = 0; pr < C::NPROD; ++pr)
-#pragma unroll
-        for (int i = 0; i < C::MT; ++i)
-#pragma unroll
-          for (int j = 0; j < C::NT; ++j)
-            mma_s8(acc[pr][i][j], af[prod_a(pr)][i], bf[prod_b(pr)][j]);
+  if (tid == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, CONSUMERS);
     }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // ---- epilogue: everything below stays in registers / shared memory
-  using E = EpiSmem<C::WARPS_M, C::WARPS_N>;
-  E& es = *reinterpret_cast<E*>(smem);
-  for (int c = tid; c < TILE * NSCAL; c += C::THREADS) {
-    es.si[c / NSCAL][c % NSCAL] = p.scal[static_cast<size_t>(r0) * NSCAL + c];
-    es.sj[c / NSCAL][c % NSCAL] = p.scal[static_cast<size_t>(c0) * NSCAL + c];
-  }
-  for (int r = tid; r < TILE; r += C::THREADS) {
-    es.lo[r] = p.lo[r0 + r];
-    es.hi[r] = p.hi[r0 + r];
-    es.fi[r] = (p.usable[r0 + r] ? FL_USABLE : 0) |
-               (p.dom_ok[r0 + r] ? FL_DOM_OK : 0) |
-               (p.poison[r0 + r] ? FL_POISON : 0);
-    es.fj[r] = (p.usable[c0 + r] ? FL_USABLE : 0) |
-               (p.dom_ok[c0 + r] ? FL_DOM_OK : 0) |
-               (p.poison[c0 + r] ? FL_POISON : 0);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  const bool diag = (t == b);   // mirrored credits only past the pivot tile
-  const float n = p.n, adj_c = p.adj_c, rsq = p.rsq_thr;
-
-  float rl2[C::MT][2], rl2d[C::MT][2];
-  int rws[C::MT][2], rwsd[C::MT][2], rwse[C::MT][2], rpoi[C::MT][2];
-  float cl2[C::NT][2], cl2d[C::NT][2];
-  int cws[C::NT][2], cwsd[C::NT][2], cwse[C::NT][2], cpoi[C::NT][2];
-#pragma unroll
-  for (int i = 0; i < C::MT; ++i)
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      rl2[i][u] = 0.f; rl2d[i][u] = 0.f;
-      rws[i][u] = 0; rwsd[i][u] = 0; rwse[i][u] = 0; rpoi[i][u] = 0;
-    }
-#pragma unroll
-  for (int j = 0; j < C::NT; ++j)
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      cl2[j][u] = 0.f; cl2d[j][u] = 0.f;
-      cws[j][u] = 0; cwsd[j][u] = 0; cwse[j][u] = 0; cpoi[j][u] = 0;
-    }
-
-#pragma unroll
-  for (int i = 0; i < C::MT; ++i)
-#pragma unroll
-    for (int j = 0; j < C::NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ui = e >> 1, uj = e & 1;      // C fragment layout
-        const int lr = wm * C::WM + i * 16 + gq + 8 * ui;
-        const int lc = wn * C::WN + j * 8 + tq * 2 + uj;
-        const int gi = r0 + lr, gj = c0 + lc;
-        const float* si = es.si[lr];
-        const float* sj = es.sj[lc];
-        const unsigned fi = es.fi[lr], fj = es.fj[lc];
-
-        const float sgg = static_cast<float>(acc[P_GG][i][j][e]);
-        const float sgh = static_cast<float>(acc[P_GH][i][j][e]);
-        const float shg = static_cast<float>(acc[P_HG][i][j][e]);
-        float sgu, sug, suh, suu, shu;
+  if (tid >= CONSUMERS) {
+    // ---- producer warpgroup: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (tid == CONSUMERS) {
+      for (int kb = 0; kb < nk; ++kb) {
+        const int s = kb % C::STAGES;
+        mbar_wait(empty0 + 8 * s, ((kb / C::STAGES) & 1) ^ 1);
+        const uint32_t full = full0 + 8 * s;
+        mbar_expect_tx(full, C::STAGE_BYTES);
+        const uint32_t st = ring_s + s * C::STAGE_BYTES;
+        const uint32_t nb = st + C::SIDE_BYTES;
+        const int x = kb * KC;
         if constexpr (MISSING) {
-          sgu = si[GSUM] - static_cast<float>(acc[P_GM][i][j][e]);
-          sug = sj[GSUM] - static_cast<float>(acc[P_MG][i][j][e]);
-          suh = sj[HSUM] - static_cast<float>(acc[P_MH][i][j][e]);
-          suu = p.n_padf - si[CMISS] - sj[CMISS] +
-                static_cast<float>(acc[P_MM][i][j][e]);
-          shu = si[HSUM] - static_cast<float>(acc[P_HM][i][j][e]);
+          // pivot g, h, m of 64 rows, two boxes each; then per consumer
+          // warpgroup its 32 neighbour rows as [h; g; m]
+          constexpr int BB = C::BOX * KC;
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            tma_load(st + q * BB, &p.tm_g, full, x, r0 + q * C::BOX);
+            tma_load(st + T * KC + q * BB, &p.tm_h, full, x, r0 + q * C::BOX);
+            tma_load(st + 2 * T * KC + q * BB, &p.tm_m, full, x,
+                     r0 + q * C::BOX);
+          }
+#pragma unroll
+          for (int w = 0; w < 2; ++w) {
+            const int row = c0 + w * C::BOX;
+            tma_load(nb + (3 * w) * BB, &p.tm_h, full, x, row);
+            tma_load(nb + (3 * w + 1) * BB, &p.tm_g, full, x, row);
+            tma_load(nb + (3 * w + 2) * BB, &p.tm_m, full, x, row);
+          }
         } else {
-          sgu = si[GSUM];
-          sug = sj[GSUM];
-          suh = sj[HSUM];
-          suu = n;
-          shu = si[HSUM];
+          // pivot g, h; neighbour [g; h], one 128-row box each
+          tma_load(st, &p.tm_g, full, x, r0);
+          tma_load(st + T * KC, &p.tm_h, full, x, r0);
+          tma_load(nb, &p.tm_g, full, x, c0);
+          tma_load(nb + T * KC, &p.tm_h, full, x, c0);
         }
-        const PairAdj v = pair_adj(sgg, sgh, shg, sgu, sug, suh, suu, shu,
-                                   si, sj, n, adj_c);
-        const float adj_add = v.add, adj_da = v.da, adj_db = v.db;
-
-        const bool upair = gj >= es.lo[lr] && gj <= es.hi[lr] &&
-                           (fi & FL_USABLE) && (fj & FL_USABLE);
-        const bool row_base = upair && gj != gi;
-        const bool col_base = upair && !diag;
-        const bool dm_a = row_base && (fj & FL_DOM_OK);
-        const bool dm_b = col_base && (fi & FL_DOM_OK);
-
-        if (row_base) { rl2[i][ui] += adj_add; rws[i][ui] += 1; }
-        if (dm_a) {
-          rl2d[i][ui] += adj_da;
-          rwsd[i][ui] += 1;
-          rwse[i][ui] += adj_da > rsq ? 1 : 0;
-        }
-        if (upair && (fj & FL_POISON)) rpoi[i][ui] += 1;
-        if (col_base) {
-          cl2[j][uj] += adj_add;
-          cws[j][uj] += 1;
-          if (fi & FL_POISON) cpoi[j][uj] += 1;
-        }
-        if (dm_b) {
-          cl2d[j][uj] += adj_db;
-          cwsd[j][uj] += 1;
-          cwse[j][uj] += adj_db > rsq ? 1 : 0;
-        }
-      }
-
-  // rows: reduce over the 4 lanes of a quad, then over WARPS_N warps
-#pragma unroll
-  for (int i = 0; i < C::MT; ++i)
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        rl2[i][u] += __shfl_xor_sync(0xffffffffu, rl2[i][u], off);
-        rl2d[i][u] += __shfl_xor_sync(0xffffffffu, rl2d[i][u], off);
-        rws[i][u] += __shfl_xor_sync(0xffffffffu, rws[i][u], off);
-        rwsd[i][u] += __shfl_xor_sync(0xffffffffu, rwsd[i][u], off);
-        rwse[i][u] += __shfl_xor_sync(0xffffffffu, rwse[i][u], off);
-        rpoi[i][u] += __shfl_xor_sync(0xffffffffu, rpoi[i][u], off);
-      }
-      if (tq == 0) {
-        const int lr = wm * C::WM + i * 16 + gq + 8 * u;
-        es.rowf[wn][0][lr] = rl2[i][u];
-        es.rowf[wn][1][lr] = rl2d[i][u];
-        es.rowi[wn][0][lr] = rws[i][u];
-        es.rowi[wn][1][lr] = rwsd[i][u];
-        es.rowi[wn][2][lr] = rwse[i][u];
-        es.rowi[wn][3][lr] = rpoi[i][u];
       }
     }
-  // columns: reduce over the 8 quads of a warp, then over WARPS_M warps
+  } else {
+    // ---- two consumer warpgroups: products, then the epilogue
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int wg = tid / 128;
+    const int wi = (tid / 32) % 4;       // warp of the warpgroup
+    const int lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+
+    for (int c = tid; c < T * NSCAL; c += CONSUMERS) {
+      es.si[c / NSCAL][c % NSCAL] = p.scal[static_cast<size_t>(r0) * NSCAL + c];
+      es.sj[c / NSCAL][c % NSCAL] = p.scal[static_cast<size_t>(c0) * NSCAL + c];
+    }
+    for (int r = tid; r < T; r += CONSUMERS) {
+      es.lo[r] = p.lo[r0 + r];
+      es.hi[r] = p.hi[r0 + r];
+      es.fi[r] = (p.usable[r0 + r] ? FL_USABLE : 0) |
+                 (p.dom_ok[r0 + r] ? FL_DOM_OK : 0) |
+                 (p.poison[r0 + r] ? FL_POISON : 0);
+      es.fj[r] = (p.usable[c0 + r] ? FL_USABLE : 0) |
+                 (p.dom_ok[c0 + r] ? FL_DOM_OK : 0) |
+                 (p.poison[c0 + r] ? FL_POISON : 0);
+    }
+
+    // clean: a1 = g_i . [g_j; h_j] (Sgg | Sgh), a2 = h_i . g_j (Shg);
+    // missing: a1 = g_i . [h_j; g_j; m_j] (Sgh | Sgg | Sgm),
+    // a2 = h_i . [g_j; m_j] (Shg | Shm), a3 = m_i . [h_j; g_j; m_j]
+    // (Smh | Smg | Smm); the clean branch leaves a3 unused
+    constexpr int N1 = MISSING ? 48 : 128, N2 = MISSING ? 32 : 64;
+    constexpr int N3 = MISSING ? 48 : 1;
+    // no initial values: each accumulator's first product runs with
+    // scale_d = 0 (zeroing them first made ptxas spill the clean branch)
+    int a1[N1], a2[N2], a3[N3];
+
+    for (int kb = 0; kb < nk; ++kb) {
+      const int s = kb % C::STAGES;
+      mbar_wait(full0 + 8 * s, (kb / C::STAGES) & 1);
+      const uint32_t st = ring_s + s * C::STAGE_BYTES;
+      const uint32_t nb = st + C::SIDE_BYTES;
+      fence_regs(a1);
+      fence_regs(a2);
+      fence_regs(a3);
+      wgmma_fence();
+      if constexpr (MISSING) {
+        const uint64_t dg = smem_desc(st), dh = smem_desc(st + T * KC);
+        const uint64_t dm = smem_desc(st + 2 * T * KC);
+        const uint32_t nw = nb + wg * 3 * C::BOX * KC;
+        const uint64_t dhgm = smem_desc(nw);
+        const uint64_t dgm = smem_desc(nw + C::BOX * KC);
 #pragma unroll
-  for (int j = 0; j < C::NT; ++j)
+        for (int kk = 0; kk < KC / 32; ++kk) {
+          wgmma_n96(a1, dg + 2 * kk, dhgm + 2 * kk, kb + kk > 0);
+          wgmma_n64(a2, dh + 2 * kk, dgm + 2 * kk, kb + kk > 0);
+          wgmma_n96(a3, dm + 2 * kk, dhgm + 2 * kk, kb + kk > 0);
+        }
+      } else {
+        const uint64_t dg = smem_desc(st + wg * 64 * KC);
+        const uint64_t dh = smem_desc(st + T * KC + wg * 64 * KC);
+        const uint64_t dgh = smem_desc(nb);
+#pragma unroll
+        for (int kk = 0; kk < KC / 32; ++kk) {
+          wgmma_n256(a1, dg + 2 * kk, dgh + 2 * kk, kb + kk > 0);
+          wgmma_n128(a2, dh + 2 * kk, dgh + 2 * kk, kb + kk > 0);
+        }
+      }
+      wgmma_commit();
+      // this stage's products are done: hand its slot back
+      wgmma_wait_all();
+      fence_regs(a1);
+      fence_regs(a2);
+      fence_regs(a3);
+      mbar_arrive(empty0 + 8 * s);
+    }
+
+    // every consumer is past its last product (the ring is free) and
+    // the staged inputs are visible
+    asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
+    auto& rs = *reinterpret_cast<RedSmem<MISSING>*>(ring);
+    // clean: Shg waits in the ring's second stage, each thread's own
+    // values in 16-byte words, so that the epilogue starts with 128
+    // accumulators live rather than 192
+    const uint32_t stash = ring_s + C::STAGE_BYTES + 16 * tid;
+    if constexpr (!MISSING) {
+#pragma unroll
+      for (int q = 0; q < N2 / 4; ++q)
+        st_shared4(stash + 16 * CONSUMERS * q, a2[4 * q], a2[4 * q + 1],
+                   a2[4 * q + 2], a2[4 * q + 3]);
+    }
+
+    const bool diag = (t == b);   // mirrored credits only past the pivot tile
+    const float n = p.n, adj_c = p.adj_c, rsq = p.rsq_thr;
+    const int row0 = MISSING ? 0 : 64 * wg;          // this warpgroup's rows
+    const int col0 = MISSING ? C::WG_COLS * wg : 0;  // and neighbour rows
+    const int rslot = MISSING ? wg : 0;
+    const int cslot = MISSING ? wi : 4 * wg + wi;
+
+    int lr[2], rlo[2], rhi[2];
+    unsigned rfl[2];
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
+      lr[u] = row0 + 16 * wi + gq + 8 * u;
+      rlo[u] = es.lo[lr[u]];
+      rhi[u] = es.hi[lr[u]];
+      rfl[u] = es.fi[lr[u]];
+    }
+    // counts travel packed in one word, 8 bits each (ws, wsd, wse,
+    // poison): at most 128 per row and 16 per column before the sums
+    // over warps
+    float rl2[2] = {0.f, 0.f}, rl2d[2] = {0.f, 0.f};
+    unsigned rcnt[2] = {0u, 0u};
+
 #pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        cl2[j][u] += __shfl_xor_sync(0xffffffffu, cl2[j][u], off);
-        cl2d[j][u] += __shfl_xor_sync(0xffffffffu, cl2d[j][u], off);
-        cws[j][u] += __shfl_xor_sync(0xffffffffu, cws[j][u], off);
-        cwsd[j][u] += __shfl_xor_sync(0xffffffffu, cwsd[j][u], off);
-        cwse[j][u] += __shfl_xor_sync(0xffffffffu, cwse[j][u], off);
-        cpoi[j][u] += __shfl_xor_sync(0xffffffffu, cpoi[j][u], off);
+    for (int j = 0; j < C::WG_COLS / 8; ++j) {
+      float cl2[2] = {0.f, 0.f}, cl2d[2] = {0.f, 0.f};
+      unsigned ccnt[2] = {0u, 0u};
+      int shg4[4] = {0, 0, 0, 0};
+      if constexpr (!MISSING) ld_shared4(stash + 16 * CONSUMERS * j, shg4);
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const int lc = col0 + 8 * j + 2 * tq + v;
+        const float* sj = es.sj[lc];
+        const unsigned fj = es.fj[lc];
+        const int gj = c0 + lc;
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int e = 4 * j + 2 * u + v;
+          const float* si = es.si[lr[u]];
+          float sgg, sgh, shg, sgu, sug, suh, suu, shu;
+          if constexpr (MISSING) {
+            sgh = static_cast<float>(a1[e]);
+            sgg = static_cast<float>(a1[16 + e]);
+            sgu = si[GSUM] - static_cast<float>(a1[32 + e]);
+            shg = static_cast<float>(a2[e]);
+            shu = si[HSUM] - static_cast<float>(a2[16 + e]);
+            suh = sj[HSUM] - static_cast<float>(a3[e]);
+            sug = sj[GSUM] - static_cast<float>(a3[16 + e]);
+            suu = p.n_padf - si[CMISS] - sj[CMISS] +
+                  static_cast<float>(a3[32 + e]);
+          } else {
+            sgg = static_cast<float>(a1[e]);
+            sgh = static_cast<float>(a1[64 + e]);
+            shg = static_cast<float>(shg4[2 * u + v]);
+            sgu = si[GSUM];
+            sug = sj[GSUM];
+            suh = sj[HSUM];
+            suu = n;
+            shu = si[HSUM];
+          }
+          const PairAdj pa = pair_adj(sgg, sgh, shg, sgu, sug, suh, suu, shu,
+                                      si, sj, n, adj_c);
+
+          const bool upair = gj >= rlo[u] && gj <= rhi[u] &&
+                             (rfl[u] & FL_USABLE) && (fj & FL_USABLE);
+          const bool row_base = upair && gj != r0 + lr[u];
+          const bool col_base = upair && !diag;
+          const bool dm_a = row_base && (fj & FL_DOM_OK);
+          const bool dm_b = col_base && (rfl[u] & FL_DOM_OK);
+
+          if (row_base) { rl2[u] += pa.add; rcnt[u] += 1u; }
+          if (dm_a) {
+            rl2d[u] += pa.da;
+            rcnt[u] += (1u << 8) + (pa.da > rsq ? 1u << 16 : 0u);
+          }
+          if (upair && (fj & FL_POISON)) rcnt[u] += 1u << 24;
+          if (col_base) {
+            cl2[v] += pa.add;
+            ccnt[v] += 1u + ((rfl[u] & FL_POISON) ? 1u << 24 : 0u);
+          }
+          if (dm_b) {
+            cl2d[v] += pa.db;
+            ccnt[v] += (1u << 8) + (pa.db > rsq ? 1u << 16 : 0u);
+          }
+        }
       }
+      // columns: over the 8 quads of the warp, then to shared memory
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1)
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          cl2[v] += __shfl_xor_sync(0xffffffffu, cl2[v], off);
+          cl2d[v] += __shfl_xor_sync(0xffffffffu, cl2d[v], off);
+          ccnt[v] += __shfl_xor_sync(0xffffffffu, ccnt[v], off);
+        }
       if (gq == 0) {
-        const int lc = wn * C::WN + j * 8 + tq * 2 + u;
-        es.colf[wm][0][lc] = cl2[j][u];
-        es.colf[wm][1][lc] = cl2d[j][u];
-        es.coli[wm][0][lc] = cws[j][u];
-        es.coli[wm][1][lc] = cwsd[j][u];
-        es.coli[wm][2][lc] = cwse[j][u];
-        es.coli[wm][3][lc] = cpoi[j][u];
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          const int lc = col0 + 8 * j + 2 * tq + v;
+          rs.colf[cslot][0][lc] = cl2[v];
+          rs.colf[cslot][1][lc] = cl2d[v];
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            rs.coli[cslot][q][lc] = (ccnt[v] >> (8 * q)) & 255u;
+        }
       }
     }
-  __syncthreads();
+    // rows: over the 4 lanes of a quad, then to shared memory
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        rl2[u] += __shfl_xor_sync(0xffffffffu, rl2[u], off);
+        rl2d[u] += __shfl_xor_sync(0xffffffffu, rl2d[u], off);
+        rcnt[u] += __shfl_xor_sync(0xffffffffu, rcnt[u], off);
+      }
+    if (tq == 0) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        rs.rowf[rslot][0][lr[u]] = rl2[u];
+        rs.rowf[rslot][1][lr[u]] = rl2d[u];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          rs.rowi[rslot][q][lr[u]] = (rcnt[u] >> (8 * q)) & 255u;
+      }
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
 
-  const size_t slot = static_cast<size_t>(b) * p.band + k;
-  float* fout = p.fpart + slot * (2 * 2 * TILE);
-  int32_t* iout = p.ipart + slot * (2 * 4 * TILE);
-  for (int c = tid; c < 2 * TILE; c += C::THREADS) {
-    const int dir = c / TILE, r = c % TILE;
-    float f[2] = {0.f, 0.f};
-    int v[4] = {0, 0, 0, 0};
-    if (dir == 0) {
-      for (int w = 0; w < C::WARPS_N; ++w) {
-        for (int q = 0; q < 2; ++q) f[q] += es.rowf[w][q][r];
-        for (int q = 0; q < 4; ++q) v[q] += es.rowi[w][q][r];
+    // the CTA's partials, summed over warps in a fixed order
+    const size_t slot = static_cast<size_t>(b) * p.band + k;
+    float* fout = p.fpart + slot * (2 * 2 * T);
+    int32_t* iout = p.ipart + slot * (2 * 4 * T);
+    for (int c = tid; c < 2 * T; c += CONSUMERS) {
+      const int dir = c / T, r = c % T;
+      float f[2] = {0.f, 0.f};
+      int cnt[4] = {0, 0, 0, 0};
+      if (dir == 0) {
+        for (int w = 0; w < C::ROW_SLOTS; ++w) {
+          for (int q = 0; q < 2; ++q) f[q] += rs.rowf[w][q][r];
+          for (int q = 0; q < 4; ++q) cnt[q] += rs.rowi[w][q][r];
+        }
+      } else {
+        for (int w = 0; w < C::COL_SLOTS; ++w) {
+          for (int q = 0; q < 2; ++q) f[q] += rs.colf[w][q][r];
+          for (int q = 0; q < 4; ++q) cnt[q] += rs.coli[w][q][r];
+        }
       }
-    } else {
-      for (int w = 0; w < C::WARPS_M; ++w) {
-        for (int q = 0; q < 2; ++q) f[q] += es.colf[w][q][r];
-        for (int q = 0; q < 4; ++q) v[q] += es.coli[w][q][r];
-      }
+      for (int q = 0; q < 2; ++q) fout[(dir * 2 + q) * T + r] = f[q];
+      for (int q = 0; q < 4; ++q) iout[(dir * 4 + q) * T + r] = cnt[q];
     }
-    for (int q = 0; q < 2; ++q) fout[(dir * 2 + q) * TILE + r] = f[q];
-    for (int q = 0; q < 4; ++q) iout[(dir * 4 + q) * TILE + r] = v[q];
   }
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found at run time so that the
+// library needs no link against it
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// an int8 (m_pad, n_pad) row-major matrix in boxes of `box` rows x KC
+// samples, written to shared memory in the 128-byte swizzle
+bool encode(EncodeTiled fn, CUtensorMap* map, const void* base, int m_pad,
+            int n_pad, int box) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(n_pad),
+                              static_cast<cuuint64_t>(m_pad)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(n_pad)};
+  const cuuint32_t boxdim[2] = {KC, static_cast<cuuint32_t>(box)};
+  const cuuint32_t estrides[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base),
+            dims, strides, boxdim, estrides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <bool MISSING>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
+cudaError_t launch(Params& p, const void* g, const void* m, const void* h,
+                   cudaStream_t stream) {
   using C = Cfg<MISSING>;
-  static_assert(sizeof(EpiSmem<C::WARPS_M, C::WARPS_N>) <= C::SMEM_BYTES,
-                "epilogue buffers must fit in the operand stages");
+  constexpr int SMEM = ATOM + C::STAGES * (C::STAGE_BYTES + 16) +
+                       static_cast<int>(sizeof(EpiSmem<C::TILE>));
+  static_assert(sizeof(RedSmem<MISSING>) <= C::STAGE_BYTES,
+                "the partial sums must fit in the ring's first stage");
+  static_assert(MISSING || (C::STAGES - 1) * C::STAGE_BYTES >=
+                                   CONSUMERS * 64 * sizeof(int),
+                "the stashed Shg must fit in the ring's later stages");
+  static_assert(SMEM <= 232448, "shared memory of one CTA");
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const int m_pad = p.n_tiles * C::TILE;
+  if (!encode(fn, &p.tm_g, g, m_pad, p.n_pad, C::BOX) ||
+      !encode(fn, &p.tm_h, h, m_pad, p.n_pad, C::BOX) ||
+      !encode(fn, &p.tm_m, m, m_pad, p.n_pad, C::BOX))
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       ld_sym_kernel<MISSING>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      C::SMEM_BYTES);
+      SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid(p.band, p.n_tiles);
-  ld_sym_kernel<MISSING><<<grid, C::THREADS, C::SMEM_BYTES, stream>>>(p);
+  ld_sym_kernel<MISSING><<<grid, THREADS, SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int ld_sym_tile() { return TILE; }
+// rows of a CTA's pivot (and neighbour) tile on each branch
+extern "C" int ld_sym_tile(int has_missing) {
+  return has_missing ? Cfg<true>::TILE : Cfg<false>::TILE;
+}
 
 extern "C" int ld_sym_launch(const void* g, const void* m, const void* h,
                              const void* scal, const void* lo, const void* hi,
@@ -431,9 +719,6 @@ extern "C" int ld_sym_launch(const void* g, const void* m, const void* h,
                              int n_pad, float n, float n_padf, float adj_c,
                              float rsq_thr, int has_missing, void* stream) {
   Params p;
-  p.g = static_cast<const int8_t*>(g);
-  p.m = static_cast<const int8_t*>(has_missing ? m : g);   // clean: never read
-  p.h = static_cast<const int8_t*>(h);
   p.scal = static_cast<const float*>(scal);
   p.lo = static_cast<const int32_t*>(lo);
   p.hi = static_cast<const int32_t*>(hi);
@@ -451,6 +736,8 @@ extern "C" int ld_sym_launch(const void* g, const void* m, const void* h,
   p.adj_c = adj_c;
   p.rsq_thr = rsq_thr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = has_missing ? launch<true>(p, s) : launch<false>(p, s);
+  const void* mm = has_missing ? m : g;   // clean: never read
+  cudaError_t err = has_missing ? launch<true>(p, g, mm, h, s)
+                                : launch<false>(p, g, mm, h, s);
   return static_cast<int>(err);
 }

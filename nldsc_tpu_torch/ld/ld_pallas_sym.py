@@ -3,15 +3,19 @@
 The kernel (``csrc/ld_sym.cu``) is the Hopper port of
 ``nldsc_tpu/ld/ld_pallas_sym.py::_kernel``.  One CTA takes a pivot tile
 and one neighbour tile of its right half-band, accumulates the exact
-int8 products over all samples on the tensor cores and keeps the whole
-adjusted-r² epilogue in registers; it writes only per-tile row and
-mirrored-column partial sums, which :func:`_fold` reduces in a fixed
-order (bitwise-reproducible, no float atomics).
+int8 products over all samples with ``wgmma`` on operands that a TMA
+ring brings into shared memory, and keeps the whole adjusted-r²
+epilogue in registers; it writes only per-tile row and mirrored-column
+partial sums, which :func:`_fold` reduces in a fixed order
+(bitwise-reproducible, no float atomics).
 
-Geometry: pivot and neighbour tiles are ``TILE`` rows.  Each pivot
-tile's right extent comes from its rows' window ends (``hi``), not from
-a static band depth.  The rows must be padded to a multiple of ``TILE``
-and the samples to a multiple of 128, as the pipeline does.
+Geometry: pivot and neighbour tiles are :data:`TILE_CLEAN` rows on the
+clean (3-product) branch and :data:`TILE_MISSING` rows on the missing
+(8-product) branch.  Each pivot tile's right extent comes from its rows'
+window ends (``hi``), not from a static band depth.  Callers pad the
+rows to :data:`ROW_ALIGN`, a multiple of both tiles, before they know
+which branch runs, and the samples to a multiple of 128 (one ring
+stage), as the pipeline does.
 
 On a CPU tensor the wrapper runs the plain twin
 (:func:`nldsc_tpu_torch.ld.ld_int8.sym_scan_segment`); on a CUDA tensor
@@ -21,14 +25,18 @@ it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from .. import _build
 from . import ld_int8
 
-#: pivot and neighbour rows per CTA of the kernel
-TILE = 64
+#: pivot and neighbour rows per CTA of the kernel's clean and missing
+#: branches, and the row alignment that serves both
+TILE_CLEAN = 128
+TILE_MISSING = 64
+ROW_ALIGN = math.lcm(TILE_CLEAN, TILE_MISSING)
 
 #: kernel launches made by :func:`sym_credits` (CUDA tensors only), and
 #: how many of them ran the 8-product (missing-data) branch
@@ -45,11 +53,16 @@ def _library() -> ctypes.CDLL:
     if lib.ld_sym_launch.argtypes is None:
         lib.ld_sym_launch.argtypes = _ARGTYPES
         lib.ld_sym_launch.restype = ctypes.c_int
-        lib.ld_sym_tile.argtypes = []
+        lib.ld_sym_tile.argtypes = [ctypes.c_int]
         lib.ld_sym_tile.restype = ctypes.c_int
-    if lib.ld_sym_tile() != TILE:
-        raise RuntimeError("ld_sym.cu and ld_pallas_sym.TILE disagree")
+    if (lib.ld_sym_tile(0), lib.ld_sym_tile(1)) != (TILE_CLEAN, TILE_MISSING):
+        raise RuntimeError("ld_sym.cu and ld_pallas_sym's tiles disagree")
     return lib
+
+
+def tile(has_missing: bool) -> int:
+    """Pivot (and neighbour) rows per CTA of the branch that runs."""
+    return TILE_MISSING if has_missing else TILE_CLEAN
 
 
 def _check_inputs(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
@@ -75,19 +88,22 @@ def _check_inputs(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
     for name, (v, dtype) in vecs.items():
         if v.dtype != dtype or tuple(v.shape) != (m_pad,):
             raise ValueError(f"{name} must be {dtype} ({m_pad},)")
-    if m_pad % TILE or n_pad % 128:
-        raise ValueError(f"rows must be padded to a multiple of {TILE} and "
+    T = tile(has_missing)
+    if m_pad % T or n_pad % 128:
+        raise ValueError(f"rows must be padded to a multiple of {T} and "
                          f"samples to a multiple of 128, got {g.shape}")
-    if n_pad > (1 << 22) or m_pad // TILE > 65535:
+    if n_pad > (1 << 22) or m_pad // T > 65535:
         raise ValueError(f"shape {tuple(g.shape)} exceeds the kernel's range")
 
 
 def _fold(fpart, ipart):
     """Sum the per-tile partials in a fixed order.
 
-    Row credits of tile x are its own band slots; column credits come
-    from slot ``(x - k, k)`` of every pivot tile whose band reaches x.
-    Returns ``(l2, ws, poison, l2d, wsd, wse)``, full length.
+    ``fpart``/``ipart`` are ``(n_tiles, band, 2, 2 or 4, T)`` for the
+    branch's tile T.  Row credits of tile x are its own band slots;
+    column credits come from slot ``(x - k, k)`` of every pivot tile
+    whose band reaches x.  Returns ``(l2, ws, poison, l2d, wsd, wse)``,
+    full length.
     """
     nt, band = fpart.shape[:2]
     dev = fpart.device
@@ -98,7 +114,7 @@ def _fold(fpart, ipart):
     src = src.clamp(min=0)
     col_f = torch.where(ok, fpart[src, k, 1], 0.0).sum(dim=1)
     col_i = torch.where(ok, ipart[src, k, 1], 0).sum(dim=1, dtype=torch.int32)
-    tot_f = fpart[:, :, 0].sum(dim=1) + col_f                # (nt, 2, TILE)
+    tot_f = fpart[:, :, 0].sum(dim=1) + col_f                # (nt, 2, T)
     tot_i = ipart[:, :, 0].sum(dim=1, dtype=torch.int32) + col_i
     l2, l2d = (tot_f[:, q].reshape(-1) for q in range(2))
     ws, wsd, wse, poi = (tot_i[:, q].reshape(-1) for q in range(4))
@@ -111,11 +127,12 @@ def _launch(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
     _check_inputs(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
                   has_missing)
     m_pad, n_pad = g.shape
-    nt = m_pad // TILE
-    tile_hi, band = ld_int8.band_extent(hi, TILE)
-    fpart = torch.zeros((nt, band, 2, 2, TILE), dtype=torch.float32,
+    T = tile(has_missing)
+    nt = m_pad // T
+    tile_hi, band = ld_int8.band_extent(hi, T)
+    fpart = torch.zeros((nt, band, 2, 2, T), dtype=torch.float32,
                         device=g.device)
-    ipart = torch.zeros((nt, band, 2, 4, TILE), dtype=torch.int32,
+    ipart = torch.zeros((nt, band, 2, 4, T), dtype=torch.int32,
                         device=g.device)
     lib = _library()
     stream = torch.cuda.current_stream(g.device).cuda_stream
@@ -141,7 +158,7 @@ def sym_credits(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
     the symmetric pass over all pivot rows.
 
     CPU tensors run the twin with ``block_size`` pivot blocks; CUDA
-    tensors run the kernel, whose tile is :data:`TILE`.
+    tensors run the kernel, whose tile is :func:`tile` of the branch.
     """
     if g.device.type == "cpu":
         m_pad = g.shape[0]

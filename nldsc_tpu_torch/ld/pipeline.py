@@ -52,6 +52,16 @@ def _pad_to(x: np.ndarray, size: int, fill) -> np.ndarray:
     return np.concatenate([x, np.full(pad_shape, fill, dtype=x.dtype)], axis=0)
 
 
+def padded_shape(m: int, n: int, device_type: str,
+                 block_size: int) -> tuple[int, int]:
+    """``(m_pad, n_pad)`` of the engine's inputs: the rows padded to the
+    kernel's row alignment on CUDA (a multiple of both of its branch
+    tiles: the route is chosen after the padding) or to ``block_size``
+    for the CPU twin, the samples to a multiple of 128."""
+    B = ld_pallas_sym.ROW_ALIGN if device_type == "cuda" else block_size
+    return -(-m // B) * B, -(-n // 128) * 128
+
+
 def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     t0 = time.time()
     out = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
@@ -106,10 +116,7 @@ def compute_ld_scores(genotypes, positions: np.ndarray, config: LDConfig, *,
     dev = resolve_device(device)
     packed = isinstance(genotypes, PackedBed)
     m, n = genotypes.shape
-    # the CUDA kernel tiles by its own size; the CPU twin by block_size
-    B = ld_pallas_sym.TILE if dev.type == "cuda" else config.block_size
-    m_pad = -(-m // B) * B
-    n_pad = -(-n // 128) * 128
+    m_pad, n_pad = padded_shape(m, n, dev.type, config.block_size)
 
     lo, hi, pos_ok = windows.window_bounds(positions, config.ld_wind)
     # only real missing genotypes force the 8-product branch; without
@@ -181,7 +188,7 @@ def compute_ld_scores(genotypes, positions: np.ndarray, config: LDConfig, *,
     l2_c, ws_c, poi_c, l2d_c, wsd_c, wse_c = ld_pallas_sym.sym_credits(
         pre["g"], m_mat, pre["h"], scal, lo_dev, hi_dev, pre["usable"],
         dom_ok, pre["add_sd_zero"], config.rsq_thr, n_samples=n,
-        has_missing=route == "global", block_size=B)
+        has_missing=route == "global", block_size=config.block_size)
     if split is not None:
         m_c, rowmiss, plan = split
         l2_d, l2d_d, wse_d = ld_split.split_corrections(

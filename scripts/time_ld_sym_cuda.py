@@ -1,0 +1,152 @@
+#!/usr/bin/env python3
+"""Time kernel K1 (``nldsc_tpu_torch/csrc/ld_sym.cu``) on one GPU.
+
+    python3 scripts/time_ld_sym_cuda.py [--m 65536] [--n 16384]
+                                        [--half-window 1000] [--reps 5]
+
+Seeded random genotype codes are made on the card (MAF 0.05-0.5 per SNP;
+2% missing codes for the 8-product branch), preprocessed by the port and
+given windows of ``--half-window`` SNPs on each side.  Each branch is
+first held against the plain twin at a small shape (counters equal,
+l2/l2d within 1e-5, two runs bitwise equal), then timed with CUDA events
+at the full shape beside its bound (``chip_smoke.k1_work``).  Also
+printed: the ptxas report of the build, and ``torch._int_mm`` (cuBLASLt)
+on a dense 8,192 x 16,384 by 16,384 x 8,192 int8 product, a yardstick of
+the card's int8 rate that the port never calls.  The script times
+whatever ``ld_sym.cu`` its checkout holds: a variant of the kernel is
+timed by running it from a copy that holds the variant.  The last line
+is one JSON object of the numbers.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import torch  # noqa: E402
+
+import chip_smoke  # noqa: E402
+from nldsc_tpu_torch import _build  # noqa: E402
+from nldsc_tpu_torch.ld import ld_int8, ld_pallas_sym  # noqa: E402
+from nldsc_tpu_torch.ld.pipeline import padded_shape  # noqa: E402
+
+RSQ = 1e-3
+
+
+def engine_args(m: int, n: int, half_window: int, missing_rate: float,
+                seed: int, dev):
+    """Kernel arguments for random codes made on ``dev``."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    m_pad, n_pad = padded_shape(m, n, "cuda", ld_pallas_sym.ROW_ALIGN)
+    has_missing = missing_rate > 0
+    codes = torch.full((m_pad, n_pad), -1 if has_missing else 0,
+                       dtype=torch.int8, device=dev)
+    for r in range(0, m, 4096):
+        c = min(4096, m - r)
+        p = torch.rand((c, 1), generator=gen, device=dev) * 0.45 + 0.05
+        x = sum((torch.rand((c, n), generator=gen, device=dev) < p)
+                .to(torch.int8) for _ in range(2))
+        if has_missing:
+            x[torch.rand((c, n), generator=gen, device=dev)
+              < missing_rate] = -1
+        codes[r:r + c, :n] = x
+    ok = torch.zeros(m_pad, dtype=torch.bool, device=dev)
+    ok[:m] = True
+    pre = ld_int8.preprocess_int8(codes, ok, 0.01, n,
+                                  assume_no_missing=not has_missing)
+    rows = torch.arange(m_pad, device=dev, dtype=torch.int32)
+    lo = torch.where(rows < m, (rows - half_window).clamp(min=0),
+                     torch.full_like(rows, m_pad))
+    hi = torch.where(rows < m, (rows + half_window).clamp(max=m - 1),
+                     torch.full_like(rows, -1))
+    dom_ok = pre["usable"] & (pre["rstd"] > ld_int8.f32(1e-4))
+    return (pre["g"], pre["m"], pre["h"], ld_int8.stack_scalars(pre),
+            lo.contiguous(), hi.contiguous(), pre["usable"], dom_ok,
+            pre["add_sd_zero"])
+
+
+def k1(args, n: int, has_missing: bool):
+    return ld_pallas_sym.sym_credits(*args, RSQ, n_samples=n,
+                                     has_missing=has_missing,
+                                     block_size=ld_pallas_sym.ROW_ALIGN)
+
+
+def check_small(has_missing: bool, dev) -> float:
+    """The kernel against the twin at M = 1,000, N = 1,000, window 150."""
+    args = engine_args(1000, 1000, 150, 0.02 if has_missing else 0.0, 7,
+                       dev)
+    kern, again = k1(args, 1000, has_missing), k1(args, 1000, has_missing)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(kern, again)):
+        raise RuntimeError("two kernel runs differ")
+    twin = chip_smoke.twin_credits(args, 1000, has_missing,
+                                   ld_pallas_sym.ROW_ALIGN)
+    return chip_smoke.compare(chip_smoke.finalized(kern, args),
+                              chip_smoke.finalized(twin, args))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--m", type=int, default=65_536)
+    ap.add_argument("--n", type=int, default=16_384)
+    ap.add_argument("--half-window", type=int, default=1000)
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--seed", type=int, default=2026)
+    opt = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    _build.build("ld_sym")
+    ptxas = [ln.strip() for ln in _build.BUILD_INFO["ld_sym"]["log"]
+             .splitlines() if "registers" in ln or "spill" in ln
+             or "C75" in ln]
+    print("ptxas: " + " | ".join(ptxas), flush=True)
+    out = {"card": card, "m": opt.m, "n": opt.n,
+           "half_window": opt.half_window}
+    for has_missing in (False, True):
+        name = "8prod" if has_missing else "clean"
+        err = check_small(has_missing, dev)
+        args = engine_args(opt.m, opt.n, opt.half_window,
+                           0.02 if has_missing else 0.0, opt.seed, dev)
+        work = chip_smoke.k1_work(args[5], args[0].shape[1], has_missing,
+                                  ld_pallas_sym.tile(has_missing))
+        ms = chip_smoke.cuda_ms(torch, lambda: k1(args, opt.n, has_missing),
+                                opt.reps)
+        out[name] = {"ms": ms, "max_abs_err_small": err, **work,
+                     "tops": work["tile_ops"] / ms / 1e9,
+                     "window_tops": work["ops"] / ms / 1e9,
+                     "share_of_bound": work["bound_ms"] / ms}
+        print(f"{name}: {ms:.3f} ms; {work['ctas']} CTAs; "
+              f"{out[name]['tops']:.0f} TOPS in tiles, "
+              f"{out[name]['window_tops']:.0f} TOPS in window; bound "
+              f"{work['bound_ms']:.3f} ms ({work['bound_by']}), "
+              f"{100 * out[name]['share_of_bound']:.1f}% of it; small-shape "
+              f"max |diff| vs twin {err:.3g}; on {card}", flush=True)
+        del args
+        torch.cuda.empty_cache()
+    a = torch.randint(-2, 3, (8192, 16384), dtype=torch.int8, device=dev)
+    bt = torch.randint(-2, 3, (8192, 16384), dtype=torch.int8, device=dev)
+    ms = chip_smoke.cuda_ms(torch, lambda: torch._int_mm(a, bt.t()),
+                            opt.reps * 4)
+    out["int_mm"] = {"ms": ms, "tops": 2.0 * 8192 * 16384 * 8192 / ms / 1e9}
+    print(f"torch._int_mm 8192x16384 . 16384x8192: {ms:.3f} ms, "
+          f"{out['int_mm']['tops']:.0f} TOPS; on {card}", flush=True)
+    out["ptxas"] = ptxas
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

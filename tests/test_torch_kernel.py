@@ -15,6 +15,7 @@ import torch
 from nldsc_tpu_torch.ld import ld_int8, ld_pallas_sym, preprocess, windows
 from nldsc_tpu_torch.io.plink import encode_bed_bytes
 from nldsc_tpu_torch.ld.ld_xla import finalize_outputs
+from nldsc_tpu_torch.ld.pipeline import padded_shape
 
 from utils import adversarial_genotypes, make_positions, random_genotypes
 
@@ -23,12 +24,18 @@ RSQ = 1e-3
 # bitwise equal, only the row/column sums run in another order
 TOL = dict(rtol=1e-5, atol=1e-5, equal_nan=True)
 
-# (m, n, missing_rate, spacing bp, window bp)
+# (m, n, missing_rate, spacing bp, window bp); the clean branch's ring
+# holds 3 stages of 128 samples, the missing branch's 4
 CASES = {
     "clean": (300, 203, 0.0, 800, 6000.0),
     "missing": (300, 203, 0.05, 800, 6000.0),
     "edge_clamp": (150, 150, 0.02, 100, 1e6),
     "multi_tile_band": (700, 389, 0.02, 100, 20000.0),
+    "single_stage_clean": (200, 100, 0.0, 100, 5000.0),       # N_pad = 128
+    "single_stage_missing": (200, 100, 0.02, 100, 5000.0),
+    "ring_wrap_clean": (260, 600, 0.0, 100, 8000.0),   # 5 stages: 3 ∤ 5
+    "ring_wrap_missing": (260, 600, 0.02, 100, 8000.0),        # 4 ∤ 5
+    "clean_multi_tile_band": (700, 389, 0.0, 100, 30000.0),
 }
 
 
@@ -54,8 +61,7 @@ def engine_args(rng, case, device):
         g[20] = adv[5]
         g[30] = -1
     pos = make_positions(m, spacing=spacing, jitter_rng=rng, skip_idx=(3,))
-    T = ld_pallas_sym.TILE
-    m_pad, n_pad = -(-m // T) * T, -(-n // 128) * 128
+    m_pad, n_pad = padded_shape(m, n, "cuda", ld_pallas_sym.ROW_ALIGN)
     lo, hi, pos_ok = windows.window_bounds(pos, wind)
     raw = np.full((m_pad, (n + 3) // 4), 0x55 if rate else 0, np.uint8)
     raw[:m] = encode_bed_bytes(g)
@@ -86,7 +92,7 @@ def finalized(credits, args):
 @pytest.mark.parametrize("case", list(CASES))
 def test_kernel_matches_twin(rng, cuda, case):
     args, n, has_missing, m = engine_args(rng, case, cuda)
-    T = ld_pallas_sym.TILE
+    T = ld_pallas_sym.tile(has_missing)
     before = ld_pallas_sym.launches
     kern = ld_pallas_sym.sym_credits(*args, RSQ, n_samples=n,
                                      has_missing=has_missing, block_size=T)
@@ -115,3 +121,22 @@ def test_kernel_rejects_bad_inputs(rng, cuda):
     with pytest.raises(ValueError):
         ld_pallas_sym.sym_credits(*bad, RSQ, n_samples=n, has_missing=False,
                                   block_size=64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("has_missing", [False, True])
+def test_refused_launch_raises(rng, cuda, monkeypatch, has_missing):
+    # operands one byte off the 16-byte alignment TMA needs, past the
+    # wrapper's own checks: the launcher's tensor-map encoding refuses
+    # them, and its error code reaches the caller as an exception
+    args, n, _, _ = engine_args(rng, "missing", cuda)
+    m_pad, n_pad = args[0].shape
+    flat = torch.zeros(m_pad * n_pad + 16, dtype=torch.int8, device=cuda)
+    off = flat[1:1 + m_pad * n_pad].view(m_pad, n_pad)
+    assert off.data_ptr() % 16
+    monkeypatch.setattr(ld_pallas_sym, "_check_inputs", lambda *a: None)
+    before = ld_pallas_sym.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ld_pallas_sym.sym_credits(off, off, off, *args[3:], RSQ, n_samples=n,
+                                  has_missing=has_missing, block_size=64)
+    assert ld_pallas_sym.launches == before

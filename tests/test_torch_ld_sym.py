@@ -7,7 +7,8 @@ against the Pallas kernel in interpret mode, over the cases of
 ``tests/test_ld_pallas_sym.py``: counters exactly equal, l2/l2d within
 that file's 3e-6.  The CUDA kernel's tile geometry and fixed-order fold
 are rehearsed on the CPU by an emulation that fills the kernel's
-partial-sum layout; the kernel itself is held against the twin on the
+partial-sum layout with each branch's tile (128 rows clean, 64 with
+missing genotypes); the kernel itself is held against the twin on the
 card in ``tests/test_torch_kernel.py``.
 """
 
@@ -128,9 +129,10 @@ def test_twin_matches_jax_scan_and_pallas(rng, case):
 
 def _emulate_kernel(args, rsq, n_samples, has_missing):
     """The kernel's tiling on the CPU: per (pivot tile, band slot) row and
-    column partials in the kernel's output layout, then its fold."""
+    column partials in the kernel's output layout, with the tile of the
+    branch that runs, then its fold."""
     g, m, h, scal, lo, hi, usable, dom_ok, poison = args
-    T = ld_pallas_sym.TILE
+    T = ld_pallas_sym.tile(has_missing)
     nt = g.shape[0] // T
     tile_hi, band = ld_int8.band_extent(hi, T)
     fpart = torch.zeros((nt, band, 2, 2, T))
@@ -178,12 +180,33 @@ def _emulate_kernel(args, rsq, n_samples, has_missing):
     return ld_pallas_sym._fold(fpart, ipart)
 
 
-@pytest.mark.parametrize("case", ["clean", "missing", "edge_clamp"])
+# data case and window (bp) of the emulation: the clean cases run the
+# 128-row tile, the others the 64-row tile; a window narrower than the
+# SNP spacing gives a band of one tile, a window wider than the panel a
+# band that spans every row
+TILING_CASES = {
+    "clean": ("clean", 9000.0),
+    "missing": ("missing", 9000.0),
+    "edge_clamp": ("edge_clamp", 9000.0),
+    "clean_one_tile_band": ("clean", 100.0),
+    "missing_one_tile_band": ("missing", 100.0),
+    "clean_all_rows": ("clean", 1e9),
+    "missing_all_rows": ("missing", 1e9),
+}
+
+
+@pytest.mark.parametrize("case", list(TILING_CASES))
 def test_kernel_tiling_and_fold_match_twin(rng, case):
-    g, pos, _ = _case(rng, case)
-    T = ld_pallas_sym.TILE
-    e = _engine_inputs(g, pos, T, wind=9000.0)
+    data, wind = TILING_CASES[case]
+    g, pos, _ = _case(rng, data)
+    e = _engine_inputs(g, pos, ld_pallas_sym.ROW_ALIGN, wind=wind)
     inp, args = _port_args(e)
+    T = ld_pallas_sym.tile(e["has_missing"])
+    band = ld_int8.band_extent(inp["hi"], T)[1]
+    if case.endswith("one_tile_band"):
+        assert band == 1
+    if case.endswith("all_rows"):                 # every tile of real rows
+        assert band == -(-g.shape[0] // T) > 1
     emu = _emulate_kernel(args, ld_int8.f32(RSQ), e["n"], e["has_missing"])
     twin = ld_pallas_sym.sym_credits(*args, RSQ, n_samples=e["n"],
                                      has_missing=e["has_missing"],

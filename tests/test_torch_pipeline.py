@@ -16,7 +16,7 @@ from nldsc_tpu_torch import cli
 from nldsc_tpu_torch.config import LDConfig
 from nldsc_tpu_torch.core.errors import NLDSCParameterError
 from nldsc_tpu_torch.io.plink import PlinkDataset, write_plink
-from nldsc_tpu_torch.ld import pipeline
+from nldsc_tpu_torch.ld import ld_pallas_sym, pipeline
 
 from test_golden import GOLDEN, MAF, RSQ, STD, WIND, check
 from utils import adversarial_genotypes, make_positions, random_genotypes
@@ -51,6 +51,38 @@ def test_compute_ld_scores_matches_jax(rng, missing_rate, block_size):
     theirs = jax_pipeline.compute_ld_scores(
         g, pos, JaxLDConfig(**kw, split_missing=False))
     _assert_parity(ours, theirs)
+
+
+@pytest.mark.parametrize("m, n", [(1, 1), (64, 128), (127, 129),
+                                  (300, 203), (65_536, 16_384)])
+def test_kernel_path_pads_rows_to_row_alignment(m, n):
+    # on CUDA the rows are padded before the route (clean 128-row tiles,
+    # or missing 64-row tiles) is known: to a multiple of both tiles
+    align = ld_pallas_sym.ROW_ALIGN
+    assert align % ld_pallas_sym.TILE_CLEAN == 0
+    assert align % ld_pallas_sym.TILE_MISSING == 0
+    m_pad, n_pad = pipeline.padded_shape(m, n, "cuda", block_size=32)
+    assert m_pad % align == 0 and m <= m_pad < m + align
+    assert n_pad % 128 == 0 and n <= n_pad < n + 128
+    m_cpu, n_cpu = pipeline.padded_shape(m, n, "cpu", block_size=32)
+    assert m_cpu % 32 == 0 and m <= m_cpu < m + 32 and n_cpu == n_pad
+
+
+def test_compute_ld_scores_pads_through_helper(rng, monkeypatch):
+    calls = []
+
+    def spy(m, n, device_type, block_size):
+        calls.append((m, n, device_type, block_size))
+        return padded_shape(m, n, device_type, block_size)
+
+    padded_shape = pipeline.padded_shape
+    monkeypatch.setattr(pipeline, "padded_shape", spy)
+    g, pos = _data(rng, 0.0)
+    cfg = LDConfig(ld_wind=5000, maf_thr=0.01, std_thr=1e-4, rsq_thr=1e-3,
+                   block_size=32)
+    out = pipeline.compute_ld_scores(g, pos, cfg, device="cpu")
+    assert calls == [(g.shape[0], g.shape[1], "cpu", 32)]
+    assert out["l2"].shape == (g.shape[0],)
 
 
 def test_packed_input_matches_codes(rng, tmp_path):

@@ -53,8 +53,8 @@ def split_inputs(rng, m, n, seg_rows, device, wind=20000.0):
     """Port engine inputs, plan and compact indicators on ``device``."""
     g = row_level_missing(rng, m, n, 0.05, 0.2)
     pos = make_positions(m, spacing=100, jitter_rng=rng, skip_idx=(3,))
-    T = ld_pallas_sym.TILE
-    m_pad, n_pad = -(-m // T) * T, -(-n // 128) * 128
+    m_pad, n_pad = pipeline.padded_shape(m, n, "cuda",
+                                         ld_pallas_sym.ROW_ALIGN)
     gp = np.full((m_pad, n_pad), -1, np.int8)
     gp[:m, :n] = g
     lo, hi, pos_ok = windows.window_bounds(pos, wind)
