@@ -6,11 +6,13 @@
 Phases, one line each (or a few):
   1. the device, and ``nvidia-smi``'s name and power limit;
   2. build the hand-written CUDA kernels (``csrc/ld_sym.cu``, K1, and
-     ``csrc/split_corr.cu``, K2 and the δ epilogue), one nvcc each, all
-     started together, with ptxas's registers and spills of each kernel.
-     K1 runs its int8 products on ``wgmma`` fed by a TMA ring (one
-     producer thread, two consumer warpgroups): 128 x 128 tiles with 3
-     products on the clean branch, 64 x 64 with 8 on the missing one;
+     ``csrc/split_corr.cu``, K2 with its fused δ epilogue), one nvcc
+     each, all started together, with ptxas's registers and spills of
+     every instantiation (any spill fails the phase).  Both run their
+     int8 products on ``wgmma`` fed by a TMA ring (one producer thread,
+     two consumer warpgroups): K1 on 128 x 128 tiles with 3 products on
+     the clean branch, 64 x 64 with 8 on the missing one; K2 on 128 x
+     rows by 32 compact columns with 5 products, h derived in registers;
   3. K1 against its plain PyTorch twin at M=4096, N=3001, clean and
      2% missing (both branches), adversarial rows included: counters
      exactly equal, l2/l2d within rtol 1e-5 and atol 1e-5, two kernel
@@ -30,20 +32,24 @@ Phases, one line each (or a few):
      share of the bound, the twin's time, and ``torch._int_mm`` on a
      dense 8,192 x 16,384 by 16,384 x 8,192 int8 product as a yardstick
      of the card's int8 rate (the port never calls it);
-  8. the split-missing kernels at M=4096, N=3001, 5% of the rows
-     contaminated, adversarial rows included: K2's products exactly equal
-     to the integer products on the CPU, ``split_corrections`` on the card
-     against its torch twin (wse δ equal, l2/l2d δ within 1e-5, two runs
-     bitwise equal), and the split route against the global route through
-     ``compute_ld_scores`` (counters equal, l2/l2d within 1e-5); plus a
-     probe of ATen's division by a Python scalar against true division;
+  8. K2 at M=4096, N=3001, 5% of the rows contaminated, adversarial rows
+     included: its products mode (``segment_products``) exactly equal to
+     the integer products on the CPU, ``split_corrections`` (one products
+     launch for d, one fused launch) on the card against its torch twin
+     (wse δ equal, l2/l2d δ within 1e-5, two runs bitwise equal), and the
+     split route against the global route through ``compute_ld_scores``
+     (counters equal, l2/l2d within 1e-5); plus a probe of ATen's
+     division by a Python scalar against true division;
   9. the ``ld`` command on phase 5's genotypes with 2% missing genotypes
-     injected in 5% of the rows: the split route, with K1's clean branch,
-     K2 and the δ epilogue launched and K1's 8-product branch not;
- 10. at that shape: K2 and the δ epilogue against their plain versions,
-     the split route's LD pass against the global one (device times), and
-     both routes through ``compute_ld_scores`` (equal counters, peak
-     device memory);
+     injected in 5% of the rows: the split route, with K1's clean branch
+     and K2's fused mode launched and K1's 8-product branch not;
+ 10. at that shape: ``split_corrections`` against its twin, K2's products
+     mode against ``torch._int_mm`` (cuBLASLt) on the same products (a, b
+     with h read from memory, d; exactly equal), their times and K2's
+     bound (beside the bound of the two kernels it replaced), the split
+     route's LD pass against the global one (device times), and both
+     routes through ``compute_ld_scores`` (equal counters, peak device
+     memory);
  11. ``h2`` at full width: phase 5's .L2 copied to 18 chromosome files
      (1,179,648 regression SNPs, the size of the HapMap3 regression
      list), sumstats simulated from the LD-score model (N = 100,000,
@@ -57,9 +63,10 @@ Phases, one line each (or a few):
      the same tolerance, each recovering h² as phase 11 does.
 
 Then one JSON line of the kernels (each with its time, its plain
-version's, its bound from this run's shapes, and ``library_ms`` null:
-no single PyTorch call computes any of them), the ``nvidia-smi`` line,
-and last
+version's, its bound from this run's inputs, and ``library_ms``: null
+for K1, which no PyTorch call computes; for K2 ``torch._int_mm`` on its
+products, which the port never calls), the ``nvidia-smi`` line, and
+last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the
 script exits non-zero without the last line; so does a machine with no
 CUDA device, or a directory without the port beside this script.
@@ -70,6 +77,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -271,6 +279,214 @@ def k1_work(hi, n_pad: int, has_missing: bool, tile: int) -> dict:
             "ctas": ctas, "bytes": nbytes, **bound(ops, nbytes)}
 
 
+#: float32 operations of K2's fused epilogue per counted pair: pair_adj
+#: twice (exact and clean, 70 each), the exact call's 7 masked sums, the 3
+#: differences and the 6 row and column sums
+EPI_OPS_PER_PAIR = 2 * 70 + 7 + 3 + 6
+
+
+def k2_work(sargs) -> dict:
+    """K2's work in one split pass on ``split_args`` inputs, counted from
+    this run's data.  ``pairs``: the pairs the epilogue evaluates (in
+    window, both usable, left member below ``own_hi``), ``d_pairs`` those
+    of them whose x row is contaminated; ``int8_ops``: 2 per sample of
+    each product those pairs need (5 per pair: Sgg, Sgm, Sgh, Shg, Shm,
+    and 3 more, d, per contaminated pair); ``tile_ops``, those of the
+    tiles K2 computes: the fused launch's ``live`` tiles (those that reach
+    a window, picked as the kernel picks them) and every tile of the d
+    launch; ``f32_ops``; ``bytes``: g once per segment, the compact
+    operands g_c, m_c, h_c once, d once, the per-row and per-column inputs
+    once per segment and the partials written.  The bound adds the
+    operations' times (tensor cores, then the float32 rate) and takes the
+    larger of that and the bytes' time.  ``old_k2_ms`` and
+    ``old_delta_ms`` are the earlier yardstick: two kernels, the padded
+    products written to memory and read back, pair_adj counted twice per
+    padded pair."""
+    import torch
+    from nldsc_tpu_torch.ld import ld_split
+
+    g, m_c, _, _, lo, hi, usable, _, rowmiss, _, own_hi, plan = sargs
+    m_pad, n_pad = g.shape
+    S, P, p_x, n_segs = (plan["seg_rows"], plan["p_band"], plan["p_x"],
+                         plan["n_segs"])
+    TM, TC = ld_split.TILE_X, ld_split.TILE_C
+    n_ct, n_xt = -(-P // TC), -(-S // TM)
+    tab = ld_split.segment_table(plan, m_pad)
+    idx = torch.as_tensor(plan["miss_idx"], dtype=torch.long, device=g.device)
+    cl = torch.arange(n_ct, device=g.device) * TC
+    pairs = d_pairs = live = 0
+    for s in range(n_segs):
+        s0, seg_lo, c0, c_cnt = (int(tab[k][s]) for k in (
+            "s0", "seg_lo", "c0", "c_cnt"))
+        rows = torch.arange(max(s0, seg_lo), s0 + S, device=g.device)
+        cid = idx[c0:c0 + c_cnt][None, :]
+        r = rows[:, None]
+        mask = (usable[r] & usable[cid] & (cid >= lo[r]) & (cid <= hi[r])
+                & (cid != r) & (torch.minimum(r, cid) < own_hi))
+        pairs += int(mask.sum())
+        d_pairs += int((mask & rowmiss[r]).sum())
+        # the kernel's test: an owned row whose window reaches the span of
+        # the tile's real compact columns
+        c_end = (cl + TC).clamp(max=c_cnt)
+        first = idx[c0 + cl.clamp(max=max(c_cnt - 1, 0))]
+        last = idx[c0 + (c_end - 1).clamp(min=0)]
+        hit = torch.zeros((n_xt * TM, n_ct), dtype=torch.bool,
+                          device=g.device)
+        hit[rows - s0] = ((lo[r] <= last) & (hi[r] >= first)
+                          & (cl < c_end))
+        live += int(hit.view(n_xt, TM, n_ct).any(dim=1).sum())
+    int8_ops = 2.0 * n_pad * (5 * pairs + 3 * d_pairs)
+    tile_ops = 2.0 * n_pad * TM * TC * (
+        5 * live + 3 * n_segs * n_ct * -(-p_x // TM))
+    f32_ops = float(EPI_OPS_PER_PAIR * pairs)
+    nbytes = (n_segs * S * n_pad + 3 * m_c.shape[0] * n_pad
+              + 4 * n_segs * p_x * 3 * P
+              + n_segs * (S * (9 * 4 + 3 * 4 + 3) + P * (9 * 4 + 4 + 2))
+              + 12 * (n_ct * m_pad + n_segs * n_xt * P))
+    t_ops = int8_ops / INT8_OPS + f32_ops / FP32_OPS
+    t_bytes = nbytes / HBM_BYTES
+    outs = S * 3 * P + S * 2 * P + p_x * 3 * P
+    old_k2 = bound(n_segs * 2.0 * n_pad * outs,
+                   n_segs * ((S + 3 * P + p_x) * n_pad + 4 * outs))
+    old_delta = bound(n_segs * 2 * 70.0 * S * P,
+                      n_segs * (4 * outs + (9 * 4 + 3 * 4) * (S + P)),
+                      FP32_OPS)
+    return {"int8_ops": int8_ops, "tile_ops": tile_ops, "pairs": pairs,
+            "d_pairs": d_pairs, "live": live, "tiles": n_segs * n_xt * n_ct,
+            "f32_ops": f32_ops, "bytes": nbytes,
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "old_k2_ms": old_k2["bound_ms"],
+            "old_delta_ms": old_delta["bound_ms"]}
+
+
+def split_timing(torch, args, sargs, raw, n: int, reps: int = 5) -> dict:
+    """K2 on the split route's inputs: ``args`` from ``engine_inputs``
+    (lazy m), ``sargs`` from ``split_args``, the raw codes ``raw``.
+
+    ``split_corrections`` against its twin (wse δ equal, l2/l2d δ within
+    KERNEL_TOL) and both times, with K2's launches inside it by mode and
+    the largest other device ops (profiler); K2's products mode against
+    ``torch._int_mm`` (cuBLASLt) on the same products, a and b per
+    segment with h read from memory and d (exactly equal), and both
+    times; K1's clean pass and the global 8-product pass on the same rows;
+    and ``k2_work``.  Raises on any disagreement.
+    """
+    from nldsc_tpu_torch.ld import ld_int8, ld_pallas_sym, ld_split
+
+    plan = sargs[-1]
+    P = plan["p_band"]
+    out = {"work": k2_work(sargs)}
+    # the yardstick's operands, per segment: x, h(x) read from memory
+    # (preprocessing's h), cat3 and m_xc
+    lib_ops = [(x, sargs[2][s0:s0 + x.shape[0]], cat3, m_xc)
+               for _, s0, *_, x, cat3, m_xc
+               in ld_split.segments(*sargs[:3], plan)]
+
+    def library():
+        return [(torch._int_mm(x, cat3.t()),
+                 torch._int_mm(hx, cat3[:2 * P].t()),
+                 torch._int_mm(m_xc, cat3.t()))
+                for x, hx, cat3, m_xc in lib_ops]
+
+    def products():
+        return ld_split.segment_products(*sargs[:3], plan)
+
+    def corrections():
+        return ld_split.split_corrections(*sargs, n_samples=n)
+
+    def corrections_plain():
+        return ld_split.split_corrections_plain(*sargs, n_samples=n)
+
+    def k1(has_missing, m=args[1]):
+        return ld_pallas_sym.sym_credits(
+            args[0], m, *args[2:], RSQ, n_samples=n, has_missing=has_missing,
+            block_size=ld_pallas_sym.tile(has_missing))
+
+    ours = products()
+    for s_, refs in enumerate(library()):     # K2 = cuBLASLt, exactly
+        for o, r in zip((ours[0][s_], ours[1][s_], ours[2][s_]), refs):
+            if not torch.equal(o, r):
+                raise RuntimeError("K2's products mode differs from "
+                                   f"torch._int_mm in segment {s_}")
+    del ours
+    kern = corrections()
+    if not all(torch.equal(a, b) for a, b in zip(kern, corrections())):
+        raise RuntimeError("two split_corrections runs differ")
+    out["err"] = compare_deltas(kern, corrections_plain())
+    del kern
+    out["ms_products"] = cuda_ms(torch, products, reps)
+    out["ms_library"] = cuda_ms(torch, library, reps)
+    out["ms_corr"] = cuda_ms(torch, corrections, 2 * reps)
+    out["ms_corr_plain"] = cuda_ms(torch, corrections_plain, 2)
+    # K2's own device time inside split_corrections, by mode
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            corrections()
+        torch.cuda.synchronize()
+    k2_dev, other = {}, []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if "split_corr_kernel" in e.key:
+            mode = ("fused" if "<true" in e.key or "ILb1E" in e.key
+                    else "d products")
+            k2_dev[mode] = k2_dev.get(mode, 0.0) + e.self_device_time_total / 3e3
+        else:
+            other.append((e.self_device_time_total / 3e3, e.count // 3,
+                          e.key[:60]))
+    other.sort(reverse=True)
+    out.update(k2_dev=k2_dev, other=other,
+               ms_k2=sum(k2_dev.values()) if k2_dev else None)
+    out["ms_k1_clean"] = cuda_ms(torch, lambda: k1(False), reps)
+    del lib_ops
+    m_full = ld_int8.materialize_missing(raw)
+    out["ms_k1_miss"] = cuda_ms(torch, lambda: k1(True, m_full), reps)
+    return out
+
+
+def split_report(t: dict, plan: dict, shape: str, card: str) -> list:
+    """``split_timing``'s numbers as (tag, line) pairs."""
+    w, ms_corr, ms_k2 = t["work"], t["ms_corr"], t["ms_k2"]
+    other = t["other"]
+    k2_text = (", ".join(f"{k} {v:.3f} ms" for k, v in t["k2_dev"].items())
+               if t["k2_dev"] else "not measured (no device time traced)")
+    return [
+        ("10 trace", f"split_corrections, per call: K2 {ms_k2 or 0.0:.3f} "
+         f"ms, {sum(c for _, c, _ in other)} other device ops "
+         f"{sum(x for x, _, _ in other):.3f} ms, of {ms_corr:.3f} ms "
+         "between CUDA events; largest others: "
+         + "; ".join(f"{k} x{c} {x:.3f} ms" for x, c, k in other[:6])),
+        ("10 timing", f"{shape}, {plan['n_miss']} contaminated rows, "
+         f"P={plan['p_band']}, p_x={plan['p_x']}, {plan['n_segs']} segments "
+         f"of {plan['seg_rows']} rows: split_corrections {ms_corr:.3f} ms "
+         f"(K2's launches in it: {k2_text}) vs twin "
+         f"{t['ms_corr_plain']:.3f} ms (wse equal, max |l2,l2d| diff "
+         f"{t['err']:.3g}, runs bitwise equal); K2 products mode (a, b, d "
+         f"of every segment, 2 launches) {t['ms_products']:.3f} ms vs "
+         f"torch._int_mm on the same products {t['ms_library']:.3f} ms "
+         f"(exactly equal); LD pass: split {t['ms_k1_clean']:.3f} + "
+         f"{ms_corr:.3f} = {t['ms_k1_clean'] + ms_corr:.3f} ms vs global "
+         f"8-product {t['ms_k1_miss']:.3f} ms; on {card}"),
+        ("10 bounds", f"K2: {w['pairs']} counted pairs ({w['d_pairs']} with "
+         f"a contaminated x row) need {w['int8_ops'] / 1e12:.3f} T int8 ops "
+         f"and {w['pairs']} x {EPI_OPS_PER_PAIR} = "
+         f"{w['f32_ops'] / 1e9:.3f} G f32 ops, {w['bytes'] / 1e9:.3f} GB: "
+         f"bound {w['bound_ms']:.3f} ms ({w['bound_by']}), "
+         f"{100 * w['bound_ms'] / ms_corr:.1f}% of split_corrections; "
+         f"the fused launch computes {w['live']} of its {w['tiles']} tiles, "
+         f"{w['tile_ops'] / 1e12:.3f} T int8 ops with the d launch's; "
+         + (f"{100 * w['bound_ms'] / ms_k2:.1f}% of K2's launches, "
+            f"{w['tile_ops'] / ms_k2 / 1e9:.0f} int8 TOPS in their tiles "
+            f"({w['int8_ops'] / ms_k2 / 1e9:.0f} on the ops needed); "
+            if ms_k2 else "")
+         + "the earlier yardstick (products written and read back, two "
+         f"kernels): K2 {w['old_k2_ms']:.3f} + δ {w['old_delta_ms']:.3f} = "
+         f"{w['old_k2_ms'] + w['old_delta_ms']:.3f} ms")]
+
+
 def cuda_ms(torch, fn, reps: int) -> float:
     """Mean milliseconds of ``fn()`` over ``reps`` runs, CUDA events."""
     fn()                                            # warm up
@@ -291,14 +507,14 @@ def launch_counts() -> dict:
     return {"ld_sym": ld_pallas_sym.launches,
             "ld_sym_8prod": ld_pallas_sym.missing_launches,
             "split_corr": ld_split.corr_launches,
-            "split_delta": ld_split.delta_launches}
+            "split_fused": ld_split.fused_launches}
 
 
 def reset_counts() -> None:
     from nldsc_tpu_torch.ld import ld_pallas_sym, ld_split
 
     ld_pallas_sym.launches = ld_pallas_sym.missing_launches = 0
-    ld_split.corr_launches = ld_split.delta_launches = 0
+    ld_split.corr_launches = ld_split.fused_launches = 0
 
 
 def run_cli(prefix: str, out: str):
@@ -555,7 +771,7 @@ def main() -> int:
     from nldsc_tpu_torch.config import LDConfig
     from nldsc_tpu_torch.core.timing import STAGE_TIMES
     from nldsc_tpu_torch.io.plink import PlinkDataset, write_plink
-    from nldsc_tpu_torch.ld import ld_int8, ld_pallas_sym, ld_split
+    from nldsc_tpu_torch.ld import ld_pallas_sym, ld_split
     from nldsc_tpu_torch.ld.pipeline import compute_ld_scores
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -579,11 +795,17 @@ def main() -> int:
     _build.build("ld_sym", "split_corr")
     for name in ("ld_sym", "split_corr"):
         info = _build.BUILD_INFO.get(name, {})
-        ptxas = [ln.strip() for ln in info.get("log", "").splitlines()
-                 if "registers" in ln or "spill" in ln]
+        log = info.get("log", "")
+        ptxas = [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln or "entry" in ln
+                 or "wgmma" in ln.lower()]
         say("2 build", f"{name}.cu built and loaded (nvcc "
             f"{info.get('seconds', 0.0):.2f} s); ptxas: " + " | ".join(ptxas))
-    say("2 build", f"both built and loaded in {time.time() - t0:.2f} s")
+        spills = [int(b) for b in re.findall(r"(\d+) bytes spill", log)]
+        if not spills or any(spills):
+            raise RuntimeError(f"{name}.cu: ptxas reports spills {spills}")
+    say("2 build", f"both built and loaded in {time.time() - t0:.2f} s; "
+        "0 spill bytes in every instantiation")
 
     # 3. kernel against twin, clean and 2% missing, adversarial rows
     errs = []
@@ -746,20 +968,25 @@ def main() -> int:
         sargs = split_args(args, raw, n)
         plan = sargs[-1]
         P = plan["p_band"]
+        # K2's products mode: every segment's a, b and d in two launches
+        a_k, b_k, d_k = ld_split.segment_products(*sargs[:3], plan)
         k2_err = 0
-        for *_, x, cat3, m_xc in ld_split.segments(*sargs[:3], plan):
+        for s_, *_, x, cat3, m_xc in ld_split.segments(*sargs[:3], plan):
             xi, ci, mi = (t.cpu().double() for t in (x, cat3, m_xc))
             refs = (xi @ ci.T, 2 * xi.clamp(max=1) @ ci[:2 * P].T, mi @ ci.T)
-            outs = (*ld_split.corr_products(x, cat3, 2 * P),
-                    ld_split.corr_products(m_xc, cat3)[0])
-            for o, r in zip(outs, refs):
+            for o, r in zip((a_k[s_], b_k[s_], d_k[s_]), refs):
                 k2_err = max(k2_err, int((o.cpu().long() - r.long()).abs()
                                          .max()))
         if k2_err:
             raise RuntimeError(f"K2 products differ by up to {k2_err}")
+        del a_k, b_k, d_k
+        reset_counts()
         kern = ld_split.split_corrections(*sargs, n_samples=n)
+        c_corr = launch_counts()
         again = ld_split.split_corrections(*sargs, n_samples=n)
         torch.cuda.synchronize()
+        if (c_corr["split_corr"], c_corr["split_fused"]) != (2, 1):
+            raise RuntimeError(f"split_corrections launched {c_corr}")
         if not all(torch.equal(a, b) for a, b in zip(kern, again)):
             raise RuntimeError("two split_corrections runs differ")
         cpu_args = tuple(a.cpu() if isinstance(a, torch.Tensor) else a
@@ -768,9 +995,9 @@ def main() -> int:
             *cpu_args, n_samples=n))
         say("8 K2=plain", f"M=4096 N=3001, {plan['n_miss']} contaminated "
             f"rows, P={P}, p_x={plan['p_x']}, {plan['n_segs']} segment(s): "
-            "a, b, d exactly equal to the integer products; δ kernel vs "
-            f"twin: wse equal, max |l2,l2d| diff {err8:.3g}, runs bitwise "
-            "equal")
+            "products mode: a, b, d exactly equal to the integer products; "
+            "fused corrections (1 products + 1 fused launch) vs twin: wse "
+            f"equal, max |l2,l2d| diff {err8:.3g}, runs bitwise equal")
         cfg8 = LDConfig(ld_wind=100_000.0, maf_thr=0.01, std_thr=1e-4,
                         rsq_thr=RSQ)
         reset_counts()
@@ -781,7 +1008,7 @@ def main() -> int:
             g, pos, dataclasses.replace(cfg8, split_missing=False),
             device="cuda")
         c_glob = launch_counts()
-        if not (c_split["split_delta"] and not c_split["ld_sym_8prod"]
+        if not (c_split["split_fused"] and not c_split["ld_sym_8prod"]
                 and c_glob["ld_sym_8prod"] and not c_glob["split_corr"]):
             raise RuntimeError(f"wrong routes: split {c_split}, "
                                f"global {c_glob}")
@@ -810,12 +1037,11 @@ def main() -> int:
         stages9 = dict(STAGE_TIMES)
         check_outputs(out9, M5)
         if (counts9["ld_sym"] - counts9["ld_sym_8prod"] < 1
-                or counts9["split_corr"] < 1 or counts9["split_delta"] < 1
+                or counts9["split_corr"] < 1 or counts9["split_fused"] < 1
                 or counts9["ld_sym_8prod"]):
             raise RuntimeError(f"the ld run did not take the split route: "
                                f"{counts9}")
-        launches.update(split_corr=counts9["split_corr"],
-                        split_delta=counts9["split_delta"])
+        launches["split_corr"] = counts9["split_corr"]
         say("9 ld split", f"M={M5} N={N5} -kb 100, 5% contaminated rows: "
             f"launches {counts9}; {wall9:.2f} s wall, {M5 / wall9:.0f} "
             f"SNPs/s; stages "
@@ -828,80 +1054,12 @@ def main() -> int:
         del g5
         sargs = split_args(args, raw, n)
         plan = sargs[-1]
-        P = plan["p_band"]
-        ops = [(x, cat3, m_xc) for *_, x, cat3, m_xc
-               in ld_split.segments(*sargs[:3], plan)]
-        # this run's work: K2's int32 products of each segment (int8
-        # operands read once, products written once); the δ epilogue
-        # reads those products and both sides' scalars, writes each
-        # side's three credits, and evaluates pair_adj twice (the exact
-        # and the clean value, 70 float32 operations each) per pair
-        k2_ops = k2_bytes = delta_ops = delta_bytes = 0.0
-        for x, cat3, m_xc in ops:
-            rx, rc, rm = x.shape[0], cat3.shape[0], m_xc.shape[0]
-            outs = rx * rc + rx * 2 * P + rm * rc
-            k2_ops += 2.0 * x.shape[1] * outs
-            k2_bytes += (rx + rc + rm) * x.shape[1] + 4 * outs
-            delta_ops += 2 * 70.0 * rx * P
-            delta_bytes += 4 * outs + (9 * 4 + 3 * 4) * (rx + P)
-        k2_bound = bound(k2_ops, k2_bytes)
-        delta_bound = bound(delta_ops, delta_bytes, FP32_OPS)
-
-        def k2():
-            for x, cat3, m_xc in ops:
-                ld_split.corr_products(x, cat3, 2 * P)
-                ld_split.corr_products(m_xc, cat3)
-
-        def k2_plain():
-            for x, cat3, m_xc in ops:
-                ld_split.corr_products_plain(x, cat3, 2 * P)
-                ld_split.corr_products_plain(m_xc, cat3, 0)
-
-        def corrections():
-            return ld_split.split_corrections(*sargs, n_samples=n)
-
-        def corrections_plain():
-            return ld_split.split_corrections_plain(*sargs, n_samples=n)
-
-        def k1(has_missing, m=args[1]):
-            return ld_pallas_sym.sym_credits(
-                args[0], m, *args[2:], RSQ, n_samples=n,
-                has_missing=has_missing,
-                block_size=ld_pallas_sym.tile(has_missing))
-
-        for x, cat3, m_xc in ops:               # K2 = plain, exactly
-            for o, r in zip((*ld_split.corr_products(x, cat3, 2 * P),
-                             ld_split.corr_products(m_xc, cat3)[0]),
-                            (*ld_split.corr_products_plain(x, cat3, 2 * P),
-                             ld_split.corr_products_plain(m_xc, cat3, 0)[0])):
-                k2_err = max(k2_err, int((o - r).abs().max()))
-        if k2_err:
-            raise RuntimeError(f"K2 products differ by up to {k2_err}")
-        err10 = compare_deltas(corrections(), corrections_plain())
-        ms_k2, ms_k2_plain = cuda_ms(torch, k2, 5), cuda_ms(torch, k2_plain, 2)
-        ms_corr = cuda_ms(torch, corrections, 5)
-        ms_corr_plain = cuda_ms(torch, corrections_plain, 2)
-        ms_k1_clean = cuda_ms(torch, lambda: k1(False), 5)
-        del ops
-        m_full = ld_int8.materialize_missing(raw)
-        ms_k1_miss = cuda_ms(torch, lambda: k1(True, m_full), 5)
-        say("10 timing", f"M={M5} N={N5} +-1000 SNPs, {plan['n_miss']} "
-            f"contaminated rows, P={P}, p_x={plan['p_x']}, "
-            f"{plan['n_segs']} segments of {plan['seg_rows']} rows: "
-            f"K2 {ms_k2:.3f} ms vs plain products {ms_k2_plain:.3f} ms "
-            "(equal); "
-            f"split_corrections (K2 + δ + folds) {ms_corr:.3f} ms vs twin "
-            f"{ms_corr_plain:.3f} ms (wse equal, max |l2,l2d| diff "
-            f"{err10:.3g}); LD pass: split {ms_k1_clean:.3f} + "
-            f"{ms_corr:.3f} = {ms_k1_clean + ms_corr:.3f} ms vs global "
-            f"8-product {ms_k1_miss:.3f} ms; on {card}")
-        say("10 bounds", f"K2 {k2_ops / 1e12:.3f} T int8 ops, "
-            f"{k2_bytes / 1e9:.3f} GB: bound {k2_bound['bound_ms']:.3f} ms "
-            f"({k2_bound['bound_by']}), {k2_ops / ms_k2 / 1e9:.0f} TOPS; δ "
-            f"epilogue {delta_ops / 1e9:.3f} G f32 ops, "
-            f"{delta_bytes / 1e9:.3f} GB: bound "
-            f"{delta_bound['bound_ms']:.3f} ms ({delta_bound['bound_by']})")
-        del args, sargs, raw, m_full
+        t10 = split_timing(torch, args, sargs, raw, n)
+        for tag, msg in split_report(t10, plan, f"M={M5} N={N5} +-1000 SNPs",
+                                     card):
+            say(tag, msg)
+        err10, work2 = t10["err"], t10["work"]
+        del args, sargs, raw
         torch.cuda.empty_cache()
 
         ds9 = PlinkDataset.parse(prefix9)
@@ -951,18 +1109,15 @@ def main() -> int:
         "name": "split_corr", "route": "cuda",
         "source": "nldsc_tpu_torch/csrc/split_corr.cu",
         "replaces": "scripts/pallas_corr_probe.py:54",
-        "launches": launches["split_corr"], "max_abs_err": float(k2_err),
-        "ms": ms_k2, "plain_ms": ms_k2_plain, **k2_bound,
-        "library_ms": None}, {
-        # the δ epilogue and its folds: split_corrections less its K2
-        # products, each side timed in this run
-        "name": "split_delta", "route": "cuda",
-        "source": "nldsc_tpu_torch/csrc/split_corr.cu",
-        "replaces": "scripts/pallas_corr_probe.py:54",
-        "launches": launches["split_delta"],
-        "max_abs_err": max(err8, err10),
-        "ms": ms_corr - ms_k2, "plain_ms": ms_corr_plain - ms_k2_plain,
-        **delta_bound, "library_ms": None}]}))
+        "launches": launches["split_corr"],
+        "max_abs_err": max(err8, err10, float(k2_err)),
+        "ms": t10["ms_corr"], "plain_ms": t10["ms_corr_plain"],
+        "bound_ms": work2["bound_ms"], "bound_by": work2["bound_by"],
+        "library_ms": t10["ms_library"], "ms_products": t10["ms_products"],
+        "ms_kernels": t10["ms_k2"],
+        "tops": (work2["tile_ops"] / t10["ms_k2"] / 1e9 if t10["ms_k2"]
+                 else None),
+        "bound_ms_old": work2["old_k2_ms"] + work2["old_delta_ms"]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -12,12 +12,17 @@ makes the missing cost proportional to the contaminated rows:
       contaminated member, x swept in row segments against the compact
       operand ``cat3 = [g_c; m_c; h_c]`` of the contaminated rows in reach.
 
-On a CUDA tensor the products run in kernel K2 (``csrc/split_corr.cu``,
-the Hopper port of ``scripts/pallas_corr_probe.py::kernel``) and the
-per-pair epilogue in that file's δ kernel, which shares K1's per-pair
-function (``csrc/pair_epilogue.cuh``) so the clean baseline cancels
-pass 1 bit for bit.  On a CPU tensor the whole computation is the plain
-torch twin :func:`split_corrections_plain`.
+On a CUDA tensor the corrections run in kernel K2 (``csrc/split_corr.cu``,
+the Hopper port of ``scripts/pallas_corr_probe.py::kernel``): one launch
+of its products mode computes the contaminated x rows' ``d = m_xc·cat3ᵀ``
+for every segment, and one launch of its fused mode computes the x rows'
+products on ``wgmma`` and turns them into δ-credits in registers, through
+K1's per-pair function (``csrc/pair_epilogue.cuh``) so the clean baseline
+cancels pass 1 bit for bit.  Neither ``cat3`` nor the (S, 3P) and (S, 2P)
+products are ever built: the kernel reads g and the compact rows
+``g_c``, ``m_c``, ``h_c`` through tensor maps at the coordinates of a
+per-segment table (:func:`segment_table`).  On a CPU tensor the whole
+computation is the plain torch twin :func:`split_corrections_plain`.
 """
 
 from __future__ import annotations
@@ -35,10 +40,15 @@ from .ld_xla import finalize_outputs
 #: the row count: ``min(SEG_ROWS_DEFAULT, m_pad)``)
 SEG_ROWS_DEFAULT = 4096
 
-#: launches of K2 (the product kernel) and of the δ epilogue kernel made
-#: by :func:`corr_products` and :func:`split_corrections` (CUDA only)
+#: launches of K2 in either mode, and how many of them ran the fused δ
+#: epilogue, made by :func:`corr_products`, :func:`segment_products` and
+#: :func:`split_corrections` (CUDA only)
 corr_launches = 0
-delta_launches = 0
+fused_launches = 0
+
+#: x rows and compact columns of one CTA of K2, checked against the library
+TILE_X = 128
+TILE_C = 32
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -82,6 +92,33 @@ def plan_split_v2(rowmiss: np.ndarray, lo: np.ndarray, hi: np.ndarray,
             "n_miss": len(miss), "n_segs": n_segs, "seg_rows": seg_rows}
 
 
+def segment_table(plan: dict, m_pad: int) -> dict:
+    """Per segment of ``plan``'s x rows, int32 numpy arrays of length
+    ``n_segs``: ``s0``, its first row (clamped: the last segment overlaps
+    the one before it); ``seg_lo``, the first row it owns (``s·S``);
+    ``c0``/``c_cnt``, its compact columns in reach; ``x0``/``x_cnt``, its
+    own contaminated rows in compact order; and ``drow`` (n_segs, S), the
+    row of ``m_c[x0:x0 + p_x]`` that holds each of its x rows, or −1.
+
+    Every real contaminated row lies in the owned rows of exactly one
+    segment, so one scatter fills ``drow``.
+    """
+    S, n_segs, n_miss = plan["seg_rows"], plan["n_segs"], plan["n_miss"]
+    if not 0 < S <= m_pad:
+        raise ValueError(f"segment rows {S} out of range for {m_pad} rows")
+    seg_lo = np.arange(n_segs, dtype=np.int64) * S
+    s0 = np.minimum(seg_lo, m_pad - S)
+    rows = np.asarray(plan["miss_idx"][:n_miss], dtype=np.int64)
+    owner = rows // S
+    drow = np.full((n_segs, S), -1, np.int32)
+    drow[owner, rows - s0[owner]] = np.arange(n_miss) - plan["xs"][owner]
+    return {"s0": s0.astype(np.int32), "seg_lo": seg_lo.astype(np.int32),
+            "c0": np.asarray(plan["cs"], np.int32),
+            "c_cnt": np.asarray(plan["c_cnt"], np.int32),
+            "x0": np.asarray(plan["xs"], np.int32),
+            "x_cnt": np.asarray(plan["x_cnt"], np.int32), "drow": drow}
+
+
 def compact_missing_rows(g_raw: torch.Tensor, miss_idx) -> torch.Tensor:
     """(mm_pad, N) int8 missing indicators of the contaminated rows only.
 
@@ -97,15 +134,49 @@ def compact_missing_rows(g_raw: torch.Tensor, miss_idx) -> torch.Tensor:
 
 def _library() -> ctypes.CDLL:
     lib = _build.load("split_corr")
-    if lib.split_corr_launch.argtypes is None:
-        lib.split_corr_launch.argtypes = [_P] * 4 + [_I] * 4 + [_P]
-        lib.split_corr_launch.restype = _I
-        lib.split_delta_launch.argtypes = ([_P] * 18 + [_I] * 6 + [_F] * 5
-                                           + [_P])
-        lib.split_delta_launch.restype = _I
-        lib.split_corr_tiles.argtypes = [ctypes.POINTER(_I)] * 4
+    if lib.split_corr_products_launch.argtypes is None:
+        lib.split_corr_products_launch.argtypes = (
+            [_P, _I] + [_P] * 3 + [_I] * 4 + [_P] + [_I] * 4
+            + [_P, _I, _P, _I, _P])
+        lib.split_corr_products_launch.restype = _I
+        lib.split_corr_fused_launch.argtypes = (
+            [_P, _I] + [_P] * 3 + [_I, _P] + [_I] * 4 + [_P, _I]
+            + [_P] * 15 + [_I] + [_F] * 5 + [_P])
+        lib.split_corr_fused_launch.restype = _I
+        lib.split_corr_tiles.argtypes = [ctypes.POINTER(_I)] * 2
         lib.split_corr_tiles.restype = _I
+    tm, tc = _I(), _I()
+    lib.split_corr_tiles(ctypes.byref(tm), ctypes.byref(tc))
+    if (tm.value, tc.value) != (TILE_X, TILE_C):
+        raise RuntimeError("split_corr.cu and ld_split's tiles disagree")
     return lib
+
+
+def _stream(t: torch.Tensor):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_launch(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"split_corr {what} launch failed: CUDA error "
+                           f"{err}")
+
+
+def _products(x, blocks, boffs, seg, n_segs: int, rows_seg: int, P: int,
+              out_a, ld_a: int, out_b=None, ld_b: int = 0) -> None:
+    """One launch of K2's products mode (see ``split_corr.cu``)."""
+    global corr_launches
+    if -(-rows_seg // TILE_X) > 65535 or n_segs > 65535:
+        raise ValueError(f"{rows_seg} rows in {n_segs} segments exceed the "
+                         "kernel's grid")
+    err = _library().split_corr_products_launch(
+        x.data_ptr(), x.shape[0], *(b.data_ptr() for b in blocks),
+        blocks[0].shape[0], *boffs,
+        None if seg is None else seg.data_ptr(), n_segs, rows_seg, P,
+        x.shape[1], out_a.data_ptr(), ld_a,
+        None if out_b is None else out_b.data_ptr(), ld_b, _stream(x))
+    _check_launch(err, "products")
+    corr_launches += 1
 
 
 def corr_products_plain(x: torch.Tensor, cat: torch.Tensor, p2: int):
@@ -135,14 +206,13 @@ def corr_products(x: torch.Tensor, cat: torch.Tensor, p2: int = 0):
     ``b = h(x)·cat[:p2]ᵀ`` with ``h(x) = 2·min(x, 1)`` (else ``b`` is None).
 
     ``x`` (rows_x, N_pad) and ``cat`` (rows_cat, N_pad) are int8 codes in
-    {0, 1, 2}.  On a CUDA tensor this launches kernel K2; on a CPU tensor
-    it runs the plain products.
+    {0, 1, 2}.  On a CUDA tensor this launches kernel K2's products mode
+    once; on a CPU tensor it runs the plain products.
     """
     if x.device.type == "cpu":
         return corr_products_plain(x, cat, p2)
     if x.device.type != "cuda":
         raise ValueError(f"no split-corrections kernel for device {x.device}")
-    global corr_launches
     n_pad = x.shape[1]
     _check_int8("x", x, n_pad)
     _check_int8("cat", cat, n_pad)
@@ -152,16 +222,14 @@ def corr_products(x: torch.Tensor, cat: torch.Tensor, p2: int = 0):
     if n_pad % 128 or not 0 <= p2 <= rows_cat or rows_x < 1 or rows_cat < 1:
         raise ValueError(f"bad shapes x {tuple(x.shape)}, cat "
                          f"{tuple(cat.shape)}, p2 {p2}")
+    # cat as three blocks of P rows, the kernel's stacked operand: block q
+    # starts at row q·P, and its columns past the end of cat are not kept
+    P = max(-(-rows_cat // 3), -(-p2 // 2))
     a = torch.empty((rows_x, rows_cat), dtype=torch.int32, device=x.device)
     b = (torch.empty((rows_x, p2), dtype=torch.int32, device=x.device)
          if p2 else None)
-    err = _library().split_corr_launch(
-        x.data_ptr(), cat.data_ptr(), a.data_ptr(),
-        b.data_ptr() if p2 else a.data_ptr(), rows_x, rows_cat, p2, n_pad,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"split_corr kernel launch failed: CUDA error {err}")
-    corr_launches += 1
+    _products(x, (cat, cat, cat), (0, P, 2 * P), None, 1, rows_x, P, a,
+              rows_cat, b, p2)
     return a, b
 
 
@@ -175,18 +243,19 @@ def segments(g, m_c, h, plan: dict):
     (``c0`` on, ``p_band`` of them, ``c_cnt`` real) and ``m_xc`` the
     compact indicators of the segment's own contaminated rows (``x0`` on,
     ``p_x`` of them, ``x_cnt`` real).  The row gathers are data movement.
+    These are the plain twin's operands; the kernel builds none of them.
     """
-    m_pad = g.shape[0]
     S, P, p_x = plan["seg_rows"], plan["p_band"], plan["p_x"]
+    tab = segment_table(plan, g.shape[0])
     idx = torch.as_tensor(plan["miss_idx"], dtype=torch.long, device=g.device)
     g_c, h_c = g.index_select(0, idx), h.index_select(0, idx)
     for s in range(plan["n_segs"]):
-        s0 = min(s * S, m_pad - S)
-        c0, x0 = int(plan["cs"][s]), int(plan["xs"][s])
+        s0, c0, c_cnt, x0, x_cnt = (int(tab[k][s]) for k in (
+            "s0", "c0", "c_cnt", "x0", "x_cnt"))
         crange = slice(c0, c0 + P)
         cat3 = torch.cat([g_c[crange], m_c[crange], h_c[crange]])
-        yield (s, s0, c0, int(plan["c_cnt"][s]), x0, int(plan["x_cnt"][s]),
-               g[s0:s0 + S], cat3, m_c[x0:x0 + p_x])
+        yield (s, s0, c0, c_cnt, x0, x_cnt, g[s0:s0 + S], cat3,
+               m_c[x0:x0 + p_x])
 
 
 def _compact(scal, usable, dom_ok, miss_idx):
@@ -313,13 +382,90 @@ def _scatter_columns(idx, full, compact):
                  for f, c in zip(full, compact))
 
 
+def _operands(g, m_c, h, plan: dict) -> dict:
+    """The device-side inputs of K2's launches: the compact blocks
+    ``(g_c, m_c, h_c)`` and, from one host-to-device copy of
+    :func:`segment_table` (a pageable copy waits for the stream), the
+    compact rows' global indices (``cidx``, and ``idx`` as int64) and the
+    table's rows as the kernel's (first x row, c0, c_cnt, seg_lo) fields,
+    with the segments' own x rows (``seg_x``) or their contaminated rows
+    in compact order (``seg_d``) as the first x row, and ``drow``."""
+    tab = segment_table(plan, g.shape[0])
+    mm_pad, n_segs, S = len(plan["miss_idx"]), plan["n_segs"], plan["seg_rows"]
+    fields = [np.stack([tab[first], tab["c0"], tab["c_cnt"], tab["seg_lo"]],
+                       axis=1).ravel() for first in ("s0", "x0")]
+    host = np.concatenate([np.asarray(plan["miss_idx"], np.int32), *fields,
+                           tab["drow"].ravel()])
+    cidx, seg_x, seg_d, drow = torch.from_numpy(host).to(g.device).split(
+        [mm_pad, 4 * n_segs, 4 * n_segs, n_segs * S])
+    idx = cidx.long()
+    return {"idx": idx, "cidx": cidx,
+            "seg_x": seg_x.view(n_segs, 4), "seg_d": seg_d.view(n_segs, 4),
+            "drow": drow.view(n_segs, S),
+            "blocks": (g.index_select(0, idx), m_c, h.index_select(0, idx))}
+
+
+def _d_products(m_c, ops: dict, plan: dict):
+    """d (n_segs, p_x, 3P): each segment's ``m_xc·cat3ᵀ``, one launch."""
+    P, p_x, n_segs = plan["p_band"], plan["p_x"], plan["n_segs"]
+    d = torch.empty((n_segs, p_x, 3 * P), dtype=torch.int32, device=m_c.device)
+    _products(m_c, ops["blocks"], (0, 0, 0), ops["seg_d"], n_segs, p_x, P, d,
+              3 * P)
+    return d
+
+
+def segment_products(g, m_c, h, plan: dict):
+    """K2's products mode over every segment of ``plan``, in two launches:
+
+    * ``a`` (n_segs, S, 3P) and ``b`` (n_segs, S, 2P): the products of
+      :func:`segments`' ``x`` with its ``cat3`` and ``cat3[:2P]`` (b with
+      ``h(x)``);
+    * ``d`` (n_segs, p_x, 3P): the products of its ``m_xc`` with ``cat3``.
+
+    CUDA tensors only.  The split route computes only ``d`` this way; its
+    ``a`` and ``b`` stay in the fused kernel's registers.
+    """
+    if g.device.type != "cuda":
+        raise ValueError(f"no split-corrections kernel for device {g.device}")
+    ops = _operands(g, m_c, h, plan)
+    S, P, n_segs = plan["seg_rows"], plan["p_band"], plan["n_segs"]
+    d = _d_products(m_c, ops, plan)
+    a = torch.empty((n_segs, S, 3 * P), dtype=torch.int32, device=g.device)
+    b = torch.empty((n_segs, S, 2 * P), dtype=torch.int32, device=g.device)
+    _products(g, ops["blocks"], (0, 0, 0), ops["seg_x"], n_segs, S, P, a,
+              3 * P, b, 2 * P)
+    return a, b, d
+
+
+def _fold(rpart_f, rpart_i, cpart_f, cpart_i, c0, mm_pad: int):
+    """The fused kernel's partials summed in a fixed order: row credits
+    over the compact-column tiles (each row is written by the one segment
+    that owns it), column credits over the x tiles, then each segment's at
+    its compact rows ``c0`` on by one scatter into a padded
+    ``[n_segs, mm_pad]`` tensor and a sum over segments.  No atomics."""
+    l2_f, l2d_f = rpart_f.sum(dim=0)
+    wse_f = rpart_i.sum(dim=0, dtype=torch.int32)
+    n_segs, _, _, P = cpart_f.shape
+    cols = c0.long()[:, None] + torch.arange(P, device=c0.device)
+    pad_f = torch.zeros((n_segs, 2, mm_pad), dtype=torch.float32,
+                        device=c0.device).scatter_(
+        2, cols[:, None].expand(n_segs, 2, P), cpart_f.sum(dim=1))
+    pad_i = torch.zeros((n_segs, mm_pad), dtype=torch.int32,
+                        device=c0.device).scatter_(
+        1, cols, cpart_i.sum(dim=1, dtype=torch.int32))
+    l2_c, l2d_c = pad_f.sum(dim=0)
+    return (l2_f, l2d_f, wse_f), (l2_c, l2d_c,
+                                  pad_i.sum(dim=0, dtype=torch.int32))
+
+
 def _kernel_corrections(g, m_c, h, scal, lo, hi, usable, dom_ok, rowmiss,
                         rsq_thr: float, own_hi: int, plan: dict, *,
                         n_samples: int):
-    global delta_launches
+    global corr_launches, fused_launches
     m_pad, n_pad = g.shape
     dev = g.device
-    S, P = plan["seg_rows"], plan["p_band"]
+    S, P, p_x, n_segs = (plan["seg_rows"], plan["p_band"], plan["p_x"],
+                         plan["n_segs"])
     for name, t in (("g", g), ("h", h), ("m_c", m_c)):
         _check_int8(name, t, n_pad)
     if scal.dtype != torch.float32 or tuple(scal.shape) != (
@@ -334,60 +480,37 @@ def _kernel_corrections(g, m_c, h, scal, lo, hi, usable, dom_ok, rowmiss,
             raise ValueError(f"{name} must be contiguous {dtype} ({m_pad},)")
     if m_c.shape[0] != len(plan["miss_idx"]) or S > m_pad:
         raise ValueError("m_c and the plan disagree with g")
+    if n_pad % 128 or -(-S // TILE_X) > 65535 or n_segs > 65535:
+        raise ValueError(f"shape {tuple(g.shape)} with {n_segs} segments of "
+                         f"{S} rows exceeds the kernel's range")
 
-    idx, scal_c, usable_c, dom_ok_c = _compact(scal, usable, dom_ok,
-                                               plan["miss_idx"])
-    cidx_all = idx.to(torch.int32)
-    # per segment, the row of the compact product d that holds each x row
-    # (or -1), from the host plan in one copy
-    drow = np.full((plan["n_segs"], S), -1, np.int32)
-    for s in range(plan["n_segs"]):
-        s0, x0, x_cnt = (min(s * S, m_pad - S), int(plan["xs"][s]),
-                         int(plan["x_cnt"][s]))
-        loc = plan["miss_idx"][x0:x0 + x_cnt] - s0
-        ok = (loc >= 0) & (loc < S)
-        drow[s, loc[ok]] = np.arange(x_cnt, dtype=np.int32)[ok]
-    drow_dev = torch.from_numpy(drow).to(dev)
-
-    lib = _library()
-    tm, tn, er, ec = (ctypes.c_int() for _ in range(4))
-    lib.split_corr_tiles(*(ctypes.byref(v) for v in (tm, tn, er, ec)))
-    n_ct, n_xt = -(-P // ec.value), -(-S // er.value)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    ops = _operands(g, m_c, h, plan)
+    idx = ops["idx"]
+    _, scal_c, usable_c, dom_ok_c = _compact(scal, usable, dom_ok, idx)
+    d = _d_products(m_c, ops, plan)
+    n_ct, n_xt = -(-P // TILE_C), -(-S // TILE_X)
+    f32, i32 = torch.float32, torch.int32
+    rpf = torch.empty((n_ct, 2, m_pad), dtype=f32, device=dev)
+    rpi = torch.empty((n_ct, m_pad), dtype=i32, device=dev)
+    cpf = torch.empty((n_segs, n_xt, 2, P), dtype=f32, device=dev)
+    cpi = torch.empty((n_segs, n_xt, P), dtype=i32, device=dev)
     n = float(n_samples)
-    consts = (n, float(n_pad), ld_int8.f32(float(n_pad) - n),
-              ld_int8.adj_constant(n_samples), ld_int8.f32(rsq_thr))
-
-    (l2_f, l2d_f, wse_f), (l2_cf, l2d_cf, wse_cf) = _zero_credits(
-        m_pad, idx.shape[0], dev)
-    for s, s0, c0, c_cnt, _, _, x, cat3, m_xc in segments(g, m_c, h, plan):
-        crange = slice(c0, c0 + P)
-        a, b = corr_products(x, cat3, 2 * P)
-        d, _ = corr_products(m_xc, cat3)
-        rpf = torch.empty((n_ct, 2, S), dtype=torch.float32, device=dev)
-        rpi = torch.empty((n_ct, S), dtype=torch.int32, device=dev)
-        cpf = torch.empty((n_xt, 2, P), dtype=torch.float32, device=dev)
-        cpi = torch.empty((n_xt, P), dtype=torch.int32, device=dev)
-        xs_ = slice(s0, s0 + S)
-        ptrs = [t.data_ptr() for t in (
-            a, b, d, drow_dev[s], scal[xs_], scal_c[crange], lo[xs_],
-            hi[xs_], usable[xs_], dom_ok[xs_], rowmiss[xs_],
-            cidx_all[crange], usable_c[crange], dom_ok_c[crange],
-            rpf, rpi, cpf, cpi)]
-        err = lib.split_delta_launch(*ptrs, S, P, c_cnt, s0, s * S,
-                                     int(own_hi), *consts, stream)
-        if err != 0:
-            raise RuntimeError(
-                f"split_delta kernel launch failed: CUDA error {err}")
-        delta_launches += 1
-        # fixed-order folds of the per-tile partials
-        l2_f[xs_] += rpf[:, 0].sum(dim=0)
-        l2d_f[xs_] += rpf[:, 1].sum(dim=0)
-        wse_f[xs_] += rpi.sum(dim=0, dtype=torch.int32)
-        l2_cf[crange] += cpf[:, 0].sum(dim=0)
-        l2d_cf[crange] += cpf[:, 1].sum(dim=0)
-        wse_cf[crange] += cpi.sum(dim=0, dtype=torch.int32)
-    return _scatter_columns(idx, (l2_f, l2d_f, wse_f), (l2_cf, l2d_cf, wse_cf))
+    ptrs = [t.data_ptr() for t in (
+        scal, lo, hi, usable, dom_ok, rowmiss, scal_c, ops["cidx"], usable_c,
+        dom_ok_c, rpf, rpi, cpf, cpi)]
+    g_c, _, h_c = ops["blocks"]
+    err = _library().split_corr_fused_launch(
+        g.data_ptr(), m_pad, g_c.data_ptr(), m_c.data_ptr(), h_c.data_ptr(),
+        m_c.shape[0], ops["seg_x"].data_ptr(), n_segs, S, P, n_pad,
+        d.data_ptr(), p_x, ops["drow"].data_ptr(), *ptrs, int(own_hi), n,
+        float(n_pad), ld_int8.f32(float(n_pad) - n),
+        ld_int8.adj_constant(n_samples), ld_int8.f32(rsq_thr), _stream(g))
+    _check_launch(err, "fused")
+    corr_launches += 1
+    fused_launches += 1
+    full, compact = _fold(rpf, rpi, cpf, cpi,
+                          ops["seg_x"][:, 1], m_c.shape[0])
+    return _scatter_columns(idx, full, compact)
 
 
 def split_corrections(g, m_c, h, scal, lo, hi, usable, dom_ok, rowmiss,
@@ -401,7 +524,7 @@ def split_corrections(g, m_c, h, scal, lo, hi, usable, dom_ok, rowmiss,
     (:func:`compact_missing_rows`); ``plan`` comes from
     :func:`plan_split_v2`.  ``own_hi`` credits a pair only when its left
     member is below it (in core: ``m_pad``).  CPU tensors run the plain
-    twin; CUDA tensors run K2 and the δ epilogue kernel, or raise.
+    twin; CUDA tensors run K2 (two launches), or raise.
     """
     if annot is not None:
         raise NotImplementedError(

@@ -1,0 +1,118 @@
+#!/usr/bin/env python3
+"""Time kernel K2 (``nldsc_tpu_torch/csrc/split_corr.cu``) on one GPU.
+
+    python3 scripts/time_split_corr_cuda.py [--m 65536] [--n 16384]
+        [--half-window 1000] [--row-frac 0.05] [--entry-rate 0.02]
+        [--reps 5]
+
+Seeded random genotype codes are made on the card (MAF 0.05-0.5 per SNP),
+then ``--entry-rate`` of the codes of ``--row-frac`` of the rows are set
+missing: the sparse-missing panel that the ``ld`` pipeline sends down the
+split route.  The rows are preprocessed by the port, given windows of
+``--half-window`` SNPs on each side and planned as the pipeline plans them.
+``chip_smoke.split_timing`` then holds ``split_corrections`` against its
+twin and K2's products mode against ``torch._int_mm`` (cuBLASLt) on the
+same products, and times both beside K1's clean pass and the global
+8-product pass on the same rows, with K2's bound (``chip_smoke.k2_work``).
+Also printed: the ptxas report of the build.  The script times whatever
+``split_corr.cu`` its checkout holds: a variant of the kernel is timed by
+running it from a copy that holds the variant.  The last line is one JSON
+object of the numbers.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import torch  # noqa: E402
+
+import chip_smoke  # noqa: E402
+from nldsc_tpu_torch import _build  # noqa: E402
+from nldsc_tpu_torch.ld import ld_int8, ld_pallas_sym  # noqa: E402
+from nldsc_tpu_torch.ld.pipeline import padded_shape  # noqa: E402
+
+
+def engine_args(m: int, n: int, half_window: int, row_frac: float,
+                entry_rate: float, seed: int, dev):
+    """K1's arguments (lazy m) for random codes made on ``dev`` with
+    missing codes in ``row_frac`` of the rows, and the raw codes."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    m_pad, n_pad = padded_shape(m, n, "cuda", ld_pallas_sym.ROW_ALIGN)
+    codes = torch.full((m_pad, n_pad), -1, dtype=torch.int8, device=dev)
+    for r in range(0, m, 4096):
+        c = min(4096, m - r)
+        p = torch.rand((c, 1), generator=gen, device=dev) * 0.45 + 0.05
+        codes[r:r + c, :n] = sum(
+            (torch.rand((c, n), generator=gen, device=dev) < p)
+            .to(torch.int8) for _ in range(2))
+    rows = torch.randperm(m, generator=gen, device=dev)[:int(m * row_frac)]
+    sub = codes[rows, :n]
+    sub[torch.rand(sub.shape, generator=gen, device=dev) < entry_rate] = -1
+    codes[rows, :n] = sub
+    ok = torch.zeros(m_pad, dtype=torch.bool, device=dev)
+    ok[:m] = True
+    pre = ld_int8.preprocess_int8(codes, ok, 0.01, n, materialize_m=False)
+    idx = torch.arange(m_pad, device=dev, dtype=torch.int32)
+    lo = torch.where(idx < m, (idx - half_window).clamp(min=0),
+                     torch.full_like(idx, m_pad))
+    hi = torch.where(idx < m, (idx + half_window).clamp(max=m - 1),
+                     torch.full_like(idx, -1))
+    dom_ok = pre["usable"] & (pre["rstd"] > ld_int8.f32(1e-4))
+    return (pre["g"], pre["m"], pre["h"], ld_int8.stack_scalars(pre),
+            lo.contiguous(), hi.contiguous(), pre["usable"], dom_ok,
+            pre["add_sd_zero"]), codes
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--m", type=int, default=65_536)
+    ap.add_argument("--n", type=int, default=16_384)
+    ap.add_argument("--half-window", type=int, default=1000)
+    ap.add_argument("--row-frac", type=float, default=0.05)
+    ap.add_argument("--entry-rate", type=float, default=0.02)
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--seed", type=int, default=2026)
+    opt = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    _build.build("ld_sym", "split_corr")
+    ptxas = [ln.strip() for ln in _build.BUILD_INFO["split_corr"]["log"]
+             .splitlines() if "registers" in ln or "spill" in ln
+             or "C75" in ln]
+    print("ptxas: " + " | ".join(ptxas), flush=True)
+    args, codes = engine_args(opt.m, opt.n, opt.half_window, opt.row_frac,
+                              opt.entry_rate, opt.seed, dev)
+    sargs = chip_smoke.split_args(args, codes, opt.n)
+    plan = sargs[-1]
+    t = chip_smoke.split_timing(torch, args, sargs, codes, opt.n, opt.reps)
+    shape = f"M={opt.m} N={opt.n} +-{opt.half_window} SNPs"
+    for tag, msg in chip_smoke.split_report(t, plan, shape, card):
+        print(f"[{tag}] {msg}", flush=True)
+    out = {"card": card, "m": opt.m, "n": opt.n,
+           "half_window": opt.half_window, "row_frac": opt.row_frac,
+           "entry_rate": opt.entry_rate, "n_miss": plan["n_miss"],
+           "p_band": plan["p_band"], "p_x": plan["p_x"],
+           "n_segs": plan["n_segs"], "ptxas": ptxas,
+           **{k: v for k, v in t.items() if k != "other"},
+           "largest_other_ops": t["other"][:6]}
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -158,14 +158,14 @@ def test_split_corrections_twin_matches_jax(rng, case):
 
     inp = from_jax_inputs({k: np.asarray(v) for k, v in pre.items()},
                           e["lo"], e["hi"], e["dom_ok"])
-    before = (ld_split.corr_launches, ld_split.delta_launches)
+    before = (ld_split.corr_launches, ld_split.fused_launches)
     ours = ld_split.split_corrections(
         inp["g"], ld_split.compact_missing_rows(torch.from_numpy(e["gp"]),
                                                 plan["miss_idx"]),
         inp["h"], inp["scal"], inp["lo"], inp["hi"], inp["usable"],
         inp["dom_ok"], torch.from_numpy(e["rowmiss"]), RSQ, m_pad, plan,
         n_samples=e["n"])
-    assert (ld_split.corr_launches, ld_split.delta_launches) == before
+    assert (ld_split.corr_launches, ld_split.fused_launches) == before
     np.testing.assert_array_equal(ours[2].numpy(), np.asarray(theirs[2]))
     for a, b in zip(ours[:2], theirs[:2]):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **DELTA_TOL)

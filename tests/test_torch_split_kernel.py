@@ -1,5 +1,5 @@
-"""The split-missing kernels (K2 and the δ epilogue) against their plain
-PyTorch versions.
+"""Kernel K2 (the split-missing corrections, products and fused δ
+epilogue) against its plain PyTorch versions.
 
 Needs a CUDA device (``gpu`` marker): every test skips without one.  The
 file imports no JAX, so on a machine with a card and no JAX it runs as
@@ -20,8 +20,8 @@ from nldsc_tpu_torch.ld import windows
 from utils import adversarial_genotypes, make_positions, random_genotypes
 
 RSQ = 1e-3
-# the δ kernel and the twin round every pair's float32 operations alike;
-# only the order of the row and column sums differs
+# the fused kernel and the twin round every pair's float32 operations
+# alike; only the order of the row and column sums differs
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
@@ -80,7 +80,8 @@ def split_inputs(rng, m, n, seg_rows, device, wind=20000.0):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("rows_x, rows_cat, p2, n_pad", [
-    (8, 24, 0, 128), (200, 72, 48, 384), (64, 64, 64, 256)])
+    (8, 24, 0, 128), (200, 72, 48, 384), (64, 64, 64, 256),
+    (300, 130, 100, 256)])
 def test_corr_products_are_exact(rng, cuda, rows_x, rows_cat, p2, n_pad):
     x = rng.integers(0, 3, (rows_x, n_pad), dtype=np.int8)
     cat = rng.integers(0, 3, (rows_cat, n_pad), dtype=np.int8)
@@ -99,16 +100,22 @@ def test_corr_products_are_exact(rng, cuda, rows_x, rows_cat, p2, n_pad):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m, n, seg_rows", [(700, 389, 256), (300, 203, 4096)])
-def test_split_corrections_kernel_matches_twin(rng, cuda, m, n, seg_rows):
-    args, n, _, _ = split_inputs(rng, m, n, seg_rows, cuda)
-    before = (ld_split.corr_launches, ld_split.delta_launches)
+@pytest.mark.parametrize("m, n, seg_rows, wind", [
+    (700, 389, 256, 20000.0),     # 3 segments, the last one clamped
+    (300, 203, 4096, 20000.0),    # 1 segment, P below one column tile
+    (300, 101, 64, 20000.0),      # segments shorter than a tile, N_pad 128
+    (1500, 389, 512, 60000.0),    # P = 80: three column tiles, ragged
+    (3000, 203, 2048, 5000.0),    # narrow windows: most tiles skip
+])
+def test_split_corrections_kernel_matches_twin(rng, cuda, m, n, seg_rows,
+                                               wind):
+    args, n, _, _ = split_inputs(rng, m, n, seg_rows, cuda, wind)
+    before = (ld_split.corr_launches, ld_split.fused_launches)
     kern = ld_split.split_corrections(*args, n_samples=n)
     again = ld_split.split_corrections(*args, n_samples=n)
     torch.cuda.synchronize()
-    n_segs = args[-1]["n_segs"]
-    assert ld_split.corr_launches == before[0] + 4 * n_segs
-    assert ld_split.delta_launches == before[1] + 2 * n_segs
+    assert ld_split.corr_launches == before[0] + 4       # d, fused; twice
+    assert ld_split.fused_launches == before[1] + 2
     for a, b in zip(kern, again):
         assert torch.equal(a, b)                   # bitwise run to run
     cpu = tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)
@@ -120,12 +127,32 @@ def test_split_corrections_kernel_matches_twin(rng, cuda, m, n, seg_rows):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("m, n, seg_rows, wind", [
+    (300, 101, 64, 20000.0), (1500, 389, 512, 60000.0)])
+def test_segment_products_are_exact(rng, cuda, m, n, seg_rows, wind):
+    args, n, _, _ = split_inputs(rng, m, n, seg_rows, cuda, wind)
+    g, m_c, h, plan = args[0], args[1], args[2], args[-1]
+    P = plan["p_band"]
+    before = ld_split.corr_launches
+    a, b, d = ld_split.segment_products(g, m_c, h, plan)
+    torch.cuda.synchronize()
+    assert ld_split.corr_launches == before + 2
+    for s, *_, x, cat3, m_xc in ld_split.segments(g.cpu(), m_c.cpu(),
+                                                   h.cpu(), plan):
+        xi, ci, mi = (t.numpy().astype(np.int64) for t in (x, cat3, m_xc))
+        np.testing.assert_array_equal(a[s].cpu().numpy(), xi @ ci.T)
+        np.testing.assert_array_equal(b[s].cpu().numpy(),
+                                      2 * np.minimum(xi, 1) @ ci[:2 * P].T)
+        np.testing.assert_array_equal(d[s].cpu().numpy(), mi @ ci.T)
+
+
+@pytest.mark.gpu
 def test_split_route_equals_global_on_card(rng, cuda):
     _, _, g, pos = split_inputs(rng, 700, 389, 4096, "cpu")
     kw = dict(ld_wind=20000, maf_thr=0.01, std_thr=1e-4, rsq_thr=RSQ)
-    before = (ld_pallas_sym.launches, ld_split.delta_launches)
+    before = (ld_pallas_sym.launches, ld_split.fused_launches)
     split = pipeline.compute_ld_scores(g, pos, LDConfig(**kw), device=cuda)
-    assert ld_split.delta_launches > before[1]
+    assert ld_split.fused_launches == before[1] + 1
     glob = pipeline.compute_ld_scores(
         g, pos, LDConfig(**kw, split_missing=False), device=cuda)
     assert ld_pallas_sym.launches == before[0] + 2
@@ -144,3 +171,30 @@ def test_corr_products_rejects_bad_inputs(cuda):
     x = torch.zeros((8, 256), dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError):
         ld_split.corr_products(x, x.float())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", ["corr_products", "split_corrections"])
+def test_refused_tensor_map_raises(rng, cuda, monkeypatch, entry):
+    # int8 operands one byte off the 16-byte alignment TMA needs, past the
+    # wrapper's own checks: the launcher's tensor-map encoding refuses
+    # them (the x rows, or the compact indicators that the first launch
+    # reads), and no launch is counted
+    args, n, _, _ = split_inputs(rng, 300, 203, 4096, cuda)
+
+    def misaligned(t):
+        flat = torch.zeros(t.numel() + 16, dtype=torch.int8, device=cuda)
+        off = flat[1:1 + t.numel()].view(t.shape)
+        off.copy_(t)
+        assert off.data_ptr() % 16
+        return off
+
+    monkeypatch.setattr(ld_split, "_check_int8", lambda *a: None)
+    before = (ld_split.corr_launches, ld_split.fused_launches)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        if entry == "corr_products":
+            ld_split.corr_products(misaligned(args[0]), args[0][:24], 16)
+        else:
+            ld_split.split_corrections(args[0], misaligned(args[1]),
+                                       *args[2:], n_samples=n)
+    assert (ld_split.corr_launches, ld_split.fused_launches) == before
