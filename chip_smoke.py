@@ -60,10 +60,29 @@ Phases, one line each (or a few):
      regression's own wall and CUDA-event times;
  12. ``--strategy one-stg`` and ``--partitioned`` (two annotations
      splitting L2, phase 11's files as ``--w-ld``) on cuda and cpu, at
-     the same tolerance, each recovering h² as phase 11 does.
+     the same tolerance, each recovering h² as phase 11 does;
+ 13. phase 5's bfile through ``ld --streaming --chunk-rows 8192`` (8
+     chunks, halo 1,024 rows): K1's clean branch launched once per chunk
+     and nothing else; the same scores through the API against
+     ``compute_ld_scores`` in core (counters equal, l2/l2d within
+     KERNEL_TOL); wall, ``STAGE_TIMES`` and peak device memory beside the
+     in-core run's;
+ 14. the same on phase 9's bfile: K1's clean branch per chunk, K2's two
+     launches per chunk whose band holds a contaminated row, no 8-product
+     launch; against the in-core split route;
+ 15. phase 14 with ``--resume``: its .L2 byte-identical to phase 14's;
+     shards from chunk 3 on deleted, the resumed .L2 byte-identical, the
+     log reporting 3 resumed chunks and the cached rowmiss read; after a
+     touch of the .bed the resume refuses;
+ 16. phase 5's packed rows tiled 4x (M = 262,144) streamed at phase 5's
+     ``-rsq``: peak device memory within 10% of phase 13's, and on the
+     rows more than a window from a seam counters equal to phase 13's and
+     L2/L2D within KERNEL_TOL; then ``ld-genome`` on phases 5 and 9 in
+     core, its .L2/.M/.M_5_50 byte-identical to theirs.
 
 Then one JSON line of the kernels (each with its time, its plain
-version's, its bound from this run's inputs, and ``library_ms``: null
+version's, its bound from this run's inputs, its launches on the main
+path of phases 5 and 9 and in phases 13-14, and ``library_ms``: null
 for K1, which no PyTorch call computes; for K2 ``torch._int_mm`` on its
 products, which the port never calls), the ``nvidia-smi`` line, and
 last
@@ -76,6 +95,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import os
 import re
 import subprocess
@@ -756,6 +776,246 @@ def h2_phases(torch, tmp: str, l2_path: str, rng, card: str) -> None:
             f"{est['hsq']:.4f} +- {est['hsq.std']:.4f} (true 0.3); on {card}")
 
 
+class LogLines(logging.Handler):
+    """The port's log messages of one run, kept in memory."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines: list[str] = []
+
+    def emit(self, record) -> None:
+        self.lines.append(record.getMessage())
+
+    def has(self, text: str) -> bool:
+        return any(text in line for line in self.lines)
+
+
+def run_ld(torch, argv: list) -> dict:
+    """One ``ld`` run through the port's CLI: the kernel launches counted
+    in it, its wall seconds, ``STAGE_TIMES``, its peak device memory above
+    what was allocated before it (GiB), and its log lines."""
+    from nldsc_tpu_torch.cli import main as cli_main
+    from nldsc_tpu_torch.core.logging import log
+    from nldsc_tpu_torch.core.timing import STAGE_TIMES
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    lines = LogLines()
+    log.addHandler(lines)
+    reset_counts()
+    t0 = time.time()
+    try:
+        cli_main(["ld", *argv])
+    finally:
+        log.removeHandler(lines)
+    torch.cuda.synchronize()
+    return {"launches": launch_counts(), "wall": time.time() - t0,
+            "stages": {k: round(v, 3) for k, v in sorted(STAGE_TIMES.items())},
+            "peak": (torch.cuda.max_memory_allocated() - base) / 2**30,
+            "log": lines}
+
+
+def read_l2(path: str) -> dict:
+    """The columns of an .L2 file, as float64 arrays (SNP left out)."""
+    with open(path) as f:
+        header = f.readline().rstrip("\n").split("\t")
+        rows = [line.rstrip("\n").split("\t") for line in f]
+    return {h: np.array([float(r[i]) if r[i] else np.nan for r in rows])
+            for i, h in enumerate(header) if h != "SNP"}
+
+
+def band_chunks(rowmiss: np.ndarray, chunk_rows: int, halo: int) -> int:
+    """Chunks whose band (pivots and halo) holds a contaminated row."""
+    n_chunks = -(-len(rowmiss) // chunk_rows)
+    return sum(bool(rowmiss[c * chunk_rows:c * chunk_rows + chunk_rows
+                            + halo].any()) for c in range(n_chunks))
+
+
+def tile_bfile(prefix: str, out: str, copies: int, spacing: int) -> int:
+    """``copies`` byte copies of a bfile's packed rows, one after another,
+    positions continuing at ``spacing`` bp; returns the SNP count."""
+    from nldsc_tpu_torch.io.plink import PLINK_MAGIC
+
+    raw = Path(prefix + ".bed").read_bytes()[len(PLINK_MAGIC):]
+    with open(out + ".bed", "wb") as f:
+        f.write(PLINK_MAGIC)
+        for _ in range(copies):
+            f.write(raw)
+    m = copies * sum(1 for _ in open(prefix + ".bim"))
+    bp = np.arange(1, m + 1, dtype=np.int64) * spacing
+    with open(out + ".bim", "w") as f:
+        f.writelines(f"22\trs{i + 1}\t{c!r}\t{p}\tA\tG\n" for i, (c, p) in
+                     enumerate(zip((bp * 1e-6).tolist(), bp.tolist())))
+    Path(out + ".fam").write_bytes(Path(prefix + ".fam").read_bytes())
+    return m
+
+
+def streaming_phases(torch, tmp: str, prefix5: str, out5: str, prefix9: str,
+                     out9: str, m5: int, card: str, chunk: int = 8192) -> dict:
+    """Phases 13-16: the streaming route and ``ld-genome`` on phase 5's
+    and phase 9's bfiles (M = ``m5``, 100 bp apart), ``chunk`` rows per
+    chunk; returns the kernel launches of phases 13-14."""
+    from nldsc_tpu_torch.cli import main as cli_main
+    from nldsc_tpu_torch.config import LDConfig
+    from nldsc_tpu_torch.io.plink import PlinkDataset, scan_rowmiss
+    from nldsc_tpu_torch.ld.pipeline import compute_ld_scores
+    from nldsc_tpu_torch.ld.streaming import compute_ld_scores_streaming
+
+    halo = 1024                 # +-1000 SNPs, in 512-row units
+    base = ["-kb", "100", "-maf", "0.01", "--extra"]
+    stream = ["--streaming", "--chunk-rows", str(chunk)]
+    cfg = LDConfig(ld_wind=100_000.0, maf_thr=0.01, std_thr=1e-4,
+                   rsq_thr=1.0 / m5)
+    n_chunks = m5 // chunk
+    found = {}
+    runs = {}
+    for phase, prefix, tag in (("13", prefix5, "clean"),
+                               ("14", prefix9, "split")):
+        out = os.path.join(tmp, f"stream_{tag}.L2")
+        r = run_ld(torch, ["--bfile", prefix, *base, "-o", out, *stream])
+        check_outputs(out, m5)
+        c = r["launches"]
+        ds = PlinkDataset.parse(prefix)
+        rowmiss = scan_rowmiss(ds.bed)
+        want_k2 = band_chunks(rowmiss, chunk, halo) if tag == "split" else 0
+        if (c["ld_sym"] != n_chunks or c["ld_sym_8prod"]
+                or c["split_corr"] != 2 * want_k2
+                or c["split_fused"] != want_k2
+                or not r["log"].has(f"LD route: streaming ({n_chunks} "
+                                    f"chunks of {chunk} rows, halo {halo}")):
+            raise RuntimeError(f"phase {phase}: launches {c}, expected K1 "
+                               f"{n_chunks}, K2 {2 * want_k2}, no 8-product")
+        found[phase] = c
+        # the same scores through the API, against the in-core route
+        packed, pos = ds.bed.read_raw(), ds.positions("bp")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.time()
+        incore = compute_ld_scores(packed, pos, cfg, device="cuda")
+        torch.cuda.synchronize()
+        incore_s = time.time() - t0
+        incore_peak = (torch.cuda.max_memory_allocated() - mem0) / 2**30
+        # the device's busy time in the streaming pass (profiler)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            streamed = compute_ld_scores_streaming(
+                ds.bed, pos, cfg, chunk_rows=chunk, device="cuda")
+            torch.cuda.synchronize()
+            stream_s = time.time() - t0
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        err = compare_results(streamed, incore)
+        runs[phase] = r
+        say(f"{phase} stream {tag}", f"M={m5} -kb 100 --streaming "
+            f"--chunk-rows {chunk}: {n_chunks} chunks (halo {halo}); "
+            f"launches {c}; {r['wall']:.2f} s wall, {m5 / r['wall']:.0f} "
+            f"SNPs/s; stages {r['stages']}; peak device memory "
+            f"{r['peak']:.3f} GiB vs in core {incore_peak:.3f} GiB "
+            f"({incore_s:.2f} s for compute_ld_scores); the streaming pass "
+            f"alone (profiled): {stream_s:.3f} s, device busy {busy:.1f} ms "
+            f"({100 * (1 - busy / 1e3 / stream_s):.1f}% idle; "
+            f"{100 * (1 - busy / 1e3 / r['wall']):.1f}% of the command's "
+            f"wall); vs in core: counters equal, max |l2,l2d| diff "
+            f"{err:.3g}; on {card}")
+        del packed, incore
+
+    # 15. resume after a cut, from the rowmiss cache; a touched .bed
+    ck = os.path.join(tmp, "ck")
+    out15, out15r = (os.path.join(tmp, f"resume{s}.L2") for s in ("", "_r"))
+    argv15 = ["--bfile", prefix9, *base, *stream, "--resume", ck]
+    first = run_ld(torch, argv15 + ["-o", out15])
+    if Path(out15).read_bytes() != Path(
+            os.path.join(tmp, "stream_split.L2")).read_bytes():
+        raise RuntimeError("phase 15: a checkpointed run differs from phase "
+                           "14's")
+    shards = sorted(Path(ck).glob("chunk_*.npz"))
+    if len(shards) != n_chunks:
+        raise RuntimeError(f"phase 15: {len(shards)} shards")
+    for f in shards[3:]:
+        f.unlink()
+    cache_mtime = Path(ck, "rowmiss.npz").stat().st_mtime_ns
+    resumed = run_ld(torch, argv15 + ["-o", out15r])
+    if Path(out15r).read_bytes() != Path(out15).read_bytes():
+        raise RuntimeError("phase 15: the resumed .L2 is not byte-identical")
+    if not (resumed["log"].has("Resuming: 3 chunks already complete")
+            and resumed["log"].has("rowmiss: read the cached bitmap")
+            and not resumed["log"].has("rowmiss: scanned")
+            and Path(ck, "rowmiss.npz").stat().st_mtime_ns == cache_mtime):
+        raise RuntimeError("phase 15: the resume did not report 3 chunks "
+                           "read from the checkpoint and the cached rowmiss")
+    k1_resumed = resumed["launches"]["ld_sym"]
+    st = os.stat(prefix9 + ".bed")
+    os.utime(prefix9 + ".bed", ns=(st.st_atime_ns, st.st_mtime_ns + 10**9))
+    try:
+        run_ld(torch, argv15 + ["-o", os.path.join(tmp, "touched.L2")])
+        raise RuntimeError("phase 15: a touched .bed was resumed")
+    except SystemExit as ex:
+        if "bed_mtime_ns" not in str(ex.__cause__):
+            raise RuntimeError(f"phase 15: wrong refusal {ex.__cause__}")
+    say("15 resume", f"phase 14 with --resume: {n_chunks} shards, .L2 "
+        f"byte-identical to phase 14's; shards 3-{n_chunks - 1} deleted, "
+        f"resumed: {k1_resumed} K1 launches, .L2 byte-identical, log "
+        f"'Resuming: 3 chunks already complete', rowmiss read from the "
+        f"cache; {first['wall']:.2f} s wall first, {resumed['wall']:.2f} s "
+        f"resumed; after a touch of the .bed the resume refuses "
+        f"(bed_mtime_ns); on {card}")
+
+    # 16. device memory independent of M: phase 5's rows tiled 4x
+    tiled = os.path.join(tmp, "chr_tiled")
+    t0 = time.time()
+    m16 = tile_bfile(prefix5, tiled, 4, 100)
+    write_s = time.time() - t0
+    out16 = os.path.join(tmp, "tiled.L2")
+    r16 = run_ld(torch, ["--bfile", tiled, *base, "-rsq", repr(1.0 / m5),
+                         "-o", out16, *stream])
+    for suffix in (".bed", ".bim", ".fam"):
+        os.remove(tiled + suffix)
+    check_outputs(out16, m16)
+    peak13 = runs["13"]["peak"]
+    if abs(r16["peak"] - peak13) > 0.1 * peak13:
+        raise RuntimeError(f"phase 16: peak {r16['peak']:.3f} GiB at M={m16} "
+                           f"vs {peak13:.3f} GiB at M={m5}")
+    a, b = read_l2(out16), read_l2(os.path.join(tmp, "stream_clean.L2"))
+    r = np.arange(m16) % m5
+    k = np.arange(m16) // m5
+    far = (((k == 0) | (r > 1000)) & ((k == 3) | (r < m5 - 1001)))
+    err16 = compare([a["L2"][far], a["L2D"][far], a["WSA"][far],
+                     a["WSD"][far], a["WSDE"][far]],
+                    [b["L2"][r[far]], b["L2D"][r[far]], b["WSA"][r[far]],
+                     b["WSD"][r[far]], b["WSDE"][r[far]]])
+    say("16 memory", f"phase 5's rows tiled 4x (M={m16}, written in "
+        f"{write_s:.1f} s), --streaming -rsq 1/{m5}: "
+        f"{r16['launches']['ld_sym']} K1 launches, {r16['wall']:.2f} s "
+        f"wall, {m16 / r16['wall']:.0f} SNPs/s; stages {r16['stages']}; "
+        f"peak device memory {r16['peak']:.3f} GiB vs {peak13:.3f} GiB at "
+        f"M={m5}; the {int(far.sum())} rows more than a window from a seam "
+        f"against phase 13: counters equal, max |L2,L2D| diff {err16:.3g}; "
+        f"on {card}")
+
+    # 16. ld-genome, in core, on phases 5 and 9
+    gdir = os.path.join(tmp, "genome")
+    reset_counts()
+    t0 = time.time()
+    cli_main(["ld-genome", "--bfiles", f"{prefix5},{prefix9}", "--out-dir",
+              gdir, *base, "--no-streaming"])
+    wall_g = time.time() - t0
+    for prefix, out in ((prefix5, out5), (prefix9, out9)):
+        name = os.path.basename(prefix)
+        for suffix in (".L2", ".M", ".M_5_50"):
+            if (Path(gdir, name + suffix).read_bytes()
+                    != Path(out).with_suffix(suffix).read_bytes()):
+                raise RuntimeError(f"phase 16: ld-genome's {name}{suffix} "
+                                   "differs from the ld run's")
+    say("16 ld-genome", f"--bfiles <phase 5>,<phase 9> in core: "
+        f"{wall_g:.2f} s wall, launches {launch_counts()}; .L2/.M/.M_5_50 "
+        f"byte-identical to phases 5 and 9; on {card}")
+    return found
+
+
 def main() -> int:
     if not (ROOT / "nldsc_tpu_torch" / "csrc" / "ld_sym.cu").exists():
         print("chip_smoke.py must run from a checkout that holds "
@@ -1091,6 +1351,11 @@ def main() -> int:
         # 11-12. h2 at full width on phase 5's LD scores
         h2_phases(torch, tmp, out5, rng, card)
 
+        # 13-16. streaming, resume and ld-genome on phases 5 and 9
+        torch.cuda.empty_cache()
+        streamed = streaming_phases(torch, tmp, prefix5, out5, prefix9, out9,
+                                    M5, card)
+
     bad = sorted({k.split(".")[0] for k in sys.modules}
                  & {"jax", "nldsc_tpu", "pandas"})
     if bad:
@@ -1100,6 +1365,8 @@ def main() -> int:
         "source": "nldsc_tpu_torch/csrc/ld_sym.cu",
         "replaces": "nldsc_tpu/ld/ld_pallas_sym.py:52",
         "launches": launches["ld_sym"],
+        "launches_stream_clean": streamed["13"]["ld_sym"],
+        "launches_stream_split": streamed["14"]["ld_sym"],
         "max_abs_err": max(errs + [err5, err5m]),
         "ms": ms, "plain_ms": plain[best_b], "bound_ms": work["bound_ms"],
         "bound_by": work["bound_by"], "library_ms": None,
@@ -1110,6 +1377,8 @@ def main() -> int:
         "source": "nldsc_tpu_torch/csrc/split_corr.cu",
         "replaces": "scripts/pallas_corr_probe.py:54",
         "launches": launches["split_corr"],
+        "launches_stream_clean": streamed["13"]["split_corr"],
+        "launches_stream_split": streamed["14"]["split_corr"],
         "max_abs_err": max(err8, err10, float(k2_err)),
         "ms": t10["ms_corr"], "plain_ms": t10["ms_corr_plain"],
         "bound_ms": work2["bound_ms"], "bound_by": work2["bound_by"],

@@ -1,16 +1,19 @@
-"""Command-line interface of the port: the ``ld``, ``h2`` and
-``convert`` commands.
+"""Command-line interface of the port: the ``ld``, ``ld-genome``, ``h2``
+and ``convert`` commands.
 
-Flag-compatible with ``nldsc_tpu``'s CLI (``ld`` for the single-device
-in-core route), plus ``--device`` on ``ld`` and ``h2``.  Every other flag
-and command of the JAX CLI is recognised and refused with the ROADMAP
-item that will port it.  Needs only the standard library (argparse)
-and numpy until a command runs.
+Flag-compatible with ``nldsc_tpu``'s CLI (``ld`` and ``ld-genome`` on
+one device, in core or streaming), plus ``--device`` on ``ld``,
+``ld-genome`` and ``h2``.  Every other flag of the JAX CLI is recognised
+and refused with the ROADMAP item that will port it.  Needs only the
+standard library (argparse) and numpy until a command runs.
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
+import os
+import re
 import sys
 
 from .core.errors import NLDSCParameterError
@@ -34,16 +37,11 @@ _UNPORTED_LD_FLAGS = {
     "--n-devices": (True, "ROADMAP queue 1 item 10 (multi-GPU)"),
     "--shard-axis": (True, "ROADMAP queue 1 item 10 (multi-GPU)"),
     "--profile-dir": (True, "ROADMAP queue 1 item 8 (user surface)"),
-    "--streaming": (False, "ROADMAP queue 1 item 6 (streaming)"),
-    "--no-streaming": (False, "ROADMAP queue 1 item 6 (streaming)"),
-    "--chunk-rows": (True, "ROADMAP queue 1 item 6 (streaming)"),
-    "--resume": (True, "ROADMAP queue 1 item 6 (streaming)"),
     "--annot": (True, "ROADMAP queue 1 item 7 (partitioned LD)"),
     "--log-file": (False, "ROADMAP queue 1 item 8 (user surface)"),
 }
-_UNPORTED_COMMANDS = {
-    "ld-genome": "ROADMAP queue 1 item 8 (user surface)",
-}
+#: the flags of the JAX ``ld-genome`` not ported yet
+_UNPORTED_GENOME_FLAGS = ("--n-devices", "--shard-axis", "--annot")
 
 
 class _Unported(argparse.Action):
@@ -109,14 +107,58 @@ def build_parser() -> argparse.ArgumentParser:
                     default=None, help="Log progress of the LD pass "
                                        "(default: on above 20k SNPs)")
     ld.add_argument("--no-progress", dest="progress", action="store_false")
+    _add_streaming_flags(ld)
+    ld.add_argument("--resume", dest="resume_path", metavar="DIR",
+                    default=None,
+                    help="Checkpoint directory for chunk-granular resume "
+                         "(streaming; one shard file per completed chunk)")
     ld.add_argument("--device", default="cuda",
                     help="torch device: cuda (default; the CUDA kernel) or "
                          "cpu (the plain PyTorch path)")
     ld.add_argument("--display", action="store_true",
                     help="Display traceback")
-    for flag, (takes_value, _) in _UNPORTED_LD_FLAGS.items():
-        ld.add_argument(flag, action=_Unported, nargs="?" if takes_value
-                        else 0, help=argparse.SUPPRESS)
+    _add_unported(ld, _UNPORTED_LD_FLAGS)
+
+    genome = sub.add_parser(
+        "ld-genome", allow_abbrev=False,
+        help="Run `ld` over many single-chromosome bfiles (glob or comma "
+             "list), one .L2 per bfile")
+    genome.add_argument("--bfiles", metavar="GLOB", required=True,
+                        help="Glob or comma-separated list of bfile prefixes "
+                             "(or paths to their .bed files)")
+    genome.add_argument("--out-dir", metavar="DIR", required=True,
+                        help="Directory for the per-chromosome .L2/.M "
+                             "outputs (named <prefix-basename>.L2)")
+    genome.add_argument("-kb", "--ld-wind-kb", metavar="W", type=float,
+                        help="Window size in kilo-base pairs (kb)")
+    genome.add_argument("-cm", "--ld-wind-cm", metavar="W", type=float,
+                        help="Window size in centi-morgans (cM)")
+    genome.add_argument("-maf", "--maf-thr", metavar="F", type=float,
+                        default=1e-5)
+    genome.add_argument("-std", "--std-thr", metavar="F", type=float,
+                        default=1e-4)
+    genome.add_argument("-rsq", "--rsq-thr", metavar="F", type=float,
+                        default=None)
+    genome.add_argument("--extra", action="store_true",
+                        help="Include MAF WSA WSD WSDE RSTD columns")
+    _add_streaming_flags(genome)
+    genome.add_argument("--resume-dir", metavar="DIR", default=None,
+                        help="Checkpoint root for chunk-granular resume: "
+                             "each chromosome checkpoints into "
+                             "<DIR>/<bfile-basename>/ (streaming)")
+    genome.add_argument("--bucket-shapes", dest="bucket_shapes",
+                        action="store_true", default=True,
+                        help="Accepted and ignored: it shares XLA compiles "
+                             "across chromosome sizes in nldsc_tpu, and the "
+                             "CUDA kernels do not recompile per shape")
+    genome.add_argument("--no-bucket-shapes", dest="bucket_shapes",
+                        action="store_false", help=argparse.SUPPRESS)
+    genome.add_argument("--device", default="cuda",
+                        help="torch device: cuda (default) or cpu")
+    genome.add_argument("--display", action="store_true",
+                        help="Display traceback")
+    _add_unported(genome, {f: _UNPORTED_LD_FLAGS[f]
+                           for f in _UNPORTED_GENOME_FLAGS})
 
     h2 = sub.add_parser("h2", allow_abbrev=False,
                         help="Estimate additive and non-additive heritability")
@@ -177,19 +219,61 @@ def build_parser() -> argparse.ArgumentParser:
                       help="Output .L2 file (with --from-ldsc)")
     conv.add_argument("--display", action="store_true",
                       help="Display traceback")
-
-    for name, where in _UNPORTED_COMMANDS.items():
-        sub.add_parser(name, help=f"not ported yet ({where})")
     return parser
 
 
-def run_ld(args) -> None:
+def _add_streaming_flags(parser) -> None:
+    parser.add_argument("--streaming", dest="streaming", action="store_true",
+                        default=None,
+                        help="Force the out-of-core engine on (default: "
+                             "auto by memory footprint)")
+    parser.add_argument("--no-streaming", dest="streaming",
+                        action="store_false",
+                        help="Force the out-of-core engine off")
+    parser.add_argument("--chunk-rows", metavar="R", type=int, default=8192,
+                        help="Pivot rows per streaming chunk")
+
+
+def _add_unported(parser, flags: dict) -> None:
+    for flag, (takes_value, _) in flags.items():
+        parser.add_argument(flag, action=_Unported,
+                            nargs="?" if takes_value else 0,
+                            help=argparse.SUPPRESS)
+
+
+def _window(args) -> tuple[str, float]:
     if sum(map(bool, [args.ld_wind_kb, args.ld_wind_cm])) != 1:
         raise RuntimeError("Please, specify exactly one --ld-wind option")
     if args.ld_wind_kb:
-        wind_metric, ld_wind = "kbp", args.ld_wind_kb
+        return "kbp", args.ld_wind_kb
+    return "cm", args.ld_wind_cm
+
+
+def genome_prefixes(bfiles: str) -> list[str]:
+    """The bfile prefixes of ``ld-genome --bfiles``: a comma list, a glob
+    or one path, with any .bed/.bim/.fam suffix dropped, sorted and
+    unique.  Refuses two prefixes with one basename: their outputs in
+    ``--out-dir`` would overwrite each other."""
+    if "," in bfiles:
+        paths = [p.strip() for p in bfiles.split(",") if p.strip()]
+    elif glob.has_magic(bfiles):
+        paths = sorted(glob.glob(bfiles))
+        if not paths:
+            raise RuntimeError(f"No bfiles match {bfiles!r}")
     else:
-        wind_metric, ld_wind = "cm", args.ld_wind_cm
+        paths = [bfiles]
+    prefixes = sorted({re.sub(r"\.(bed|bim|fam)$", "", p) for p in paths})
+    names = [os.path.basename(p) for p in prefixes]
+    if len(set(names)) != len(names):
+        dups = sorted({n for n in names if names.count(n) > 1})
+        raise RuntimeError(
+            "bfile prefixes with identical basenames would overwrite each "
+            f"other's outputs in --out-dir: {dups}")
+    return prefixes
+
+
+def run_ld(args) -> None:
+    wind_metric, ld_wind = _window(args)
     if args.engine == "f32":
         raise NLDSCParameterError(
             "--engine f32 is not ported to nldsc_tpu_torch yet: ROADMAP "
@@ -204,11 +288,37 @@ def run_ld(args) -> None:
         block_size=args.block_size, int8_dot_dtype=args.dot_dtype,
         split_missing=args.split_missing,
         use_pallas=args.engine == "pallas", progress=args.progress,
-        device=args.device)
+        streaming=args.streaming, chunk_rows=args.chunk_rows,
+        resume_path=args.resume_path, device=args.device)
     if table is not None and args.out is None:
         from .io.ldscores import format_table  # noqa: PLC0415
 
         print(format_table(table), end="")
+
+
+def run_ld_genome(args) -> None:
+    """``ld`` over every bfile of ``--bfiles``, into ``--out-dir``; one
+    process takes every chromosome (``nldsc_tpu/cli.py:207-256``)."""
+    wind_metric, ld_wind = _window(args)
+    prefixes = genome_prefixes(args.bfiles)
+
+    from .ld.pipeline import estimate_lds  # noqa: PLC0415
+
+    os.makedirs(args.out_dir, exist_ok=True)
+    log.info("ld-genome: %d bfiles", len(prefixes))
+    for i, prefix in enumerate(prefixes):
+        name = os.path.basename(prefix)
+        out = os.path.join(args.out_dir, name + ".L2")
+        log.info("[%d/%d] %s -> %s", i + 1, len(prefixes), prefix, out)
+        estimate_lds(
+            prefix, ld_wind=ld_wind, wind_metric=wind_metric,
+            maf_thr=args.maf_thr, std_thr=args.std_thr, rsq_thr=args.rsq_thr,
+            out=out, extra=args.extra, streaming=args.streaming,
+            chunk_rows=args.chunk_rows,
+            resume_path=(os.path.join(args.resume_dir, name)
+                         if args.resume_dir else None),
+            device=args.device)
+    log.info("ld-genome: %d chromosomes done", len(prefixes))
 
 
 def run_h2(args) -> None:
@@ -256,14 +366,9 @@ def main(argv: list[str] | None = None) -> None:
     argv = sys.argv[1:] if argv is None else list(argv)
     print(__header__)
     try:
-        command = next((a for a in argv if not a.startswith("-")), None)
-        if command in _UNPORTED_COMMANDS:
-            raise NLDSCParameterError(
-                f"the {command} command is not ported to nldsc_tpu_torch "
-                f"yet: {_UNPORTED_COMMANDS[command]}")
         args = build_parser().parse_args(argv)
-        {"ld": run_ld, "h2": run_h2, "convert": run_convert}[
-            args.command](args)
+        {"ld": run_ld, "ld-genome": run_ld_genome, "h2": run_h2,
+         "convert": run_convert}[args.command](args)
     except Exception as ex:
         log.critical("The program crashed with %s, what: %s\n"
                      "Use `--display` flag for traceback",

@@ -48,15 +48,20 @@ def _read_exact(f, n: int) -> np.ndarray:
     """Read exactly ``n`` bytes from an unbuffered file (a single
     ``read(2)`` is capped near 2 GiB, so loop on ``readinto``)."""
     out = np.empty(n, dtype=np.uint8)
-    view = memoryview(out)
+    _fill(f, out)
+    return out
+
+
+def _fill(f, out: np.ndarray) -> None:
+    """Fill the contiguous uint8 array ``out`` from the file ``f``."""
+    view = memoryview(out.reshape(-1))
     got = 0
-    while got < n:
+    while got < len(view):
         r = f.readinto(view[got:])
         if not r:
             raise NLDSCDataError(
-                f".bed read truncated: wanted {n} bytes, got {got}")
+                f".bed read truncated: wanted {len(view)} bytes, got {got}")
         got += r
-    return out
 
 
 class BedReader:
@@ -94,6 +99,21 @@ class BedReader:
         return PackedBed(arr, count, self.n_samples,
                          _packed_has_missing(arr, self.n_samples))
 
+    def read_into(self, start: int, out: np.ndarray) -> None:
+        """Packed rows [start, start + len(out)) into ``out``, a C-contiguous
+        uint8 (rows, bytes_per_snp) array (a page-locked staging buffer on
+        the streaming route), without decoding."""
+        count = out.shape[0]
+        if start < 0 or start + count > self.n_snp:
+            raise ValueError(f"block [{start}, {start + count}) out of range")
+        if out.dtype != np.uint8 or out.shape[1:] != (self.bytes_per_snp,) \
+                or not out.flags.c_contiguous:
+            raise ValueError("out must be C-contiguous uint8 "
+                             f"(rows, {self.bytes_per_snp})")
+        with open(self.path, "rb", buffering=0) as f:
+            f.seek(3 + start * self.bytes_per_snp)
+            _fill(f, out)
+
 
 def _miss_bytes(raw: np.ndarray, n_samples: int) -> np.ndarray:
     """uint8 array, nonzero where a byte holds a valid missing (01)
@@ -110,6 +130,28 @@ def _miss_bytes(raw: np.ndarray, n_samples: int) -> np.ndarray:
 def _packed_has_missing(raw: np.ndarray, n_samples: int) -> bool:
     """True iff any valid bitpair is the missing code."""
     return bool(_miss_bytes(raw, n_samples).any())
+
+
+def packed_rowmiss(raw: np.ndarray, n_samples: int) -> np.ndarray:
+    """Per-row missing flags from packed 2-bit rows (bool (rows,)): one
+    bitwise pass over the raw bytes, no decode."""
+    return _miss_bytes(raw, n_samples).any(axis=1)
+
+
+def scan_rowmiss(bed: BedReader, block_rows: int = 65536) -> np.ndarray:
+    """Per-row missing flags of a whole .bed (bool (n_snp,)): one
+    sequential pass over the file's bytes in slices of ``block_rows``
+    rows, which lets the streaming route pick the split-missing engine
+    before any chunk runs."""
+    m, bps = bed.n_snp, bed.bytes_per_snp
+    out = np.zeros(m, dtype=bool)
+    with open(bed.path, "rb", buffering=0) as f:
+        f.seek(3)
+        for s in range(0, m, block_rows):
+            c = min(block_rows, m - s)
+            raw = _read_exact(f, c * bps)
+            out[s:s + c] = packed_rowmiss(raw.reshape(c, bps), bed.n_samples)
+    return out
 
 
 @dataclass

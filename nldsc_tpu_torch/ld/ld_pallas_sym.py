@@ -153,20 +153,33 @@ def _launch(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
 
 def sym_credits(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
                 rsq_thr: float, *, n_samples: int, has_missing: bool,
-                block_size: int):
+                block_size: int, pivot_rows: int | None = None):
     """Un-finalized credit vectors ``(l2, ws, poison, l2d, wsd, wse)`` of
     the symmetric pass over all pivot rows.
 
     CPU tensors run the twin with ``block_size`` pivot blocks; CUDA
     tensors run the kernel, whose tile is :func:`tile` of the branch.
+
+    ``pivot_rows`` (one band of the streaming route): only the first
+    ``pivot_rows`` rows are pivots.  The rows after them, the halo, are
+    neighbours only; their windows are emptied, so the kernel's CTAs of
+    halo pivot tiles exit at once and the twin scans the pivot blocks
+    only.  Every pair is then credited once, by the band that holds its
+    left member: entries ``[:pivot_rows]`` are the pivots' credits and
+    ``[pivot_rows:]`` the halo rows' column credits.
     """
+    rows = g.shape[0]
+    if pivot_rows is not None:
+        lo, hi = lo.clone(), hi.clone()
+        lo[pivot_rows:] = rows
+        hi[pivot_rows:] = -1
     if g.device.type == "cpu":
-        m_pad = g.shape[0]
         _, right_k = ld_int8.band_extent(hi, block_size)
+        scan = rows if pivot_rows is None else pivot_rows
         return ld_int8.sym_scan_segment(
             g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero, rsq_thr, 0,
             block_size=block_size, right_k=right_k, n_samples=n_samples,
-            n_scan_blocks=m_pad // block_size, has_missing=has_missing)
+            n_scan_blocks=-(-scan // block_size), has_missing=has_missing)
     if g.device.type != "cuda":
         raise ValueError(f"no LD kernel for device {g.device}")
     return _launch(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,

@@ -62,6 +62,29 @@ def padded_shape(m: int, n: int, device_type: str,
     return -(-m // B) * B, -(-n // 128) * 128
 
 
+def incore_route(rowmiss: np.ndarray, m: int, block_size: int,
+                 split_missing: bool | None) -> tuple[str, float]:
+    """The in-core route of genotypes with missing data, and the fraction
+    of contaminated rows it was chosen on, as the reference chooses them
+    (``nldsc_tpu/ld/pipeline.py:284-294``).
+
+    ``rowmiss`` flags the usable rows that carry a missing genotype (its
+    padding rows are False).  ``clean`` when no usable row is
+    contaminated: no counted pair touches missing data, so the clean
+    epilogue is exact.  Otherwise ``split`` when ``split_missing``, or
+    when it is None and at most 25% of the rows are contaminated, else
+    ``global``.  The fraction's denominator is the reference's padded row
+    count, ``ceil(m / block_size) · block_size``, on every device (the
+    CUDA path pads its rows to the kernel's alignment instead).
+    """
+    n_cont = int(np.count_nonzero(rowmiss))
+    frac = n_cont / (-(-m // block_size) * block_size)
+    if not n_cont:
+        return "clean", frac
+    want = split_missing if split_missing is not None else frac <= 0.25
+    return ("split" if want else "global"), frac
+
+
 def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     t0 = time.time()
     out = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
@@ -161,15 +184,9 @@ def compute_ld_scores(genotypes, positions: np.ndarray, config: LDConfig, *,
     if lazy_m:
         rowmiss = (pre["cm"] > float(n_pad - n)) & pre["usable"]
         rowmiss_h = rowmiss.cpu().numpy()
-        frac = float(rowmiss_h.mean())
-        want_split = (config.split_missing if config.split_missing is not None
-                      else frac <= 0.25)
-        if not rowmiss_h.any():
-            # every contaminated row is unusable: no counted pair touches
-            # missing data, so the clean epilogue is exact
-            route = "clean"
-        elif want_split:
-            route = "split"
+        route, frac = incore_route(rowmiss_h, m, config.block_size,
+                                   config.split_missing)
+        if route == "split":
             plan = ld_split.plan_split_v2(
                 rowmiss_h, lo_pad, hi_pad,
                 min(ld_split.SEG_ROWS_DEFAULT, m_pad), m_pad)
@@ -178,7 +195,7 @@ def compute_ld_scores(genotypes, positions: np.ndarray, config: LDConfig, *,
                      plan["p_band"], plan["p_x"], plan["n_segs"])
             split = (ld_split.compact_missing_rows(g_dev, plan["miss_idx"]),
                      rowmiss, plan)
-        else:
+        elif route == "global":
             m_mat = ld_int8.materialize_missing(g_dev)
     del g_dev                      # the raw codes are not read past here
     log.info("LD route: %s", route)
@@ -244,6 +261,28 @@ def show_summary(result: dict) -> str:
     return text
 
 
+#: the reference's auto-streaming threshold of the dense working set, in
+#: bytes (``nldsc_tpu/ld/pipeline.py:471``), kept on the CPU so that the
+#: CPU chooses as the JAX package does
+STREAMING_BYTES_THRESHOLD = 8 << 30
+#: device bytes per genotype of the in-core route at its peak: the global
+#: route peaked at 4.01 GiB for 65,536 x 16,384 genotypes on the H100
+#: (PERF.md section 5), the split and clean routes below it
+INCORE_BYTES_PER_GENOTYPE = 4.0
+
+
+def wants_streaming(m: int, n: int, device: torch.device) -> bool:
+    """Whether ``estimate_lds(streaming=None)`` streams: on the CPU the
+    reference's rule (3 bytes per padded genotype above 8 GiB,
+    ``nldsc_tpu/ld/pipeline.py:583-588``); on CUDA when the in-core peak
+    would pass 90% of the device's free memory."""
+    genotypes = m * (-(-n // 128) * 128)
+    if device.type == "cpu":
+        return 3 * genotypes > STREAMING_BYTES_THRESHOLD
+    free, _ = torch.cuda.mem_get_info(device)
+    return INCORE_BYTES_PER_GENOTYPE * genotypes > 0.9 * free
+
+
 def _progress_logger():
     """Percent/elapsed logger for :func:`compute_ld_scores` progress."""
     t0 = time.time()
@@ -273,18 +312,24 @@ def estimate_lds(
     split_missing: bool | None = None,
     use_pallas: bool = False,
     progress: bool | None = None,
+    streaming: bool | None = None,
+    chunk_rows: int = 8192,
+    resume_path: str | None = None,
     device="cuda",
 ):
     """Estimate additive + dominance LD scores from a PLINK bfile.
 
     API parity with the reference ``estimate_lds``
-    (``nldsc/ldscore/routine.py:51-102``) for the single-device in-core
-    route; returns the .L2 table when ``out`` is None, else writes
+    (``nldsc/ldscore/routine.py:51-102``) on one device, in core or
+    streaming; returns the .L2 table when ``out`` is None, else writes
     ``<out>`` (and ``.M``/``.M_5_50``) and returns None.
 
     ``split_missing``: None picks the split-missing route when at most
     25% of the usable rows carry a missing genotype; ``use_pallas``
-    (``--engine pallas``) always runs the single global pass.
+    (``--engine pallas``) always runs the single global pass in core.
+    ``streaming``: None streams when the in-core working set would not
+    fit (:func:`wants_streaming`); ``chunk_rows`` pivot rows per chunk;
+    ``resume_path`` a checkpoint directory of the streaming route.
     """
     STAGE_TIMES.clear()
     dev = resolve_device(device)
@@ -302,15 +347,29 @@ def estimate_lds(
     log.info("Input: %s, size: (M=%d, N=%d)", ds.bed_path, ds.n_snp,
              ds.n_samples)
     positions = ds.positions(config.wind_metric)
+    if streaming is None:
+        streaming = wants_streaming(ds.n_snp, ds.n_samples, dev)
 
     t0 = time.time()
-    genotypes = ds.bed.read_raw()
-    stage_add("disk_s", t0)
-    log.info("Running the LD estimator on %s...", dev)
-    want_prog = progress if progress is not None else ds.n_snp >= 20000
-    result = compute_ld_scores(genotypes, positions, config, device=dev,
-                               progress=_progress_logger() if want_prog
-                               else None)
+    if streaming:
+        from .streaming import compute_ld_scores_streaming  # noqa: PLC0415
+
+        log.info("Running the LD estimator on %s (streaming, chunk=%d "
+                 "rows)...", dev, chunk_rows)
+        result = compute_ld_scores_streaming(
+            ds.bed, positions, config, chunk_rows=chunk_rows,
+            resume_path=resume_path, device=dev)
+    else:
+        if resume_path:
+            log.warning("--resume checkpoints the streaming route only; "
+                        "this run is in core")
+        genotypes = ds.bed.read_raw()
+        stage_add("disk_s", t0)
+        log.info("Running the LD estimator on %s...", dev)
+        want_prog = progress if progress is not None else ds.n_snp >= 20000
+        result = compute_ld_scores(genotypes, positions, config, device=dev,
+                                   progress=_progress_logger() if want_prog
+                                   else None)
     dt = time.time() - t0
     log.info("Estimation completed: %d SNPs in %.2fs (%.0f SNPs/s)",
              ds.n_snp, dt, ds.n_snp / max(dt, 1e-9))

@@ -1,0 +1,475 @@
+"""Out-of-core (streaming) LD scores on one device: chunked band recompute.
+
+Port of the single-device symmetric int8 route of
+``nldsc_tpu/ld/streaming.py``.  The pivot rows go in chunks of
+``chunk_rows``; the band of a chunk holds its pivots and the ``halo``
+rows after them, as far as any window reaches.  Per chunk:
+
+  host (one prefetch thread): read the band's packed .bed rows into a
+      page-locked staging buffer; with band-tail retention only the
+      ``chunk_rows`` rows that the previous band did not hold
+  device: unpack -> class counts and per-SNP scalars -> kernel K1 over
+      the pivots, the halo rows being neighbours only -> on split chunks
+      kernel K2's corrections for the pairs whose left member is a pivot
+      -> one payload of credits and pivot statistics, copied back
+  host: add the column credits that earlier chunks earned for these
+      rows (a float64 carry), carry the halo's credits forward, finalize
+      in float32, write the checkpoint shard
+
+Device memory is bounded by the band, whatever M.  With ``resume_path``
+each finished chunk is written once, atomically, as a shard file, and a
+restart skips the contiguous prefix of finished chunks.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import time
+from collections import Counter, deque
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..core.errors import NLDSCParameterError
+from ..core.logging import log
+from ..core.timing import STAGE_TIMES, stage_add
+from ..io.plink import BedReader, _packed_has_missing, scan_rowmiss
+from . import ld_int8, ld_pallas_sym, ld_split, preprocess, windows
+
+#: credit quantities of a band, in payload order
+CREDITS = ("l2", "ws", "poison", "l2d", "wsd", "wse")
+#: per-pivot statistics of the payload, after the credits
+STATS = ("usable", "add_sd_zero", "maf", "rstd")
+
+_INT_KEYS = ("l2_ws", "l2d_ws", "l2d_wse")
+_FLOAT_KEYS = ("l2", "l2d", "maf", "residuals_std")
+
+
+@dataclass(frozen=True)
+class Geometry:
+    """Rows of the streaming pass.  ``unit`` divides every row count:
+    ``block_size`` (the twin's pivot block) on the CPU, and on CUDA also
+    ``ld_pallas_sym.ROW_ALIGN``, so that every chunk and halo is whole K1
+    tiles."""
+
+    unit: int
+    chunk_rows: int
+    halo: int
+    m_pad: int
+    n_chunks: int
+
+    @property
+    def band_rows(self) -> int:
+        return self.chunk_rows + self.halo
+
+    @property
+    def m_ext(self) -> int:
+        return self.n_chunks * self.chunk_rows
+
+
+def stream_geometry(m: int, lo: np.ndarray, hi: np.ndarray, chunk_rows: int,
+                    block_size: int, device_type: str) -> Geometry:
+    """Chunk and halo rows rounded as the reference rounds them
+    (``streaming.py:484-504``), to ``unit``."""
+    unit = (block_size if device_type == "cpu"
+            else math.lcm(block_size, ld_pallas_sym.ROW_ALIGN))
+    chunk_rows = max(unit, (chunk_rows // unit) * unit)
+    m_pad = -(-m // unit) * unit
+    halo = -(-windows.max_halo_rows(lo, hi) // unit) * unit
+    return Geometry(unit=unit, chunk_rows=chunk_rows, halo=halo, m_pad=m_pad,
+                    n_chunks=-(-m_pad // chunk_rows))
+
+
+def split_selected(rowmiss: np.ndarray,
+                   split_missing: bool | None) -> tuple[bool, float]:
+    """The streaming route's split choice and its fraction, as the
+    reference makes it (``streaming.py:584-587``): the fraction is over the
+    real rows of the .bed scan, which flags every row with a missing
+    genotype, usable or not; split when ``split_missing``, or when it is
+    None and ``0 < frac <= 0.25``; never without a contaminated row.  (The
+    in-core rule differs: :func:`..pipeline.incore_route`.)"""
+    frac = float(rowmiss.mean()) if len(rowmiss) else 0.0
+    want = split_missing if split_missing is not None else 0.0 < frac <= 0.25
+    return bool(want and rowmiss.any()), frac
+
+
+def finalize_np(l2_acc, l2d_acc, ws, wsd, wse, poison, usable, add_sd_zero):
+    """Host float32 copy of ``ld_xla.finalize_outputs``: the same IEEE
+    float32 operations in the same order (reference
+    ``streaming.py:370-383``)."""
+    l2a = l2_acc.astype(np.float32)
+    l2da = l2d_acc.astype(np.float32)
+    nan = np.float32(np.nan)
+    l2 = np.where(usable & (poison == 0), np.float32(1.0) + l2a, nan)
+    l2d_bad = np.where(wsd > 0, nan, np.float32(0.0))
+    l2d = np.where(usable, np.where(add_sd_zero, l2d_bad, l2da), nan)
+    ws_o = np.where(usable, ws, -1).astype(np.int32)
+    wsd_o = np.where(usable, wsd, -1).astype(np.int32)
+    wse_o = np.where(usable, np.where(add_sd_zero, 0, wse),
+                     -1).astype(np.int32)
+    return l2, l2d, ws_o, wsd_o, wse_o
+
+
+def bed_identity(path: str) -> dict:
+    """The .bed fields that key the rowmiss cache and the checkpoint meta:
+    path, size and modification time, so that a regenerated file of the
+    same size is not taken for the old one."""
+    st = os.stat(path)
+    return {"bed_path": os.path.abspath(path), "bed_bytes": st.st_size,
+            "bed_mtime_ns": st.st_mtime_ns}
+
+
+def _save_npz(path: Path, **arrays) -> None:
+    """Write ``path`` atomically (a temporary file, then a rename)."""
+    tmp = path.with_name(".tmp_" + path.name)
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
+
+
+def load_rowmiss(bed: BedReader, ck_dir: Path | None) -> np.ndarray:
+    """Per-row missing flags of the .bed: from the checkpoint's cache when
+    it was written for this very file, else one scan (then cached)."""
+    ident = bed_identity(bed.path)
+    cache = ck_dir / "rowmiss.npz" if ck_dir is not None else None
+    if cache is not None and cache.exists():
+        with np.load(cache, allow_pickle=False) as d:
+            if (set(ident) <= set(d.files)
+                    and str(d["bed_path"]) == ident["bed_path"]
+                    and int(d["bed_bytes"]) == ident["bed_bytes"]
+                    and int(d["bed_mtime_ns"]) == ident["bed_mtime_ns"]
+                    and d["rowmiss"].shape == (bed.n_snp,)):
+                log.info("rowmiss: read the cached bitmap %s", cache)
+                return d["rowmiss"]
+    t0 = time.time()
+    rowmiss = scan_rowmiss(bed)
+    log.info("rowmiss: scanned %s in %.2f s", bed.path, time.time() - t0)
+    if cache is not None:
+        ck_dir.mkdir(parents=True, exist_ok=True)
+        _save_npz(cache, rowmiss=rowmiss, **ident)
+    return rowmiss
+
+
+def open_checkpoint(ck_dir: Path, meta: dict) -> None:
+    """Create ``ck_dir`` with ``meta.json``, or refuse a directory whose
+    meta differs: its shards were computed with other parameters."""
+    ck_dir.mkdir(parents=True, exist_ok=True)
+    meta_path = ck_dir / "meta.json"
+    if meta_path.exists():
+        saved = json.loads(meta_path.read_text())
+        diff = {k: (saved.get(k), v) for k, v in meta.items()
+                if saved.get(k) != v}
+        if diff:
+            raise ValueError(
+                f"checkpoint {ck_dir} was written with different parameters "
+                f"— refusing to resume (mismatched: {diff}); use a fresh "
+                "checkpoint directory")
+    else:
+        meta_path.write_text(json.dumps(meta))
+
+
+def resume_shards(ck_dir: Path, geo: Geometry, out: dict,
+                  carry: np.ndarray) -> int:
+    """Load the contiguous prefix of finished chunks into ``out`` and fold
+    their stored tails into ``carry`` (aligned at the first chunk still to
+    run), in chunk order, as the uninterrupted run folded them.  Credits
+    flow forward, so a shard after a gap is recomputed.  Returns the
+    number of chunks resumed."""
+    shards = {int(f.stem.split("_")[1]): f
+              for f in ck_dir.glob("chunk_*.npz")}
+    k = 0
+    while k in shards:
+        k += 1
+    c, h = geo.chunk_rows, geo.halo
+    for ci in range(k):
+        with np.load(shards[ci]) as saved:
+            for key in out:
+                out[key][ci * c:(ci + 1) * c] = saved[key]
+            offset = (k - 1 - ci) * c
+            if offset < h:
+                carry[:, :h - offset] += saved["tail"][:, offset:]
+    return k
+
+
+@dataclass
+class _Band:
+    ci: int
+    stage: torch.Tensor        # uint8 (rows, bytes_per_snp), host
+    slot: int
+    tail_only: bool
+    has_missing: bool
+
+
+class _BandReader:
+    """Band reads of the streaming loop (run on the prefetch thread).
+
+    On CUDA the rows go into one of two page-locked staging buffers, which
+    the device copies from asynchronously; a buffer is refilled only
+    after the event recorded behind its last copy has passed.  On the CPU
+    every read gets a fresh array.
+    """
+
+    def __init__(self, bed: BedReader, geo: Geometry,
+                 rowmiss: np.ndarray | None, device: torch.device):
+        self.bed, self.geo, self.rowmiss = bed, geo, rowmiss
+        self.pinned = device.type == "cuda"
+        shape = (geo.band_rows, bed.bytes_per_snp)
+        self.slots = ([torch.empty(shape, dtype=torch.uint8, pin_memory=True)
+                       for _ in range(2)] if self.pinned else [])
+        self.events: list = [None, None]
+
+    def read(self, ci: int, slot: int, tail_only: bool) -> _Band:
+        """Chunk ``ci``'s band rows ``[p0, p0 + band_rows)``, or with
+        ``tail_only`` its last ``chunk_rows`` rows (the rows the previous
+        band does not hold); rows past the .bed are 0x55, four missing
+        bitpairs per byte."""
+        t0 = time.time()
+        geo, bed = self.geo, self.bed
+        rows = geo.chunk_rows if tail_only else geo.band_rows
+        band_lo = ci * geo.chunk_rows
+        first = band_lo + geo.band_rows - rows
+        if self.pinned:
+            if self.events[slot] is not None:
+                self.events[slot].synchronize()
+            stage = self.slots[slot][:rows]
+        else:
+            stage = torch.empty((rows, bed.bytes_per_snp), dtype=torch.uint8)
+        buf = stage.numpy()
+        real = max(0, min(rows, bed.n_snp - first))
+        if real:
+            bed.read_into(first, buf[:real])
+        buf[real:] = 0x55
+        # the band's missing state: from the row scan when there is one
+        # (a tail-only read needs it), else from the rows just read
+        has_missing = (
+            bool(self.rowmiss[band_lo:band_lo + geo.band_rows].any())
+            if self.rowmiss is not None
+            else _packed_has_missing(buf[:real], bed.n_samples))
+        stage_add("stream_read_s", t0)
+        return _Band(ci, stage, slot, tail_only, has_missing)
+
+
+def compute_ld_scores_streaming(bed: BedReader, positions: np.ndarray,
+                                config, *, chunk_rows: int = 8192,
+                                resume_path: str | None = None,
+                                device="cuda") -> dict:
+    """Streamed LD scores from a :class:`~..io.plink.BedReader`.
+
+    Same result contract as :func:`..pipeline.compute_ld_scores`; the
+    device holds one band of ``chunk_rows`` plus halo rows at a time.
+    ``resume_path``: a checkpoint directory (one shard file per finished
+    chunk, ``meta.json`` pinning every parameter that changes a chunk,
+    the device type and the rounded geometry included, and the rowmiss
+    cache).  CUDA runs the kernels; ``device="cpu"`` runs their twins.
+    """
+    from .pipeline import resolve_device  # noqa: PLC0415
+
+    if config.int8_dot_dtype != "int8":
+        raise NLDSCParameterError(
+            "--dot-dtype bf16 is not ported yet (ROADMAP queue 2: bf16 MMA "
+            "variant of K1); use --dot-dtype int8")
+    if config.rsq_thr is None:
+        raise NLDSCParameterError("resolve rsq_thr first (LDConfig.resolve_rsq)")
+    dev = resolve_device(device)
+    t_enter = time.time()
+    m, n = bed.n_snp, bed.n_samples
+    n_pad = -(-n // 128) * 128
+    lo, hi, pos_ok = windows.window_bounds(positions, config.ld_wind)
+    geo = stream_geometry(m, lo, hi, chunk_rows, config.block_size, dev.type)
+    c, h, band_rows = geo.chunk_rows, geo.halo, geo.band_rows
+    ck_dir = Path(resume_path) if resume_path else None
+
+    # rows past the .bed (to the last band's end) have empty windows
+    ext = geo.m_ext + h
+    lo_ext = np.full(ext, geo.m_pad, np.int32)
+    hi_ext = np.full(ext, -1, np.int32)
+    pos_ok_ext = np.zeros(ext, bool)
+    lo_ext[:m], hi_ext[:m], pos_ok_ext[:m] = lo, hi, pos_ok
+
+    # one pass over the .bed bytes tells which rows carry missing
+    # genotypes: the split choice, and each band's route without a decode
+    rowmiss = (load_rowmiss(bed, ck_dir) if config.split_missing is not False
+               else None)
+    use_split = False
+    if rowmiss is not None:
+        use_split, frac = split_selected(rowmiss, config.split_missing)
+        if use_split:
+            log.info("Split-missing streaming engine: %.2f%% contaminated "
+                     "rows", 100.0 * frac)
+    rowmiss_ext = np.zeros(ext, bool)
+    if rowmiss is not None:
+        rowmiss_ext[:m] = rowmiss
+
+    out = {k: np.full(geo.m_ext, np.nan) for k in _FLOAT_KEYS}
+    out.update({k: np.full(geo.m_ext, -1, dtype=np.int64) for k in _INT_KEYS})
+    # column credits of rows of later chunks, aligned at the next chunk's
+    # first row
+    carry = np.zeros((len(CREDITS), h), dtype=np.float64)
+    n_resumed = 0
+    if ck_dir is not None:
+        open_checkpoint(ck_dir, {
+            "m": m, "n": n, "chunk_rows": c, "halo": h, "row_unit": geo.unit,
+            "block_size": config.block_size, "device": dev.type,
+            "ld_wind": float(config.ld_wind),
+            "wind_metric": config.wind_metric,
+            "maf_thr": float(config.maf_thr),
+            "std_thr": float(config.std_thr),
+            "rsq_thr": float(config.rsq_thr),
+            "engine": "sym-split2" if use_split else "sym",
+            "annot_p": -1, "dot_dtype": config.int8_dot_dtype,
+            **bed_identity(bed.path)})
+        n_resumed = resume_shards(ck_dir, geo, out, carry)
+        if n_resumed:
+            log.info("Resuming: %d chunks already complete", n_resumed)
+
+    thresholds = (ld_int8.f32(config.maf_thr), ld_int8.f32(config.std_thr))
+    seg_rows = min(ld_split.SEG_ROWS_DEFAULT, band_rows)
+    # band-tail retention: consecutive bands overlap by exactly the halo,
+    # so while the previous band's packed rows stay on the device only the
+    # chunk_rows new rows are read and sent; it needs the row scan for a
+    # band's missing state
+    retain = rowmiss is not None
+    retained: dict = {"ci": None, "raw": None}
+    routes: Counter = Counter()
+    reader = _BandReader(bed, geo, rowmiss, dev)
+
+    def dispatch(band: _Band):
+        """Queue chunk ``band.ci``'s device work; returns its payload,
+        being copied to the host, and the event behind the copy."""
+        ci = band.ci
+        p0 = ci * c
+        sl = slice(p0, p0 + band_rows)
+        if band.tail_only:
+            if retained["ci"] != ci - 1:
+                raise RuntimeError(
+                    f"band-tail retention: chunk {ci}'s band needs chunk "
+                    f"{ci - 1}'s, but the device holds chunk "
+                    f"{retained['ci']}'s")
+            raw = torch.cat([retained["raw"][c:],
+                             band.stage.to(dev, non_blocking=True)])
+        else:
+            raw = band.stage.to(dev, non_blocking=True)
+        if reader.pinned:
+            ev = torch.cuda.Event()
+            ev.record()
+            reader.events[band.slot] = ev
+        STAGE_TIMES["stream_put_mb"] = (STAGE_TIMES.get("stream_put_mb", 0.0)
+                                        + band.stage.nbytes / 1e6)
+        if retain:
+            retained["ci"], retained["raw"] = ci, raw
+
+        lo_b, hi_b = lo_ext[sl] - p0, hi_ext[sl] - p0
+        win = torch.from_numpy(np.stack([lo_b, hi_b])).to(dev)
+        lo_d, hi_d = win[0], win[1]
+        g = preprocess.unpack_bed(raw, n_samples=n, n_pad=n_pad, pad_val=-1)
+        split_c = use_split and bool(rowmiss_ext[sl].any())
+        global_c = not use_split and band.has_missing
+        pre = ld_int8.preprocess_int8(
+            g, torch.from_numpy(pos_ok_ext[sl]).to(dev), thresholds[0],
+            n_samples=n, materialize_m=global_c)
+        dom_ok = pre["usable"] & (pre["rstd"] > thresholds[1])
+        scal = ld_int8.stack_scalars(pre)
+        l2, ws, poi, l2d, wsd, wse = ld_pallas_sym.sym_credits(
+            pre["g"], pre["m"], pre["h"], scal, lo_d, hi_d, pre["usable"],
+            dom_ok, pre["add_sd_zero"], config.rsq_thr, n_samples=n,
+            has_missing=global_c, block_size=config.block_size,
+            pivot_rows=c)
+        if split_c:
+            # pairs owned by their left member: own_hi = chunk_rows
+            rm_b = rowmiss_ext[sl]
+            plan = ld_split.plan_split_v2(rm_b, lo_b, hi_b, seg_rows,
+                                          band_rows)
+            l2_d, l2d_d, wse_d = ld_split.split_corrections(
+                pre["g"], ld_split.compact_missing_rows(g, plan["miss_idx"]),
+                pre["h"], scal, lo_d, hi_d, pre["usable"], dom_ok,
+                torch.from_numpy(rm_b).to(dev), config.rsq_thr, c, plan,
+                n_samples=n)
+            l2, l2d, wse = l2 + l2_d, l2d + l2d_d, wse + wse_d
+        routes["split" if split_c else "global" if global_c else "clean"] += 1
+        stats = torch.stack([pre["usable"], pre["add_sd_zero"], pre["maf"],
+                             pre["rstd"]])[:, :c]
+        payload = torch.cat([torch.stack([l2, ws, poi, l2d, wsd, wse])
+                             .double().reshape(-1),
+                             stats.double().reshape(-1)])
+        if not reader.pinned:
+            return payload, None
+        host = torch.empty(payload.shape, dtype=payload.dtype,
+                           pin_memory=True)
+        host.copy_(payload, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    def collect(ci: int, payload: torch.Tensor, done) -> None:
+        """Finalize chunk ``ci`` on the host and write its shard."""
+        nonlocal carry
+        if done is not None:
+            done.synchronize()
+        pp = payload.numpy()
+        sums = pp[:len(CREDITS) * band_rows].reshape(len(CREDITS), band_rows)
+        local, tail = sums[:, :c].copy(), sums[:, c:]
+        stats = pp[len(CREDITS) * band_rows:].reshape(len(STATS), c)
+        # credits earned by earlier chunks, then the carry moved on to the
+        # next chunk's first row
+        w = min(h, c)
+        local[:, :w] += carry[:, :w]
+        nc = np.zeros_like(carry)
+        if h > c:
+            nc[:, :h - c] = carry[:, c:]
+        nc += tail
+        carry = nc
+        l2a, ws_c, poi_c, l2da, wsd_c, wse_c = local
+        usable, sd_zero = stats[0] > 0, stats[1] > 0
+        l2, l2d, ws, wsd, wse = finalize_np(
+            l2a, l2da, ws_c.astype(np.int32), wsd_c.astype(np.int32),
+            wse_c.astype(np.int32), poi_c.astype(np.int32), usable, sd_zero)
+        rows = slice(ci * c, (ci + 1) * c)
+        for key, val in (("l2", l2), ("l2d", l2d), ("maf", stats[2]),
+                         ("residuals_std", stats[3]), ("l2_ws", ws),
+                         ("l2d_ws", wsd), ("l2d_wse", wse)):
+            out[key][rows] = val
+        if ck_dir is not None:
+            _save_npz(ck_dir / f"chunk_{ci:06d}.npz",
+                      **{k: v[rows] for k, v in out.items()}, tail=tail)
+        n_done = ci + 1 - n_resumed
+        elapsed = time.time() - t_start
+        log.info("chunk %d/%d done (%.0f%%, rows %d..%d) | elapsed %.1fs "
+                 "| ETA %.1fs", ci + 1, geo.n_chunks,
+                 100.0 * (ci + 1) / geo.n_chunks, rows.start, rows.stop,
+                 elapsed, elapsed * (geo.n_chunks - ci - 1) / max(n_done, 1))
+
+    todo = list(range(n_resumed, geo.n_chunks))
+    t_start = time.time()
+    log.info("streaming setup %.1fs (windows, rowmiss, checkpoint); %d "
+             "chunks of %d rows (halo %d) to run", t_start - t_enter,
+             len(todo), c, h)
+    in_flight: deque = deque()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        prefetch = pool.submit(reader.read, todo[0], 0, False) if todo else None
+        for idx, ci in enumerate(todo):
+            t0 = time.time()
+            band = prefetch.result()
+            stage_add("stream_read_wait_s", t0)
+            if idx + 1 < len(todo):
+                # a tail-only read when the next chunk follows this one:
+                # its band is then this band's last halo rows plus new ones
+                prefetch = pool.submit(reader.read, todo[idx + 1],
+                                       (idx + 1) % 2, retain)
+            t0 = time.time()
+            in_flight.append((ci, *dispatch(band)))
+            stage_add("stream_dispatch_s", t0)
+            # collect the previous chunk while the device works on this one
+            while len(in_flight) > (1 if idx + 1 < len(todo) else 0):
+                t0 = time.time()
+                collect(*in_flight.popleft())
+                stage_add("stream_collect_s", t0)
+    parts = [f"{k} {v}" for k, v in sorted(routes.items())]
+    if n_resumed:
+        parts.append(f"resumed {n_resumed}")
+    log.info("LD route: streaming (%d chunks of %d rows, halo %d: %s)",
+             geo.n_chunks, c, h, ", ".join(parts) or "none")
+    return {k: v[:m] for k, v in out.items()}

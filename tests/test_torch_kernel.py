@@ -115,6 +115,33 @@ def test_kernel_matches_twin(rng, cuda, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case, pivot_rows", [("clean", 128),
+                                              ("missing", 192),
+                                              ("multi_tile_band", 256)])
+def test_kernel_band_matches_twin_over_pivots(rng, cuda, case, pivot_rows):
+    # a streaming band: pivots, then halo rows that are neighbours only
+    # (their windows emptied, their tiles' CTAs exit at once)
+    args, n, has_missing, _ = engine_args(rng, case, cuda)
+    T = ld_pallas_sym.tile(has_missing)
+    before = ld_pallas_sym.launches
+    kern = ld_pallas_sym.sym_credits(*args, RSQ, n_samples=n,
+                                     has_missing=has_missing, block_size=T,
+                                     pivot_rows=pivot_rows)
+    torch.cuda.synchronize()
+    assert ld_pallas_sym.launches == before + 1
+    twin = ld_int8.sym_scan_segment(
+        *args, RSQ, 0, block_size=T,
+        right_k=ld_int8.band_extent(args[5], T)[1], n_samples=n,
+        n_scan_blocks=pivot_rows // T, has_missing=has_missing)
+    ours, ref = finalized(kern, args), finalized(twin, args)
+    for a, b in zip(ours[:2], ref[:2]):
+        np.testing.assert_allclose(a, b, **TOL)
+    for a, b in zip(ours[2:], ref[2:]):
+        np.testing.assert_array_equal(a, b)
+    assert int(kern[1][pivot_rows:].sum()) > 0   # the halo's column credits
+
+
+@pytest.mark.gpu
 def test_kernel_rejects_bad_inputs(rng, cuda):
     args, n, _, _ = engine_args(rng, "clean", cuda)
     bad = (args[0][:, :-64].contiguous(),) + args[1:]
