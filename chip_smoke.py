@@ -78,14 +78,41 @@ Phases, one line each (or a few):
      ``-rsq``: peak device memory within 10% of phase 13's, and on the
      rows more than a window from a seam counters equal to phase 13's and
      L2/L2D within KERNEL_TOL; then ``ld-genome`` on phases 5 and 9 in
-     core, its .L2/.M/.M_5_50 byte-identical to theirs.
+     core, its .L2/.M/.M_5_50 byte-identical to theirs;
+ 17. partitioned LD scores, the kernels' annotation epilogues against
+     their twins at M=4096, N=3001 with p=5 annotations (one all ones, two
+     binary, two continuous): K1 clean, K1 8-product (2% missing) and
+     ``split_corrections(annot=)`` on 5% contaminated rows: the plain
+     credits and counters bitwise equal to a launch without annotations,
+     the annotation accumulators within KERNEL_TOL of the twin's, two runs
+     bitwise equal; every instantiation of both sources listed by ptxas
+     without a spill;
+ 18. the golden fixture tests/data/golden_annot_toy.npz through
+     ``compute_ld_scores(annot=)`` on the card (K1), through the full-band
+     torch engine (``symmetric=False``) and streamed at ``chunk_rows=64``,
+     at tests/test_golden.py's tolerances;
+ 19. ``ld --annot`` at full width: phase 5's chromosome with p=53
+     annotations (the first all ones, ``base``) in core and streamed, and
+     phase 9's on the split route (K2's annotation epilogue), the global
+     route and streamed, and phase 6's 2%-missing bfile in core and
+     streamed (every band global: the 8-product annotation instantiation
+     per band): ``base.L2``/``base.L2D`` equal to phase 5's
+     ``L2``/``L2D``, streamed equal to in core, split equal to global,
+     53-column .M files, the launches of every annotation instantiation,
+     ``h2 --partitioned`` on the result; then each annotation
+     instantiation at that shape and p=53 against its twin (plain credits
+     bitwise equal to a launch without annotations, the accumulators
+     within KERNEL_TOL: the ``max_abs_err`` of the kernels line), its
+     time beside the plain launch's, its bound, the full-band torch
+     engine at that shape, and peak device memory.
 
 Then one JSON line of the kernels (each with its time, its plain
 version's, its bound from this run's inputs, its launches on the main
 path of phases 5 and 9 and in phases 13-14, and ``library_ms``: null
 for K1, which no PyTorch call computes; for K2 ``torch._int_mm`` on its
-products, which the port never calls), the ``nvidia-smi`` line, and
-last
+products, which the port never calls; null for the annotation
+instantiations, whose epilogues no one PyTorch call fuses), the
+``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the
 script exits non-zero without the last line; so does a machine with no
 CUDA device, or a directory without the port beside this script.
@@ -169,16 +196,25 @@ def engine_inputs(torch, g: np.ndarray, pos: np.ndarray, wind: float, dev,
     """Preprocessed kernel arguments on ``dev`` for int8 codes ``g``, the
     sample count, whether data is missing, and the raw codes."""
     from nldsc_tpu_torch.io.plink import encode_bed_bytes
+
+    return packed_inputs(torch, encode_bed_bytes(g), g.shape[1],
+                         bool((g < 0).any()), pos, wind, dev, materialize_m)
+
+
+def packed_inputs(torch, packed: np.ndarray, n: int, has_missing: bool,
+                  pos: np.ndarray, wind: float, dev,
+                  materialize_m: bool = True):
+    """``engine_inputs`` from the packed .bed rows ``packed`` of ``n``
+    samples."""
     from nldsc_tpu_torch.ld import ld_int8, ld_pallas_sym, preprocess, windows
     from nldsc_tpu_torch.ld.pipeline import padded_shape
 
-    m, n = g.shape
-    has_missing = bool((g < 0).any())
+    m = packed.shape[0]
     m_pad, n_pad = padded_shape(m, n, "cuda", ld_pallas_sym.ROW_ALIGN)
     lo, hi, pos_ok = windows.window_bounds(pos, wind)
     raw = np.full((m_pad, (n + 3) // 4), 0x55 if has_missing else 0,
                   np.uint8)
-    raw[:m] = encode_bed_bytes(g)
+    raw[:m] = packed
     gd = preprocess.unpack_bed(torch.from_numpy(raw).to(dev), n, n_pad,
                                -1 if has_missing else 0)
     ok = np.zeros(m_pad, bool)
@@ -296,7 +332,97 @@ def k1_work(hi, n_pad: int, has_missing: bool, tile: int) -> dict:
     nbytes = (3 if has_missing else 2) * m_pad * n_pad + m_pad * (
         9 * 4 + 2 * 4 + 3) + 6 * 4 * m_pad
     return {"ops": ops, "tile_ops": 2.0 * nprod * n_pad * ctas * tile * tile,
-            "ctas": ctas, "bytes": nbytes, **bound(ops, nbytes)}
+            "ctas": ctas, "pairs": pairs, "bytes": nbytes,
+            **bound(ops, nbytes)}
+
+
+def annot_bound(work: dict, pairs: int, m_pad: int, p: int,
+                int8_ops: float, f32_ops: float = 0.0) -> dict:
+    """A kernel's work with its annotation epilogue: ``work`` (its plain
+    ``bytes``) plus 4 contractions x 2 float32 operations x ``p`` per
+    counted pair, the annotation matrix read once and the two (m_pad, p)
+    accumulators written once.  The operations' times add (tensor cores,
+    then the float32 rate); the bound is the larger of that and the
+    bytes' time."""
+    f32_ops += 4.0 * 2.0 * p * pairs
+    nbytes = work["bytes"] + 3 * 4 * m_pad * p
+    t_ops = int8_ops / INT8_OPS + f32_ops / FP32_OPS
+    t_bytes = nbytes / HBM_BYTES
+    return {"annot_f32_ops": 4.0 * 2.0 * p * pairs, "bytes": nbytes,
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def k1_annot_work(work: dict, m_pad: int, p: int) -> dict:
+    """K1's work with ``p`` annotations, from ``k1_work``'s ``work`` on
+    the same ``m_pad`` rows."""
+    return annot_bound(work, work["pairs"], m_pad, p, work["ops"])
+
+
+def annot_values(rng, m: int, p: int) -> np.ndarray:
+    """(m, p) annotations, float64 holding float32 values: the first
+    column all ones (``base``, as in the baseline model), the next two
+    binary (30% ones), the rest continuous in [0, 1)."""
+    a = rng.random((m, p), dtype=np.float32)
+    a[:, 0] = 1.0
+    a[:, 1:3] = a[:, 1:3] < 0.3
+    return a.astype(np.float64)
+
+
+def seeded_annot(torch, m_pad: int, m: int, p: int, seed: int, dev):
+    """``annot_values`` from ``seed`` as the kernels take them: float32
+    (m_pad, p) on ``dev``, zero rows for the padding."""
+    out = np.zeros((m_pad, p), np.float32)
+    out[:m] = annot_values(np.random.default_rng(seed), m, p)
+    return torch.from_numpy(out).to(dev)
+
+
+def max_abs_diff(a, b) -> float:
+    return float((a - b).abs().max()) if a.numel() else 0.0
+
+
+def hold_accumulators(kern, ref, what: str) -> float:
+    """The annotation accumulators ``kern`` within KERNEL_TOL of the plain
+    version's ``ref`` (tensors on any device); their max abs error."""
+    err = 0.0
+    for a, b in zip(kern, ref):
+        a, b = a.cpu(), b.cpu()
+        np.testing.assert_allclose(a.numpy(), b.numpy(), err_msg=what,
+                                   **KERNEL_TOL)
+        err = max(err, max_abs_diff(a, b))
+    return err
+
+
+def check_k1_annot(torch, args, n: int, has_missing: bool, annot,
+                   plain) -> float:
+    """K1's annotation epilogue on engine inputs ``args``: two launches
+    bitwise equal, its six plain credit vectors bitwise equal to the
+    plain launch's (``plain``), its two accumulators within KERNEL_TOL of
+    the twin's; the accumulators' max abs error."""
+    from nldsc_tpu_torch.ld import ld_int8, ld_pallas_sym
+
+    T = ld_pallas_sym.tile(has_missing)
+
+    def run():
+        return ld_pallas_sym.sym_credits(
+            *args, RSQ, n_samples=n, has_missing=has_missing, block_size=T,
+            annot=annot)
+
+    before = ld_pallas_sym.annot_launches
+    kern, again = run(), run()
+    torch.cuda.synchronize()
+    if ld_pallas_sym.annot_launches != before + 2:
+        raise RuntimeError("the annotation epilogue was not launched")
+    if not all(torch.equal(a, b) for a, b in zip(kern, again)):
+        raise RuntimeError("two annot kernel runs differ")
+    if not all(torch.equal(a, b) for a, b in zip(kern[:6], plain)):
+        raise RuntimeError("an annot launch's plain credits differ from the "
+                           "plain launch's")
+    twin = ld_int8.sym_scan_segment(
+        *args, RSQ, 0, annot, block_size=T,
+        right_k=ld_int8.band_extent(args[5], T)[1], n_samples=n,
+        n_scan_blocks=args[0].shape[0] // T, has_missing=has_missing)
+    return hold_accumulators(kern[6:], twin[6:], "K1's accumulators")
 
 
 #: float32 operations of K2's fused epilogue per counted pair: pair_adj
@@ -526,15 +652,19 @@ def launch_counts() -> dict:
 
     return {"ld_sym": ld_pallas_sym.launches,
             "ld_sym_8prod": ld_pallas_sym.missing_launches,
+            "ld_sym_annot": ld_pallas_sym.annot_launches,
             "split_corr": ld_split.corr_launches,
-            "split_fused": ld_split.fused_launches}
+            "split_fused": ld_split.fused_launches,
+            "split_annot": ld_split.annot_launches}
 
 
 def reset_counts() -> None:
     from nldsc_tpu_torch.ld import ld_pallas_sym, ld_split
 
     ld_pallas_sym.launches = ld_pallas_sym.missing_launches = 0
+    ld_pallas_sym.annot_launches = 0
     ld_split.corr_launches = ld_split.fused_launches = 0
+    ld_split.annot_launches = 0
 
 
 def run_cli(prefix: str, out: str):
@@ -1016,6 +1146,395 @@ def streaming_phases(torch, tmp: str, prefix5: str, out5: str, prefix9: str,
     return found
 
 
+ANNOT_TOL = dict(rtol=5e-5, atol=5e-4)    # tests/test_annot.py:181-191
+
+
+def check_k2_annot(torch, sargs, n: int, annot, plain) -> float:
+    """K2's annotation epilogue on ``split_args`` inputs: two runs bitwise
+    equal, the three plain δ vectors bitwise equal to ``plain`` (a call
+    without annotations), the two annotation δ accumulators within
+    KERNEL_TOL of the twin's (on the CPU); their max abs error."""
+    from nldsc_tpu_torch.ld import ld_split
+
+    reset_counts()
+    kern = ld_split.split_corrections(*sargs, annot, n_samples=n)
+    c = launch_counts()
+    again = ld_split.split_corrections(*sargs, annot, n_samples=n)
+    torch.cuda.synchronize()
+    if (c["split_corr"], c["split_fused"], c["split_annot"]) != (2, 1, 1):
+        raise RuntimeError(f"split_corrections(annot=) launched {c}")
+    if not all(torch.equal(a, b) for a, b in zip(kern, again)):
+        raise RuntimeError("two split_corrections(annot=) runs differ")
+    if not all(torch.equal(a, b) for a, b in zip(kern[:3], plain)):
+        raise RuntimeError("the plain δ of an annot call differ from a plain "
+                           "call's")
+    cpu = tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in sargs)
+    twin = ld_split.split_corrections_plain(*cpu, annot.cpu(), n_samples=n)
+    return hold_accumulators(kern[3:], twin[3:], "K2's annotation δ")
+
+
+def annot_kernel_phase(torch, rng, dev) -> dict:
+    """Phase 17; returns each annotation instantiation's max abs error
+    against its twin."""
+    from nldsc_tpu_torch import _build
+    from nldsc_tpu_torch.ld import ld_pallas_sym, ld_split
+
+    p = 5
+    errs = {}
+    pos = np.arange(1, 4097, dtype=np.float64) * 100
+    pos[7] = -1.0                                     # skip sentinel
+    for name, rate in (("ld_sym annot", 0.0), ("ld_sym annot 8-product",
+                                               0.02)):
+        g = synthetic_genotypes(rng, 4096, 3001, missing_rate=rate)
+        adv = adversarial_rows(rng, 3001)
+        g[100:105] = adv[:5]
+        if rate:
+            g[200] = adv[5]
+            g[300] = -1
+        args, n, has_missing, _ = engine_inputs(torch, g, pos, 100_000.0,
+                                                dev)
+        annot = seeded_annot(torch, args[0].shape[0], 4096, p, 2026, dev)
+        plain = ld_pallas_sym.sym_credits(
+            *args, RSQ, n_samples=n, has_missing=has_missing,
+            block_size=ld_pallas_sym.tile(has_missing))
+        errs[name] = check_k1_annot(torch, args, n, has_missing, annot, plain)
+        say("17 annot kernel=twin", f"M=4096 N=3001 p={p} missing={rate}: "
+            f"{name}: plain credits and counters bitwise equal to the plain "
+            f"launch, max |accumulator| diff vs twin {errs[name]:.3g}, runs "
+            "bitwise equal")
+        del args, plain
+    g = synthetic_genotypes(rng, 4096, 3001)
+    inject_row_missing(rng, g, 0.05, 0.1)
+    g[100:106] = adversarial_rows(rng, 3001)
+    g[300] = -1
+    args, n, _, raw = engine_inputs(torch, g, pos, 100_000.0, dev,
+                                    materialize_m=False)
+    sargs = split_args(args, raw, n)
+    annot = seeded_annot(torch, args[0].shape[0], 4096, p, 2026, dev)
+    plain = ld_split.split_corrections(*sargs, n_samples=n)
+    errs["split_corr annot"] = check_k2_annot(torch, sargs, n, annot, plain)
+    say("17 annot K2=twin", f"M=4096 N=3001 p={p}, "
+        f"{sargs[-1]['n_miss']} contaminated rows: split_corrections(annot=) "
+        "(1 products + 1 fused launch with the annotation epilogue): plain δ "
+        "bitwise equal to the plain call, max |annotation δ| diff vs twin "
+        f"{errs['split_corr annot']:.3g}, runs bitwise equal")
+    for name, want in (("ld_sym", 4), ("split_corr", 4)):
+        log = _build.BUILD_INFO[name]["log"]
+        entries = re.findall(r"Compiling entry function '(\w+)'", log)
+        regs = re.findall(r"Used (\d+) registers", log)
+        spills = [int(b) for b in re.findall(r"(\d+) bytes spill", log)]
+        say("17 ptxas", f"{name}.cu: {len(entries)} instantiations "
+            + ", ".join(
+                "<" + ", ".join(re.findall(r"Lb([01])E", e)) + f">: {r} "
+                "registers" for e, r in zip(entries, regs))
+            + f"; spill bytes {sorted(set(spills))}")
+        if len(entries) != want or any(spills) or not spills:
+            raise RuntimeError(f"{name}.cu: expected {want} instantiations "
+                               f"without spills, got {entries}, {spills}")
+    return errs
+
+
+def annot_golden_phase(torch, tmp: str) -> None:
+    """Phase 18: the golden annot fixture on the card, three ways."""
+    from nldsc_tpu_torch.config import LDConfig
+    from nldsc_tpu_torch.io.plink import PlinkDataset, write_plink
+    from nldsc_tpu_torch.ld.pipeline import compute_ld_scores
+    from nldsc_tpu_torch.ld.streaming import compute_ld_scores_streaming
+
+    gold = dict(np.load(ROOT / "tests" / "data" / "golden_annot_toy.npz"))
+    cfg = LDConfig(ld_wind=12000.0, wind_metric="bp", maf_thr=0.01,
+                   std_thr=1e-4, rsq_thr=RSQ, block_size=64)
+    g, pos, annot = gold["genotypes"], gold["positions"], gold["annot"]
+    prefix = write_plink(os.path.join(tmp, "gold_annot"), g,
+                         bp=pos.astype(np.int64))
+    reset_counts()
+    runs = {
+        "K1": compute_ld_scores(g, pos, cfg, annot=annot, device="cuda"),
+        "full-band": compute_ld_scores(
+            g, pos, dataclasses.replace(cfg, symmetric=False), annot=annot,
+            device="cuda"),
+        "streamed": compute_ld_scores_streaming(
+            PlinkDataset.parse(prefix).bed, pos, cfg, chunk_rows=64,
+            annot=annot, device="cuda")}
+    c = launch_counts()
+    if c["ld_sym_annot"] < 2 or c["ld_sym_annot"] != c["ld_sym"]:
+        raise RuntimeError(f"phase 18: launches {c}")
+    errs = {}
+    for name, res in runs.items():
+        for k in ("l2_annot", "l2d_annot"):
+            np.testing.assert_allclose(res[k], gold[k], rtol=2e-5, atol=2e-4,
+                                       equal_nan=True, err_msg=f"{name} {k}")
+        errs[name] = max(float(np.nanmax(np.abs(res[k] - gold[k])))
+                         for k in ("l2_annot", "l2d_annot"))
+    say("18 golden annot", f"golden_annot_toy (M={g.shape[0]}, "
+        f"p={annot.shape[1]}) matches at rtol 2e-5, atol 2e-4: max abs diff "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f"; launches {c}")
+
+
+def write_annot_file(path: str, snps, annot: np.ndarray, names) -> None:
+    with open(path, "w") as f:
+        f.write("\t".join(["SNP", *names]) + "\n")
+        f.writelines("\t".join([s, *map(repr, row)]) + "\n"
+                     for s, row in zip(snps, annot.tolist()))
+
+
+def compare_tables(a: dict, b: dict, cols, tol: dict, what: str) -> float:
+    """Columns ``cols`` of two .L2 tables within ``tol``, NaN in the same
+    rows; the max abs difference."""
+    err = 0.0
+    for ca, cb in cols:
+        x, y = a[ca], b[cb]
+        np.testing.assert_array_equal(np.isnan(x), np.isnan(y),
+                                      err_msg=f"{what}: NaN rows of {ca}")
+        np.testing.assert_allclose(x, y, equal_nan=True,
+                                   err_msg=f"{what}: {ca}", **tol)
+        err = max(err, float(np.nanmax(np.abs(x - y))))
+    return err
+
+
+def annot_full_width(torch, tmp: str, prefix5: str, out5: str, prefix6: str,
+                     prefix9: str, m5: int, rng, dev, card: str,
+                     p: int = 53) -> dict:
+    """Phase 19; returns the launches of the annotation instantiations on
+    the main path (in core and streamed), their timing entries and their
+    max abs errors against the plain versions at that shape."""
+    from nldsc_tpu_torch.io.plink import PlinkDataset
+    from nldsc_tpu_torch.ld import ld_int8, ld_pallas_sym, ld_split, windows
+
+    names = ["base"] + [f"a{i}" for i in range(1, p)]
+    ds5 = PlinkDataset.parse(prefix5)
+    snps = ds5.bim["SNP"].tolist()
+    annot = np.round(annot_values(rng, m5, p), 4)
+    apath = os.path.join(tmp, "chr.annot")
+    t0 = time.time()
+    write_annot_file(apath, snps, annot, names)
+    say("19 data", f"{m5} x {p} annotation file "
+        f"({os.path.getsize(apath) / 1e6:.0f} MB) written in "
+        f"{time.time() - t0:.1f} s")
+    base = ["-kb", "100", "-maf", "0.01", "--annot", apath]
+    stream = ["--streaming", "--chunk-rows", "8192"]
+    n_chunks = m5 // 8192
+    rows = {pre: sum(1 for _ in open(pre + ".bim"))
+            for pre in (prefix5, prefix6, prefix9)}
+    n6 = rows[prefix6] // 8192
+    # (tag, bfile, flags, expected K1, 8-product, K1 annot, K2, K2 annot);
+    # the 2%-missing bfile's SNPs are the first of the annotation file's,
+    # and every band of it goes global
+    plan = (("clean", prefix5, [], 1, 0, 1, 0, 0),
+            ("clean streamed", prefix5, stream, n_chunks, 0, n_chunks, 0, 0),
+            ("split", prefix9, [], 1, 0, 1, 2, 1),
+            ("global", prefix9, ["--no-split-missing"], 1, 1, 1, 0, 0),
+            ("split streamed", prefix9, stream, n_chunks, 0, n_chunks,
+             2 * n_chunks, n_chunks),
+            ("dense missing", prefix6, [], 1, 1, 1, 0, 0),
+            ("dense missing streamed", prefix6, stream, n6, n6, n6, 0, 0))
+    runs, tabs = {}, {}
+    for tag, prefix, flags, k1, k1m, k1a, k2, k2a in plan:
+        out = os.path.join(tmp, "annot_" + tag.replace(" ", "_") + ".L2")
+        r = run_ld(torch, ["--bfile", prefix, *base, *flags, "-o", out])
+        c = r["launches"]
+        got = (c["ld_sym"], c["ld_sym_8prod"], c["ld_sym_annot"],
+               c["split_corr"], c["split_annot"])
+        if got != (k1, k1m, k1a, k2, k2a):
+            raise RuntimeError(f"phase 19 {tag}: launches {c}, expected K1 "
+                               f"{k1} ({k1m} 8-product, {k1a} annot), K2 "
+                               f"{k2} ({k2a} annot)")
+        tabs[tag] = read_l2(out)
+        header = list(tabs[tag])
+        want = (["CHR", "BP"] + [f"{x}.L2" for x in names]
+                + [f"{x}.L2D" for x in names])
+        if header != want or len(tabs[tag]["BP"]) != rows[prefix]:
+            raise RuntimeError(f"phase 19 {tag}: .L2 columns {header[:6]}...")
+        for suffix in (".M", ".M_5_50"):
+            lines = Path(out).with_suffix(suffix).read_text().splitlines()
+            if (lines[0].split("\t") != [f"{x}.L2" for x in names]
+                    or len(lines[1].split("\t")) != p):
+                raise RuntimeError(f"phase 19 {tag}: {suffix} is not {p} "
+                                   "named counts")
+        runs[tag] = r
+        say(f"19 ld --annot {tag}", f"M={rows[prefix]} p={p} "
+            f"{' '.join(flags)}: launches {c}; {r['wall']:.2f} s wall, "
+            f"{rows[prefix] / r['wall']:.0f} "
+            f"SNPs/s; stages {r['stages']}; peak device memory "
+            f"{r['peak']:.3f} GiB; on {card}")
+    all_cols = [(c, c) for c in list(tabs["clean"])[2:]]
+    plain5 = read_l2(out5)
+    errs = {
+        "base = phase 5": compare_tables(
+            tabs["clean"], plain5, [("base.L2", "L2"), ("base.L2D", "L2D")],
+            KERNEL_TOL, "base against phase 5"),
+        "streamed = in core": compare_tables(
+            tabs["clean streamed"], tabs["clean"], all_cols, KERNEL_TOL,
+            "streamed against in core"),
+        "split = global": compare_tables(
+            tabs["split"], tabs["global"], all_cols, ANNOT_TOL,
+            "split against global"),
+        "split streamed = split": compare_tables(
+            tabs["split streamed"], tabs["split"], all_cols, ANNOT_TOL,
+            "split streamed against in core"),
+        "dense missing streamed = in core": compare_tables(
+            tabs["dense missing streamed"], tabs["dense missing"], all_cols,
+            ANNOT_TOL, "dense missing streamed against in core")}
+    say("19 checks", "; ".join(f"{k}: max abs diff {v:.3g}"
+                               for k, v in errs.items())
+        + f"; .M/.M_5_50 hold {p} columns named <name>.L2")
+
+    # h2 --partitioned on the partitioned scores, phase 5's plain scores
+    # as the regression weights
+    l2 = plain5["L2"]
+    m_5_50 = float(Path(out5).with_suffix(".M_5_50").read_text().split()[2])
+    z = rng.standard_normal(m5) * np.sqrt(1.0 + 100_000.0 * 0.3 * l2 / m_5_50)
+    ss = os.path.join(tmp, "annot.sumstats")
+    with open(ss, "w") as f:
+        f.write("SNP\tZ\tN\n")
+        f.writelines(f"{s}\t{v!r}\t100000.0\n"
+                     for s, v in zip(snps, z.tolist()))
+    summary, wall_h2 = run_h2_cli(
+        ["--partitioned", "--sumstats", ss, "--ref-ld",
+         os.path.join(tmp, "annot_clean.L2"), "--w-ld", out5],
+        os.path.join(tmp, "annot_h2.json"))
+    if list(summary["annotations"]) != [f"{x}.L2" for x in names]:
+        raise RuntimeError("phase 19: h2 --partitioned did not report the "
+                           f"{p} annotations")
+    say("19 h2 --partitioned", f"{p} annotations reported in {wall_h2:.2f} s "
+        f"(total h2 {summary['total']['hsq']:.4f} +- "
+        f"{summary['total']['hsq.std']:.4f}); on {card}")
+
+    # the annotation instantiations beside the plain launches, in turns
+    pos5 = ds5.positions("bp")
+    out = {"launches": {
+        "ld_sym annot": runs["clean"]["launches"]["ld_sym_annot"],
+        "ld_sym annot 8-product": runs["global"]["launches"]["ld_sym_annot"],
+        "split_corr annot": runs["split"]["launches"]["split_annot"]},
+        "launches_streamed": {
+        "ld_sym annot": runs["clean streamed"]["launches"]["ld_sym_annot"],
+        "ld_sym annot 8-product":
+            runs["dense missing streamed"]["launches"]["ld_sym_annot"],
+        "split_corr annot": runs["split streamed"]["launches"]["split_annot"]}}
+    args, n, _, _ = packed_inputs(torch, ds5.bed.read_raw().raw, ds5.n_samples,
+                                  False, pos5, 100_000.0, dev)
+    m_pad, n_pad = args[0].shape
+    a_dev = torch.zeros((m_pad, p), dtype=torch.float32, device=dev)
+    a_dev[:m5] = torch.from_numpy(annot.astype(np.float32)).to(dev)
+    m0 = torch.zeros_like(args[0])     # as phase 7: every pair the clean one
+    Tc, Tm = ld_pallas_sym.TILE_CLEAN, ld_pallas_sym.TILE_MISSING
+
+    def k1(has_missing, a=None):
+        return ld_pallas_sym.sym_credits(
+            args[0], m0 if has_missing else args[1], *args[2:], RSQ,
+            n_samples=n, has_missing=has_missing,
+            block_size=Tm if has_missing else Tc, annot=a)
+
+    def twin(has_missing, B=512):
+        return ld_int8.sym_scan_segment(
+            args[0], m0 if has_missing else args[1], *args[2:], RSQ, 0,
+            a_dev, block_size=B, right_k=ld_int8.band_extent(args[5], B)[1],
+            n_samples=n, n_scan_blocks=m_pad // B, has_missing=has_missing)
+
+    for name, has_missing in (("ld_sym annot", False),
+                              ("ld_sym annot 8-product", True)):
+        T = Tm if has_missing else Tc
+        work = k1_work(args[5], n_pad, has_missing, T)
+        work_a = k1_annot_work(work, m_pad, p)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        ms_plain = cuda_ms(torch, lambda: k1(has_missing), 5)
+        ms = cuda_ms(torch, lambda: k1(has_missing, a_dev), 5)
+        peak = (torch.cuda.max_memory_allocated() - mem0) / 2**30
+        ms2 = cuda_ms(torch, lambda: k1(has_missing, a_dev), 5)
+        ms_plain2 = cuda_ms(torch, lambda: k1(has_missing), 5)
+        kern, plain = k1(has_missing, a_dev), k1(has_missing)
+        if not all(torch.equal(a, b) for a, b in zip(kern[:6], plain)):
+            raise RuntimeError(f"phase 19 {name}: an annot launch's plain "
+                               "credits differ from the plain launch's")
+        err = hold_accumulators(kern[6:], twin(has_missing)[6:],
+                                f"phase 19 {name} against its twin")
+        del kern, plain
+        plain_ms = cuda_ms(torch, lambda: twin(has_missing), 1)
+        out[name] = {"ms": min(ms, ms2), "plain_ms": plain_ms,
+                     "max_abs_err": err, **work_a}
+        say("19 timing", f"M={m5} N={n} +-1000 SNPs p={p}, {name}: "
+            f"{ms:.3f} / {ms2:.3f} ms against {ms_plain:.3f} / "
+            f"{ms_plain2:.3f} ms without annotations (plain, annot, annot, "
+            f"plain); bound {work_a['bound_ms']:.3f} ms "
+            f"({work_a['bound_by']}: {work['ops'] / 1e12:.3f} T int8 ops + "
+            f"{work_a['annot_f32_ops'] / 1e9:.1f} G f32 ops, "
+            f"{work_a['bytes'] / 1e9:.2f} GB), "
+            f"{100 * work_a['bound_ms'] / min(ms, ms2):.1f}% of it; plain "
+            "credits and counters bitwise equal to the plain launch's, max "
+            f"|accumulator| diff vs twin {err:.3g} (KERNEL_TOL); twin "
+            f"with annotations {plain_ms:.1f} ms (B=512); peak device memory "
+            f"of a launch and its fold {peak:.3f} GiB; on {card}")
+    # the full-band torch engine (--no-symmetric) at that shape
+    lo, hi, _ = windows.window_bounds(pos5, 100_000.0)
+    blk_lo, blk_hi, band_k = windows.band_blocks(lo, hi, 512, m_pad // 512)
+
+    def full_band(a=None):
+        return ld_int8.ld_scores_int8(
+            *args, blk_lo, blk_hi, RSQ, a, block_size=512, band_k=band_k,
+            n_samples=n, has_missing=False)
+
+    ms_fb, ms_fb_a = (cuda_ms(torch, lambda a=a: full_band(a), 2)
+                      for a in (None, a_dev))
+    say("19 timing", f"full-band torch engine (torch._int_mm products, "
+        f"block 512, band {band_k} blocks) at that shape: {ms_fb:.1f} ms "
+        f"plain, {ms_fb_a:.1f} ms with {p} annotations; on {card}")
+    del args, m0, a_dev
+    torch.cuda.empty_cache()
+
+    ds9 = PlinkDataset.parse(prefix9)
+    args, n, _, raw = packed_inputs(torch, ds9.bed.read_raw().raw,
+                                    ds9.n_samples, True, pos5, 100_000.0,
+                                    dev, materialize_m=False)
+    sargs = split_args(args, raw, n)
+    a_dev = torch.zeros((m_pad, p), dtype=torch.float32, device=dev)
+    a_dev[:m5] = torch.from_numpy(annot.astype(np.float32)).to(dev)
+
+    def k2(a=None):
+        return ld_split.split_corrections(*sargs, a, n_samples=n)
+
+    work2 = k2_work(sargs)
+    work2_a = annot_bound(work2, work2["pairs"], m_pad, p, work2["int8_ops"],
+                          work2["f32_ops"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    ms_plain = cuda_ms(torch, k2, 10)
+    ms = cuda_ms(torch, lambda: k2(a_dev), 10)
+    peak = (torch.cuda.max_memory_allocated() - mem0) / 2**30
+    ms2 = cuda_ms(torch, lambda: k2(a_dev), 10)
+    ms_plain2 = cuda_ms(torch, k2, 10)
+
+    def twin2():
+        return ld_split.split_corrections_plain(*sargs, a_dev, n_samples=n)
+
+    kern, plain = k2(a_dev), k2()
+    if not all(torch.equal(a, b) for a, b in zip(kern[:3], plain)):
+        raise RuntimeError("phase 19: the plain δ of an annot call differ "
+                           "from a plain call's")
+    err = hold_accumulators(kern[3:], twin2()[3:],
+                            "phase 19 split_corr annot against its twin")
+    del kern, plain
+    plain_ms = cuda_ms(torch, twin2, 1)
+    out["split_corr annot"] = {"ms": min(ms, ms2), "plain_ms": plain_ms,
+                               "max_abs_err": err, **work2_a}
+    say("19 timing", f"split_corrections(annot=) p={p}, "
+        f"{sargs[-1]['n_miss']} contaminated rows: {ms:.3f} / {ms2:.3f} ms "
+        f"against {ms_plain:.3f} / {ms_plain2:.3f} ms without annotations "
+        f"(plain, annot, annot, plain); bound {work2_a['bound_ms']:.3f} ms "
+        f"({work2_a['bound_by']}: {work2['pairs']} counted pairs, "
+        f"{work2_a['annot_f32_ops'] / 1e9:.2f} G f32 ops more, "
+        f"{work2_a['bytes'] / 1e9:.2f} GB), "
+        f"{100 * work2_a['bound_ms'] / min(ms, ms2):.1f}% of it; plain δ "
+        "bitwise equal to the plain call's, max |annotation δ| diff vs twin "
+        f"{err:.3g} (KERNEL_TOL); twin with "
+        f"annotations {plain_ms:.1f} ms; peak device memory of a call "
+        f"{peak:.3f} GiB; on {card}")
+    return out
+
+
 def main() -> int:
     if not (ROOT / "nldsc_tpu_torch" / "csrc" / "ld_sym.cu").exists():
         print("chip_smoke.py must run from a checkout that holds "
@@ -1356,6 +1875,13 @@ def main() -> int:
         streamed = streaming_phases(torch, tmp, prefix5, out5, prefix9, out9,
                                     M5, card)
 
+        # 17-19. partitioned LD scores: the annotation epilogues
+        torch.cuda.empty_cache()
+        errs_a = annot_kernel_phase(torch, rng, dev)
+        annot_golden_phase(torch, tmp)
+        annot19 = annot_full_width(torch, tmp, prefix5, out5, prefix6,
+                                   prefix9, M5, rng, dev, card)
+
     bad = sorted({k.split(".")[0] for k in sys.modules}
                  & {"jax", "nldsc_tpu", "pandas"})
     if bad:
@@ -1386,7 +1912,22 @@ def main() -> int:
         "ms_kernels": t10["ms_k2"],
         "tops": (work2["tile_ops"] / t10["ms_k2"] / 1e9 if t10["ms_k2"]
                  else None),
-        "bound_ms_old": work2["old_k2_ms"] + work2["old_delta_ms"]}]}))
+        "bound_ms_old": work2["old_k2_ms"] + work2["old_delta_ms"]}] + [{
+        "name": name, "route": "cuda",
+        "source": f"nldsc_tpu_torch/csrc/{src}.cu", "replaces": replaces,
+        "launches": annot19["launches"][name],
+        "launches_streamed": annot19["launches_streamed"][name],
+        "max_abs_err": annot19[name]["max_abs_err"],
+        "max_abs_err_p5": errs_a[name], "ms": annot19[name]["ms"],
+        "plain_ms": annot19[name]["plain_ms"],
+        "bound_ms": annot19[name]["bound_ms"],
+        "bound_by": annot19[name]["bound_by"], "library_ms": None}
+        for name, src, replaces in (
+            ("ld_sym annot", "ld_sym", "nldsc_tpu/ld/ld_pallas_sym.py:52"),
+            ("ld_sym annot 8-product", "ld_sym",
+             "nldsc_tpu/ld/ld_pallas_sym.py:52"),
+            ("split_corr annot", "split_corr",
+             "scripts/pallas_corr_probe.py:54"))]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

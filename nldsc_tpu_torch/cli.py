@@ -2,10 +2,12 @@
 and ``convert`` commands.
 
 Flag-compatible with ``nldsc_tpu``'s CLI (``ld`` and ``ld-genome`` on
-one device, in core or streaming), plus ``--device`` on ``ld``,
-``ld-genome`` and ``h2``.  Every other flag of the JAX CLI is recognised
-and refused with the ROADMAP item that will port it.  Needs only the
-standard library (argparse) and numpy until a command runs.
+one device, in core or streaming, plain or partitioned by ``--annot``),
+plus ``--device`` on ``ld``, ``ld-genome`` and ``h2``.  The flags of the
+JAX CLI that are not ported yet (``_UNPORTED_LD_FLAGS``, ``--engine f32``,
+``--dot-dtype bf16``) are recognised and refused with the ROADMAP item
+that will port them.  Needs only the standard library (argparse) and
+numpy until a command runs.
 """
 
 from __future__ import annotations
@@ -32,16 +34,13 @@ __header__ = (
 _UNPORTED_LD_FLAGS = {
     "--pallas": (False, "the fused kernel is the default engine here; "
                         "use --engine pallas"),
-    "--symmetric": (False, "ROADMAP queue 1 item 7 (full-band engine)"),
-    "--no-symmetric": (False, "ROADMAP queue 1 item 7 (full-band engine)"),
     "--n-devices": (True, "ROADMAP queue 1 item 10 (multi-GPU)"),
     "--shard-axis": (True, "ROADMAP queue 1 item 10 (multi-GPU)"),
     "--profile-dir": (True, "ROADMAP queue 1 item 8 (user surface)"),
-    "--annot": (True, "ROADMAP queue 1 item 7 (partitioned LD)"),
     "--log-file": (False, "ROADMAP queue 1 item 8 (user surface)"),
 }
 #: the flags of the JAX ``ld-genome`` not ported yet
-_UNPORTED_GENOME_FLAGS = ("--n-devices", "--shard-axis", "--annot")
+_UNPORTED_GENOME_FLAGS = ("--n-devices", "--shard-axis")
 
 
 class _Unported(argparse.Action):
@@ -103,6 +102,15 @@ def build_parser() -> argparse.ArgumentParser:
                          "on when <=25%% of rows carry missing genotypes)")
     ld.add_argument("--no-split-missing", dest="split_missing",
                     action="store_false")
+    ld.add_argument("--symmetric", dest="symmetric", action="store_true",
+                    default=None,
+                    help="Symmetric engine (the fused kernels on a GPU): "
+                         "the default, except on the CPU for clean --annot "
+                         "data")
+    ld.add_argument("--no-symmetric", dest="symmetric", action="store_false",
+                    help="Full-band engine in plain PyTorch ops (in core)")
+    _add_annot_flag(ld, "compute partitioned LD scores (<name>.L2 / "
+                        "<name>.L2D per annotation)")
     ld.add_argument("--progress", dest="progress", action="store_true",
                     default=None, help="Log progress of the LD pass "
                                        "(default: on above 20k SNPs)")
@@ -142,6 +150,9 @@ def build_parser() -> argparse.ArgumentParser:
     genome.add_argument("--extra", action="store_true",
                         help="Include MAF WSA WSD WSDE RSTD columns")
     _add_streaming_flags(genome)
+    _add_annot_flag(genome, "partitioned LD, matched to each bfile by SNP "
+                            "id (a genome-wide file works: SNPs absent from "
+                            "a chromosome get zero rows)")
     genome.add_argument("--resume-dir", metavar="DIR", default=None,
                         help="Checkpoint root for chunk-granular resume: "
                              "each chromosome checkpoints into "
@@ -234,6 +245,12 @@ def _add_streaming_flags(parser) -> None:
                         help="Pivot rows per streaming chunk")
 
 
+def _add_annot_flag(parser, what: str) -> None:
+    parser.add_argument("--annot", metavar="FILE", default=None,
+                        help="Per-SNP annotation file (a SNP column and one "
+                             f"column per annotation): {what}")
+
+
 def _add_unported(parser, flags: dict) -> None:
     for flag, (takes_value, _) in flags.items():
         parser.add_argument(flag, action=_Unported,
@@ -289,7 +306,8 @@ def run_ld(args) -> None:
         split_missing=args.split_missing,
         use_pallas=args.engine == "pallas", progress=args.progress,
         streaming=args.streaming, chunk_rows=args.chunk_rows,
-        resume_path=args.resume_path, device=args.device)
+        resume_path=args.resume_path, annot=args.annot,
+        symmetric=args.symmetric, device=args.device)
     if table is not None and args.out is None:
         from .io.ldscores import format_table  # noqa: PLC0415
 
@@ -317,7 +335,7 @@ def run_ld_genome(args) -> None:
             chunk_rows=args.chunk_rows,
             resume_path=(os.path.join(args.resume_dir, name)
                          if args.resume_dir else None),
-            device=args.device)
+            annot=args.annot, device=args.device)
     log.info("ld-genome: %d chromosomes done", len(prefixes))
 
 

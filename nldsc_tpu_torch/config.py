@@ -42,6 +42,10 @@ class LDConfig:
     # corrections (ld/ld_split.py); None = auto (on when <= 25% of the
     # usable rows carry a missing genotype)
     split_missing: bool | None = None
+    # True: the symmetric engine (kernels K1/K2 on a GPU); False: the
+    # full-band torch engine; None = auto (symmetric, except on the CPU
+    # for clean partitioned data: ld/pipeline.resolve_symmetric)
+    symmetric: bool | None = None
 
     def __post_init__(self):
         wind = float(self.ld_wind)

@@ -34,6 +34,17 @@
 // the kernel folds (no float atomics, so run-to-run results are bitwise
 // equal).
 //
+// Partitioned LD scores (the ANNOT instantiations): the reference
+// contracts each masked adjusted-r^2 tile with the annotation rows of its
+// neighbours outside any kernel (nldsc_tpu/ld/ld_int8.py::sym_scan_segment,
+// annot branch).  Here the tile never leaves the registers, so the
+// epilogue stages the masked values it adds to the plain sums, the same
+// floats, in the freed ring, 32 neighbour rows at a time on the clean
+// branch and the whole tile on the missing one, and annot_epilogue.cuh
+// contracts them with the annotations of the neighbour rows (row credits)
+// and of the pivot rows (mirrored column credits).  The plain sums and
+// counters of an ANNOT launch are those of a plain launch bit for bit.
+//
 // The TMA, mbarrier and wgmma helpers and the tensor-map encoding live in
 // hopper.cuh, shared with K2 (split_corr.cu).
 //
@@ -51,11 +62,14 @@
 // the caller):
 //   fpart f32  [n_tiles][band][2 (row, col)][2 (l2, l2d)][TILE]
 //   ipart int32[n_tiles][band][2 (row, col)][4 (ws, wsd, wse, poison)][TILE]
+// and, with annot f32 (M_pad, p) row-major,
+//   apart f32  [n_tiles][band][2 (row, col)][2 (l2, l2d)][TILE][p]
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "annot_epilogue.cuh"
 #include "hopper.cuh"
 #include "pair_epilogue.cuh"
 
@@ -82,7 +96,16 @@ struct Cfg {
   // the neighbour rows; reaching one neighbour row: one per 16-row warp
   static constexpr int ROW_SLOTS = MISSING ? 2 : 1;
   static constexpr int COL_SLOTS = TILE / 16;
+  // annotation epilogue: neighbour rows staged per contraction (both
+  // warpgroups' columns), in the ring stages past the partial sums (and
+  // past the stashed Shg on the clean branch)
+  static constexpr int ANNOT_COLS = MISSING ? TILE : 32;
+  static constexpr int ANNOT_STAGE = MISSING ? 1 : 2;
 };
+// staged value tiles: the additive value (row credits, and column credits
+// outside the pivot tile, where the two masks agree) and both dominance
+// values
+enum { V_ADD, V_DA, V_DB, V_TILES };
 
 struct Params {
   CUtensorMap tm_g, tm_h, tm_m;   // boxes of Cfg::BOX rows x KC samples
@@ -95,6 +118,9 @@ struct Params {
   const int32_t* tile_hi;
   float* fpart;
   int32_t* ipart;
+  const float* annot;   // ANNOT only
+  float* apart;
+  int p;
   int n_tiles;
   int band;
   int n_pad;
@@ -126,7 +152,7 @@ struct RedSmem {
   int coli[C::COL_SLOTS][4][C::TILE];
 };
 
-template <bool MISSING>
+template <bool MISSING, bool ANNOT>
 __global__ void __launch_bounds__(THREADS, 1)
     ld_sym_kernel(const __grid_constant__ Params p) {
   using C = Cfg<MISSING>;
@@ -293,6 +319,13 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int col0 = MISSING ? C::WG_COLS * wg : 0;  // and neighbour rows
     const int rslot = MISSING ? wg : 0;
     const int cslot = MISSING ? wi : 4 * wg + wi;
+    // staged values past the partial sums' stage (and the stashed Shg);
+    // the annotation chunk behind the partial sums
+    auto& as = *reinterpret_cast<AnnotValues<T, C::ANNOT_COLS, V_TILES>*>(
+        ring + C::ANNOT_STAGE * C::STAGE_BYTES);
+    auto& ac = *reinterpret_cast<AnnotChunk<T, C::ANNOT_COLS>*>(
+        ring + sizeof(RedSmem<MISSING>));
+    const size_t slot = static_cast<size_t>(b) * p.band + k;
 
     int lr[2], rlo[2], rhi[2];
     unsigned rfl[2];
@@ -370,6 +403,32 @@ __global__ void __launch_bounds__(THREADS, 1)
             cl2d[v] += pa.db;
             ccnt[v] += (1u << 8) + (pa.db > rsq ? 1u << 16 : 0u);
           }
+          if constexpr (ANNOT) {
+            const int sc = lc % C::ANNOT_COLS;
+            as.v[V_ADD][lr[u]][sc] = row_base ? pa.add : 0.f;
+            as.v[V_DA][lr[u]][sc] = dm_a ? pa.da : 0.f;
+            as.v[V_DB][lr[u]][sc] = dm_b ? pa.db : 0.f;
+          }
+        }
+      }
+      if constexpr (ANNOT) {
+        // a block of neighbour rows is staged: contract it.  Outside the
+        // pivot tile row_base = col_base, so V_ADD serves both directions;
+        // inside it no column credit is earned.
+        constexpr int JB = C::ANNOT_COLS / (MISSING ? 16 : 8);
+        if ((j + 1) % JB == 0) {
+          const int ac0 = MISSING ? 0 : (j / JB) * C::ANNOT_COLS;
+          const size_t np = static_cast<size_t>(p.p);
+          float* aout = p.apart + slot * (2 * 2 * T) * np;
+          annot_contract(
+              as, ac, tid, p.p, {V_ADD, V_DA}, {V_ADD, V_DB}, j / JB > 0,
+              !diag,
+              [&](int r) { return p.annot + (r0 + r) * np; },
+              [&](int c) { return p.annot + (c0 + ac0 + c) * np; },
+              [&](int val, int r) { return aout + (val * T + r) * np; },
+              [&](int val, int c) {
+                return aout + ((2 + val) * T + ac0 + c) * np;
+              });
         }
       }
       // columns: over the 8 quads of the warp, then to shared memory
@@ -415,7 +474,6 @@ __global__ void __launch_bounds__(THREADS, 1)
     asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
 
     // the CTA's partials, summed over warps in a fixed order
-    const size_t slot = static_cast<size_t>(b) * p.band + k;
     float* fout = p.fpart + slot * (2 * 2 * T);
     int32_t* iout = p.ipart + slot * (2 * 4 * T);
     for (int c = tid; c < 2 * T; c += CONSUMERS) {
@@ -439,7 +497,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <bool MISSING>
+template <bool MISSING, bool ANNOT>
 cudaError_t launch(Params& p, const void* g, const void* m, const void* h,
                    cudaStream_t stream) {
   using C = Cfg<MISSING>;
@@ -450,6 +508,18 @@ cudaError_t launch(Params& p, const void* g, const void* m, const void* h,
   static_assert(MISSING || (C::STAGES - 1) * C::STAGE_BYTES >=
                                    CONSUMERS * 64 * sizeof(int),
                 "the stashed Shg must fit in the ring's later stages");
+  static_assert(sizeof(AnnotValues<C::TILE, C::ANNOT_COLS, V_TILES>) <=
+                    (C::STAGES - C::ANNOT_STAGE) * C::STAGE_BYTES,
+                "the staged annotation values must fit in the ring's last "
+                "stages");
+  static_assert(sizeof(RedSmem<MISSING>) % 16 == 0 &&
+                    sizeof(RedSmem<MISSING>) +
+                            sizeof(AnnotChunk<C::TILE, C::ANNOT_COLS>) <=
+                        C::STAGE_BYTES,
+                "the annotation chunk must fit behind the partial sums");
+  static_assert(C::TILE % C::ANNOT_COLS == 0 &&
+                    C::ANNOT_COLS % (MISSING ? 16 : 8) == 0,
+                "whole epilogue steps per staged block");
   static_assert(SMEM <= 232448, "shared memory of one CTA");
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
@@ -459,11 +529,11 @@ cudaError_t launch(Params& p, const void* g, const void* m, const void* h,
       !encode(fn, &p.tm_m, m, m_pad, p.n_pad, C::BOX))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      ld_sym_kernel<MISSING>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM);
+      ld_sym_kernel<MISSING, ANNOT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid(p.band, p.n_tiles);
-  ld_sym_kernel<MISSING><<<grid, THREADS, SMEM, stream>>>(p);
+  ld_sym_kernel<MISSING, ANNOT><<<grid, THREADS, SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -478,7 +548,8 @@ extern "C" int ld_sym_launch(const void* g, const void* m, const void* h,
                              const void* scal, const void* lo, const void* hi,
                              const void* usable, const void* dom_ok,
                              const void* poison, const void* tile_hi,
-                             void* fpart, void* ipart, int n_tiles, int band,
+                             void* fpart, void* ipart, const void* annot,
+                             void* apart, int n_annot, int n_tiles, int band,
                              int n_pad, float n, float n_padf, float adj_c,
                              float rsq_thr, int has_missing, void* stream) {
   Params p;
@@ -491,6 +562,9 @@ extern "C" int ld_sym_launch(const void* g, const void* m, const void* h,
   p.tile_hi = static_cast<const int32_t*>(tile_hi);
   p.fpart = static_cast<float*>(fpart);
   p.ipart = static_cast<int32_t*>(ipart);
+  p.annot = static_cast<const float*>(annot);
+  p.apart = static_cast<float*>(apart);
+  p.p = n_annot;
   p.n_tiles = n_tiles;
   p.band = band;
   p.n_pad = n_pad;
@@ -500,7 +574,13 @@ extern "C" int ld_sym_launch(const void* g, const void* m, const void* h,
   p.rsq_thr = rsq_thr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const void* mm = has_missing ? m : g;   // clean: never read
-  cudaError_t err = has_missing ? launch<true>(p, g, mm, h, s)
-                                : launch<false>(p, g, mm, h, s);
+  // annot (with apart and n_annot >= 1) selects the annotation epilogue
+  cudaError_t err;
+  if (annot != nullptr)
+    err = has_missing ? launch<true, true>(p, g, mm, h, s)
+                      : launch<false, true>(p, g, mm, h, s);
+  else
+    err = has_missing ? launch<true, false>(p, g, mm, h, s)
+                      : launch<false, false>(p, g, mm, h, s);
   return static_cast<int>(err);
 }

@@ -35,6 +35,13 @@
 //     from one products-mode launch over all segments before it.
 //   * products: a (and b, when the wrapper asks for it) written to device
 //     memory.  It computes d, and serves ld_split.corr_products.
+// The fused mode's ANNOT instantiation adds the annotation delta credits
+// of nldsc_tpu/ld/ld_split.py::split_corrections (annot branch): a live
+// tile stages its four masked delta values in the freed ring and
+// annot_epilogue.cuh contracts them with the annotations of the compact
+// columns (credits to x) and of the x rows (mirrored credits), written as
+// row and column partials beside the plain ones.  The plain sums of an
+// ANNOT launch are those of a plain launch bit for bit.
 //
 // What bounds it on this card: int8 tensor-core operations fed from L2.
 // Each stage of KC samples brings TM x rows and 3 TC compact rows for
@@ -53,6 +60,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "annot_epilogue.cuh"
 #include "hopper.cuh"
 #include "pair_epilogue.cuh"
 
@@ -72,6 +80,10 @@ constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
 constexpr int SEG_FIELDS = 4;            // first x row, c0, c_cnt, seg_lo
 enum { FL_OWNED = 1, FL_USABLE = 2, FL_DOM_OK = 4, FL_ROWMISS = 8 };
+// staged delta tiles of the annotation epilogue: credits to x (additive,
+// dominance) and mirrored credits to the compact column
+enum { V_XADD, V_XDOM, V_CADD, V_CDOM, V_TILES };
+using AnnotTile = AnnotValues<TM, TC, V_TILES>;
 
 struct Params {
   CUtensorMap tm_a;        // the x rows, boxes of TM rows
@@ -102,6 +114,13 @@ struct Params {
   int32_t* rpart_i;        // [n_ct][m_pad] (wse)
   float* cpart_f;          // [n_segs][n_xt][2][P]
   int32_t* cpart_i;        // [n_segs][n_xt][P]
+  // fused mode with annotations (zero-filled by the caller: a tile that
+  // skips its products writes none of them)
+  const float* annot;      // (m_pad, p)
+  const float* annot_c;    // (mm_pad, p), compact order
+  float* rpart_a;          // [n_ct][2][m_pad][p]
+  float* cpart_a;          // [n_segs][n_xt][2][P][p]
+  int p;
   int p_x, m_pad, own_hi;
   float n, n_padf, pad_const, adj_c, rsq;
 };
@@ -133,10 +152,11 @@ __device__ __forceinline__ uint32_t ld_shared_u32(uint32_t addr) {
   return v;
 }
 
-template <bool FUSED, bool WITH_H>
+template <bool FUSED, bool WITH_H, bool ANNOT>
 __global__ void __launch_bounds__(THREADS, 1)
     split_corr_kernel(const __grid_constant__ Params p) {
   static_assert(!FUSED || WITH_H, "the fused epilogue needs Shg and Shm");
+  static_assert(FUSED || !ANNOT, "annotations belong to the fused epilogue");
   extern __shared__ __align__(16) uint8_t smem_raw[];
 
   // the ring first, on a swizzle-atom boundary; then the barriers and
@@ -349,6 +369,18 @@ __global__ void __launch_bounds__(THREADS, 1)
     float rl2[2] = {0.f, 0.f}, rl2d[2] = {0.f, 0.f};
     int rwse[2] = {0, 0};
     const int warp8 = 4 * wg + wi;
+    auto& as = *reinterpret_cast<AnnotTile*>(ring);
+    auto& ac = *reinterpret_cast<AnnotChunk<TM, TC>*>(ring + sizeof(AnnotTile));
+    if constexpr (ANNOT) {
+      // only counted pairs are staged below: the rest stay zero
+      if (live) {
+        float* v = &as.v[0][0][0];
+        for (int i = tid; i < static_cast<int>(sizeof(AnnotTile) / 4);
+             i += CONSUMERS)
+          v[i] = 0.f;
+        consumer_sync();
+      }
+    }
 
 #pragma unroll
     for (int j = 0; j < TC / 8; ++j)
@@ -417,6 +449,15 @@ __global__ void __launch_bounds__(THREADS, 1)
               cwse += (aDbx > rsq ? 1 : 0) - (aDb0 > rsq ? 1 : 0);
             }
           }
+          if constexpr (ANNOT) {
+            const int lr = row0 + 8 * u;
+            as.v[V_XADD][lr][lc] = d_add;
+            if (fc & FL_DOM_OK) as.v[V_XDOM][lr][lc] = aDax - aDa0;
+            if (cln) {
+              as.v[V_CADD][lr][lc] = d_add;
+              if (fx[u] & FL_DOM_OK) as.v[V_CDOM][lr][lc] = aDbx - aDb0;
+            }
+          }
         }
         // the column over the warp's 8 row groups, then per warp to
         // shared memory
@@ -470,16 +511,47 @@ __global__ void __launch_bounds__(THREADS, 1)
       p.cpart_f[(2 * t + 1) * P + cl0 + tid] = f1;
       p.cpart_i[t * P + cl0 + tid] = vi;
     }
+
+    if constexpr (ANNOT) {
+      if (live) {
+        const size_t np = static_cast<size_t>(p.p);
+        const size_t m_pad = static_cast<size_t>(p.m_pad);
+        const size_t t = static_cast<size_t>(sg) * gridDim.y + xt;
+        annot_contract(
+            as, ac, tid, p.p, {V_XADD, V_XDOM}, {V_CADD, V_CDOM}, false, true,
+            [&](int r) {
+              return x0 + r < p.rows_a ? p.annot + (gx0 + r) * np : nullptr;
+            },
+            [&](int c) {
+              return cl0 + c < P ? p.annot_c + (c0 + cl0 + c) * np : nullptr;
+            },
+            [&](int val, int r) {
+              return (es.fx[r] & FL_OWNED)
+                         ? p.rpart_a + ((2 * ct + val) * m_pad + gx0 + r) * np
+                         : nullptr;
+            },
+            [&](int val, int c) {
+              return cl0 + c < P
+                         ? p.cpart_a + ((2 * t + val) * P + cl0 + c) * np
+                         : nullptr;
+            });
+      }
+    }
   }
 }
 
-template <bool FUSED, bool WITH_H>
+template <bool FUSED, bool WITH_H, bool ANNOT = false>
 cudaError_t launch(Params& p, const void* a_mat, int a_rows,
                    const void* const (&b_mat)[3], int b_rows, int n_segs,
                    cudaStream_t stream) {
   constexpr int SMEM = ATOM + STAGES * (STAGE_BYTES + 16) +
                        static_cast<int>(sizeof(EpiSmem));
   static_assert(SMEM <= 232448, "shared memory of one CTA");
+  static_assert(sizeof(AnnotTile) % 16 == 0 &&
+                    sizeof(AnnotTile) + sizeof(AnnotChunk<TM, TC>) <=
+                        STAGES * STAGE_BYTES,
+                "the staged annotation values and the annotation chunk must "
+                "fit in the ring");
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   if (!encode(fn, &p.tm_a, a_mat, a_rows, p.n_pad, TM))
@@ -488,11 +560,11 @@ cudaError_t launch(Params& p, const void* a_mat, int a_rows,
     if (!encode(fn, &p.tm_b[q], b_mat[q], b_rows, p.n_pad, TC))
       return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      split_corr_kernel<FUSED, WITH_H>,
+      split_corr_kernel<FUSED, WITH_H, ANNOT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid((p.P + TC - 1) / TC, (p.rows_a + TM - 1) / TM, n_segs);
-  split_corr_kernel<FUSED, WITH_H><<<grid, THREADS, SMEM, stream>>>(p);
+  split_corr_kernel<FUSED, WITH_H, ANNOT><<<grid, THREADS, SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -535,7 +607,9 @@ extern "C" int split_corr_products_launch(
 }
 
 // fused mode over every segment of the split plan: x rows g[s0 + i],
-// i < S, against [g_c; m_c; h_c][c0 + c], c < P
+// i < S, against [g_c; m_c; h_c][c0 + c], c < P; with annot (and annot_c,
+// the partials rpart_a and cpart_a, n_annot >= 1) the annotation delta
+// credits too
 extern "C" int split_corr_fused_launch(
     const void* g, int m_pad, const void* g_c, const void* m_c,
     const void* h_c, int mm_pad, const void* seg, int n_segs, int S, int P,
@@ -543,8 +617,10 @@ extern "C" int split_corr_fused_launch(
     const void* lo, const void* hi, const void* usable, const void* dom_ok,
     const void* rowmiss, const void* scal_c, const void* cidx,
     const void* usable_c, const void* dom_ok_c, void* rpart_f,
-    void* rpart_i, void* cpart_f, void* cpart_i, int own_hi, float n,
-    float n_padf, float pad_const, float adj_c, float rsq, void* stream) {
+    void* rpart_i, void* cpart_f, void* cpart_i, const void* annot,
+    const void* annot_c, void* rpart_a, void* cpart_a, int n_annot,
+    int own_hi, float n, float n_padf, float pad_const, float adj_c,
+    float rsq, void* stream) {
   Params p = {};
   p.seg = static_cast<const int32_t*>(seg);
   p.rows_a = S;
@@ -566,6 +642,11 @@ extern "C" int split_corr_fused_launch(
   p.rpart_i = static_cast<int32_t*>(rpart_i);
   p.cpart_f = static_cast<float*>(cpart_f);
   p.cpart_i = static_cast<int32_t*>(cpart_i);
+  p.annot = static_cast<const float*>(annot);
+  p.annot_c = static_cast<const float*>(annot_c);
+  p.rpart_a = static_cast<float*>(rpart_a);
+  p.cpart_a = static_cast<float*>(cpart_a);
+  p.p = n_annot;
   p.p_x = p_x;
   p.m_pad = m_pad;
   p.own_hi = own_hi;
@@ -575,6 +656,10 @@ extern "C" int split_corr_fused_launch(
   p.adj_c = adj_c;
   p.rsq = rsq;
   const void* const b[3] = {g_c, m_c, h_c};
-  return static_cast<int>(launch<true, true>(
-      p, g, m_pad, b, mm_pad, n_segs, static_cast<cudaStream_t>(stream)));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      annot != nullptr
+          ? launch<true, true, true>(p, g, m_pad, b, mm_pad, n_segs, s)
+          : launch<true, true>(p, g, m_pad, b, mm_pad, n_segs, s);
+  return static_cast<int>(err);
 }

@@ -95,6 +95,72 @@ def write_m_files(result: dict, l2_path: str) -> None:
              base.with_suffix(".M"), base.with_suffix(".M_5_50"))
 
 
+#: columns of an annotation file that are keys, not annotations
+_ANNOT_KEYS = {"CHR", "BP", "CM", "SNP", "A1", "A2"}
+
+
+def read_annot(path: str, bim: Table) -> tuple[np.ndarray, list[str]]:
+    """Read a per-SNP annotation file for partitioned LD scores.
+
+    Whitespace-separated with a ``SNP`` column and one column per
+    annotation (continuous values allowed; the key columns ``CHR``,
+    ``BP``, ``CM``, ``A1``, ``A2`` are ignored): the ldsc ``.annot``
+    convention.  Rows follow the .bim's SNP order; of duplicate SNPs the
+    first row counts; SNPs absent from the file, and NaN cells, get 0.
+
+    Returns (annot float64 (M, p), annotation names).
+    """
+    tab = read_delimited(path)
+    if "SNP" not in tab:
+        raise ValueError(f"annotation file {path} needs a SNP column")
+    names = [c for c in tab if c not in _ANNOT_KEYS]
+    if not names:
+        raise ValueError(f"annotation file {path} has no annotation columns")
+    tab = tab.take(first_occurrences(tab["SNP"]))
+    ours, theirs = ((col if col.dtype == object else col.astype(str)).tolist()
+                    for col in (bim["SNP"], tab["SNP"]))
+    row_of = dict(zip(theirs, range(len(theirs))))
+    rows = np.fromiter((row_of.get(snp, -1) for snp in ours), np.int64,
+                       count=len(ours))
+    absent = rows < 0
+    vals = np.stack([np.asarray(tab[c], dtype=np.float64) for c in names],
+                    axis=1)[np.where(absent, 0, rows)]
+    vals[absent] = 0.0
+    if absent.any():
+        log.warning("%d of %d bim SNPs absent from %s; their annotation "
+                    "rows are set to 0", int(absent.sum()), len(rows), path)
+    return np.nan_to_num(vals, nan=0.0), names
+
+
+def make_output_annot(bim: Table, result: dict, names: list[str]) -> Table:
+    """Assemble a partitioned .L2 table: per-annotation additive
+    (``<name>.L2``) then dominance (``<name>.L2D``) score columns."""
+    data = Table(CHR=bim["CHR"], SNP=bim["SNP"], BP=bim["BP"])
+    for k, name in enumerate(names):
+        data[f"{name}.L2"] = result["l2_annot"][:, k]
+    for k, name in enumerate(names):
+        data[f"{name}.L2D"] = result["l2d_annot"][:, k]
+    return data
+
+
+def write_m_files_annot(result: dict, annot: np.ndarray, names: list[str],
+                        l2_path: str) -> None:
+    """Per-annotation .M / .M_5_50 sidecars, columns named ``<name>.L2``
+    as the partitioned .L2's annotation columns: the LDSC convention
+    M_k = Σ_i annot[i, k] over the usable SNPs (all, and MAF > 5%)."""
+    base = Path(l2_path)
+    usable = ~np.isnan(np.asarray(result["l2"], dtype=np.float64))
+    maf = np.asarray(result["maf"], dtype=np.float64)
+    for suffix, floor in ((".M", None), (".M_5_50", 0.05)):
+        sel = usable if floor is None else usable & (maf > floor)
+        counts = annot[sel].sum(axis=0)
+        base.with_suffix(suffix).write_text(
+            "\t".join(f"{n}.L2" for n in names) + "\n"
+            + "\t".join(repr(float(c)) for c in counts) + "\n")
+    log.info("Wrote per-annotation SNP counts: %s / %s",
+             base.with_suffix(".M"), base.with_suffix(".M_5_50"))
+
+
 def read_m(path: str) -> tuple[int, int]:
     """(M, MD) of a headered ``.M``/``.M_5_50`` sidecar."""
     tab = read_delimited(path, sep="\t")

@@ -4,7 +4,9 @@ The tests feed both packages identical inputs this way: the dict that
 ``nldsc_tpu.ld.ld_int8.preprocess_int8`` returns, the window bounds and
 the dominance mask, all as numpy arrays, become the arguments of
 :func:`nldsc_tpu_torch.ld.ld_int8.sym_scan_segment` and of the kernel
-wrapper.  Nothing here imports JAX.
+wrapper; the annotation matrix that ``nldsc_tpu.io.ldscores.read_annot``
+returns becomes the padded float32 tensor those take as ``annot``.
+Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -39,3 +41,13 @@ def from_jax_inputs(pre: dict, lo, hi, dom_ok, device="cpu") -> dict:
         "add_sd_zero": t(pre["add_sd_zero"], torch.bool),
         "has_missing": bool(np.asarray(pre["has_missing"])),
     }
+
+
+def annot_from_jax(annot, m_pad: int, device="cpu") -> torch.Tensor:
+    """The JAX package's annotation matrix, float64 ``(M, p)``, as the
+    port's engines take it: float32 ``(m_pad, p)`` on ``device``, zero
+    rows for the padding (what ``nldsc_tpu/ld/pipeline.py:192-195`` gives
+    its own engines)."""
+    a = np.zeros((m_pad, annot.shape[1]), dtype=np.float32)
+    a[:annot.shape[0]] = annot
+    return torch.from_numpy(a).to(device)

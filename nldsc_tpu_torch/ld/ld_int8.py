@@ -237,10 +237,135 @@ def band_extent(hi: torch.Tensor, block_size: int) -> tuple[torch.Tensor, int]:
     return blk_hi, min(max(int(reach.max().item()) + 1, 1), nb)
 
 
+def finalize_annot(l2_a, l2d_a, annot, usable, add_sd_zero, poison, wsd):
+    """Sentinels of the partitioned accumulators: the self term added
+    where the row is usable and its window holds no zero-additive-sd SNP,
+    else NaN; ``l2d_annot`` NaN for unusable rows, and for a
+    zero-additive-sd pivot NaN if a neighbour passed the dominance filter,
+    else 0 (``nldsc_tpu/ld/ld_int8.py::finalize_annot``)."""
+    nan = torch.tensor(float("nan"), dtype=torch.float32, device=l2_a.device)
+    good = (usable & (poison == 0))[:, None]
+    l2_a = torch.where(good, annot + l2_a, nan)
+    l2d_bad = torch.where(wsd > 0, nan, torch.zeros_like(nan))[:, None]
+    l2d_a = torch.where(usable[:, None],
+                        torch.where(add_sd_zero[:, None], l2d_bad, l2d_a),
+                        nan)
+    return l2_a, l2d_a
+
+
+def check_annot(annot, g: torch.Tensor) -> None:
+    """Raise unless ``annot`` is None or what the engines contract with
+    the codes ``g``: a contiguous float32 ``(g.shape[0], p >= 1)`` tensor
+    on ``g``'s device."""
+    if annot is not None and not (
+            isinstance(annot, torch.Tensor) and annot.dtype == torch.float32
+            and annot.dim() == 2 and annot.shape[0] == g.shape[0]
+            and annot.shape[1] >= 1 and annot.device == g.device
+            and annot.is_contiguous()):
+        raise ValueError(f"annot must be a contiguous float32 ({g.shape[0]}, "
+                         "p >= 1) tensor on the genotypes' device")
+
+
+def annot_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x @ y`` in full float32: TF32 off for the call, whatever the
+    process-wide setting."""
+    if x.device.type != "cuda":
+        return x @ y
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return x @ y
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def ld_scores_int8(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
+                   blk_lo, blk_hi, rsq_thr: float, annot=None, *,
+                   block_size: int, band_k: int, n_samples: int,
+                   has_missing: bool):
+    """Full-band LD pass in plain torch ops, on any device: each pivot
+    block against its whole band (both sides), two int8 products per tile
+    (six with missing data), row credits only.  The engine of
+    ``--no-symmetric``, and on the CPU of clean partitioned runs; the
+    reference runs it outside any Pallas kernel
+    (``nldsc_tpu/ld/ld_int8.py::ld_scores_int8``).
+
+    ``blk_lo``/``blk_hi``: per pivot block, the first and last block its
+    rows' windows reach (``windows.band_blocks``), on the host.  Returns
+    finalized ``(l2, l2d, ws, wsd, wse)``; with ``annot`` float32
+    ``(M_pad, p)`` (padding rows 0), ``(l2_annot, l2d_annot)`` first.
+    """
+    from .ld_xla import finalize_outputs  # noqa: PLC0415
+
+    m_pad, n_pad = g.shape
+    B = block_size
+    band_rows = min(band_k * B, m_pad)
+    n, n_padf = float(n_samples), float(n_pad)
+    adj_c = adj_constant(n_samples)
+    rsq = f32(rsq_thr)
+    dev = g.device
+    l2_f = torch.zeros(m_pad, dtype=torch.float32, device=dev)
+    l2d_f = torch.zeros_like(l2_f)
+    ws_f, wsd_f, wse_f, poi_f = (torch.zeros(m_pad, dtype=torch.int32,
+                                             device=dev) for _ in range(4))
+    if annot is not None:
+        l2a_f = torch.zeros((m_pad, annot.shape[1]), dtype=torch.float32,
+                            device=dev)
+        l2da_f = torch.zeros_like(l2a_f)
+
+    for b in range(m_pad // B):
+        r0 = b * B
+        rows = slice(r0, r0 + B)
+        gi = r0 + torch.arange(B, device=dev)
+        lo_i, hi_i = lo[rows][:, None], hi[rows][:, None]
+        sc_i = scal_views(scal[rows], "col")
+        j0 = min(max(int(blk_lo[b]) * B, 0), m_pad - band_rows)
+        cols = slice(j0, j0 + band_rows)
+        gj = (j0 + torch.arange(band_rows, device=dev))[None, :]
+        sc_j = scal_views(scal[cols], "row")
+
+        g_i, g_j, h_j = g[rows], g[cols], h[cols]
+        dots = {"sgg": idot(g_i, g_j), "sgh": idot(g_i, h_j)}
+        if has_missing:
+            m_i, m_j = m[rows], m[cols]
+            dots.update(sgm=idot(g_i, m_j), smg=idot(m_i, g_j),
+                        smm=idot(m_i, m_j), smh=idot(m_i, h_j))
+        r_add, r_dom = corr_from_dots(dots, sc_i, sc_j, n, n_padf,
+                                      has_missing)
+        adj_add = 1.0 - (1.0 - r_add * r_add) * adj_c
+        adj_dom = 1.0 - (1.0 - r_dom * r_dom) * adj_c
+
+        valid_k = gj <= int(blk_hi[b]) * B + (B - 1)
+        pair = ((gj >= lo_i) & (gj <= hi_i) & valid_k
+                & usable[cols][None, :] & usable[rows][:, None])
+        base = pair & (gj != gi[:, None])
+        dmask = base & dom_ok[cols][None, :]
+        add_m = adj_add * base.to(torch.float32)
+        dom_m = adj_dom * dmask.to(torch.float32)
+
+        l2_f[rows] = add_m.sum(dim=1)
+        l2d_f[rows] = dom_m.sum(dim=1)
+        ws_f[rows] = base.sum(dim=1, dtype=torch.int32)
+        wsd_f[rows] = dmask.sum(dim=1, dtype=torch.int32)
+        wse_f[rows] = ((adj_dom > rsq) & dmask).sum(dim=1, dtype=torch.int32)
+        poi_f[rows] = (pair & add_sd_zero[cols][None, :]).sum(
+            dim=1, dtype=torch.int32)
+        if annot is not None:
+            l2a_f[rows] = annot_dot(add_m, annot[cols])
+            l2da_f[rows] = annot_dot(dom_m, annot[cols])
+
+    fin = finalize_outputs(l2_f, l2d_f, ws_f, wsd_f, wse_f, poi_f, usable,
+                           add_sd_zero)
+    if annot is None:
+        return fin
+    return (*finalize_annot(l2a_f, l2da_f, annot, usable, add_sd_zero, poi_f,
+                            wsd_f), *fin)
+
+
 def sym_scan_segment(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
-                     rsq_thr: float, blk0: int = 0, *, block_size: int,
-                     right_k: int, n_samples: int, n_scan_blocks: int,
-                     has_missing: bool):
+                     rsq_thr: float, blk0: int = 0, annot=None, *,
+                     block_size: int, right_k: int, n_samples: int,
+                     n_scan_blocks: int, has_missing: bool):
     """Credit accumulation of the symmetric pass over the pivot blocks
     ``[blk0, blk0 + n_scan_blocks)``: the plain twin of the CUDA kernel.
 
@@ -249,6 +374,13 @@ def sym_scan_segment(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
     (every j ≥ r0, j ≠ i) and mirrored column sums to the band rows
     (j ≥ r0 + B).  Returns the six un-finalized full-length credit
     vectors ``(l2, ws, poison, l2d, wsd, wse)``.
+
+    ``annot``: float32 ``(M_pad, p)`` annotation matrix.  Adds the two
+    ``(M_pad, p)`` accumulators ``(l2_annot, l2d_annot)`` to the return:
+    four skinny float32 contractions per tile, the row direction with the
+    band rows' annotations, the mirrored column direction (the tile
+    transposed) with the pivot rows': each pair is weighted by its
+    neighbour's annotation row.
     """
     m_pad, n_pad = g.shape
     B = block_size
@@ -263,6 +395,11 @@ def sym_scan_segment(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
     l2d_f = torch.zeros_like(l2_f)
     ws_f, poi_f, wsd_f, wse_f = (torch.zeros(m_pad, dtype=torch.int32,
                                              device=dev) for _ in range(4))
+
+    if annot is not None:
+        l2a_f = torch.zeros((m_pad, annot.shape[1]), dtype=torch.float32,
+                            device=dev)
+        l2da_f = torch.zeros_like(l2a_f)
 
     def isum(mask, dim):
         return mask.sum(dim=dim, dtype=torch.int32)
@@ -321,4 +458,12 @@ def sym_scan_segment(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
         wsd_f[cols] += isum(dm_b, 0)
         wse_f[rows] += isum((adj_da > rsq) & dm_a, 1)
         wse_f[cols] += isum((adj_db > rsq) & dm_b, 0)
+        if annot is not None:
+            aj, ai = annot[cols], annot[rows]
+            l2a_f[rows] += annot_dot(adj_add * rowf, aj)
+            l2a_f[cols] += annot_dot((adj_add * colf).t(), ai)
+            l2da_f[rows] += annot_dot(adj_da * dmaf, aj)
+            l2da_f[cols] += annot_dot((adj_db * dmbf).t(), ai)
+    if annot is not None:
+        return l2_f, ws_f, poi_f, l2d_f, wsd_f, wse_f, l2a_f, l2da_f
     return l2_f, ws_f, poi_f, l2d_f, wsd_f, wse_f

@@ -17,6 +17,12 @@ rows to :data:`ROW_ALIGN`, a multiple of both tiles, before they know
 which branch runs, and the samples to a multiple of 128 (one ring
 stage), as the pipeline does.
 
+With ``annot`` (partitioned LD scores) the kernel's annotation epilogue
+also contracts each tile's masked values with the neighbours' annotation
+rows and writes per-tile ``(T, p)`` partials, which :func:`_fold_annot`
+reduces the same way.  The reference computes those contractions outside
+its Pallas kernel; here they are part of the hand-written one.
+
 On a CPU tensor the wrapper runs the plain twin
 (:func:`nldsc_tpu_torch.ld.ld_int8.sym_scan_segment`); on a CUDA tensor
 it launches the kernel or raises.
@@ -38,13 +44,15 @@ TILE_CLEAN = 128
 TILE_MISSING = 64
 ROW_ALIGN = math.lcm(TILE_CLEAN, TILE_MISSING)
 
-#: kernel launches made by :func:`sym_credits` (CUDA tensors only), and
-#: how many of them ran the 8-product (missing-data) branch
+#: kernel launches made by :func:`sym_credits` (CUDA tensors only), how
+#: many of them ran the 8-product (missing-data) branch, and how many the
+#: annotation epilogue
 launches = 0
 missing_launches = 0
+annot_launches = 0
 
 _P = ctypes.c_void_p
-_ARGTYPES = [_P] * 12 + [ctypes.c_int] * 3 + [ctypes.c_float] * 4 + [
+_ARGTYPES = [_P] * 14 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4 + [
     ctypes.c_int, _P]
 
 
@@ -66,9 +74,10 @@ def tile(has_missing: bool) -> int:
 
 
 def _check_inputs(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
-                  has_missing: bool) -> None:
+                  has_missing: bool, annot=None) -> None:
     m_pad, n_pad = g.shape
     mats = (g, h, m) if has_missing else (g, h)
+    ld_int8.check_annot(annot, g)
     vecs = {"lo": (lo, torch.int32), "hi": (hi, torch.int32),
             "usable": (usable, torch.bool), "dom_ok": (dom_ok, torch.bool),
             "add_sd_zero": (add_sd_zero, torch.bool)}
@@ -121,11 +130,24 @@ def _fold(fpart, ipart):
     return l2, ws, poi, l2d, wsd, wse
 
 
+def _fold_annot(apart):
+    """The annotation partials ``(n_tiles, band, 2, 2, T, p)`` summed in
+    the order of :func:`_fold`: a tile's row credits over its band slots,
+    then the column credits of slot ``(x - k, k)`` for k ascending.
+    Returns ``(l2_annot, l2d_annot)``, each ``(n_tiles * T, p)``."""
+    nt, band = apart.shape[:2]
+    tot = apart[:, :, 0].sum(dim=1)                          # (nt, 2, T, p)
+    for k in range(band):
+        tot[k:] += apart[:nt - k, k, 1]
+    p = apart.shape[-1]
+    return tot[:, 0].reshape(-1, p), tot[:, 1].reshape(-1, p)
+
+
 def _launch(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
-            rsq_thr: float, n_samples: int, has_missing: bool):
-    global launches, missing_launches
+            rsq_thr: float, n_samples: int, has_missing: bool, annot=None):
+    global launches, missing_launches, annot_launches
     _check_inputs(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
-                  has_missing)
+                  has_missing, annot)
     m_pad, n_pad = g.shape
     T = tile(has_missing)
     nt = m_pad // T
@@ -134,6 +156,12 @@ def _launch(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
                         device=g.device)
     ipart = torch.zeros((nt, band, 2, 4, T), dtype=torch.int32,
                         device=g.device)
+    apart = None
+    if annot is not None:
+        # zero-filled: the tiles outside the band, and the column credits
+        # of the pivot tiles, are never written
+        apart = torch.zeros((nt, band, 2, 2, T, annot.shape[1]),
+                            dtype=torch.float32, device=g.device)
     lib = _library()
     stream = torch.cuda.current_stream(g.device).cuda_stream
     mm = m if has_missing else g                # clean: never read
@@ -141,21 +169,30 @@ def _launch(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
         g.data_ptr(), mm.data_ptr(), h.data_ptr(), scal.data_ptr(),
         lo.data_ptr(), hi.data_ptr(), usable.data_ptr(), dom_ok.data_ptr(),
         add_sd_zero.data_ptr(), tile_hi.data_ptr(), fpart.data_ptr(),
-        ipart.data_ptr(), nt, band, n_pad, float(n_samples), float(n_pad),
+        ipart.data_ptr(), None if annot is None else annot.data_ptr(),
+        None if annot is None else apart.data_ptr(),
+        0 if annot is None else annot.shape[1], nt, band, n_pad,
+        float(n_samples), float(n_pad),
         ld_int8.adj_constant(n_samples), ld_int8.f32(rsq_thr),
         int(has_missing), stream)
     if err != 0:
         raise RuntimeError(f"ld_sym kernel launch failed: CUDA error {err}")
     launches += 1
     missing_launches += int(has_missing)
-    return _fold(fpart, ipart)
+    if annot is None:
+        return _fold(fpart, ipart)
+    annot_launches += 1
+    return (*_fold(fpart, ipart), *_fold_annot(apart))
 
 
 def sym_credits(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
                 rsq_thr: float, *, n_samples: int, has_missing: bool,
-                block_size: int, pivot_rows: int | None = None):
+                block_size: int, pivot_rows: int | None = None, annot=None):
     """Un-finalized credit vectors ``(l2, ws, poison, l2d, wsd, wse)`` of
-    the symmetric pass over all pivot rows.
+    the symmetric pass over all pivot rows; with ``annot``, float32
+    ``(rows, p)``, also the two ``(rows, p)`` per-annotation accumulators
+    ``(l2_annot, l2d_annot)``: each pair's credit weighted by its
+    neighbour's annotation row.
 
     CPU tensors run the twin with ``block_size`` pivot blocks; CUDA
     tensors run the kernel, whose tile is :func:`tile` of the branch.
@@ -179,8 +216,9 @@ def sym_credits(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
         return ld_int8.sym_scan_segment(
             g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero, rsq_thr, 0,
             block_size=block_size, right_k=right_k, n_samples=n_samples,
-            n_scan_blocks=-(-scan // block_size), has_missing=has_missing)
+            n_scan_blocks=-(-scan // block_size), has_missing=has_missing,
+            annot=annot)
     if g.device.type != "cuda":
         raise ValueError(f"no LD kernel for device {g.device}")
     return _launch(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
-                   rsq_thr, n_samples, has_missing)
+                   rsq_thr, n_samples, has_missing, annot)

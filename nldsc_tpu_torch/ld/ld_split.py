@@ -23,6 +23,12 @@ products are ever built: the kernel reads g and the compact rows
 ``g_c``, ``m_c``, ``h_c`` through tensor maps at the coordinates of a
 per-segment table (:func:`segment_table`).  On a CPU tensor the whole
 computation is the plain torch twin :func:`split_corrections_plain`.
+
+With ``annot`` (partitioned LD scores) the corrections also return the
+per-annotation δ-credits ``(l2a_δ, l2da_δ)``, each ``(M_pad, p)``: every
+corrected pair's δ weighted by its neighbour's annotation row, in both
+directions.  The fused launch's annotation epilogue computes them on the
+card; the twin by four skinny float32 contractions per segment.
 """
 
 from __future__ import annotations
@@ -40,11 +46,13 @@ from .ld_xla import finalize_outputs
 #: the row count: ``min(SEG_ROWS_DEFAULT, m_pad)``)
 SEG_ROWS_DEFAULT = 4096
 
-#: launches of K2 in either mode, and how many of them ran the fused δ
-#: epilogue, made by :func:`corr_products`, :func:`segment_products` and
+#: launches of K2 in either mode, how many of them ran the fused δ
+#: epilogue, and how many of those its annotation epilogue too, made by
+#: :func:`corr_products`, :func:`segment_products` and
 #: :func:`split_corrections` (CUDA only)
 corr_launches = 0
 fused_launches = 0
+annot_launches = 0
 
 #: x rows and compact columns of one CTA of K2, checked against the library
 TILE_X = 128
@@ -141,7 +149,7 @@ def _library() -> ctypes.CDLL:
         lib.split_corr_products_launch.restype = _I
         lib.split_corr_fused_launch.argtypes = (
             [_P, _I] + [_P] * 3 + [_I, _P] + [_I] * 4 + [_P, _I]
-            + [_P] * 15 + [_I] + [_F] * 5 + [_P])
+            + [_P] * 19 + [_I] * 2 + [_F] * 5 + [_P])
         lib.split_corr_fused_launch.restype = _I
         lib.split_corr_tiles.argtypes = [ctypes.POINTER(_I)] * 2
         lib.split_corr_tiles.restype = _I
@@ -264,14 +272,16 @@ def _compact(scal, usable, dom_ok, miss_idx):
 
 
 def split_corrections_plain(g, m_c, h, scal, lo, hi, usable, dom_ok, rowmiss,
-                            rsq_thr: float, own_hi: int, plan: dict, *,
-                            n_samples: int):
+                            rsq_thr: float, own_hi: int, plan: dict,
+                            annot=None, *, n_samples: int):
     """The plain torch twin of :func:`split_corrections`, on any device.
 
-    Mirrors ``nldsc_tpu/ld/ld_split.py:137-317`` without the annot branch:
-    the two big products and the compact product per segment, the four
-    ``corr_from_dots`` evaluations (exact and clean, x as i and c as i),
-    the orientation selection, the masks and the threshold counts.
+    Mirrors ``nldsc_tpu/ld/ld_split.py:137-321``: the two big products and
+    the compact product per segment, the four ``corr_from_dots``
+    evaluations (exact and clean, x as i and c as i), the orientation
+    selection, the masks and the threshold counts; with ``annot`` the four
+    skinny contractions of the δ values with the compact rows' and the x
+    rows' annotations.
     """
     m_pad, n_pad = g.shape
     dev = g.device
@@ -285,6 +295,12 @@ def split_corrections_plain(g, m_c, h, scal, lo, hi, usable, dom_ok, rowmiss,
     i32 = torch.int32
     (l2_f, l2d_f, wse_f), (l2_cf, l2d_cf, wse_cf) = _zero_credits(
         m_pad, idx.shape[0], dev)
+    if annot is not None:
+        a_c = annot.index_select(0, idx)
+        (l2a_f, l2da_f), (l2a_cf, l2da_cf) = (
+            tuple(torch.zeros((rows_, annot.shape[1]), dtype=torch.float32,
+                              device=dev) for _ in range(2))
+            for rows_ in (m_pad, idx.shape[0]))
 
     def adj(r):
         return 1.0 - (1.0 - r * r) * adj_c
@@ -360,7 +376,18 @@ def split_corrections_plain(g, m_c, h, scal, lo, hi, usable, dom_ok, rowmiss,
         l2_cf[crange] += (d_add * mirror).sum(dim=0)
         l2d_cf[crange] += ((aDbx - aDb0) * dmB).sum(dim=0)
         wse_cf[crange] += torch.where(dmB, cnt_b, 0).sum(dim=0, dtype=i32)
-    return _scatter_columns(idx, (l2_f, l2d_f, wse_f), (l2_cf, l2d_cf, wse_cf))
+        if annot is not None:
+            dot = ld_int8.annot_dot
+            a_x, a_cc = annot[rows], a_c[crange]
+            l2a_f[rows] += dot(d_add * pair, a_cc)
+            l2da_f[rows] += dot((aDax - aDa0) * dmA, a_cc)
+            l2a_cf[crange] += dot((d_add * mirror).t(), a_x)
+            l2da_cf[crange] += dot(((aDbx - aDb0) * dmB).t(), a_x)
+    if annot is None:
+        return _scatter_columns(idx, (l2_f, l2d_f, wse_f),
+                                (l2_cf, l2d_cf, wse_cf))
+    return _scatter_columns(idx, (l2_f, l2d_f, wse_f, l2a_f, l2da_f),
+                            (l2_cf, l2d_cf, wse_cf, l2a_cf, l2da_cf))
 
 
 def _zero_credits(m_pad: int, mm_pad: int, dev):
@@ -458,10 +485,27 @@ def _fold(rpart_f, rpart_i, cpart_f, cpart_i, c0, mm_pad: int):
                                   pad_i.sum(dim=0, dtype=torch.int32))
 
 
+def _fold_annot(rpart_a, cpart_a, c0s, mm_pad: int):
+    """The fused kernel's annotation partials in :func:`_fold`'s order:
+    ``rpart_a`` (n_ct, 2, m_pad, p) over the compact-column tiles;
+    ``cpart_a`` (n_segs, n_xt, 2, P, p) over the x tiles, then the
+    segments in order, each added at its compact rows ``c0s[s]`` on (host
+    integers).  No atomics."""
+    full = rpart_a.sum(dim=0)
+    n_segs, _, _, P, p = cpart_a.shape
+    seg = cpart_a.sum(dim=1)                                 # (n_segs, 2, P, p)
+    compact = torch.zeros((2, mm_pad, p), dtype=torch.float32,
+                          device=cpart_a.device)
+    for s in range(n_segs):
+        c0 = int(c0s[s])
+        compact[:, c0:c0 + P] += seg[s]
+    return tuple(full), tuple(compact)
+
+
 def _kernel_corrections(g, m_c, h, scal, lo, hi, usable, dom_ok, rowmiss,
-                        rsq_thr: float, own_hi: int, plan: dict, *,
-                        n_samples: int):
-    global corr_launches, fused_launches
+                        rsq_thr: float, own_hi: int, plan: dict, annot=None,
+                        *, n_samples: int):
+    global corr_launches, fused_launches, annot_launches
     m_pad, n_pad = g.shape
     dev = g.device
     S, P, p_x, n_segs = (plan["seg_rows"], plan["p_band"], plan["p_x"],
@@ -498,11 +542,21 @@ def _kernel_corrections(g, m_c, h, scal, lo, hi, usable, dom_ok, rowmiss,
     ptrs = [t.data_ptr() for t in (
         scal, lo, hi, usable, dom_ok, rowmiss, scal_c, ops["cidx"], usable_c,
         dom_ok_c, rpf, rpi, cpf, cpi)]
+    if annot is None:
+        a_ptrs, p = [None] * 4, 0
+    else:
+        # zero-filled: a tile that no window reaches writes none of them
+        p = annot.shape[1]
+        a_c = annot.index_select(0, idx)
+        rpa = torch.zeros((n_ct, 2, m_pad, p), dtype=f32, device=dev)
+        cpa = torch.zeros((n_segs, n_xt, 2, P, p), dtype=f32, device=dev)
+        a_ptrs = [t.data_ptr() for t in (annot, a_c, rpa, cpa)]
     g_c, _, h_c = ops["blocks"]
     err = _library().split_corr_fused_launch(
         g.data_ptr(), m_pad, g_c.data_ptr(), m_c.data_ptr(), h_c.data_ptr(),
         m_c.shape[0], ops["seg_x"].data_ptr(), n_segs, S, P, n_pad,
-        d.data_ptr(), p_x, ops["drow"].data_ptr(), *ptrs, int(own_hi), n,
+        d.data_ptr(), p_x, ops["drow"].data_ptr(), *ptrs, *a_ptrs, p,
+        int(own_hi), n,
         float(n_pad), ld_int8.f32(float(n_pad) - n),
         ld_int8.adj_constant(n_samples), ld_int8.f32(rsq_thr), _stream(g))
     _check_launch(err, "fused")
@@ -510,6 +564,10 @@ def _kernel_corrections(g, m_c, h, scal, lo, hi, usable, dom_ok, rowmiss,
     fused_launches += 1
     full, compact = _fold(rpf, rpi, cpf, cpi,
                           ops["seg_x"][:, 1], m_c.shape[0])
+    if annot is not None:
+        annot_launches += 1
+        full_a, compact_a = _fold_annot(rpa, cpa, plan["cs"], m_c.shape[0])
+        full, compact = full + full_a, compact + compact_a
     return _scatter_columns(idx, full, compact)
 
 
@@ -517,7 +575,9 @@ def split_corrections(g, m_c, h, scal, lo, hi, usable, dom_ok, rowmiss,
                       rsq_thr: float, own_hi: int, plan: dict, annot=None, *,
                       n_samples: int):
     """δ-credit vectors ``(l2_δ f32, l2d_δ f32, wse_δ int32)``, full
-    length, to add to the clean pass's un-finalized credits.
+    length, to add to the clean pass's un-finalized credits; with
+    ``annot``, float32 ``(M_pad, p)``, also ``(l2a_δ, l2da_δ)``, each
+    ``(M_pad, p)``, to add to the clean pass's annotation accumulators.
 
     ``m_c`` is the compact (mm_pad, N_pad) missing-indicator matrix of the
     contaminated rows in ``plan["miss_idx"]`` order
@@ -526,16 +586,13 @@ def split_corrections(g, m_c, h, scal, lo, hi, usable, dom_ok, rowmiss,
     member is below it (in core: ``m_pad``).  CPU tensors run the plain
     twin; CUDA tensors run K2 (two launches), or raise.
     """
-    if annot is not None:
-        raise NotImplementedError(
-            "annotation δ-credits are not ported yet: ROADMAP queue 1 item 7 "
-            "(partitioned LD)")
+    ld_int8.check_annot(annot, g)
     fn = {"cpu": split_corrections_plain, "cuda": _kernel_corrections}.get(
         g.device.type)
     if fn is None:
         raise ValueError(f"no split-corrections engine for device {g.device}")
     return fn(g, m_c, h, scal, lo, hi, usable, dom_ok, rowmiss, rsq_thr,
-              own_hi, plan, n_samples=n_samples)
+              own_hi, plan, annot, n_samples=n_samples)
 
 
 def ld_scores_split(g, m_c, h, scal, lo, hi, usable, dom_ok, add_sd_zero,

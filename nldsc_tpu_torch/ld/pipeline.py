@@ -1,5 +1,6 @@
-"""End-to-end LD-score estimation (the ``ld`` command), in core, on one
-device, through the symmetric int8 engine.
+"""End-to-end LD-score estimation (the ``ld`` command) on one device, in
+core (here) or streaming (``streaming.py``), plain or partitioned by an
+annotation matrix (``--annot``).
 
   host:   parse .bim/.fam -> window bounds (exact f64 -> index intervals)
           -> read the packed .bed rows
@@ -12,7 +13,10 @@ Routes, as in ``nldsc_tpu``: ``clean`` (no counted pair touches a missing
 genotype: the 3-product pass), ``split`` (at most 25% of the usable rows
 contaminated, or ``split_missing=True``: the clean pass plus exact
 compact corrections, ``ld_split.py``) and ``global`` (the 8-product
-pass).
+pass).  Engines: the symmetric one on every route (kernels K1 and K2
+on a GPU, with their annotation epilogues when ``annot`` is given), or
+the full-band torch engine ``ld_int8.ld_scores_int8`` (``--no-symmetric``;
+the default of clean partitioned runs on the CPU, as in ``nldsc_tpu``).
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ from ..config import LDConfig
 from ..core.errors import NLDSCParameterError
 from ..core.logging import log
 from ..core.timing import STAGE_TIMES, elapsed_time, stage_add
-from ..io.ldscores import make_output, write_l2, write_m_files
+from ..io.ldscores import (make_output, make_output_annot, read_annot,
+                           write_l2, write_m_files, write_m_files_annot)
 from ..io.plink import PackedBed, PlinkDataset
 from . import ld_int8, ld_pallas_sym, ld_split, preprocess, windows
 from .ld_xla import finalize_outputs
@@ -110,8 +115,21 @@ def to_host_result(l2, l2d, ws, wsd, wse, maf, rstd, m: int) -> dict:
     }
 
 
+def resolve_symmetric(symmetric: bool | None, annot, has_missing: bool,
+                      device_type: str) -> bool:
+    """The engine of an in-core run: ``symmetric`` when given.  Otherwise
+    on CUDA always the symmetric engine, whose kernels carry the
+    annotation epilogues; on the CPU the reference's choice, so that both
+    packages run like engines there: symmetric, except full-band for clean
+    partitioned data (``nldsc_tpu/ld/pipeline.py:226-231``)."""
+    if symmetric is not None:
+        return symmetric
+    return annot is None or device_type == "cuda" or has_missing
+
+
 def compute_ld_scores(genotypes, positions: np.ndarray, config: LDConfig, *,
-                      device="cuda", progress=None) -> dict:
+                      annot: np.ndarray | None = None, device="cuda",
+                      progress=None) -> dict:
     """LD scores for an in-core genotype matrix.
 
     Parameters
@@ -121,6 +139,7 @@ def compute_ld_scores(genotypes, positions: np.ndarray, config: LDConfig, *,
         rows, unpacked on the device.
     positions : float64 (M,); negative = skip sentinel
     config : LDConfig with ``rsq_thr`` resolved
+    annot : optional (M, p) annotation matrix: partitioned LD scores
     device : 'cuda' (the kernels) or 'cpu' (the plain twins)
     progress : optional callable ``progress(done_rows, total_rows)``,
         called before and after the pass.
@@ -128,7 +147,8 @@ def compute_ld_scores(genotypes, positions: np.ndarray, config: LDConfig, *,
     Returns
     -------
     dict of host float64/int64 arrays: l2, l2d, maf, residuals_std,
-    l2_ws, l2d_ws, l2d_wse — the reference ``LDScoreResult`` fields.
+    l2_ws, l2d_ws, l2d_wse — the reference ``LDScoreResult`` fields; with
+    ``annot`` also l2_annot and l2d_annot, float64 (M, p).
     """
     if config.int8_dot_dtype != "int8":
         raise NLDSCParameterError(
@@ -139,14 +159,25 @@ def compute_ld_scores(genotypes, positions: np.ndarray, config: LDConfig, *,
     dev = resolve_device(device)
     packed = isinstance(genotypes, PackedBed)
     m, n = genotypes.shape
-    m_pad, n_pad = padded_shape(m, n, dev.type, config.block_size)
-
-    lo, hi, pos_ok = windows.window_bounds(positions, config.ld_wind)
     # only real missing genotypes force the 8-product branch; without
     # them pad with zeros and let g alias m
     has_missing = (genotypes.has_missing if packed
                    else bool((genotypes < 0).any()))
     pad_val = -1 if has_missing else 0
+    symmetric = resolve_symmetric(config.symmetric, annot, has_missing,
+                                  dev.type)
+    if config.use_pallas and not symmetric:
+        raise NLDSCParameterError(
+            "--engine pallas is the symmetric kernel; drop --no-symmetric")
+    # the full-band engine walks pivot blocks of block_size rows
+    m_pad, n_pad = padded_shape(m, n, dev.type if symmetric else "cpu",
+                                config.block_size)
+    if annot is not None and (annot.ndim != 2 or annot.shape[0] != m
+                              or annot.shape[1] < 1):
+        raise NLDSCParameterError(
+            f"annot must be ({m}, p >= 1), got {annot.shape}")
+
+    lo, hi, pos_ok = windows.window_bounds(positions, config.ld_wind)
 
     pos_ok_pad = _pad_to(pos_ok, m_pad, False)
     lo_pad = _pad_to(lo, m_pad, np.int32(m_pad))   # empty window for padding
@@ -170,7 +201,7 @@ def compute_ld_scores(genotypes, positions: np.ndarray, config: LDConfig, *,
     # the split route reads the missing indicators only through the
     # contaminated rows, and the global route decides it needs all of them
     # only after the per-row missing counts: defer the full m to that
-    lazy_m = has_missing and not config.use_pallas
+    lazy_m = has_missing and symmetric and not config.use_pallas
     pre = ld_int8.preprocess_int8(
         g_dev, torch.from_numpy(pos_ok_pad).to(dev), config.maf_thr,
         n_samples=n, assume_no_missing=not has_missing,
@@ -179,6 +210,10 @@ def compute_ld_scores(genotypes, positions: np.ndarray, config: LDConfig, *,
     lo_dev = torch.from_numpy(lo_pad).to(dev)
     hi_dev = torch.from_numpy(hi_pad).to(dev)
     scal = ld_int8.stack_scalars(pre)
+    # zero rows for the padding, float32, sent once
+    a_dev = (None if annot is None else _to_device(
+        _pad_to(np.ascontiguousarray(annot, dtype=np.float32), m_pad,
+                np.float32(0.0)), dev))
 
     route, m_mat, split = "global" if has_missing else "clean", pre["m"], None
     if lazy_m:
@@ -198,28 +233,64 @@ def compute_ld_scores(genotypes, positions: np.ndarray, config: LDConfig, *,
         elif route == "global":
             m_mat = ld_int8.materialize_missing(g_dev)
     del g_dev                      # the raw codes are not read past here
-    log.info("LD route: %s", route)
+    log.info("LD route: %s%s%s", route,
+             "" if symmetric else ", full-band engine",
+             "" if annot is None else f", {annot.shape[1]} annotations")
 
     if progress is not None:
         progress(0, m)
-    l2_c, ws_c, poi_c, l2d_c, wsd_c, wse_c = ld_pallas_sym.sym_credits(
-        pre["g"], m_mat, pre["h"], scal, lo_dev, hi_dev, pre["usable"],
-        dom_ok, pre["add_sd_zero"], config.rsq_thr, n_samples=n,
-        has_missing=route == "global", block_size=config.block_size)
-    if split is not None:
-        m_c, rowmiss, plan = split
-        l2_d, l2d_d, wse_d = ld_split.split_corrections(
-            pre["g"], m_c, pre["h"], scal, lo_dev, hi_dev, pre["usable"],
-            dom_ok, rowmiss, config.rsq_thr, m_pad, plan, n_samples=n)
-        l2_c, l2d_c, wse_c = l2_c + l2_d, l2d_c + l2d_d, wse_c + wse_d
-    l2, l2d, ws, wsd, wse = finalize_outputs(
-        l2_c, l2d_c, ws_c, wsd_c, wse_c, poi_c, pre["usable"],
-        pre["add_sd_zero"])
+    if symmetric:
+        accs = ld_pallas_sym.sym_credits(
+            pre["g"], m_mat, pre["h"], scal, lo_dev, hi_dev, pre["usable"],
+            dom_ok, pre["add_sd_zero"], config.rsq_thr, n_samples=n,
+            has_missing=route == "global", block_size=config.block_size,
+            annot=a_dev)
+        if split is not None:
+            m_c, rowmiss, plan = split
+            deltas = ld_split.split_corrections(
+                pre["g"], m_c, pre["h"], scal, lo_dev, hi_dev, pre["usable"],
+                dom_ok, rowmiss, config.rsq_thr, m_pad, plan, a_dev,
+                n_samples=n)
+            # δ-credits of (l2, l2d, wse[, l2_annot, l2d_annot])
+            accs = list(accs)
+            for at, delta in zip((0, 3, 5, 6, 7), deltas):
+                accs[at] = accs[at] + delta
+        l2_c, ws_c, poi_c, l2d_c, wsd_c, wse_c = accs[:6]
+        l2, l2d, ws, wsd, wse = finalize_outputs(
+            l2_c, l2d_c, ws_c, wsd_c, wse_c, poi_c, pre["usable"],
+            pre["add_sd_zero"])
+        if a_dev is not None:
+            l2_a, l2d_a = ld_int8.finalize_annot(
+                accs[6], accs[7], a_dev, pre["usable"], pre["add_sd_zero"],
+                poi_c, wsd_c)
+    else:
+        blk_lo, blk_hi, band_k = windows.band_blocks(
+            lo, hi, config.block_size, m_pad // config.block_size)
+        fin = ld_int8.ld_scores_int8(
+            pre["g"], m_mat, pre["h"], scal, lo_dev, hi_dev, pre["usable"],
+            dom_ok, pre["add_sd_zero"], blk_lo, blk_hi, config.rsq_thr, a_dev,
+            block_size=config.block_size, band_k=band_k, n_samples=n,
+            has_missing=has_missing)
+        l2, l2d, ws, wsd, wse = fin[-5:]
+        if a_dev is not None:
+            l2_a, l2d_a = fin[:2]
     out = to_host_result(l2, l2d, ws, wsd, wse, pre["maf"], pre["rstd"], m)
+    if a_dev is not None:
+        out["l2_annot"] = l2_a[:m].cpu().numpy().astype(np.float64)
+        out["l2d_annot"] = l2d_a[:m].cpu().numpy().astype(np.float64)
     if progress is not None:
         progress(m, m)
     stage_add("device_s", t_dev)
     return out
+
+
+def compute_ld_scores_annot(genotypes, positions: np.ndarray,
+                            annot: np.ndarray, config: LDConfig, *,
+                            device="cuda") -> dict:
+    """Partitioned LD scores: :func:`compute_ld_scores` with ``annot``
+    (the reference's name for it, kept for API parity)."""
+    return compute_ld_scores(genotypes, positions, config, annot=annot,
+                             device=device)
 
 
 def show_summary(result: dict) -> str:
@@ -315,6 +386,8 @@ def estimate_lds(
     streaming: bool | None = None,
     chunk_rows: int = 8192,
     resume_path: str | None = None,
+    annot: str | None = None,
+    symmetric: bool | None = None,
     device="cuda",
 ):
     """Estimate additive + dominance LD scores from a PLINK bfile.
@@ -330,6 +403,11 @@ def estimate_lds(
     ``streaming``: None streams when the in-core working set would not
     fit (:func:`wants_streaming`); ``chunk_rows`` pivot rows per chunk;
     ``resume_path`` a checkpoint directory of the streaming route.
+    ``annot``: a per-SNP annotation file (:func:`..io.ldscores.read_annot`):
+    partitioned LD scores, one ``<name>.L2`` and one ``<name>.L2D`` column
+    per annotation (``extra`` adds nothing to that table) and
+    per-annotation ``.M``/``.M_5_50``.  ``symmetric``: the in-core engine
+    (:func:`resolve_symmetric`); the streaming route is always symmetric.
     """
     STAGE_TIMES.clear()
     dev = resolve_device(device)
@@ -341,7 +419,7 @@ def estimate_lds(
         ld_wind=ld_wind, wind_metric=wind_metric, maf_thr=maf_thr,
         std_thr=std_thr, rsq_thr=rsq_thr, block_size=block_size,
         int8_dot_dtype=int8_dot_dtype, split_missing=split_missing,
-        use_pallas=use_pallas,
+        use_pallas=use_pallas, symmetric=symmetric,
     ).resolve_rsq(ds.n_snp)
 
     log.info("Input: %s, size: (M=%d, N=%d)", ds.bed_path, ds.n_snp,
@@ -349,16 +427,26 @@ def estimate_lds(
     positions = ds.positions(config.wind_metric)
     if streaming is None:
         streaming = wants_streaming(ds.n_snp, ds.n_samples, dev)
+    annot_mat = annot_names = None
+    if annot is not None:
+        t_annot = time.time()
+        annot_mat, annot_names = read_annot(annot, ds.bim)
+        stage_add("disk_s", t_annot)
+        log.info("Partitioned LD scores: %d annotations from %s",
+                 len(annot_names), annot)
 
     t0 = time.time()
     if streaming:
         from .streaming import compute_ld_scores_streaming  # noqa: PLC0415
 
+        if symmetric is False:
+            log.warning("--no-symmetric selects the in-core full-band "
+                        "engine; the streaming route runs the symmetric one")
         log.info("Running the LD estimator on %s (streaming, chunk=%d "
                  "rows)...", dev, chunk_rows)
         result = compute_ld_scores_streaming(
             ds.bed, positions, config, chunk_rows=chunk_rows,
-            resume_path=resume_path, device=dev)
+            resume_path=resume_path, annot=annot_mat, device=dev)
     else:
         if resume_path:
             log.warning("--resume checkpoints the streaming route only; "
@@ -367,7 +455,8 @@ def estimate_lds(
         stage_add("disk_s", t0)
         log.info("Running the LD estimator on %s...", dev)
         want_prog = progress if progress is not None else ds.n_snp >= 20000
-        result = compute_ld_scores(genotypes, positions, config, device=dev,
+        result = compute_ld_scores(genotypes, positions, config,
+                                   annot=annot_mat, device=dev,
                                    progress=_progress_logger() if want_prog
                                    else None)
     dt = time.time() - t0
@@ -379,12 +468,17 @@ def estimate_lds(
     if summary:
         show_summary(result)
 
-    table = make_output(ds.bim, result, extra=extra)
+    if annot_mat is None:
+        table = make_output(ds.bim, result, extra=extra)
+    else:
+        table = make_output_annot(ds.bim, result, annot_names)
     if out:
         t_w = time.time()
         write_l2(table, out)
-        if write_m:
+        if write_m and annot_mat is None:
             write_m_files(result, out)
+        elif write_m:
+            write_m_files_annot(result, annot_mat, annot_names, out)
         stage_add("write_s", t_w)
         return None
     return table

@@ -19,10 +19,17 @@ rows after them, as far as any window reaches.  Per chunk:
 Device memory is bounded by the band, whatever M.  With ``resume_path``
 each finished chunk is written once, atomically, as a shard file, and a
 restart skips the contiguous prefix of finished chunks.
+
+With ``annot`` (partitioned LD scores) the zero-padded annotation matrix
+is sent once; each band's kernels take its rows ``[p0, p0 + band_rows)``
+and return two ``(band_rows, p)`` accumulators more, which ride the same
+payload, a second float64 carry ``(2, halo, p)`` and the shard's
+``tail_a``.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
@@ -172,13 +179,21 @@ def open_checkpoint(ck_dir: Path, meta: dict) -> None:
         meta_path.write_text(json.dumps(meta))
 
 
-def resume_shards(ck_dir: Path, geo: Geometry, out: dict,
-                  carry: np.ndarray) -> int:
+def annot_digest(annot: np.ndarray) -> str:
+    """A digest of the annotation matrix for the checkpoint meta: shards
+    of another annotation file with as many columns are refused."""
+    a = np.ascontiguousarray(annot, dtype=np.float64)
+    return hashlib.sha256(repr(a.shape).encode() + a.tobytes()).hexdigest()
+
+
+def resume_shards(ck_dir: Path, geo: Geometry, out: dict, carry: np.ndarray,
+                  carry_a: np.ndarray | None = None) -> int:
     """Load the contiguous prefix of finished chunks into ``out`` and fold
-    their stored tails into ``carry`` (aligned at the first chunk still to
-    run), in chunk order, as the uninterrupted run folded them.  Credits
-    flow forward, so a shard after a gap is recomputed.  Returns the
-    number of chunks resumed."""
+    their stored tails into ``carry`` (and ``tail_a`` into ``carry_a``,
+    the annotation carry), aligned at the first chunk still to run, in
+    chunk order, as the uninterrupted run folded them.  Credits flow
+    forward, so a shard after a gap is recomputed.  Returns the number of
+    chunks resumed."""
     shards = {int(f.stem.split("_")[1]): f
               for f in ck_dir.glob("chunk_*.npz")}
     k = 0
@@ -192,6 +207,8 @@ def resume_shards(ck_dir: Path, geo: Geometry, out: dict,
             offset = (k - 1 - ci) * c
             if offset < h:
                 carry[:, :h - offset] += saved["tail"][:, offset:]
+                if carry_a is not None:
+                    carry_a[:, :h - offset] += saved["tail_a"][:, offset:]
     return k
 
 
@@ -256,6 +273,7 @@ class _BandReader:
 def compute_ld_scores_streaming(bed: BedReader, positions: np.ndarray,
                                 config, *, chunk_rows: int = 8192,
                                 resume_path: str | None = None,
+                                annot: np.ndarray | None = None,
                                 device="cuda") -> dict:
     """Streamed LD scores from a :class:`~..io.plink.BedReader`.
 
@@ -264,7 +282,10 @@ def compute_ld_scores_streaming(bed: BedReader, positions: np.ndarray,
     ``resume_path``: a checkpoint directory (one shard file per finished
     chunk, ``meta.json`` pinning every parameter that changes a chunk,
     the device type and the rounded geometry included, and the rowmiss
-    cache).  CUDA runs the kernels; ``device="cpu"`` runs their twins.
+    cache).  ``annot``: optional (M, p) annotation matrix; adds
+    ``l2_annot`` and ``l2d_annot``, float64 (M, p), to the result, and its
+    column count and digest to ``meta.json``.  CUDA runs the kernels;
+    ``device="cpu"`` runs their twins.
     """
     from .pipeline import resolve_device  # noqa: PLC0415
 
@@ -309,6 +330,17 @@ def compute_ld_scores_streaming(bed: BedReader, positions: np.ndarray,
     # column credits of rows of later chunks, aligned at the next chunk's
     # first row
     carry = np.zeros((len(CREDITS), h), dtype=np.float64)
+    p_annot, annot_ext, carry_a, a_dev = 0, None, None, None
+    if annot is not None:
+        if annot.ndim != 2 or annot.shape[0] != m or annot.shape[1] < 1:
+            raise NLDSCParameterError(
+                f"annot must be ({m}, p >= 1), got {annot.shape}")
+        p_annot = annot.shape[1]
+        annot_ext = np.zeros((ext, p_annot), dtype=np.float32)
+        annot_ext[:m] = annot
+        for key in ("l2_annot", "l2d_annot"):
+            out[key] = np.full((geo.m_ext, p_annot), np.nan)
+        carry_a = np.zeros((2, h, p_annot), dtype=np.float64)
     n_resumed = 0
     if ck_dir is not None:
         open_checkpoint(ck_dir, {
@@ -320,9 +352,11 @@ def compute_ld_scores_streaming(bed: BedReader, positions: np.ndarray,
             "std_thr": float(config.std_thr),
             "rsq_thr": float(config.rsq_thr),
             "engine": "sym-split2" if use_split else "sym",
-            "annot_p": -1, "dot_dtype": config.int8_dot_dtype,
+            "annot_p": p_annot if annot is not None else -1,
+            "annot_sha256": None if annot is None else annot_digest(annot),
+            "dot_dtype": config.int8_dot_dtype,
             **bed_identity(bed.path)})
-        n_resumed = resume_shards(ck_dir, geo, out, carry)
+        n_resumed = resume_shards(ck_dir, geo, out, carry, carry_a)
         if n_resumed:
             log.info("Resuming: %d chunks already complete", n_resumed)
 
@@ -336,6 +370,8 @@ def compute_ld_scores_streaming(bed: BedReader, positions: np.ndarray,
     retained: dict = {"ci": None, "raw": None}
     routes: Counter = Counter()
     reader = _BandReader(bed, geo, rowmiss, dev)
+    if annot is not None and n_resumed < geo.n_chunks:
+        a_dev = torch.from_numpy(annot_ext).to(dev)
 
     def dispatch(band: _Band):
         """Queue chunk ``band.ci``'s device work; returns its payload,
@@ -373,28 +409,33 @@ def compute_ld_scores_streaming(bed: BedReader, positions: np.ndarray,
             n_samples=n, materialize_m=global_c)
         dom_ok = pre["usable"] & (pre["rstd"] > thresholds[1])
         scal = ld_int8.stack_scalars(pre)
-        l2, ws, poi, l2d, wsd, wse = ld_pallas_sym.sym_credits(
+        # the band's annotations: rows [p0, p0 + band_rows) of the padded
+        # matrix (a halo row's column credits weight by its pivot's row)
+        annot_b = None if a_dev is None else a_dev[sl]
+        l2, ws, poi, l2d, wsd, wse, *acc_a = ld_pallas_sym.sym_credits(
             pre["g"], pre["m"], pre["h"], scal, lo_d, hi_d, pre["usable"],
             dom_ok, pre["add_sd_zero"], config.rsq_thr, n_samples=n,
             has_missing=global_c, block_size=config.block_size,
-            pivot_rows=c)
+            pivot_rows=c, annot=annot_b)
         if split_c:
             # pairs owned by their left member: own_hi = chunk_rows
             rm_b = rowmiss_ext[sl]
             plan = ld_split.plan_split_v2(rm_b, lo_b, hi_b, seg_rows,
                                           band_rows)
-            l2_d, l2d_d, wse_d = ld_split.split_corrections(
+            l2_d, l2d_d, wse_d, *delta_a = ld_split.split_corrections(
                 pre["g"], ld_split.compact_missing_rows(g, plan["miss_idx"]),
                 pre["h"], scal, lo_d, hi_d, pre["usable"], dom_ok,
                 torch.from_numpy(rm_b).to(dev), config.rsq_thr, c, plan,
-                n_samples=n)
+                annot_b, n_samples=n)
             l2, l2d, wse = l2 + l2_d, l2d + l2d_d, wse + wse_d
+            acc_a = [a + d for a, d in zip(acc_a, delta_a)]
         routes["split" if split_c else "global" if global_c else "clean"] += 1
         stats = torch.stack([pre["usable"], pre["add_sd_zero"], pre["maf"],
                              pre["rstd"]])[:, :c]
         payload = torch.cat([torch.stack([l2, ws, poi, l2d, wsd, wse])
                              .double().reshape(-1),
-                             stats.double().reshape(-1)])
+                             stats.double().reshape(-1),
+                             *(a.double().reshape(-1) for a in acc_a)])
         if not reader.pinned:
             return payload, None
         host = torch.empty(payload.shape, dtype=payload.dtype,
@@ -406,13 +447,14 @@ def compute_ld_scores_streaming(bed: BedReader, positions: np.ndarray,
 
     def collect(ci: int, payload: torch.Tensor, done) -> None:
         """Finalize chunk ``ci`` on the host and write its shard."""
-        nonlocal carry
+        nonlocal carry, carry_a
         if done is not None:
             done.synchronize()
         pp = payload.numpy()
         sums = pp[:len(CREDITS) * band_rows].reshape(len(CREDITS), band_rows)
         local, tail = sums[:, :c].copy(), sums[:, c:]
-        stats = pp[len(CREDITS) * band_rows:].reshape(len(STATS), c)
+        n_sums = len(CREDITS) * band_rows
+        stats = pp[n_sums:n_sums + len(STATS) * c].reshape(len(STATS), c)
         # credits earned by earlier chunks, then the carry moved on to the
         # next chunk's first row
         w = min(h, c)
@@ -432,9 +474,31 @@ def compute_ld_scores_streaming(bed: BedReader, positions: np.ndarray,
                          ("residuals_std", stats[3]), ("l2_ws", ws),
                          ("l2d_ws", wsd), ("l2d_wse", wse)):
             out[key][rows] = val
+        tails = {"tail": tail}
+        if annot is not None:
+            # the annotation accumulators: carried like the credits, then
+            # the sentinels of ld_int8.finalize_annot in float64 (reference
+            # streaming.py:985-1003)
+            sums_a = pp[n_sums + len(STATS) * c:].reshape(
+                2, band_rows, p_annot)
+            local_a, tail_a = sums_a[:, :c].copy(), sums_a[:, c:]
+            local_a[:, :w] += carry_a[:, :w]
+            nca = np.zeros_like(carry_a)
+            if h > c:
+                nca[:, :h - c] = carry_a[:, c:]
+            nca += tail_a
+            carry_a = nca
+            good = (usable & (poi_c == 0))[:, None]
+            out["l2_annot"][rows] = np.where(
+                good, annot_ext[rows].astype(np.float64) + local_a[0], np.nan)
+            l2d_bad = np.where(wsd_c > 0, np.nan, 0.0)[:, None]
+            out["l2d_annot"][rows] = np.where(
+                usable[:, None],
+                np.where(sd_zero[:, None], l2d_bad, local_a[1]), np.nan)
+            tails["tail_a"] = tail_a
         if ck_dir is not None:
             _save_npz(ck_dir / f"chunk_{ci:06d}.npz",
-                      **{k: v[rows] for k, v in out.items()}, tail=tail)
+                      **{k: v[rows] for k, v in out.items()}, **tails)
         n_done = ci + 1 - n_resumed
         elapsed = time.time() - t_start
         log.info("chunk %d/%d done (%.0f%%, rows %d..%d) | elapsed %.1fs "

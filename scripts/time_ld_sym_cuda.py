@@ -3,6 +3,7 @@
 
     python3 scripts/time_ld_sym_cuda.py [--m 65536] [--n 16384]
                                         [--half-window 1000] [--reps 5]
+                                        [--annot 53]
 
 Seeded random genotype codes are made on the card (MAF 0.05-0.5 per SNP;
 2% missing codes for the 8-product branch), preprocessed by the port and
@@ -14,7 +15,12 @@ printed: the ptxas report of the build, and ``torch._int_mm`` (cuBLASLt)
 on a dense 8,192 x 16,384 by 16,384 x 8,192 int8 product, a yardstick of
 the card's int8 rate that the port never calls.  The script times
 whatever ``ld_sym.cu`` its checkout holds: a variant of the kernel is
-timed by running it from a copy that holds the variant.  The last line
+timed by running it from a copy that holds the variant.  With
+``--annot P`` each branch's annotation epilogue is held against the twin
+too (its plain sums and counters bitwise equal to the plain launch's, the
+annotation accumulators within 1e-5) and timed with P seeded annotations
+(the first all ones, two binary, the rest uniform), with its bound
+(``chip_smoke.k1_annot_work``) and its peak device memory.  The last line
 is one JSON object of the numbers.
 """
 
@@ -22,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -72,14 +79,39 @@ def engine_args(m: int, n: int, half_window: int, missing_rate: float,
             pre["add_sd_zero"])
 
 
-def k1(args, n: int, has_missing: bool):
+def k1(args, n: int, has_missing: bool, annot=None):
     return ld_pallas_sym.sym_credits(*args, RSQ, n_samples=n,
                                      has_missing=has_missing,
-                                     block_size=ld_pallas_sym.ROW_ALIGN)
+                                     block_size=ld_pallas_sym.ROW_ALIGN,
+                                     annot=annot)
 
 
-def check_small(has_missing: bool, dev) -> float:
-    """The kernel against the twin at M = 1,000, N = 1,000, window 150."""
+def device_split(fn, reps: int = 3) -> tuple[float, list]:
+    """Device milliseconds per call of ``fn`` inside K1 and, largest
+    first, in the other device ops (name, count and ms per call), from
+    the profiler."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    k1_ms, other = 0.0, []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / 1e3 / reps
+        if "ld_sym_kernel" in e.key:
+            k1_ms += ms
+        else:
+            other.append((ms, e.count // reps, e.key[:48]))
+    return k1_ms, sorted(other, reverse=True)
+
+
+def check_small(has_missing: bool, dev, p: int = 0) -> tuple[float, float]:
+    """The kernel against the twin at M = 1,000, N = 1,000, window 150;
+    with ``p`` annotations its annotation epilogue too.  Returns the max
+    abs error of l2/l2d and of the annotation accumulators."""
     args = engine_args(1000, 1000, 150, 0.02 if has_missing else 0.0, 7,
                        dev)
     kern, again = k1(args, 1000, has_missing), k1(args, 1000, has_missing)
@@ -88,8 +120,14 @@ def check_small(has_missing: bool, dev) -> float:
         raise RuntimeError("two kernel runs differ")
     twin = chip_smoke.twin_credits(args, 1000, has_missing,
                                    ld_pallas_sym.ROW_ALIGN)
-    return chip_smoke.compare(chip_smoke.finalized(kern, args),
-                              chip_smoke.finalized(twin, args))
+    err = chip_smoke.compare(chip_smoke.finalized(kern, args),
+                             chip_smoke.finalized(twin, args))
+    if not p:
+        return err, 0.0
+    annot = chip_smoke.seeded_annot(torch, args[0].shape[0], 1000, p, 7, dev)
+    err_a = chip_smoke.check_k1_annot(torch, args, 1000, has_missing, annot,
+                                      kern)
+    return err, err_a
 
 
 def main() -> int:
@@ -99,6 +137,9 @@ def main() -> int:
     ap.add_argument("--half-window", type=int, default=1000)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=2026)
+    ap.add_argument("--annot", type=int, default=0, metavar="P",
+                    help="also check and time the annotation epilogue with "
+                         "P annotations")
     opt = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -113,11 +154,16 @@ def main() -> int:
              .splitlines() if "registers" in ln or "spill" in ln
              or "C75" in ln]
     print("ptxas: " + " | ".join(ptxas), flush=True)
+    spills = [int(b) for b in re.findall(
+        r"(\d+) bytes spill", _build.BUILD_INFO["ld_sym"]["log"])]
+    if not spills or any(spills):
+        print(f"ptxas reports spills: {spills}", file=sys.stderr)
+        return 1
     out = {"card": card, "m": opt.m, "n": opt.n,
            "half_window": opt.half_window}
     for has_missing in (False, True):
         name = "8prod" if has_missing else "clean"
-        err = check_small(has_missing, dev)
+        err, err_a = check_small(has_missing, dev, opt.annot)
         args = engine_args(opt.m, opt.n, opt.half_window,
                            0.02 if has_missing else 0.0, opt.seed, dev)
         work = chip_smoke.k1_work(args[5], args[0].shape[1], has_missing,
@@ -134,6 +180,41 @@ def main() -> int:
               f"{work['bound_ms']:.3f} ms ({work['bound_by']}), "
               f"{100 * out[name]['share_of_bound']:.1f}% of it; small-shape "
               f"max |diff| vs twin {err:.3g}; on {card}", flush=True)
+        if opt.annot:
+            annot = chip_smoke.seeded_annot(torch, args[0].shape[0], opt.m,
+                                            opt.annot, opt.seed, dev)
+            work_a = chip_smoke.k1_annot_work(work, args[0].shape[0],
+                                              opt.annot)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ms_a = chip_smoke.cuda_ms(
+                torch, lambda: k1(args, opt.n, has_missing, annot), opt.reps)
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            ms_again = chip_smoke.cuda_ms(
+                torch, lambda: k1(args, opt.n, has_missing), opt.reps)
+            k1_ms, other = device_split(
+                lambda: k1(args, opt.n, has_missing, annot))
+            print(f"{name} + {opt.annot} annotations, device time per call: "
+                  f"the kernel {k1_ms:.3f} ms, {sum(c for _, c, _ in other)} "
+                  f"other ops {sum(x for x, _, _ in other):.3f} ms (zero "
+                  "fill and folds): " + "; ".join(
+                      f"{k} x{c} {x:.3f} ms" for x, c, k in other[:5]),
+                  flush=True)
+            out[name + "_annot"] = {
+                "p": opt.annot, "ms": ms_a, "ms_plain_again": ms_again,
+                "ms_kernel": k1_ms,
+                "ms_other_ops": sum(x for x, _, _ in other),
+                "max_abs_err_small": err_a, "peak_gib": peak, **work_a}
+            print(f"{name} + {opt.annot} annotations: {ms_a:.3f} ms (plain "
+                  f"again {ms_again:.3f} ms); bound {work_a['bound_ms']:.3f} "
+                  f"ms ({work_a['bound_by']}), "
+                  f"{100 * work_a['bound_ms'] / ms_a:.1f}% of it; peak "
+                  f"device memory above the inputs {peak:.3f} GiB; "
+                  f"small-shape max |diff| of the accumulators vs twin "
+                  f"{err_a:.3g}, plain sums and counters bitwise equal to "
+                  f"the plain launch; on {card}", flush=True)
+            del annot
         del args
         torch.cuda.empty_cache()
     a = torch.randint(-2, 3, (8192, 16384), dtype=torch.int8, device=dev)

@@ -141,6 +141,97 @@ def test_kernel_band_matches_twin_over_pivots(rng, cuda, case, pivot_rows):
     assert int(kern[1][pivot_rows:].sum()) > 0   # the halo's column credits
 
 
+def seeded_annot(rng, m_pad, m, p, device):
+    """float32 (m_pad, p) annotations: all ones, binary, continuous; zero
+    rows for the padding."""
+    a = np.zeros((m_pad, p), np.float32)
+    a[:m] = rng.random((m, p), dtype=np.float32)
+    a[:m, 0] = 1.0
+    a[:m, 1:2] = a[:m, 1:2] < 0.3
+    return torch.from_numpy(a).to(device)
+
+
+def twin_annot(args, n, has_missing, T, annot, scan_rows=None):
+    rows = args[0].shape[0] if scan_rows is None else scan_rows
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return ld_int8.sym_scan_segment(
+            *args, RSQ, 0, annot, block_size=T,
+            right_k=ld_int8.band_extent(args[5], T)[1], n_samples=n,
+            n_scan_blocks=rows // T, has_missing=has_missing)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+# p = 37 spans two passes of 32 annotations; the cases cover one and
+# several staged column blocks and band slots of both branches
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [1, 5, 37])
+@pytest.mark.parametrize("case", ["clean", "missing", "multi_tile_band",
+                                  "clean_multi_tile_band", "edge_clamp",
+                                  "ring_wrap_clean"])
+def test_kernel_annot_matches_twin(rng, cuda, case, p):
+    args, n, has_missing, m = engine_args(rng, case, cuda)
+    T = ld_pallas_sym.tile(has_missing)
+    annot = seeded_annot(rng, args[0].shape[0], m, p, cuda)
+    kw = dict(n_samples=n, has_missing=has_missing, block_size=T)
+    plain = ld_pallas_sym.sym_credits(*args, RSQ, **kw)
+    before = (ld_pallas_sym.launches, ld_pallas_sym.annot_launches)
+    kern = ld_pallas_sym.sym_credits(*args, RSQ, annot=annot, **kw)
+    again = ld_pallas_sym.sym_credits(*args, RSQ, annot=annot, **kw)
+    torch.cuda.synchronize()
+    assert (ld_pallas_sym.launches, ld_pallas_sym.annot_launches) == (
+        before[0] + 2, before[1] + 2)
+    assert len(kern) == 8
+    for a, b in zip(kern, again):
+        assert torch.equal(a, b)                 # bitwise run to run
+    for a, b in zip(kern[:6], plain):
+        assert torch.equal(a, b)     # the plain credits of a plain launch
+    twin = twin_annot(args, n, has_missing, T, annot)
+    for a, b in zip(kern[6:], twin[6:]):
+        assert tuple(a.shape) == (args[0].shape[0], p)
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), **TOL)
+    assert float(kern[6].abs().max()) > 0 and float(kern[7].abs().max()) > 0
+    if p == 1:       # all ones: the plain score sums
+        for a, b in zip((kern[6][:, 0], kern[7][:, 0]), (kern[0], kern[3])):
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                       **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case, pivot_rows", [("clean", 128),
+                                              ("multi_tile_band", 256)])
+def test_kernel_annot_band_matches_twin_over_pivots(rng, cuda, case,
+                                                    pivot_rows):
+    args, n, has_missing, m = engine_args(rng, case, cuda)
+    T = ld_pallas_sym.tile(has_missing)
+    annot = seeded_annot(rng, args[0].shape[0], m, 5, cuda)
+    kern = ld_pallas_sym.sym_credits(
+        *args, RSQ, n_samples=n, has_missing=has_missing, block_size=T,
+        pivot_rows=pivot_rows, annot=annot)
+    torch.cuda.synchronize()
+    lo, hi = args[4].clone(), args[5].clone()
+    lo[pivot_rows:], hi[pivot_rows:] = args[0].shape[0], -1
+    twin = twin_annot(args[:4] + (lo, hi) + args[6:], n, has_missing, T,
+                      annot, scan_rows=pivot_rows)
+    for a, b in zip(kern[6:], twin[6:]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), **TOL)
+    # halo rows earn column credits, weighted by their pivots' annotations
+    assert float(kern[6][pivot_rows:].abs().max()) > 0
+
+
+@pytest.mark.gpu
+def test_kernel_rejects_bad_annot(rng, cuda):
+    args, n, _, m = engine_args(rng, "clean", cuda)
+    annot = seeded_annot(rng, args[0].shape[0], m, 3, cuda)
+    kw = dict(n_samples=n, has_missing=False, block_size=128)
+    for bad in (annot.double(), annot[:-1], annot.t().contiguous().t(),
+                annot.cpu(), annot[:, :0]):
+        with pytest.raises(ValueError, match="annot"):
+            ld_pallas_sym.sym_credits(*args, RSQ, annot=bad, **kw)
+
+
 @pytest.mark.gpu
 def test_kernel_rejects_bad_inputs(rng, cuda):
     args, n, _, _ = engine_args(rng, "clean", cuda)

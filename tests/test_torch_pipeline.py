@@ -164,8 +164,8 @@ def test_cuda_without_gpu_raises(rng, tmp_path):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--annot", "a.txt"], "item 7"),
-    (["--symmetric"], "item 7"),
+    (["--log-file"], "item 8"),
+    (["--shard-axis", "grid"], "item 10"),
     (["--n-devices", "2"], "item 10"),
     (["--profile-dir", "x"], "item 8"),
     (["--engine", "f32"], "item 9"),
@@ -183,10 +183,10 @@ def test_unported_flags_name_their_roadmap_item(tmp_path, caplog, argv, item):
 
 
 @pytest.mark.parametrize("command, argv, item", [
-    ("ld-genome", ["--annot", "a.txt"], "item 7"),
+    ("ld-genome", ["--n-devices", "2"], "item 10"),
 ], ids=["ld-genome"])
 def test_unported_commands_raise(tmp_path, command, argv, item):
-    # what ld-genome does not port yet: the partitioned route
+    # what ld-genome does not port yet: the multi-device routes
     with pytest.raises(SystemExit) as ex:
         cli.main([command, "--bfiles", str(tmp_path / "c*.bed"), "--out-dir",
                   str(tmp_path / "out"), "-kb", "5", "--device", "cpu", *argv])

@@ -203,9 +203,15 @@ def test_ld_scores_split_matches_jax(rng):
 
 
 def test_split_corrections_refuses_annot(rng):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ld_split.split_corrections(*([None] * 11), {}, annot=np.ones(3),
-                                   n_samples=10)
+    # annotations are taken as the engines take them, a float32 (M_pad, p)
+    # tensor beside the genotypes: anything else is refused, on any device
+    g = torch.zeros((16, 128), dtype=torch.int8)
+    for bad in (np.ones((16, 3), np.float32), torch.ones(16, 3).double(),
+                torch.ones(8, 3), torch.ones(16), torch.ones(16, 0),
+                torch.ones(3, 16).t()):
+        with pytest.raises(ValueError, match="annot must be"):
+            ld_split.split_corrections(g, *([None] * 10), {}, annot=bad,
+                                       n_samples=10)
 
 
 def test_corr_products_plain_is_exact(rng):

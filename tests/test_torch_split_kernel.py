@@ -17,6 +17,7 @@ from nldsc_tpu_torch.config import LDConfig
 from nldsc_tpu_torch.ld import ld_int8, ld_pallas_sym, ld_split, pipeline
 from nldsc_tpu_torch.ld import windows
 
+from test_torch_kernel import seeded_annot
 from utils import adversarial_genotypes, make_positions, random_genotypes
 
 RSQ = 1e-3
@@ -124,6 +125,72 @@ def test_split_corrections_kernel_matches_twin(rng, cuda, m, n, seg_rows,
     for a, b in zip(kern[:2], twin[:2]):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), **TOL)
     assert twin[0].abs().max() > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [1, 37])
+@pytest.mark.parametrize("m, n, seg_rows, wind, own", [
+    (700, 389, 256, 20000.0, None),   # 3 segments, the last one clamped
+    (300, 101, 64, 20000.0, None),    # segments shorter than a tile
+    (1500, 389, 512, 60000.0, 1024),  # three column tiles; a band's own_hi
+    (3000, 203, 2048, 5000.0, None),  # narrow windows: most tiles skip
+])
+def test_split_corrections_annot_kernel_matches_twin(rng, cuda, m, n,
+                                                     seg_rows, wind, own, p):
+    args, n, _, _ = split_inputs(rng, m, n, seg_rows, cuda, wind)
+    if own is not None:
+        args = args[:10] + (own,) + args[11:]
+    annot = seeded_annot(rng, args[0].shape[0], m, p, cuda)
+    plain = ld_split.split_corrections(*args, n_samples=n)
+    before = (ld_split.corr_launches, ld_split.fused_launches,
+              ld_split.annot_launches)
+    kern = ld_split.split_corrections(*args, annot, n_samples=n)
+    again = ld_split.split_corrections(*args, annot, n_samples=n)
+    torch.cuda.synchronize()
+    assert (ld_split.corr_launches, ld_split.fused_launches,
+            ld_split.annot_launches) == (before[0] + 4, before[1] + 2,
+                                         before[2] + 2)
+    assert len(kern) == 5
+    for a, b in zip(kern, again):
+        assert torch.equal(a, b)                   # bitwise run to run
+    for a, b in zip(kern[:3], plain):
+        assert torch.equal(a, b)       # the plain δ of a plain launch
+    cpu = tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)
+    twin = ld_split.split_corrections(*cpu, annot.cpu(), n_samples=n)
+    for a, b in zip(kern[3:], twin[3:]):
+        assert tuple(a.shape) == (args[0].shape[0], p)
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), **TOL)
+    assert twin[3].abs().max() > 0 and twin[4].abs().max() > 0
+
+
+@pytest.mark.gpu
+def test_annot_split_route_equals_global_on_card(rng, cuda):
+    _, _, g, pos = split_inputs(rng, 700, 389, 4096, "cpu")
+    annot = seeded_annot(rng, 700, 700, 5, "cpu").double().numpy()
+    kw = dict(ld_wind=20000, maf_thr=0.01, std_thr=1e-4, rsq_thr=RSQ)
+    before = (ld_pallas_sym.annot_launches, ld_split.annot_launches)
+    split = pipeline.compute_ld_scores(g, pos, LDConfig(**kw), annot=annot,
+                                       device=cuda)
+    assert (ld_pallas_sym.annot_launches, ld_split.annot_launches) == (
+        before[0] + 1, before[1] + 1)
+    glob = pipeline.compute_ld_scores(
+        g, pos, LDConfig(**kw, split_missing=False), annot=annot, device=cuda)
+    full = pipeline.compute_ld_scores(
+        g, pos, LDConfig(**kw, symmetric=False), annot=annot, device=cuda)
+    assert (ld_pallas_sym.annot_launches, ld_split.annot_launches) == (
+        before[0] + 2, before[1] + 1)        # the full-band engine: none
+    for other in (glob, full):
+        # the full-band engine evaluates a pair from either member's row,
+        # in other float32 expressions: its threshold count is not held
+        for k in ("l2_ws", "l2d_ws") + (("l2d_wse",) if other is glob else ()):
+            np.testing.assert_array_equal(split[k], other[k], err_msg=k)
+        for k in ("l2", "l2d"):
+            np.testing.assert_allclose(split[k], other[k], equal_nan=True,
+                                       err_msg=k, **TOL)
+        # tests/test_annot.py:181-191: the δ sums cancel the clean pass's
+        for k in ("l2_annot", "l2d_annot"):
+            np.testing.assert_allclose(split[k], other[k], rtol=5e-5,
+                                       atol=5e-4, equal_nan=True, err_msg=k)
 
 
 @pytest.mark.gpu
