@@ -104,7 +104,28 @@ Phases, one line each (or a few):
      bitwise equal to a launch without annotations, the accumulators
      within KERNEL_TOL: the ``max_abs_err`` of the kernels line), its
      time beside the plain launch's, its bound, the full-band torch
-     engine at that shape, and peak device memory.
+     engine at that shape, and peak device memory;
+ 20. the bf16 instantiations (``--dot-dtype bf16``) at phase 5's shape:
+     K1's four (clean and annotated on phase 5's rows, 8-product and
+     annotated on phase 9's with its real missing genotypes, p=53) and
+     K2's products and fused modes (with and without annotations) on
+     phase 9's split inputs, each bitwise equal to its int8 instantiation
+     and within KERNEL_TOL of its twin (``dot_dtype="bf16"``), timed
+     beside int8 (int8, bf16, bf16, int8) with its bf16 bound; the
+     exactness probe at N_pad = 4,194,304 (Sgg = 2^24); ptxas's 16
+     instantiations without a spill; a dense bf16 product with float32
+     sums as a yardstick (the port never calls it);
+ 21. ``ld --dot-dtype bf16`` on the bfiles of phases 5, 9 and 6 in core,
+     phase 13's streamed and phase 19's ``--annot`` (clean, split,
+     global): each .L2 byte-identical to the int8 run's, every K1 and K2
+     launch a bf16 one, peak device memory;
+ 22. ``ld --engine f32``: the golden fixtures on the card (symmetric,
+     full band, annot), phase 5's chromosome symmetric and full band
+     against the int8 engine (ws/wsd equal, l2/l2d differences printed,
+     wse under the counter contract of tests/contract.py, its tolerance
+     from the f32 engine's measured error, at most 2 apart per row), a
+     rerun with TF32 allowed process-wide bitwise equal, and
+     ``--engine f32 --streaming`` refused.
 
 Then one JSON line of the kernels (each with its time, its plain
 version's, its bound from this run's inputs, its launches on the main
@@ -285,21 +306,26 @@ def compare(ours, ref) -> float:
     return err
 
 
-def twin_credits(args, n, has_missing, block_size):
+def twin_credits(args, n, has_missing, block_size, annot=None):
     from nldsc_tpu_torch.ld import ld_int8
 
     return ld_int8.sym_scan_segment(
-        *args, RSQ, 0, block_size=block_size,
+        *args, RSQ, 0, annot, block_size=block_size,
+        dot_dtype=ld_int8.dot_dtype_of(args[0]),
         right_k=ld_int8.band_extent(args[5], block_size)[1], n_samples=n,
         n_scan_blocks=args[0].shape[0] // block_size,
         has_missing=has_missing)
 
 
-#: published dense peaks of one H100 SXM (int8 tensor cores, float32
-#: outside the tensor cores, HBM3)
+#: published dense peaks of one H100 SXM (int8 and bf16 tensor cores,
+#: float32 outside the tensor cores, HBM3)
 INT8_OPS = 1979e12
+BF16_OPS = 989e12
 FP32_OPS = 67e12
 HBM_BYTES = 3.35e12
+#: the tensor-core peak and the bytes per operand element of each
+#: ``--dot-dtype``
+DOT_PEAK = {"int8": (INT8_OPS, 1), "bf16": (BF16_OPS, 2)}
 
 
 def bound(ops: float, nbytes: float, peak_ops: float = INT8_OPS) -> dict:
@@ -310,14 +336,18 @@ def bound(ops: float, nbytes: float, peak_ops: float = INT8_OPS) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def k1_work(hi, n_pad: int, has_missing: bool, tile: int) -> dict:
+def k1_work(hi, n_pad: int, has_missing: bool, tile: int,
+            dot_dtype: str = "int8") -> dict:
     """K1's work on inputs with window ends ``hi`` (int32, padding rows
-    -1): ``ops``, the int8 operations of the in-window pairs i <= j
+    -1): ``ops``, the tensor-core operations of the in-window pairs i <= j
     (2 per sample per product: 3 products clean, 8 missing); ``tile_ops``,
     those of the tiles the kernel computes; ``bytes``, each input read
-    once (g, h and m if missing; the per-row scalars and flags) and the
-    six credit vectors written once; and its ``bound``."""
+    once (g, h and m if missing, 1 byte a code, 2 in bf16; the per-row
+    scalars and flags) and the six credit vectors written once; and its
+    ``bound`` at the peak of ``dot_dtype``'s operands."""
     import torch
+
+    peak, esize = DOT_PEAK[dot_dtype]
 
     m_pad = hi.shape[0]
     rows = torch.arange(m_pad, device=hi.device)
@@ -329,15 +359,16 @@ def k1_work(hi, n_pad: int, has_missing: bool, tile: int) -> dict:
     ctas = int((blk_hi - torch.arange(nt, device=hi.device) + 1)
                .clamp(min=0).sum())
     ops = 2.0 * nprod * n_pad * pairs
-    nbytes = (3 if has_missing else 2) * m_pad * n_pad + m_pad * (
+    nbytes = (3 if has_missing else 2) * esize * m_pad * n_pad + m_pad * (
         9 * 4 + 2 * 4 + 3) + 6 * 4 * m_pad
     return {"ops": ops, "tile_ops": 2.0 * nprod * n_pad * ctas * tile * tile,
             "ctas": ctas, "pairs": pairs, "bytes": nbytes,
-            **bound(ops, nbytes)}
+            **bound(ops, nbytes, peak)}
 
 
 def annot_bound(work: dict, pairs: int, m_pad: int, p: int,
-                int8_ops: float, f32_ops: float = 0.0) -> dict:
+                int8_ops: float, f32_ops: float = 0.0,
+                peak: float = INT8_OPS) -> dict:
     """A kernel's work with its annotation epilogue: ``work`` (its plain
     ``bytes``) plus 4 contractions x 2 float32 operations x ``p`` per
     counted pair, the annotation matrix read once and the two (m_pad, p)
@@ -346,17 +377,19 @@ def annot_bound(work: dict, pairs: int, m_pad: int, p: int,
     bytes' time."""
     f32_ops += 4.0 * 2.0 * p * pairs
     nbytes = work["bytes"] + 3 * 4 * m_pad * p
-    t_ops = int8_ops / INT8_OPS + f32_ops / FP32_OPS
+    t_ops = int8_ops / peak + f32_ops / FP32_OPS
     t_bytes = nbytes / HBM_BYTES
     return {"annot_f32_ops": 4.0 * 2.0 * p * pairs, "bytes": nbytes,
             "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def k1_annot_work(work: dict, m_pad: int, p: int) -> dict:
+def k1_annot_work(work: dict, m_pad: int, p: int,
+                  dot_dtype: str = "int8") -> dict:
     """K1's work with ``p`` annotations, from ``k1_work``'s ``work`` on
-    the same ``m_pad`` rows."""
-    return annot_bound(work, work["pairs"], m_pad, p, work["ops"])
+    the same ``m_pad`` rows (and ``dot_dtype``)."""
+    return annot_bound(work, work["pairs"], m_pad, p, work["ops"],
+                       peak=DOT_PEAK[dot_dtype][0])
 
 
 def annot_values(rng, m: int, p: int) -> np.ndarray:
@@ -431,7 +464,7 @@ def check_k1_annot(torch, args, n: int, has_missing: bool, annot,
 EPI_OPS_PER_PAIR = 2 * 70 + 7 + 3 + 6
 
 
-def k2_work(sargs) -> dict:
+def k2_work(sargs, dot_dtype: str = "int8") -> dict:
     """K2's work in one split pass on ``split_args`` inputs, counted from
     this run's data.  ``pairs``: the pairs the epilogue evaluates (in
     window, both usable, left member below ``own_hi``), ``d_pairs`` those
@@ -447,10 +480,12 @@ def k2_work(sargs) -> dict:
     larger of that and the bytes' time.  ``old_k2_ms`` and
     ``old_delta_ms`` are the earlier yardstick: two kernels, the padded
     products written to memory and read back, pair_adj counted twice per
-    padded pair."""
+    padded pair.  ``dot_dtype``: the operands' peak rate and bytes per
+    code (the bf16 instantiations read 2)."""
     import torch
     from nldsc_tpu_torch.ld import ld_split
 
+    peak, esize = DOT_PEAK[dot_dtype]
     g, m_c, _, _, lo, hi, usable, _, rowmiss, _, own_hi, plan = sargs
     m_pad, n_pad = g.shape
     S, P, p_x, n_segs = (plan["seg_rows"], plan["p_band"], plan["p_x"],
@@ -485,11 +520,11 @@ def k2_work(sargs) -> dict:
     tile_ops = 2.0 * n_pad * TM * TC * (
         5 * live + 3 * n_segs * n_ct * -(-p_x // TM))
     f32_ops = float(EPI_OPS_PER_PAIR * pairs)
-    nbytes = (n_segs * S * n_pad + 3 * m_c.shape[0] * n_pad
+    nbytes = (esize * (n_segs * S * n_pad + 3 * m_c.shape[0] * n_pad)
               + 4 * n_segs * p_x * 3 * P
               + n_segs * (S * (9 * 4 + 3 * 4 + 3) + P * (9 * 4 + 4 + 2))
               + 12 * (n_ct * m_pad + n_segs * n_xt * P))
-    t_ops = int8_ops / INT8_OPS + f32_ops / FP32_OPS
+    t_ops = int8_ops / peak + f32_ops / FP32_OPS
     t_bytes = nbytes / HBM_BYTES
     outs = S * 3 * P + S * 2 * P + p_x * 3 * P
     old_k2 = bound(n_segs * 2.0 * n_pad * outs,
@@ -653,18 +688,20 @@ def launch_counts() -> dict:
     return {"ld_sym": ld_pallas_sym.launches,
             "ld_sym_8prod": ld_pallas_sym.missing_launches,
             "ld_sym_annot": ld_pallas_sym.annot_launches,
+            "ld_sym_bf16": ld_pallas_sym.bf16_launches,
             "split_corr": ld_split.corr_launches,
             "split_fused": ld_split.fused_launches,
-            "split_annot": ld_split.annot_launches}
+            "split_annot": ld_split.annot_launches,
+            "split_bf16": ld_split.bf16_launches}
 
 
 def reset_counts() -> None:
     from nldsc_tpu_torch.ld import ld_pallas_sym, ld_split
 
     ld_pallas_sym.launches = ld_pallas_sym.missing_launches = 0
-    ld_pallas_sym.annot_launches = 0
+    ld_pallas_sym.annot_launches = ld_pallas_sym.bf16_launches = 0
     ld_split.corr_launches = ld_split.fused_launches = 0
-    ld_split.annot_launches = 0
+    ld_split.annot_launches = ld_split.bf16_launches = 0
 
 
 def run_cli(prefix: str, out: str):
@@ -1218,7 +1255,7 @@ def annot_kernel_phase(torch, rng, dev) -> dict:
         "(1 products + 1 fused launch with the annotation epilogue): plain δ "
         "bitwise equal to the plain call, max |annotation δ| diff vs twin "
         f"{errs['split_corr annot']:.3g}, runs bitwise equal")
-    for name, want in (("ld_sym", 4), ("split_corr", 4)):
+    for name, want in (("ld_sym", 8), ("split_corr", 8)):
         log = _build.BUILD_INFO[name]["log"]
         entries = re.findall(r"Compiling entry function '(\w+)'", log)
         regs = re.findall(r"Used (\d+) registers", log)
@@ -1533,6 +1570,497 @@ def annot_full_width(torch, tmp: str, prefix5: str, out5: str, prefix6: str,
         f"annotations {plain_ms:.1f} ms; peak device memory of a call "
         f"{peak:.3f} GiB; on {card}")
     return out
+
+
+def bits_equal(torch, a, b) -> bool:
+    """Two tensors of one dtype and shape with the same bits (float NaNs
+    included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def all_bits_equal(torch, xs, ys) -> bool:
+    return len(xs) == len(ys) and all(bits_equal(torch, a, b)
+                                      for a, b in zip(xs, ys))
+
+
+def as_bf16(args):
+    """Engine inputs (or ``split_args``) with the code matrices g, m, h
+    (and m_c) as bf16 operands: one ``.to`` each, aliases kept."""
+    from nldsc_tpu_torch.ld import ld_int8
+
+    ops = {"g": args[0], "m": args[1], "h": args[2]}
+    ld_int8.to_operands(ops, "bf16")
+    return (ops["g"], ops["m"], ops["h"], *args[3:])
+
+
+def check_k1_bf16(torch, args, n: int, has_missing: bool, annot=None):
+    """K1's bf16 instantiation on engine inputs ``args`` against the int8
+    one: every output (credits, counters and, with ``annot``, the
+    annotation accumulators) bitwise equal, two bf16 runs bitwise equal,
+    each counted as a bf16 launch.  Returns the bf16 inputs and the two
+    callables (int8, bf16) for timing."""
+    from nldsc_tpu_torch.ld import ld_pallas_sym
+
+    T = ld_pallas_sym.tile(has_missing)
+    bargs = as_bf16(args)
+
+    def run(a):
+        return ld_pallas_sym.sym_credits(
+            *a, RSQ, n_samples=n, has_missing=has_missing, block_size=T,
+            annot=annot)
+
+    before = ld_pallas_sym.bf16_launches
+    ref, kern, again = run(args), run(bargs), run(bargs)
+    torch.cuda.synchronize()
+    if ld_pallas_sym.bf16_launches != before + 2:
+        raise RuntimeError("the bf16 instantiation was not launched")
+    if not all_bits_equal(torch, kern, again):
+        raise RuntimeError("two bf16 K1 runs differ")
+    if not all_bits_equal(torch, kern, ref):
+        raise RuntimeError(f"K1 bf16 (missing={has_missing}, annot="
+                           f"{annot is not None}) differs from int8")
+    return bargs, (lambda: run(args)), (lambda: run(bargs))
+
+
+def check_k2_bf16(torch, sargs, n: int, annot=None):
+    """K2's bf16 instantiations on ``split_args`` against the int8 ones:
+    the products mode (a, b, d of every segment) and ``split_corrections``
+    (fused mode, with ``annot`` its annotation epilogue) bitwise equal;
+    returns the bf16 arguments and the two ``split_corrections``
+    callables (int8, bf16)."""
+    from nldsc_tpu_torch.ld import ld_split
+
+    bsargs = as_bf16(sargs)
+    plan = sargs[-1]
+    before = ld_split.bf16_launches
+    prod = ld_split.segment_products(*sargs[:3], plan)
+    prod_b = ld_split.segment_products(*bsargs[:3], plan)
+    if not all_bits_equal(torch, prod, prod_b):
+        raise RuntimeError("K2's bf16 products mode differs from int8")
+    del prod, prod_b
+
+    def run(a):
+        return ld_split.split_corrections(*a, annot, n_samples=n)
+
+    ref, kern, again = run(sargs), run(bsargs), run(bsargs)
+    torch.cuda.synchronize()
+    if ld_split.bf16_launches != before + 2 + 4:
+        raise RuntimeError("K2's bf16 instantiations were not launched")
+    if not all_bits_equal(torch, kern, again):
+        raise RuntimeError("two bf16 split_corrections runs differ")
+    if not all_bits_equal(torch, kern, ref):
+        raise RuntimeError(f"split_corrections bf16 (annot="
+                           f"{annot is not None}) differs from int8")
+    return bsargs, (lambda: run(sargs)), (lambda: run(bsargs))
+
+
+def bf16_exactness_probe(torch, dev) -> str:
+    """bf16 sums at the largest sample count they are exact for, N_pad =
+    4,194,304: K2's products mode on 128 random rows whose first two are
+    all 2 (Sgg = 2^24) and K1's clean branch on them with two rows all 2
+    but one sample (usable at MAF 0; their Sgg = 2^24 - 3), each bitwise
+    equal to its int8 instantiation, and the all-2 products exactly
+    2^24."""
+    from nldsc_tpu_torch.ld import ld_int8, ld_pallas_sym, ld_split
+
+    n = ld_int8.BF16_MAX_SAMPLES
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2026)
+    x = torch.randint(0, 3, (128, n), generator=gen, dtype=torch.int8,
+                      device=dev)
+    x[:2] = 2
+    x[2:4] = 2
+    x[2:4, 0] = 1
+    cat = x[:96]
+    a8, b8 = ld_split.corr_products(x, cat, 64)
+    ab, bb = ld_split.corr_products(x.to(torch.bfloat16),
+                                    cat.to(torch.bfloat16), 64)
+    torch.cuda.synchronize()
+    if not (bits_equal(torch, a8, ab) and bits_equal(torch, b8, bb)):
+        raise RuntimeError("bf16 products at N_pad = 2^22 differ from int8")
+    if int(ab[0, 1]) != 1 << 24 or int(ab[1, 0]) != 1 << 24:
+        raise RuntimeError(f"Sgg of two all-2 rows is {int(ab[0, 1])}, not "
+                           "2^24")
+    top = int(a8.max())
+    del a8, b8, ab, bb
+    ok = torch.ones(128, dtype=torch.bool, device=dev)
+    pre = ld_int8.preprocess_int8(x, ok, 0.0, n, assume_no_missing=True)
+    del x
+    rows = torch.arange(128, dtype=torch.int32, device=dev)
+    args = (pre["g"], pre["m"], pre["h"], ld_int8.stack_scalars(pre),
+            torch.zeros_like(rows), torch.full_like(rows, 127),
+            pre["usable"], pre["usable"] & (pre["rstd"] > 0),
+            pre["add_sd_zero"])
+    del pre
+    check_k1_bf16(torch, args, n, False)
+    return (f"N_pad = {n}: K2 products of 128 x 96 rows bitwise equal to "
+            f"int8, Sgg of the all-2 rows exactly 2^24 (largest sum {top}); "
+            "K1 clean on the 128 rows (two all 2 but one sample) bitwise "
+            "equal to int8")
+
+
+def ptxas_instantiations(name: str, want: int) -> str:
+    """The ptxas report of ``csrc/<name>.cu``: ``want`` entry functions,
+    each with its registers, and 0 spill bytes in every one (raises
+    otherwise)."""
+    from nldsc_tpu_torch import _build
+
+    log = _build.BUILD_INFO[name]["log"]
+    entries = re.findall(r"Compiling entry function '(\w+)'", log)
+    regs = re.findall(r"Used (\d+) registers", log)
+    spills = [int(b) for b in re.findall(r"(\d+) bytes spill", log)]
+    if len(entries) != want or any(spills) or not spills:
+        raise RuntimeError(f"{name}.cu: expected {want} instantiations "
+                           f"without spills, got {entries}, {spills}")
+    return (f"{name}.cu: {len(entries)} instantiations "
+            + ", ".join("<" + ", ".join(re.findall(r"Lb([01])E", e)) + f">: "
+                        f"{r} registers" for e, r in zip(entries, regs))
+            + f"; spill bytes {sorted(set(spills))}")
+
+
+def library_bf16_ms(torch, pairs, reps: int) -> tuple[float, str]:
+    """One PyTorch call per (x, y) pair computing x · yᵀ on bf16 operands
+    with float32 sums, timed: a yardstick the port never calls."""
+    def run():
+        return [torch.mm(x, y.t(), out_dtype=torch.float32)
+                for x, y in pairs]
+
+    return cuda_ms(torch, run, reps), "torch.mm(bf16, bf16, out_dtype=float32)"
+
+
+def bf16_kernel_phase(torch, prefix5: str, prefix9: str, m5: int, rng, dev,
+                      card: str, p: int = 53) -> dict:
+    """Phase 20: every bf16 instantiation at phase 5's shape against its
+    int8 one (bitwise) and its twin, its time beside the int8 one's (in
+    turns: int8, bf16, bf16, int8), its bound; the exactness probe; the
+    ptxas report.  Returns the kernels line's entries."""
+    from nldsc_tpu_torch.io.plink import PlinkDataset
+    from nldsc_tpu_torch.ld import ld_int8, ld_pallas_sym, ld_split
+
+    out = {}
+    say("20 probe", bf16_exactness_probe(torch, dev))
+    for name in ("ld_sym", "split_corr"):
+        say("20 ptxas", ptxas_instantiations(name, 8))
+    ds5, ds9 = PlinkDataset.parse(prefix5), PlinkDataset.parse(prefix9)
+    pos5 = ds5.positions("bp")
+    annot = np.round(annot_values(np.random.default_rng(2027), m5, p), 4)
+    # K1: the clean branch on phase 5's rows, the 8-product branch on
+    # phase 9's (real missing genotypes, the global route's m)
+    for branch, ds, has_missing in (("ld_sym bf16", ds5, False),
+                                    ("ld_sym bf16 8-product", ds9, True)):
+        args, n, _, _ = packed_inputs(torch, ds.bed.read_raw().raw,
+                                      ds.n_samples, has_missing, pos5,
+                                      100_000.0, dev)
+        m_pad, n_pad = args[0].shape
+        a_dev = torch.zeros((m_pad, p), dtype=torch.float32, device=dev)
+        a_dev[:m5] = torch.from_numpy(annot.astype(np.float32)).to(dev)
+        T = ld_pallas_sym.tile(has_missing)
+        work8 = k1_work(args[5], n_pad, has_missing, T)
+        for a in (None, a_dev):
+            name = branch if a is None else branch.replace("bf16",
+                                                           "bf16 annot")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            mem0 = torch.cuda.memory_allocated()
+            bargs, k_int8, k_bf16 = check_k1_bf16(torch, args, n,
+                                                  has_missing, a)
+            peak = (torch.cuda.max_memory_allocated() - mem0) / 2**30
+            ms8, ms, ms_b, ms8_b = (cuda_ms(torch, f, 5) for f in (
+                k_int8, k_bf16, k_bf16, k_int8))
+            work = k1_work(args[5], n_pad, has_missing, T, "bf16")
+            if a is not None:
+                work = {**work, **k1_annot_work(work, m_pad, p, "bf16")}
+            kern = k_bf16()
+            t0 = time.time()
+            twin = ld_int8.sym_scan_segment(
+                *bargs, RSQ, 0, a, block_size=512,
+                right_k=ld_int8.band_extent(args[5], 512)[1], n_samples=n,
+                n_scan_blocks=m_pad // 512, has_missing=has_missing,
+                dot_dtype="bf16")
+            torch.cuda.synchronize()
+            plain_ms = 1e3 * (time.time() - t0)
+            err = compare(finalized(kern[:6], args), finalized(twin[:6],
+                                                                args))
+            if a is not None:
+                err = max(err, hold_accumulators(kern[6:], twin[6:],
+                                                 f"{name} against its twin"))
+            del kern, twin, bargs
+            out[name] = {"ms": min(ms, ms_b), "plain_ms": plain_ms,
+                         "max_abs_err": err, "library_ms": None,
+                         "int8_ms": min(ms8, ms8_b), "peak": peak, **work}
+            say("20 K1 bf16", f"M={m5} N={n} +-1000 SNPs, {name}: every "
+                f"output bitwise equal to the int8 launch's, max |diff| vs "
+                f"its twin {err:.3g}; {ms:.3f} / {ms_b:.3f} ms against int8 "
+                f"{ms8:.3f} / {ms8_b:.3f} ms (int8, bf16, bf16, int8); bf16 "
+                f"bound {work['bound_ms']:.3f} ms ({work['bound_by']}; int8 "
+                f"bound {work8['bound_ms']:.3f} ms), "
+                f"{100 * work['bound_ms'] / min(ms, ms_b):.1f}% of it; twin "
+                f"(B=512, bf16) {plain_ms:.1f} ms; peak device memory of the "
+                f"check {peak:.3f} GiB (int8 and bf16 operands held "
+                f"together); on {card}")
+        del args, a_dev
+        torch.cuda.empty_cache()
+    # K2: the split route's inputs of phase 9
+    args, n, _, raw = packed_inputs(torch, ds9.bed.read_raw().raw,
+                                    ds9.n_samples, True, pos5, 100_000.0,
+                                    dev, materialize_m=False)
+    sargs = split_args(args, raw, n)
+    del raw
+    m_pad = args[0].shape[0]
+    a_dev = torch.zeros((m_pad, p), dtype=torch.float32, device=dev)
+    a_dev[:m5] = torch.from_numpy(annot.astype(np.float32)).to(dev)
+    plan = sargs[-1]
+    for a in (None, a_dev):
+        name = "split_corr bf16" + ("" if a is None else " annot")
+        bsargs, k_int8, k_bf16 = check_k2_bf16(torch, sargs, n, a)
+        ms8, ms, ms_b, ms8_b = (cuda_ms(torch, f, 10) for f in (
+            k_int8, k_bf16, k_bf16, k_int8))
+        work = k2_work(sargs, "bf16")
+        if a is not None:
+            work = {**work, **annot_bound(work, work["pairs"], m_pad, p,
+                                          work["int8_ops"], work["f32_ops"],
+                                          BF16_OPS)}
+        kern = k_bf16()
+        t0 = time.time()
+        twin = ld_split.split_corrections_plain(*bsargs, a, n_samples=n,
+                                                dot_dtype="bf16")
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.time() - t0)
+        err = compare_deltas(kern[:3], twin[:3])
+        if a is not None:
+            err = max(err, hold_accumulators(kern[3:], twin[3:],
+                                             f"{name} against its twin"))
+        lib_pairs = []
+        for _, s0, *_, x, cat3, m_xc in ld_split.segments(*bsargs[:3],
+                                                          plan):
+            lib_pairs += [(x, cat3), (bsargs[2][s0:s0 + x.shape[0]],
+                                      cat3[:2 * plan["p_band"]]),
+                          (m_xc, cat3)]
+        lib_ms, what = library_bf16_ms(torch, lib_pairs, 5)
+        del kern, twin, lib_pairs, bsargs
+        out[name] = {"ms": min(ms, ms_b), "plain_ms": plain_ms,
+                     "max_abs_err": err, "library_ms": lib_ms,
+                     "int8_ms": min(ms8, ms8_b), **work}
+        say("20 K2 bf16", f"{plan['n_miss']} contaminated rows, {name}: "
+            "products mode and split_corrections bitwise equal to int8, max "
+            f"|diff| vs its twin {err:.3g}; {ms:.3f} / {ms_b:.3f} ms against "
+            f"int8 {ms8:.3f} / {ms8_b:.3f} ms; bf16 bound "
+            f"{work['bound_ms']:.3f} ms ({work['bound_by']}), "
+            f"{100 * work['bound_ms'] / min(ms, ms_b):.1f}% of it; twin "
+            f"{plain_ms:.1f} ms; {what} on the same products (a, b with h "
+            f"read from memory, d, per segment) {lib_ms:.3f} ms; on {card}")
+    del args, sargs, a_dev
+    torch.cuda.empty_cache()
+    a = torch.randint(0, 3, (8192, 16384), dtype=torch.int8,
+                      device=dev).to(torch.bfloat16)
+    b = torch.randint(0, 3, (8192, 16384), dtype=torch.int8,
+                      device=dev).to(torch.bfloat16)
+    ms_mm, what = library_bf16_ms(torch, [(a, b)], 20)
+    say("20 yardstick", f"{what} 8192x16384 . 16384x8192: {ms_mm:.3f} ms, "
+        f"{2.0 * 8192 * 16384 * 8192 / ms_mm / 1e9:.0f} TFLOPS; on {card}")
+    del a, b
+    torch.cuda.empty_cache()
+    return out
+
+
+def bf16_cli_phase(torch, tmp: str, prefix5: str, out5: str, prefix6: str,
+                   out6: str, prefix9: str, out9: str, card: str) -> dict:
+    """Phase 21: ``ld --dot-dtype bf16`` on the bfiles of phases 5, 9
+    (split, and global with ``--no-split-missing``), 6, 13 (streamed) and
+    19 (``--annot``, in core on phase 5's, 9's and 6's bfiles): each .L2
+    byte-identical to the int8 run's, the launches of the bf16
+    instantiations, the peak device memory per genotype; returns those
+    launches per instantiation."""
+    base = ["-kb", "100", "-maf", "0.01"]
+    apath = os.path.join(tmp, "chr.annot")
+    # the global route at the chromosome's rows: its int8 run first
+    glob9 = os.path.join(tmp, "global9_int8.L2")
+    r8 = run_ld(torch, ["--bfile", prefix9, *base, "--extra",
+                        "--no-split-missing", "-o", glob9])
+    plan = (("clean", prefix5, ["--extra"], out5),
+            ("split", prefix9, ["--extra"], out9),
+            ("global", prefix6, ["--extra"], out6),
+            ("global 9", prefix9, ["--extra", "--no-split-missing"], glob9),
+            ("clean streamed", prefix5,
+             ["--extra", "--streaming", "--chunk-rows", "8192"],
+             os.path.join(tmp, "stream_clean.L2")),
+            ("clean --annot", prefix5, ["--annot", apath],
+             os.path.join(tmp, "annot_clean.L2")),
+            ("split --annot", prefix9, ["--annot", apath],
+             os.path.join(tmp, "annot_split.L2")),
+            ("global --annot", prefix6, ["--annot", apath],
+             os.path.join(tmp, "annot_dense_missing.L2")))
+    counts = {}
+    for tag, prefix, flags, ref in plan:
+        genotypes = (sum(1 for _ in open(prefix + ".bim"))
+                     * -(-sum(1 for _ in open(prefix + ".fam")) // 128) * 128)
+        out = os.path.join(tmp, "bf16_" + tag.replace(" ", "_").strip("-")
+                           + ".L2")
+        r = run_ld(torch, ["--bfile", prefix, *base, *flags, "-o", out,
+                           "--dot-dtype", "bf16"])
+        c = r["launches"]
+        if (Path(out).read_bytes() != Path(ref).read_bytes()
+                or c["ld_sym_bf16"] != c["ld_sym"] or c["ld_sym"] < 1
+                or c["split_bf16"] != c["split_corr"]
+                or tag.startswith("global") and c["ld_sym_8prod"] != 1
+                or not r["log"].has("bf16 operands")
+                and "streamed" not in tag):
+            raise RuntimeError(f"phase 21 {tag}: launches {c}, or the .L2 "
+                               "differs from the int8 run's")
+        counts[tag] = c
+        say("21 ld bf16", f"{tag} {' '.join(flags)} --dot-dtype bf16: .L2 "
+            f"byte-identical to the int8 run's; launches {c}; "
+            f"{r['wall']:.2f} s wall; stages {r['stages']}; peak device "
+            f"memory {r['peak']:.3f} GiB ({r['peak'] * 2**30 / genotypes:.3f} "
+            f"bytes per padded genotype"
+            + (f"; the int8 run's {r8['peak']:.3f} GiB" if tag == "global 9"
+               else "") + f"); on {card}")
+    return {
+        "ld_sym bf16": counts["clean"]["ld_sym_bf16"],
+        "ld_sym bf16 8-product": counts["global"]["ld_sym_8prod"],
+        "ld_sym bf16 annot": counts["clean --annot"]["ld_sym_annot"],
+        "ld_sym bf16 annot 8-product": counts["global --annot"][
+            "ld_sym_annot"],
+        "split_corr bf16": counts["split"]["split_bf16"],
+        "split_corr bf16 annot": counts["split --annot"]["split_annot"],
+        "streamed": counts["clean streamed"]["ld_sym_bf16"]}
+
+
+def f32_phase(torch, tmp: str, prefix5: str, m5: int, dev, card: str) -> None:
+    """Phase 22: ``ld --engine f32`` on the card: the golden fixtures
+    (symmetric, full band, annot); phase 5's chromosome in core, symmetric
+    and full band, against the int8 engine (``ws``/``wsd`` equal, ``wse``
+    under the counter contract of ``tests/contract.py`` with a tolerance
+    from the f32 engine's measured error, at most 2 apart on a row and on
+    at most 1/64 of the rows); a rerun with TF32 enabled process-wide
+    bitwise equal; ``--engine f32 --streaming`` refused."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from contract import (INT_TOL, assert_counters_match, f32_adj_error,
+                          f32_tol)
+
+    from nldsc_tpu_torch.cli import main as cli_main
+    from nldsc_tpu_torch.config import LDConfig
+    from nldsc_tpu_torch.core.timing import STAGE_TIMES
+    from nldsc_tpu_torch.io.plink import PlinkDataset
+    from nldsc_tpu_torch.ld import preprocess
+    from nldsc_tpu_torch.ld.pipeline import compute_ld_scores
+
+    gold = dict(np.load(ROOT / "tests" / "data" / "golden_chr22_toy.npz"))
+    gcfg = LDConfig(ld_wind=12000.0, wind_metric="bp", maf_thr=0.01,
+                    std_thr=1e-4, rsq_thr=RSQ, use_int8=False)
+    errs = []
+    for sym in (True, False):
+        res = compute_ld_scores(gold["genotypes"], gold["positions"],
+                                dataclasses.replace(gcfg, symmetric=sym),
+                                device="cuda")
+        for k in ("l2", "l2d"):
+            np.testing.assert_allclose(res[k], gold[k], rtol=2e-5, atol=2e-4,
+                                       equal_nan=True, err_msg=k)
+            errs.append(float(np.nanmax(np.abs(res[k] - gold[k]))))
+        for k in ("l2_ws", "l2d_ws", "l2d_wse"):
+            np.testing.assert_array_equal(res[k], gold[k], err_msg=k)
+    ga = dict(np.load(ROOT / "tests" / "data" / "golden_annot_toy.npz"))
+    res = compute_ld_scores(ga["genotypes"], ga["positions"],
+                            dataclasses.replace(gcfg, block_size=64),
+                            annot=ga["annot"], device="cuda")
+    for k in ("l2_annot", "l2d_annot"):
+        np.testing.assert_allclose(res[k], ga[k], rtol=2e-5, atol=2e-4,
+                                   equal_nan=True, err_msg=k)
+        errs.append(float(np.nanmax(np.abs(res[k] - ga[k]))))
+    say("22 golden f32", "golden_chr22_toy through the f32 engine on the "
+        "card, symmetric and full band (counters equal), and golden_annot_toy "
+        "through its annotation engine, at test_golden's tolerances: max abs "
+        f"diff {max(errs):.3g}")
+
+    ds = PlinkDataset.parse(prefix5)
+    packed, pos = ds.bed.read_raw(), ds.positions("bp")
+    n = ds.n_samples
+    cfg = LDConfig(ld_wind=100_000.0, maf_thr=0.01, std_thr=1e-4,
+                   rsq_thr=1.0 / m5)
+    ref = compute_ld_scores(packed, pos, cfg, device="cuda")
+    codes = preprocess.unpack_bed(torch.from_numpy(packed.raw).to(dev), n,
+                                  n, -1)
+    # the worst-case bound N_pad * 2^-24 passes rsq_thr itself at this
+    # N_pad; the tolerance is twice the f32 engine's error measured on
+    # the pairs that bound would exempt, plus the integer engine's
+    bound = f32_tol(-(-n // 128) * 128, n, cfg.rsq_thr)
+    t0 = time.time()
+    err32, n_near = f32_adj_error(codes, pos, cfg, bound, device=dev)
+    tol = INT_TOL + 2.0 * err32
+    if not 0.0 < err32 < bound or n_near < m5 // 64:
+        raise RuntimeError(f"phase 22: f32 adj error {err32:.3g} over "
+                           f"{n_near} pairs, bound {bound:.3g}")
+    say("22 f32 tolerance", f"max |adj_f32 - adj_f64| {err32:.4g} over the "
+        f"{n_near} counted pairs within the worst-case bound {bound:.4g} of "
+        f"rsq_thr {cfg.rsq_thr:.4g} ({time.time() - t0:.1f} s): wse "
+        f"tolerance INT_TOL + 2 x that = {tol:.4g}")
+    runs = {}
+    for tag, sym in (("symmetric", True), ("full band", False)):
+        fcfg = dataclasses.replace(cfg, use_int8=False, symmetric=sym)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        STAGE_TIMES.clear()
+        t0 = time.time()
+        res = compute_ld_scores(packed, pos, fcfg, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        device_s = STAGE_TIMES.get("device_s", 0.0)
+        peak = (torch.cuda.max_memory_allocated() - mem0) / 2**30
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+            compute_ld_scores(packed, pos, fcfg, device="cuda")
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        n_exempt = assert_counters_match(res, ref, codes, pos, cfg, tol,
+                                         device=dev)
+        row_diff = int(np.abs(res["l2d_wse"] - ref["l2d_wse"]).max())
+        if row_diff > 2 or n_exempt > m5 // 64:
+            raise RuntimeError(f"phase 22 {tag}: l2d_wse differs on "
+                               f"{n_exempt} rows, by up to {row_diff}")
+        diffs = {}
+        for k in ("l2", "l2d"):
+            both = ~np.isnan(res[k]) & ~np.isnan(ref[k])
+            np.testing.assert_array_equal(np.isnan(res[k]), np.isnan(ref[k]))
+            d = np.abs(res[k][both] - ref[k][both])
+            diffs[k] = (float(d.max()), float(
+                (d / np.maximum(np.abs(ref[k][both]), 1e-30)).max()))
+        runs[tag] = res
+        say("22 f32 chromosome", f"M={m5} N={n} +-1000 SNPs, --engine f32 "
+            f"{tag}: {wall:.3f} s for compute_ld_scores (device_s "
+            f"{device_s:.3f}, device busy {busy:.1f} ms in a profiled "
+            f"rerun), peak device memory {peak:.3f} GiB; against the int8 "
+            "engine: l2_ws, l2d_ws equal; max abs / rel diff l2 "
+            f"{diffs['l2'][0]:.3g} / {diffs['l2'][1]:.3g}, l2d "
+            f"{diffs['l2d'][0]:.3g} / {diffs['l2d'][1]:.3g}; l2d_wse differs "
+            f"on {n_exempt} rows (limit {m5 // 64}), by at most {row_diff} "
+            f"(limit 2), each within the contract (tol {tol:.3g}); on "
+            f"{card}")
+    torch.set_float32_matmul_precision("high")
+    try:
+        tf32 = compute_ld_scores(packed, pos, dataclasses.replace(
+            cfg, use_int8=False), device="cuda")
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    for k, v in runs["symmetric"].items():
+        if not np.array_equal(v, tf32[k], equal_nan=True):
+            raise RuntimeError(f"phase 22: {k} moved with TF32 enabled")
+    try:
+        cli_main(["ld", "--bfile", prefix5, "-kb", "100", "--engine", "f32",
+                  "--streaming", "-o", os.path.join(tmp, "f32s.L2")])
+        raise RuntimeError("phase 22: --engine f32 --streaming ran")
+    except SystemExit as ex:
+        if ex.code != 1 or "item 12" not in str(ex.__cause__):
+            raise RuntimeError(f"phase 22: wrong refusal {ex.__cause__}")
+    say("22 f32 guards", "a rerun with torch.set_float32_matmul_precision("
+        "'high') (TF32 allowed process-wide) bitwise equal; --engine f32 "
+        "--streaming exits 1 naming ROADMAP queue 1 item 12")
 
 
 def main() -> int:
@@ -1882,6 +2410,14 @@ def main() -> int:
         annot19 = annot_full_width(torch, tmp, prefix5, out5, prefix6,
                                    prefix9, M5, rng, dev, card)
 
+        # 20-22. bf16 operands and the f32 engine
+        torch.cuda.empty_cache()
+        bf16 = bf16_kernel_phase(torch, prefix5, prefix9, M5, rng, dev, card)
+        bf16_launches = bf16_cli_phase(torch, tmp, prefix5, out5, prefix6,
+                                       out6, prefix9, out9, card)
+        torch.cuda.empty_cache()
+        f32_phase(torch, tmp, prefix5, M5, dev, card)
+
     bad = sorted({k.split(".")[0] for k in sys.modules}
                  & {"jax", "nldsc_tpu", "pandas"})
     if bad:
@@ -1927,7 +2463,19 @@ def main() -> int:
             ("ld_sym annot 8-product", "ld_sym",
              "nldsc_tpu/ld/ld_pallas_sym.py:52"),
             ("split_corr annot", "split_corr",
-             "scripts/pallas_corr_probe.py:54"))]}))
+             "scripts/pallas_corr_probe.py:54"))] + [{
+        "name": name, "route": "cuda",
+        "source": f"nldsc_tpu_torch/csrc/{name.split()[0]}.cu",
+        "replaces": ("nldsc_tpu/ld/ld_pallas_sym.py:52"
+                     if name.startswith("ld_sym")
+                     else "scripts/pallas_corr_probe.py:54"),
+        "launches": bf16_launches[name],
+        **{k: bf16[name][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms",
+                                      "int8_ms")}}
+        for name in ("ld_sym bf16", "ld_sym bf16 8-product",
+                     "ld_sym bf16 annot", "ld_sym bf16 annot 8-product",
+                     "split_corr bf16", "split_corr bf16 annot")]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -2,11 +2,11 @@
 and ``convert`` commands.
 
 Flag-compatible with ``nldsc_tpu``'s CLI (``ld`` and ``ld-genome`` on
-one device, in core or streaming, plain or partitioned by ``--annot``),
-plus ``--device`` on ``ld``, ``ld-genome`` and ``h2``.  The flags of the
-JAX CLI that are not ported yet (``_UNPORTED_LD_FLAGS``, ``--engine f32``,
-``--dot-dtype bf16``) are recognised and refused with the ROADMAP item
-that will port them.  Needs only the standard library (argparse) and
+one device, in core or streaming, plain or partitioned by ``--annot``,
+every ``--engine`` and ``--dot-dtype``), plus ``--device`` on ``ld``,
+``ld-genome`` and ``h2``.  The flags of the JAX CLI that are not ported
+yet (``_UNPORTED_LD_FLAGS``, and ``--engine f32`` with streaming) are
+recognised and refused with the ROADMAP item that will port them.  Needs only the standard library (argparse) and
 numpy until a command runs.
 """
 
@@ -91,10 +91,14 @@ def build_parser() -> argparse.ArgumentParser:
     ld.add_argument("--engine", choices=["int8", "f32", "pallas"],
                     default=None,
                     help="int8 (default) and pallas both run the fused "
-                         "symmetric int8 kernel; pallas never takes the "
-                         "split-missing route; f32 is not ported yet")
+                         "symmetric kernels; pallas never takes the "
+                         "split-missing route; f32 runs standardized "
+                         "float32 rows through float32 products (in core "
+                         "only)")
     ld.add_argument("--dot-dtype", choices=["int8", "bf16"], default="int8",
-                    help="Tensor-core operand type (bf16 not ported yet)")
+                    help="Tensor-core operand type of the integer engines: "
+                         "int8, or bf16 (the same exact sums, at most "
+                         "4,194,304 padded samples)")
     ld.add_argument("--split-missing", dest="split_missing",
                     action="store_true", default=None,
                     help="Per-row missing-data specialization: clean-rate "
@@ -291,10 +295,6 @@ def genome_prefixes(bfiles: str) -> list[str]:
 
 def run_ld(args) -> None:
     wind_metric, ld_wind = _window(args)
-    if args.engine == "f32":
-        raise NLDSCParameterError(
-            "--engine f32 is not ported to nldsc_tpu_torch yet: ROADMAP "
-            "queue 1 item 9 (f32 engine)")
 
     from .ld.pipeline import estimate_lds  # noqa: PLC0415
 
@@ -304,7 +304,9 @@ def run_ld(args) -> None:
         out=args.out, extra=args.extra, summary=True,
         block_size=args.block_size, int8_dot_dtype=args.dot_dtype,
         split_missing=args.split_missing,
-        use_pallas=args.engine == "pallas", progress=args.progress,
+        use_pallas=args.engine == "pallas",
+        use_int8=None if args.engine is None else args.engine != "f32",
+        progress=args.progress,
         streaming=args.streaming, chunk_rows=args.chunk_rows,
         resume_path=args.resume_path, annot=args.annot,
         symmetric=args.symmetric, device=args.device)

@@ -32,10 +32,20 @@ class LDConfig:
     std_thr: float = 1e-5
     rsq_thr: float | None = None  # None -> 1/n_snp
 
-    # SNP rows per pivot block of the CPU twin; the CUDA kernel tiles
-    # by its own fixed sizes (ld_pallas_sym.TILE_CLEAN, TILE_MISSING)
+    # SNP rows per pivot block of the CPU twin and of the f32 engine; the
+    # CUDA kernel tiles by its own fixed sizes (ld_pallas_sym.TILE_CLEAN,
+    # TILE_MISSING)
     block_size: int = 512
-    int8_dot_dtype: str = "int8"   # 'int8'; 'bf16' is not ported yet
+    # tensor-core operands of the integer engines: 'int8', or 'bf16' (the
+    # same exact products on bf16 operands with float32 sums, N_pad <= 4M)
+    int8_dot_dtype: str = "int8"
+    # the integer-exact engines (int8/bf16 products and analytic
+    # corrections); False: the f32 engine (--engine f32) on standardized
+    # float32 rows; None = True
+    use_int8: bool | None = None
+    # the f32 engine's float32 products: 'highest', or 'high' (the TPU's
+    # bf16_3x pass; on the GPU the same full-float32 products, never TF32)
+    matmul_precision: str = "highest"
     # --engine pallas: always the single global pass (never split)
     use_pallas: bool = False
     # per-row missing specialization: clean pass + compact exact
@@ -79,6 +89,8 @@ class LDConfig:
             raise NLDSCParameterError("block_size must be a positive multiple of 8")
         if self.int8_dot_dtype not in ("int8", "bf16"):
             raise NLDSCParameterError("int8_dot_dtype must be 'int8' or 'bf16'")
+        if self.matmul_precision not in ("high", "highest"):
+            raise NLDSCParameterError("matmul_precision must be 'high' or 'highest'")
 
     def resolve_rsq(self, n_snp: int) -> "LDConfig":
         """Fill the default rsq threshold (1/n_snp, routine.py:70-72)."""

@@ -20,9 +20,10 @@
 //     A = h_i against B = g_j gives Shg; missing, each consumer
 //     warpgroup keeps B = [h_j; g_j; m_j] for its neighbour rows, which
 //     A = g_i and A = m_i take whole and A = h_i takes as [g_j; m_j];
-//   * a ring of shared-memory stages of KC = 128 samples (one row of the
-//     128-byte swizzle), filled with TMA by one producer thread and
-//     handed over through mbarriers; two consumer warpgroups issue the
+//   * a ring of shared-memory stages of KC = 128 bytes of each row (one
+//     row of the 128-byte swizzle: 128 int8 samples, 64 bf16), filled
+//     with TMA by one producer thread and handed over through
+//     mbarriers; two consumer warpgroups issue the
 //     wgmmas, and setmaxnreg moves registers from the producer
 //     warpgroup to them;
 //   * 128 x 128 tiles on the clean branch (192 accumulator registers a
@@ -45,6 +46,18 @@
 // and of the pivot rows (mirrored column credits).  The plain sums and
 // counters of an ANNOT launch are those of a plain launch bit for bit.
 //
+// bf16 operands (the BF16 instantiations, the reference's dot_dtype="bf16"
+// branch, ld_pallas_sym.py:86-89 with float32 accumulators at :237): the
+// same products as bf16 x bf16 -> f32 on wgmma.m64nNk16.f32.bf16.bf16.  A
+// k16 bf16 product takes the 32 bytes of K an int8 k32 one takes, so the
+// ring keeps its bytes, swizzle, descriptor steps and annotation staging;
+// a stage holds 64 samples instead of 128, and the tensor maps are bf16.
+// The codes are exact in bf16 and every partial sum is an integer below
+// 2^24 (N_pad <= 2^22), so the f32 accumulators hold the int8 branch's
+// sums exactly (the epilogue reads them as the same floats, the stashed
+// Shg through acc_int); bounded by bf16 tensor-core operations at half the
+// int8 rate.
+//
 // The TMA, mbarrier and wgmma helpers and the tensor-map encoding live in
 // hopper.cuh, shared with K2 (split_corr.cu).
 //
@@ -55,8 +68,8 @@
 // for bit, so the WSE threshold count agrees exactly.  The int32 sums are
 // exact, and exact in float32: |S| <= 4 * N_pad <= 2^24.
 //
-// Layouts: g, m, h int8 (M_pad, N_pad) row-major, 16-byte aligned, N_pad
-// a multiple of 128; scal f32 (M_pad, 9); lo, hi int32 (M_pad); usable,
+// Layouts: g, m, h int8 (bf16 when BF16) (M_pad, N_pad) row-major, 16-byte
+// aligned, N_pad a multiple of 128; scal f32 (M_pad, 9); lo, hi int32 (M_pad); usable,
 // dom_ok, poison uint8 (M_pad); tile_hi int32 (M_pad / TILE), the last
 // neighbour tile of each pivot tile.  Partial outputs (zero-filled by
 // the caller):
@@ -68,6 +81,8 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "annot_epilogue.cuh"
 #include "hopper.cuh"
@@ -108,7 +123,7 @@ struct Cfg {
 enum { V_ADD, V_DA, V_DB, V_TILES };
 
 struct Params {
-  CUtensorMap tm_g, tm_h, tm_m;   // boxes of Cfg::BOX rows x KC samples
+  CUtensorMap tm_g, tm_h, tm_m;   // boxes of Cfg::BOX rows x KC bytes
   const float* scal;
   const int32_t* lo;
   const int32_t* hi;
@@ -152,11 +167,13 @@ struct RedSmem {
   int coli[C::COL_SLOTS][4][C::TILE];
 };
 
-template <bool MISSING, bool ANNOT>
+template <bool MISSING, bool ANNOT, bool BF16>
 __global__ void __launch_bounds__(THREADS, 1)
     ld_sym_kernel(const __grid_constant__ Params p) {
   using C = Cfg<MISSING>;
+  using Acc = std::conditional_t<BF16, float, int>;
   constexpr int T = C::TILE;
+  constexpr int KE = stage_samples<BF16>();   // samples per ring stage
   extern __shared__ __align__(16) uint8_t smem_raw[];
 
   const int k = blockIdx.x;
@@ -176,7 +193,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   const int tid = threadIdx.x;
   const int r0 = b * T, c0 = t * T;
-  const int nk = p.n_pad / KC;
+  const int nk = p.n_pad / KE;
 
   if (tid == 0) {
     for (int s = 0; s < C::STAGES; ++s) {
@@ -198,7 +215,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         mbar_expect_tx(full, C::STAGE_BYTES);
         const uint32_t st = ring_s + s * C::STAGE_BYTES;
         const uint32_t nb = st + C::SIDE_BYTES;
-        const int x = kb * KC;
+        const int x = kb * KE;
         if constexpr (MISSING) {
           // pivot g, h, m of 64 rows, two boxes each; then per consumer
           // warpgroup its 32 neighbour rows as [h; g; m]
@@ -256,7 +273,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     constexpr int N3 = MISSING ? 48 : 1;
     // no initial values: each accumulator's first product runs with
     // scale_d = 0 (zeroing them first made ptxas spill the clean branch)
-    int a1[N1], a2[N2], a3[N3];
+    Acc a1[N1], a2[N2], a3[N3];
 
     for (int kb = 0; kb < nk; ++kb) {
       const int s = kb % C::STAGES;
@@ -309,8 +326,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     if constexpr (!MISSING) {
 #pragma unroll
       for (int q = 0; q < N2 / 4; ++q)
-        st_shared4(stash + 16 * CONSUMERS * q, a2[4 * q], a2[4 * q + 1],
-                   a2[4 * q + 2], a2[4 * q + 3]);
+        st_shared4(stash + 16 * CONSUMERS * q, acc_int(a2[4 * q]),
+                   acc_int(a2[4 * q + 1]), acc_int(a2[4 * q + 2]),
+                   acc_int(a2[4 * q + 3]));
     }
 
     const bool diag = (t == b);   // mirrored credits only past the pivot tile
@@ -497,7 +515,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <bool MISSING, bool ANNOT>
+template <bool MISSING, bool ANNOT, bool BF16>
 cudaError_t launch(Params& p, const void* g, const void* m, const void* h,
                    cudaStream_t stream) {
   using C = Cfg<MISSING>;
@@ -524,17 +542,28 @@ cudaError_t launch(Params& p, const void* g, const void* m, const void* h,
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const int m_pad = p.n_tiles * C::TILE;
-  if (!encode(fn, &p.tm_g, g, m_pad, p.n_pad, C::BOX) ||
-      !encode(fn, &p.tm_h, h, m_pad, p.n_pad, C::BOX) ||
-      !encode(fn, &p.tm_m, m, m_pad, p.n_pad, C::BOX))
+  if (!encode<BF16>(fn, &p.tm_g, g, m_pad, p.n_pad, C::BOX) ||
+      !encode<BF16>(fn, &p.tm_h, h, m_pad, p.n_pad, C::BOX) ||
+      !encode<BF16>(fn, &p.tm_m, m, m_pad, p.n_pad, C::BOX))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      ld_sym_kernel<MISSING, ANNOT>,
+      ld_sym_kernel<MISSING, ANNOT, BF16>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid(p.band, p.n_tiles);
-  ld_sym_kernel<MISSING, ANNOT><<<grid, THREADS, SMEM, stream>>>(p);
+  ld_sym_kernel<MISSING, ANNOT, BF16><<<grid, THREADS, SMEM, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <bool BF16>
+cudaError_t launch_branch(Params& p, const void* g, const void* m,
+                          const void* h, int has_missing, bool annot,
+                          cudaStream_t s) {
+  if (annot)
+    return has_missing ? launch<true, true, BF16>(p, g, m, h, s)
+                       : launch<false, true, BF16>(p, g, m, h, s);
+  return has_missing ? launch<true, false, BF16>(p, g, m, h, s)
+                     : launch<false, false, BF16>(p, g, m, h, s);
 }
 
 }  // namespace
@@ -551,7 +580,8 @@ extern "C" int ld_sym_launch(const void* g, const void* m, const void* h,
                              void* fpart, void* ipart, const void* annot,
                              void* apart, int n_annot, int n_tiles, int band,
                              int n_pad, float n, float n_padf, float adj_c,
-                             float rsq_thr, int has_missing, void* stream) {
+                             float rsq_thr, int has_missing, int bf16,
+                             void* stream) {
   Params p;
   p.scal = static_cast<const float*>(scal);
   p.lo = static_cast<const int32_t*>(lo);
@@ -574,13 +604,12 @@ extern "C" int ld_sym_launch(const void* g, const void* m, const void* h,
   p.rsq_thr = rsq_thr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const void* mm = has_missing ? m : g;   // clean: never read
-  // annot (with apart and n_annot >= 1) selects the annotation epilogue
+  // annot (with apart and n_annot >= 1) selects the annotation epilogue,
+  // bf16 the instantiations on bf16 operands
   cudaError_t err;
-  if (annot != nullptr)
-    err = has_missing ? launch<true, true>(p, g, mm, h, s)
-                      : launch<false, true>(p, g, mm, h, s);
+  if (bf16 != 0)
+    err = launch_branch<true>(p, g, mm, h, has_missing, annot != nullptr, s);
   else
-    err = has_missing ? launch<true, false>(p, g, mm, h, s)
-                      : launch<false, false>(p, g, mm, h, s);
+    err = launch_branch<false>(p, g, mm, h, has_missing, annot != nullptr, s);
   return static_cast<int>(err);
 }

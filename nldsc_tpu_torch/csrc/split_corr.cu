@@ -43,8 +43,16 @@
 // row and column partials beside the plain ones.  The plain sums of an
 // ANNOT launch are those of a plain launch bit for bit.
 //
+// bf16 operands (the BF16 instantiations, under --dot-dtype bf16, as the
+// probe casts each K chunk to bf16, scripts/pallas_corr_probe.py:55-73):
+// the same products on wgmma.m64nNk16.f32.bf16.bf16, 64 samples a stage in
+// the same bytes of ring, h derived from two packed bf16 codes (h_of_bf16),
+// f32 accumulators that hold the int8 sums exactly (integers below 2^24);
+// the products mode stores them as int32 (acc_int), so d and the fused
+// epilogue are those of the int8 instantiations.
+//
 // What bounds it on this card: int8 tensor-core operations fed from L2.
-// Each stage of KC samples brings TM x rows and 3 TC compact rows for
+// Each stage of KC bytes brings TM x rows and 3 TC compact rows for
 // TM x 5 TC products: 183 int8 operations per byte of L2 traffic at
 // TM = 128, TC = 32.  The products run on wgmma.m64nNk32.s32.s8.s8: A = g_x
 // from shared memory against the whole stack (n96), A = h(g_x) from
@@ -59,6 +67,8 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "annot_epilogue.cuh"
 #include "hopper.cuh"
@@ -145,6 +155,12 @@ struct EpiSmem {
 __device__ __forceinline__ uint32_t h_of(uint32_t v) {
   return ((v | (v >> 1)) & 0x01010101u) << 1;
 }
+// the same on two packed bf16 codes in {0, 1.0, 2.0}: a half is nonzero
+// iff adding 0x7FFF to it (no carry out of the half) sets its top bit, and
+// then h = 2.0 = 0x4000
+__device__ __forceinline__ uint32_t h_of_bf16(uint32_t v) {
+  return (((v & 0x7FFF7FFFu) + 0x7FFF7FFFu) & 0x80008000u) >> 1;
+}
 
 __device__ __forceinline__ uint32_t ld_shared_u32(uint32_t addr) {
   uint32_t v;
@@ -152,9 +168,11 @@ __device__ __forceinline__ uint32_t ld_shared_u32(uint32_t addr) {
   return v;
 }
 
-template <bool FUSED, bool WITH_H, bool ANNOT>
+template <bool FUSED, bool WITH_H, bool ANNOT, bool BF16>
 __global__ void __launch_bounds__(THREADS, 1)
     split_corr_kernel(const __grid_constant__ Params p) {
+  using Acc = std::conditional_t<BF16, float, int>;
+  constexpr int KE = stage_samples<BF16>();   // samples per ring stage
   static_assert(!FUSED || WITH_H, "the fused epilogue needs Shg and Shm");
   static_assert(FUSED || !ANNOT, "annotations belong to the fused epilogue");
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -175,7 +193,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int c0 = fields ? fields[1] : 0;       // and first compact row
   const int x0 = xt * TM;                      // the tile's, in the segment
   const int cl0 = ct * TC;
-  const int nk = p.n_pad / KC;
+  const int nk = p.n_pad / KE;
 
   // fused mode: a tile counts no pair unless one of the x rows it owns
   // has a window that reaches one of its real compact columns.  Those
@@ -209,7 +227,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         const uint32_t full = full0 + 8 * s;
         mbar_expect_tx(full, STAGE_BYTES);
         const uint32_t st = ring_s + s * STAGE_BYTES;
-        const int x = kb * KC;
+        const int x = kb * KE;
         tma_load(st, &p.tm_a, full, x, a_row0 + x0);
 #pragma unroll
         for (int q = 0; q < 3; ++q)
@@ -270,9 +288,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   // a1 = g_x . [g_c; m_c; h_c] (Sgg | Sgm | Sgh), a2 = h(g_x) . [g_c; m_c]
   // (Shg | Shm).  No initial values: each accumulator's first product
   // runs with scale_d = 0.
-  int a1[48];
-  int a2[WITH_H ? 32 : 1];
-  // this thread's two rows of the landed g tile: byte k of row r lies at
+  Acc a1[48];
+  Acc a2[WITH_H ? 32 : 1];
+  // this thread's two rows of the landed g tile (bytes: a bf16 stage holds
+  // the same bytes of each row as an int8 one): byte k of row r lies at
   // r * KC + ((k / 16) ^ (r % 8)) * 16 + k % 16 in the 128-byte swizzle,
   // and r % 8 = gq
   const uint32_t arow = static_cast<uint32_t>(row0) * KC + 4 * tq;
@@ -288,8 +307,10 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const uint32_t at = st + arow + (((2 * kk + half) ^ gq) << 4);
-          hf[kk][2 * half] = h_of(ld_shared_u32(at));
-          hf[kk][2 * half + 1] = h_of(ld_shared_u32(at + 8 * KC));
+          const uint32_t v0 = ld_shared_u32(at);
+          const uint32_t v1 = ld_shared_u32(at + 8 * KC);
+          hf[kk][2 * half] = BF16 ? h_of_bf16(v0) : h_of(v0);
+          hf[kk][2 * half + 1] = BF16 ? h_of_bf16(v1) : h_of(v1);
         }
       // h complete before the products read it
 #pragma unroll
@@ -332,7 +353,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           const int c = cl0 + 8 * (j % 4) + 2 * tq + v;
           const int col = (j / 4) * p.P + c;
           if (c < p.P && col < p.ld_a)
-            p.out_a[r * p.ld_a + col] = a1[4 * j + 2 * u + v];
+            p.out_a[r * p.ld_a + col] = acc_int(a1[4 * j + 2 * u + v]);
         }
       if constexpr (WITH_H) {
 #pragma unroll
@@ -342,7 +363,7 @@ __global__ void __launch_bounds__(THREADS, 1)
             const int c = cl0 + 8 * (j % 4) + 2 * tq + v;
             const int col = (j / 4) * p.P + c;
             if (c < p.P && col < p.ld_b)
-              p.out_b[r * p.ld_b + col] = a2[4 * j + 2 * u + v];
+              p.out_b[r * p.ld_b + col] = acc_int(a2[4 * j + 2 * u + v]);
           }
       }
     }
@@ -540,7 +561,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <bool FUSED, bool WITH_H, bool ANNOT = false>
+template <bool FUSED, bool WITH_H, bool ANNOT, bool BF16>
 cudaError_t launch(Params& p, const void* a_mat, int a_rows,
                    const void* const (&b_mat)[3], int b_rows, int n_segs,
                    cudaStream_t stream) {
@@ -554,17 +575,18 @@ cudaError_t launch(Params& p, const void* a_mat, int a_rows,
                 "fit in the ring");
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
-  if (!encode(fn, &p.tm_a, a_mat, a_rows, p.n_pad, TM))
+  if (!encode<BF16>(fn, &p.tm_a, a_mat, a_rows, p.n_pad, TM))
     return cudaErrorInvalidValue;
   for (int q = 0; q < 3; ++q)
-    if (!encode(fn, &p.tm_b[q], b_mat[q], b_rows, p.n_pad, TC))
+    if (!encode<BF16>(fn, &p.tm_b[q], b_mat[q], b_rows, p.n_pad, TC))
       return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      split_corr_kernel<FUSED, WITH_H, ANNOT>,
+      split_corr_kernel<FUSED, WITH_H, ANNOT, BF16>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid((p.P + TC - 1) / TC, (p.rows_a + TM - 1) / TM, n_segs);
-  split_corr_kernel<FUSED, WITH_H, ANNOT><<<grid, THREADS, SMEM, stream>>>(p);
+  split_corr_kernel<FUSED, WITH_H, ANNOT, BF16>
+      <<<grid, THREADS, SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -580,12 +602,13 @@ extern "C" int split_corr_tiles(int* tm, int* tc) {
 // segment at row 0 when seg is null), x rows a_mat[first x row + i] for
 // i < rows_seg against the blocks b_q[c0 + boff_q + c], c < P; a of
 // segment s, row i at out_a[(s rows_seg + i) ld_a + q P + c] where that
-// column is below ld_a; b likewise for q < 2 when ld_b > 0
+// column is below ld_a; b likewise for q < 2 when ld_b > 0; bf16 operands
+// when bf16 != 0 (every matrix), else int8
 extern "C" int split_corr_products_launch(
     const void* a_mat, int a_rows, const void* b0, const void* b1,
     const void* b2, int b_rows, int boff0, int boff1, int boff2,
     const void* seg, int n_segs, int rows_seg, int P, int n_pad, void* out_a,
-    int ld_a, void* out_b, int ld_b, void* stream) {
+    int ld_a, void* out_b, int ld_b, int bf16, void* stream) {
   Params p = {};
   p.seg = static_cast<const int32_t*>(seg);
   p.boff[0] = boff0;
@@ -600,16 +623,26 @@ extern "C" int split_corr_products_launch(
   p.ld_b = ld_b;
   const void* const b[3] = {b0, b1, b2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      ld_b > 0 ? launch<false, true>(p, a_mat, a_rows, b, b_rows, n_segs, s)
-               : launch<false, false>(p, a_mat, a_rows, b, b_rows, n_segs, s);
+  cudaError_t err;
+  if (bf16 != 0)
+    err = ld_b > 0
+              ? launch<false, true, false, true>(p, a_mat, a_rows, b, b_rows,
+                                                 n_segs, s)
+              : launch<false, false, false, true>(p, a_mat, a_rows, b,
+                                                  b_rows, n_segs, s);
+  else
+    err = ld_b > 0
+              ? launch<false, true, false, false>(p, a_mat, a_rows, b, b_rows,
+                                                  n_segs, s)
+              : launch<false, false, false, false>(p, a_mat, a_rows, b,
+                                                   b_rows, n_segs, s);
   return static_cast<int>(err);
 }
 
 // fused mode over every segment of the split plan: x rows g[s0 + i],
 // i < S, against [g_c; m_c; h_c][c0 + c], c < P; with annot (and annot_c,
 // the partials rpart_a and cpart_a, n_annot >= 1) the annotation delta
-// credits too
+// credits too; g, g_c, m_c, h_c bf16 when bf16 != 0, else int8
 extern "C" int split_corr_fused_launch(
     const void* g, int m_pad, const void* g_c, const void* m_c,
     const void* h_c, int mm_pad, const void* seg, int n_segs, int S, int P,
@@ -620,7 +653,7 @@ extern "C" int split_corr_fused_launch(
     void* rpart_i, void* cpart_f, void* cpart_i, const void* annot,
     const void* annot_c, void* rpart_a, void* cpart_a, int n_annot,
     int own_hi, float n, float n_padf, float pad_const, float adj_c,
-    float rsq, void* stream) {
+    float rsq, int bf16, void* stream) {
   Params p = {};
   p.seg = static_cast<const int32_t*>(seg);
   p.rows_a = S;
@@ -657,9 +690,18 @@ extern "C" int split_corr_fused_launch(
   p.rsq = rsq;
   const void* const b[3] = {g_c, m_c, h_c};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      annot != nullptr
-          ? launch<true, true, true>(p, g, m_pad, b, mm_pad, n_segs, s)
-          : launch<true, true>(p, g, m_pad, b, mm_pad, n_segs, s);
+  cudaError_t err;
+  if (bf16 != 0)
+    err = annot != nullptr
+              ? launch<true, true, true, true>(p, g, m_pad, b, mm_pad, n_segs,
+                                               s)
+              : launch<true, true, false, true>(p, g, m_pad, b, mm_pad,
+                                                n_segs, s);
+  else
+    err = annot != nullptr
+              ? launch<true, true, true, false>(p, g, m_pad, b, mm_pad,
+                                                n_segs, s)
+              : launch<true, true, false, false>(p, g, m_pad, b, mm_pad,
+                                                 n_segs, s);
   return static_cast<int>(err);
 }

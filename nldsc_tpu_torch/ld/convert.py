@@ -5,8 +5,10 @@ The tests feed both packages identical inputs this way: the dict that
 the dominance mask, all as numpy arrays, become the arguments of
 :func:`nldsc_tpu_torch.ld.ld_int8.sym_scan_segment` and of the kernel
 wrapper; the annotation matrix that ``nldsc_tpu.io.ldscores.read_annot``
-returns becomes the padded float32 tensor those take as ``annot``.
-Nothing here imports JAX.
+returns becomes the padded float32 tensor those take as ``annot``; and
+the f32 engine's standardized rows, from
+``nldsc_tpu.ld.preprocess.preprocess_block``, become the arguments of the
+``ld_xla`` engines.  Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -51,3 +53,30 @@ def annot_from_jax(annot, m_pad: int, device="cpu") -> torch.Tensor:
     a = np.zeros((m_pad, annot.shape[1]), dtype=np.float32)
     a[:annot.shape[0]] = annot
     return torch.from_numpy(a).to(device)
+
+
+def from_jax_f32_inputs(pre: dict, lo, hi, dom_ok, blk_lo, blk_hi,
+                        device="cpu") -> dict:
+    """The f32 engine's inputs from the JAX package's: the dict that
+    ``nldsc_tpu.ld.preprocess.preprocess_block`` returns, the window
+    bounds, the dominance mask and the block ranges, as numpy arrays.
+
+    Returns ``add``, ``res`` (float32), ``lo``, ``hi`` (int32),
+    ``usable``, ``dom_ok``, ``add_sd_zero`` (bool) as tensors on
+    ``device``, and ``blk_lo``, ``blk_hi`` as int32 host arrays: the
+    arguments of the ``nldsc_tpu_torch.ld.ld_xla`` engines, in order.
+    """
+    def t(x, dtype):
+        return torch.from_numpy(np.array(x)).to(device=device, dtype=dtype)
+
+    return {
+        "add": t(pre["add"], torch.float32),
+        "res": t(pre["res"], torch.float32),
+        "lo": t(lo, torch.int32),
+        "hi": t(hi, torch.int32),
+        "usable": t(pre["usable"], torch.bool),
+        "dom_ok": t(dom_ok, torch.bool),
+        "add_sd_zero": t(pre["add_sd_zero"], torch.bool),
+        "blk_lo": np.asarray(blk_lo, dtype=np.int32),
+        "blk_hi": np.asarray(blk_hi, dtype=np.int32),
+    }

@@ -11,12 +11,20 @@ turns them into the additive and both dominance correlations.
 :func:`sym_scan_segment` is the plain PyTorch twin of the hand-written
 CUDA kernel (``csrc/ld_sym.cu``): the same pair algebra, one pivot block
 at a time, in f32 operations in the same order as the kernel's epilogue.
+
+``dot_dtype`` picks the contraction, as ``make_idot`` does in the JAX
+package: ``"int8"`` (int8 x int8 -> int32) or ``"bf16"`` (the codes as
+bf16, float32 sums).  Both are exact: the codes are exact in bf16 and
+every partial sum is an integer below 2^24 while N_pad <= 2^22
+(:data:`BF16_MAX_SAMPLES`), so the two give the same floats.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..core.errors import NLDSCParameterError
 
 #: per-SNP f32 scalar fields the engines consume, in stacking order
 SCAL_FIELDS = ("am", "inv_sd", "inv_rstd", "v0", "v1", "v2",
@@ -180,6 +188,62 @@ def idot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(x, y.t()).to(torch.float32)
 
 
+#: the tensor-core operand type of each ``dot_dtype``
+OPERAND_DTYPES = {"int8": torch.int8, "bf16": torch.bfloat16}
+#: the most samples (N_pad) for which bf16 operands with float32 sums are
+#: exact: every partial sum of codes <= 2 stays at or below 2^24
+#: (``nldsc_tpu/ld/ld_int8.py:343``)
+BF16_MAX_SAMPLES = 1 << 22
+
+
+def bdot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x · yᵀ over the sample axis with the codes as bf16 and float32 sums,
+    exact (the JAX package's bf16 ``idot``).  A bf16 ``matmul`` would round
+    its sums to bf16, so the product runs in full float32 (TF32 off) on the
+    bf16-valued operands: every partial sum is an integer below 2^24."""
+    return annot_dot(x.to(torch.bfloat16).float(),
+                     y.to(torch.bfloat16).float().t())
+
+
+def dot_dtype_of(x: torch.Tensor) -> str:
+    """The ``dot_dtype`` of operand tensors: ``"bf16"`` for bf16 codes,
+    else ``"int8"``."""
+    return "bf16" if x.dtype == torch.bfloat16 else "int8"
+
+
+def make_idot(dot_dtype: str):
+    """The contraction of ``dot_dtype``: :func:`idot` or :func:`bdot`."""
+    if dot_dtype not in OPERAND_DTYPES:
+        raise ValueError(f"dot_dtype must be 'int8' or 'bf16', got "
+                         f"{dot_dtype!r}")
+    return idot if dot_dtype == "int8" else bdot
+
+
+def check_dot_dtype(dot_dtype: str, n_pad: int) -> None:
+    """Refuse bf16 operands past :data:`BF16_MAX_SAMPLES` samples, where
+    their float32 sums would round."""
+    make_idot(dot_dtype)
+    if dot_dtype == "bf16" and n_pad > BF16_MAX_SAMPLES:
+        raise NLDSCParameterError(
+            f"--dot-dtype bf16 is exact only up to {BF16_MAX_SAMPLES} "
+            f"padded samples, got {n_pad}; use --dot-dtype int8")
+
+
+def to_operands(mats: dict, dot_dtype: str) -> None:
+    """Replace the int8 code matrices of ``mats`` in place by the
+    tensor-core operands of ``dot_dtype`` (bf16 copies made on their
+    device; nothing for int8), one at a time so that each int8 matrix is
+    freed once nothing refers to it; entries that alias one matrix keep
+    aliasing its copy."""
+    dtype = OPERAND_DTYPES[dot_dtype]
+    copies: dict[int, torch.Tensor] = {}
+    for key in list(mats):
+        src = mats[key]
+        if id(src) not in copies:
+            copies[id(src)] = src.to(dtype)
+        mats[key] = copies[id(src)]
+
+
 def _dom_dot(sgg, sgh, sgu, sug, suh, suu, am_i, v0_j, v1_j, v2_j):
     """dot(a_c_i, r_j) over the genotype classes of j."""
     a1 = (sgh - sgg) - am_i * (suh - sug)
@@ -282,7 +346,7 @@ def annot_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 def ld_scores_int8(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
                    blk_lo, blk_hi, rsq_thr: float, annot=None, *,
                    block_size: int, band_k: int, n_samples: int,
-                   has_missing: bool):
+                   has_missing: bool, dot_dtype: str = "int8"):
     """Full-band LD pass in plain torch ops, on any device: each pivot
     block against its whole band (both sides), two int8 products per tile
     (six with missing data), row credits only.  The engine of
@@ -294,10 +358,15 @@ def ld_scores_int8(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
     rows' windows reach (``windows.band_blocks``), on the host.  Returns
     finalized ``(l2, l2d, ws, wsd, wse)``; with ``annot`` float32
     ``(M_pad, p)`` (padding rows 0), ``(l2_annot, l2d_annot)`` first.
+    ``dot_dtype``: the contraction (:func:`make_idot`); under ``"bf16"`` it
+    is a float32 product on the bf16 codes, not a library bf16 call, on
+    either device.
     """
     from .ld_xla import finalize_outputs  # noqa: PLC0415
 
     m_pad, n_pad = g.shape
+    check_dot_dtype(dot_dtype, n_pad)
+    idot = make_idot(dot_dtype)
     B = block_size
     band_rows = min(band_k * B, m_pad)
     n, n_padf = float(n_samples), float(n_pad)
@@ -365,7 +434,8 @@ def ld_scores_int8(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
 def sym_scan_segment(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
                      rsq_thr: float, blk0: int = 0, annot=None, *,
                      block_size: int, right_k: int, n_samples: int,
-                     n_scan_blocks: int, has_missing: bool):
+                     n_scan_blocks: int, has_missing: bool,
+                     dot_dtype: str = "int8"):
     """Credit accumulation of the symmetric pass over the pivot blocks
     ``[blk0, blk0 + n_scan_blocks)``: the plain twin of the CUDA kernel.
 
@@ -381,8 +451,13 @@ def sym_scan_segment(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
     band rows' annotations, the mirrored column direction (the tile
     transposed) with the pivot rows': each pair is weighted by its
     neighbour's annotation row.
+
+    ``dot_dtype``: the contraction (:func:`make_idot`), as the kernel's
+    int8 or bf16 instantiations compute it.
     """
     m_pad, n_pad = g.shape
+    check_dot_dtype(dot_dtype, n_pad)
+    idot = make_idot(dot_dtype)
     B = block_size
     right_rows = min(right_k * B, m_pad)
     n = float(n_samples)

@@ -23,9 +23,17 @@ rows and writes per-tile ``(T, p)`` partials, which :func:`_fold_annot`
 reduces the same way.  The reference computes those contractions outside
 its Pallas kernel; here they are part of the hand-written one.
 
+bf16 operand tensors (``--dot-dtype bf16``, the reference's bf16 branch
+of the kernel: one ``.to`` of the int8 codes on the device,
+``ld_int8.to_operands``) run the kernel's bf16 instantiations: the same
+products on bf16 ``wgmma`` with float32 accumulators, which hold the
+int8 branch's sums exactly, so every output equals the int8 launch's bit
+for bit.  The operands' dtype picks the instantiation.
+
 On a CPU tensor the wrapper runs the plain twin
-(:func:`nldsc_tpu_torch.ld.ld_int8.sym_scan_segment`); on a CUDA tensor
-it launches the kernel or raises.
+(:func:`nldsc_tpu_torch.ld.ld_int8.sym_scan_segment`, with the
+contraction of the operands' dtype); on a CUDA tensor it launches the
+kernel or raises.
 """
 
 from __future__ import annotations
@@ -45,15 +53,16 @@ TILE_MISSING = 64
 ROW_ALIGN = math.lcm(TILE_CLEAN, TILE_MISSING)
 
 #: kernel launches made by :func:`sym_credits` (CUDA tensors only), how
-#: many of them ran the 8-product (missing-data) branch, and how many the
-#: annotation epilogue
+#: many of them ran the 8-product (missing-data) branch, how many the
+#: annotation epilogue and how many the bf16 operands
 launches = 0
 missing_launches = 0
 annot_launches = 0
+bf16_launches = 0
 
 _P = ctypes.c_void_p
 _ARGTYPES = [_P] * 14 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4 + [
-    ctypes.c_int, _P]
+    ctypes.c_int, ctypes.c_int, _P]
 
 
 def _library() -> ctypes.CDLL:
@@ -77,6 +86,9 @@ def _check_inputs(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
                   has_missing: bool, annot=None) -> None:
     m_pad, n_pad = g.shape
     mats = (g, h, m) if has_missing else (g, h)
+    op = g.dtype
+    if op not in ld_int8.OPERAND_DTYPES.values():
+        raise ValueError(f"g must be int8 or bf16, got {op}")
     ld_int8.check_annot(annot, g)
     vecs = {"lo": (lo, torch.int32), "hi": (hi, torch.int32),
             "usable": (usable, torch.bool), "dom_ok": (dom_ok, torch.bool),
@@ -87,8 +99,8 @@ def _check_inputs(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
         if not x.is_contiguous():
             raise ValueError("inputs must be contiguous")
     for x in mats:
-        if x.dtype != torch.int8 or tuple(x.shape) != (m_pad, n_pad):
-            raise ValueError(f"g/m/h must be int8 ({m_pad}, {n_pad})")
+        if x.dtype != op or tuple(x.shape) != (m_pad, n_pad):
+            raise ValueError(f"g/m/h must be {op} ({m_pad}, {n_pad})")
         if x.data_ptr() % 16:
             raise ValueError("g/m/h must be 16-byte aligned")
     if scal.dtype != torch.float32 or tuple(scal.shape) != (
@@ -145,9 +157,10 @@ def _fold_annot(apart):
 
 def _launch(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
             rsq_thr: float, n_samples: int, has_missing: bool, annot=None):
-    global launches, missing_launches, annot_launches
+    global launches, missing_launches, annot_launches, bf16_launches
     _check_inputs(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
                   has_missing, annot)
+    bf16 = g.dtype == torch.bfloat16
     m_pad, n_pad = g.shape
     T = tile(has_missing)
     nt = m_pad // T
@@ -174,11 +187,12 @@ def _launch(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
         0 if annot is None else annot.shape[1], nt, band, n_pad,
         float(n_samples), float(n_pad),
         ld_int8.adj_constant(n_samples), ld_int8.f32(rsq_thr),
-        int(has_missing), stream)
+        int(has_missing), int(bf16), stream)
     if err != 0:
         raise RuntimeError(f"ld_sym kernel launch failed: CUDA error {err}")
     launches += 1
     missing_launches += int(has_missing)
+    bf16_launches += int(bf16)
     if annot is None:
         return _fold(fpart, ipart)
     annot_launches += 1
@@ -195,7 +209,8 @@ def sym_credits(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
     neighbour's annotation row.
 
     CPU tensors run the twin with ``block_size`` pivot blocks; CUDA
-    tensors run the kernel, whose tile is :func:`tile` of the branch.
+    tensors run the kernel, whose tile is :func:`tile` of the branch, on
+    the operands' type (int8, or bf16 tensors for ``--dot-dtype bf16``).
 
     ``pivot_rows`` (one band of the streaming route): only the first
     ``pivot_rows`` rows are pivots.  The rows after them, the halo, are
@@ -217,7 +232,7 @@ def sym_credits(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
             g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero, rsq_thr, 0,
             block_size=block_size, right_k=right_k, n_samples=n_samples,
             n_scan_blocks=-(-scan // block_size), has_missing=has_missing,
-            annot=annot)
+            annot=annot, dot_dtype=ld_int8.dot_dtype_of(g))
     if g.device.type != "cuda":
         raise ValueError(f"no LD kernel for device {g.device}")
     return _launch(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,

@@ -24,6 +24,12 @@ products are ever built: the kernel reads g and the compact rows
 per-segment table (:func:`segment_table`).  On a CPU tensor the whole
 computation is the plain torch twin :func:`split_corrections_plain`.
 
+bf16 operands (g, h and ``m_c`` as bf16 tensors, ``--dot-dtype bf16``)
+run K2's bf16 instantiations: the same exact products on bf16 ``wgmma``,
+so every output equals the int8 run's bit for bit.  The operands' dtype
+picks the instantiation, and on the CPU the twin's contraction
+(``dot_dtype``, ``ld_int8.make_idot``).
+
 With ``annot`` (partitioned LD scores) the corrections also return the
 per-annotation δ-credits ``(l2a_δ, l2da_δ)``, each ``(M_pad, p)``: every
 corrected pair's δ weighted by its neighbour's annotation row, in both
@@ -47,12 +53,14 @@ from .ld_xla import finalize_outputs
 SEG_ROWS_DEFAULT = 4096
 
 #: launches of K2 in either mode, how many of them ran the fused δ
-#: epilogue, and how many of those its annotation epilogue too, made by
+#: epilogue, how many of those its annotation epilogue too, and how many
+#: launches of either mode ran on bf16 operands, made by
 #: :func:`corr_products`, :func:`segment_products` and
 #: :func:`split_corrections` (CUDA only)
 corr_launches = 0
 fused_launches = 0
 annot_launches = 0
+bf16_launches = 0
 
 #: x rows and compact columns of one CTA of K2, checked against the library
 TILE_X = 128
@@ -145,11 +153,11 @@ def _library() -> ctypes.CDLL:
     if lib.split_corr_products_launch.argtypes is None:
         lib.split_corr_products_launch.argtypes = (
             [_P, _I] + [_P] * 3 + [_I] * 4 + [_P] + [_I] * 4
-            + [_P, _I, _P, _I, _P])
+            + [_P, _I, _P, _I, _I, _P])
         lib.split_corr_products_launch.restype = _I
         lib.split_corr_fused_launch.argtypes = (
             [_P, _I] + [_P] * 3 + [_I, _P] + [_I] * 4 + [_P, _I]
-            + [_P] * 19 + [_I] * 2 + [_F] * 5 + [_P])
+            + [_P] * 19 + [_I] * 2 + [_F] * 5 + [_I, _P])
         lib.split_corr_fused_launch.restype = _I
         lib.split_corr_tiles.argtypes = [ctypes.POINTER(_I)] * 2
         lib.split_corr_tiles.restype = _I
@@ -172,8 +180,10 @@ def _check_launch(err: int, what: str) -> None:
 
 def _products(x, blocks, boffs, seg, n_segs: int, rows_seg: int, P: int,
               out_a, ld_a: int, out_b=None, ld_b: int = 0) -> None:
-    """One launch of K2's products mode (see ``split_corr.cu``)."""
-    global corr_launches
+    """One launch of K2's products mode (see ``split_corr.cu``), on the
+    operand type of ``x`` (int8 or bf16, as every block)."""
+    global corr_launches, bf16_launches
+    bf16 = x.dtype == torch.bfloat16
     if -(-rows_seg // TILE_X) > 65535 or n_segs > 65535:
         raise ValueError(f"{rows_seg} rows in {n_segs} segments exceed the "
                          "kernel's grid")
@@ -182,17 +192,23 @@ def _products(x, blocks, boffs, seg, n_segs: int, rows_seg: int, P: int,
         blocks[0].shape[0], *boffs,
         None if seg is None else seg.data_ptr(), n_segs, rows_seg, P,
         x.shape[1], out_a.data_ptr(), ld_a,
-        None if out_b is None else out_b.data_ptr(), ld_b, _stream(x))
+        None if out_b is None else out_b.data_ptr(), ld_b, int(bf16),
+        _stream(x))
     _check_launch(err, "products")
     corr_launches += 1
+    bf16_launches += int(bf16)
 
 
-def corr_products_plain(x: torch.Tensor, cat: torch.Tensor, p2: int):
+def corr_products_plain(x: torch.Tensor, cat: torch.Tensor, p2: int,
+                        dot_dtype: str = "int8"):
     """Exact int32 ``x·catᵀ`` and, when ``p2``, ``h(x)·cat[:p2]ᵀ``, in
     plain torch: int8 matrix products on the CPU; on a GPU float32 products
     (exact: codes ≤ 2, so every sum stays below 2²⁴ while N_pad ≤ 2²²;
-    TF32 must be off)."""
+    TF32 must be off); under ``dot_dtype="bf16"`` the bf16 contraction
+    ``ld_int8.bdot`` on either device."""
     def mm(u, v):
+        if dot_dtype == "bf16":
+            return ld_int8.bdot(u, v).to(torch.int32)
         if u.device.type == "cpu":
             return torch._int_mm(u, v.t().contiguous())
         return (u.float() @ v.float().t()).to(torch.int32)
@@ -202,9 +218,10 @@ def corr_products_plain(x: torch.Tensor, cat: torch.Tensor, p2: int):
     return a, b
 
 
-def _check_int8(name: str, t: torch.Tensor, n_pad: int) -> None:
-    if t.dtype != torch.int8 or t.dim() != 2 or t.shape[1] != n_pad:
-        raise ValueError(f"{name} must be int8 (rows, {n_pad})")
+def _check_operand(name: str, t: torch.Tensor, n_pad: int,
+                dtype=torch.int8) -> None:
+    if t.dtype != dtype or t.dim() != 2 or t.shape[1] != n_pad:
+        raise ValueError(f"{name} must be {dtype} (rows, {n_pad})")
     if not t.is_contiguous() or t.data_ptr() % 16:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
@@ -213,17 +230,18 @@ def corr_products(x: torch.Tensor, cat: torch.Tensor, p2: int = 0):
     """``(a, b)``: exact int32 ``a = x·catᵀ`` and, when ``p2 > 0``,
     ``b = h(x)·cat[:p2]ᵀ`` with ``h(x) = 2·min(x, 1)`` (else ``b`` is None).
 
-    ``x`` (rows_x, N_pad) and ``cat`` (rows_cat, N_pad) are int8 codes in
-    {0, 1, 2}.  On a CUDA tensor this launches kernel K2's products mode
-    once; on a CPU tensor it runs the plain products.
+    ``x`` (rows_x, N_pad) and ``cat`` (rows_cat, N_pad) are int8 (or both
+    bf16) codes in {0, 1, 2}.  On a CUDA tensor this launches kernel K2's
+    products mode once, on that operand type; on a CPU tensor it runs the
+    plain products.
     """
     if x.device.type == "cpu":
-        return corr_products_plain(x, cat, p2)
+        return corr_products_plain(x, cat, p2, ld_int8.dot_dtype_of(x))
     if x.device.type != "cuda":
         raise ValueError(f"no split-corrections kernel for device {x.device}")
     n_pad = x.shape[1]
-    _check_int8("x", x, n_pad)
-    _check_int8("cat", cat, n_pad)
+    _check_operand("x", x, n_pad, x.dtype)
+    _check_operand("cat", cat, n_pad, x.dtype)
     if cat.device != x.device:
         raise ValueError("x and cat must be on one device")
     rows_x, rows_cat = x.shape[0], cat.shape[0]
@@ -273,7 +291,8 @@ def _compact(scal, usable, dom_ok, miss_idx):
 
 def split_corrections_plain(g, m_c, h, scal, lo, hi, usable, dom_ok, rowmiss,
                             rsq_thr: float, own_hi: int, plan: dict,
-                            annot=None, *, n_samples: int):
+                            annot=None, *, n_samples: int,
+                            dot_dtype: str = "int8"):
     """The plain torch twin of :func:`split_corrections`, on any device.
 
     Mirrors ``nldsc_tpu/ld/ld_split.py:137-321``: the two big products and
@@ -281,9 +300,11 @@ def split_corrections_plain(g, m_c, h, scal, lo, hi, usable, dom_ok, rowmiss,
     evaluations (exact and clean, x as i and c as i), the orientation
     selection, the masks and the threshold counts; with ``annot`` the four
     skinny contractions of the δ values with the compact rows' and the x
-    rows' annotations.
+    rows' annotations.  ``dot_dtype``: the products' contraction
+    (``corr_products_plain``).
     """
     m_pad, n_pad = g.shape
+    ld_int8.check_dot_dtype(dot_dtype, n_pad)
     dev = g.device
     S, P, p_x = plan["seg_rows"], plan["p_band"], plan["p_x"]
     n, n_padf = float(n_samples), float(n_pad)
@@ -322,12 +343,12 @@ def split_corrections_plain(g, m_c, h, scal, lo, hi, usable, dom_ok, rowmiss,
         usable_cc = usable_c[crange][None, :]
         dom_ok_cc = dom_ok_c[crange][None, :]
 
-        a_i, b_i = corr_products_plain(x, cat3, 2 * P)
+        a_i, b_i = corr_products_plain(x, cat3, 2 * P, dot_dtype)
         a_t, b_t = a_i.float(), b_i.float()
         xcid = idx[x0:x0 + p_x]
         vx = (torch.arange(p_x, device=dev) < x_cnt) & (xcid >= s0) & (
             xcid < s0 + S)
-        d_t = corr_products_plain(m_xc, cat3, 0)[0].float()
+        d_t = corr_products_plain(m_xc, cat3, 0, dot_dtype)[0].float()
         locs = torch.clamp(xcid - s0, 0, S - 1)
         d_full = torch.zeros((S, 3 * P), dtype=torch.float32, device=dev)
         d_full.index_add_(0, locs, torch.where(vx[:, None], d_t, 0.0))
@@ -505,13 +526,17 @@ def _fold_annot(rpart_a, cpart_a, c0s, mm_pad: int):
 def _kernel_corrections(g, m_c, h, scal, lo, hi, usable, dom_ok, rowmiss,
                         rsq_thr: float, own_hi: int, plan: dict, annot=None,
                         *, n_samples: int):
-    global corr_launches, fused_launches, annot_launches
+    global corr_launches, fused_launches, annot_launches, bf16_launches
     m_pad, n_pad = g.shape
     dev = g.device
     S, P, p_x, n_segs = (plan["seg_rows"], plan["p_band"], plan["p_x"],
                          plan["n_segs"])
+    op = g.dtype
+    if op not in ld_int8.OPERAND_DTYPES.values():
+        raise ValueError(f"g must be int8 or bf16, got {op}")
+    bf16 = op == torch.bfloat16
     for name, t in (("g", g), ("h", h), ("m_c", m_c)):
-        _check_int8(name, t, n_pad)
+        _check_operand(name, t, n_pad, op)
     if scal.dtype != torch.float32 or tuple(scal.shape) != (
             m_pad, len(ld_int8.SCAL_FIELDS)) or not scal.is_contiguous():
         raise ValueError(f"scal must be contiguous float32 ({m_pad}, 9)")
@@ -558,10 +583,12 @@ def _kernel_corrections(g, m_c, h, scal, lo, hi, usable, dom_ok, rowmiss,
         d.data_ptr(), p_x, ops["drow"].data_ptr(), *ptrs, *a_ptrs, p,
         int(own_hi), n,
         float(n_pad), ld_int8.f32(float(n_pad) - n),
-        ld_int8.adj_constant(n_samples), ld_int8.f32(rsq_thr), _stream(g))
+        ld_int8.adj_constant(n_samples), ld_int8.f32(rsq_thr),
+        int(bf16), _stream(g))
     _check_launch(err, "fused")
     corr_launches += 1
     fused_launches += 1
+    bf16_launches += int(bf16)
     full, compact = _fold(rpf, rpi, cpf, cpi,
                           ops["seg_x"][:, 1], m_c.shape[0])
     if annot is not None:
@@ -584,15 +611,19 @@ def split_corrections(g, m_c, h, scal, lo, hi, usable, dom_ok, rowmiss,
     (:func:`compact_missing_rows`); ``plan`` comes from
     :func:`plan_split_v2`.  ``own_hi`` credits a pair only when its left
     member is below it (in core: ``m_pad``).  CPU tensors run the plain
-    twin; CUDA tensors run K2 (two launches), or raise.
+    twin (with the contraction of the operands' dtype); CUDA tensors run K2
+    (two launches) on the operands' type (g, h and ``m_c`` int8, or bf16
+    for ``--dot-dtype bf16``), or raise.
     """
     ld_int8.check_annot(annot, g)
-    fn = {"cpu": split_corrections_plain, "cuda": _kernel_corrections}.get(
-        g.device.type)
-    if fn is None:
+    args = (g, m_c, h, scal, lo, hi, usable, dom_ok, rowmiss, rsq_thr,
+            own_hi, plan, annot)
+    if g.device.type == "cpu":
+        return split_corrections_plain(*args, n_samples=n_samples,
+                                       dot_dtype=ld_int8.dot_dtype_of(g))
+    if g.device.type != "cuda":
         raise ValueError(f"no split-corrections engine for device {g.device}")
-    return fn(g, m_c, h, scal, lo, hi, usable, dom_ok, rowmiss, rsq_thr,
-              own_hi, plan, annot, n_samples=n_samples)
+    return _kernel_corrections(*args, n_samples=n_samples)
 
 
 def ld_scores_split(g, m_c, h, scal, lo, hi, usable, dom_ok, add_sd_zero,

@@ -1,8 +1,59 @@
-"""Sentinel finalization of the banded LD pass (torch)."""
+"""The f32 engine (``--engine f32``) and the sentinel finalization (torch).
+
+Port of ``nldsc_tpu/ld/ld_xla.py``.  The f32 engine works on the
+standardized float32 rows of :func:`..preprocess.preprocess_block`: for
+each pivot block of ``block_size`` SNPs, its in-window neighbours are one
+contiguous band of rows, so each tile is one float32 product of the pivot
+rows with the band, followed by the epilogue of :func:`_tile_epilogue`
+(adjusted r², window and usability masks, row sums).  The reference left
+those products to XLA, outside any Pallas kernel; here they are
+``torch.matmul`` in full float32 (:func:`fdot`: TF32 off whatever the
+process-wide setting), on the CUDA cores on a GPU, and the epilogue is
+torch ops.  All engines share :func:`finalize_outputs`.
+"""
 
 from __future__ import annotations
 
 import torch
+
+from .ld_int8 import adj_constant, annot_dot, f32, finalize_annot
+
+def fdot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x · yᵀ over the sample axis in full float32 (TF32 off for the call,
+    whatever the process-wide setting)."""
+    return annot_dot(x, y.t())
+
+
+def _tile_epilogue(c_add, c_dom, gi, gj, lo_i, hi_i, usable_i, usable_j,
+                   dom_ok_j, poison_j, n_samples: int, rsq_thr: float,
+                   aj=None):
+    """Mask algebra of one (B_i × B_j) tile of raw dot products (sums over
+    samples, not yet divided by n).  Returns per-row partial sums
+    ``(l2, l2d, ws, wsd, wse, poison)``; with ``aj`` (B_j, p) also the
+    masked adjusted r² contracted with it, ``(l2_annot, l2d_annot)``."""
+    n = f32(n_samples)
+    adj_c = adj_constant(n_samples)
+    r_add = c_add / n
+    adj_add = 1.0 - (1.0 - r_add * r_add) * adj_c
+    r_dom = c_dom / n
+    adj_dom = 1.0 - (1.0 - r_dom * r_dom) * adj_c
+
+    in_win = (gj[None, :] >= lo_i[:, None]) & (gj[None, :] <= hi_i[:, None])
+    pair = in_win & usable_j[None, :] & usable_i[:, None]
+    base = pair & (gj[None, :] != gi[:, None])
+    dmask = base & dom_ok_j[None, :]
+    add_m = adj_add * base.to(torch.float32)
+    dom_m = adj_dom * dmask.to(torch.float32)
+
+    i32 = torch.int32
+    out = (add_m.sum(dim=1), dom_m.sum(dim=1), base.sum(dim=1, dtype=i32),
+           dmask.sum(dim=1, dtype=i32),
+           ((adj_dom > f32(rsq_thr)) & dmask).sum(dim=1, dtype=i32),
+           # zero-additive-sd SNPs in the window, the pivot itself included
+           (pair & poison_j[None, :]).sum(dim=1, dtype=i32))
+    if aj is None:
+        return out
+    return (*out, annot_dot(add_m, aj), annot_dot(dom_m, aj))
 
 
 def finalize_outputs(l2_acc, l2d_acc, ws, wsd, wse, poison, usable,
@@ -25,3 +76,138 @@ def finalize_outputs(l2_acc, l2d_acc, ws, wsd, wse, poison, usable,
     wse_o = torch.where(usable, torch.where(add_sd_zero, torch.zeros_like(wse),
                                             wse), neg1)
     return l2, l2d, ws_o, wsd_o, wse_o
+
+
+def _band(m_pad: int, b: int, blk_lo, B: int, band_rows: int):
+    """Pivot block ``b``'s band: its first row and the rows' slice (the
+    reference's clipped ``dynamic_slice``)."""
+    j0 = min(max(int(blk_lo[b]) * B, 0), m_pad - band_rows)
+    return j0, slice(j0, j0 + band_rows)
+
+
+def _full_band(add, res, lo, hi, usable, dom_ok, add_sd_zero, blk_lo,
+               rsq_thr, annot, block_size: int, band_k: int, n_samples: int):
+    """Per-row partials of the full-band pass: each pivot block against
+    its whole band, both sides (``ld_scores_xla``'s ``pivot_block``)."""
+    m_pad = add.shape[0]
+    B = block_size
+    band_rows = min(band_k * B, m_pad)
+    dev = add.device
+    parts = []
+    for b in range(m_pad // B):
+        rows = slice(b * B, (b + 1) * B)
+        j0, cols = _band(m_pad, b, blk_lo, B, band_rows)
+        ya = add[rows]
+        parts.append(_tile_epilogue(
+            fdot(ya, add[cols]), fdot(ya, res[cols]),
+            b * B + torch.arange(B, device=dev),
+            j0 + torch.arange(band_rows, device=dev), lo[rows], hi[rows],
+            usable[rows], usable[cols], dom_ok[cols], add_sd_zero[cols],
+            n_samples, rsq_thr, None if annot is None else annot[cols]))
+    return [torch.cat(x) for x in zip(*parts)]
+
+
+def ld_scores_xla(add, res, lo, hi, usable, dom_ok, add_sd_zero, blk_lo,
+                  blk_hi, rsq_thr: float, *, block_size: int, band_k: int,
+                  n_samples: int):
+    """The f32 engine, full band (``nldsc_tpu/ld/ld_xla.py:86``).
+
+    ``add``/``res``: float32 (M_pad, N_pad) rows of
+    :func:`..preprocess.preprocess_block` (padding rows unusable);
+    ``lo``/``hi`` int32, ``usable``/``dom_ok``/``add_sd_zero`` bool
+    (M_pad,) tensors on their device; ``blk_lo``/``blk_hi``: per pivot
+    block, the first and last block its windows reach
+    (``windows.band_blocks``, host arrays).  Returns finalized
+    ``(l2, l2d, ws, wsd, wse)``, each of length M_pad.
+    """
+    del blk_hi                 # the band is blk_lo's band_k blocks
+    l2, l2d, ws, wsd, wse, poison = _full_band(
+        add, res, lo, hi, usable, dom_ok, add_sd_zero, blk_lo, rsq_thr, None,
+        block_size, band_k, n_samples)
+    return finalize_outputs(l2, l2d, ws, wsd, wse, poison, usable,
+                            add_sd_zero)
+
+
+def ld_scores_xla_annot(add, res, lo, hi, usable, dom_ok, add_sd_zero,
+                        blk_lo, blk_hi, rsq_thr: float, annot, *,
+                        block_size: int, band_k: int, n_samples: int):
+    """The f32 engine's partitioned pass, full band only
+    (``nldsc_tpu/ld/ld_xla.py:144``): :func:`ld_scores_xla` with each
+    tile's masked adjusted r² contracted with the band's annotation rows
+    (float32 ``annot`` (M_pad, p), padding rows 0).  The self pair adds
+    its own annotation row to ``l2_annot``.  Returns ``(l2_annot,
+    l2d_annot, l2, l2d, ws, wsd, wse)``."""
+    del blk_hi
+    l2, l2d, ws, wsd, wse, poison, l2_a, l2d_a = _full_band(
+        add, res, lo, hi, usable, dom_ok, add_sd_zero, blk_lo, rsq_thr, annot,
+        block_size, band_k, n_samples)
+    fin = finalize_outputs(l2, l2d, ws, wsd, wse, poison, usable, add_sd_zero)
+    return (*finalize_annot(l2_a, l2d_a, annot, usable, add_sd_zero, poison,
+                            wsd), *fin)
+
+
+def ld_scores_xla_sym(add, res, lo, hi, usable, dom_ok, add_sd_zero, blk_lo,
+                      blk_hi, rsq_thr: float, *, block_size: int, band_k: int,
+                      right_k: int, n_samples: int):
+    """The f32 engine, symmetric (``nldsc_tpu/ld/ld_xla.py:236``): the
+    additive product of each pivot block with its right half-band only,
+    whose tile credits both its row sums (pairs with j at or after the
+    pivot block) and its column sums (the mirrored pairs past the pivot
+    block), carried across the blocks as the reference's ``lax.scan``
+    carries them; the dominance product (not symmetric) over the full band
+    as :func:`ld_scores_xla` computes it.  Same arguments and return."""
+    m_pad = add.shape[0]
+    B = block_size
+    band_rows = min(band_k * B, m_pad)
+    right_rows = min(right_k * B, m_pad)
+    dev = add.device
+    n = f32(n_samples)
+    adj_c = adj_constant(n_samples)
+    i32 = torch.int32
+    l2_acc = torch.zeros(m_pad, dtype=torch.float32, device=dev)
+    ws, poison = (torch.zeros(m_pad, dtype=i32, device=dev) for _ in range(2))
+    dom_parts = []
+    for b in range(m_pad // B):
+        r0 = b * B
+        rows = slice(r0, r0 + B)
+        ya = add[rows]
+        gi = r0 + torch.arange(B, device=dev)
+        lo_i, hi_i = lo[rows][:, None], hi[rows][:, None]
+        usable_i, poison_i = usable[rows][:, None], add_sd_zero[rows][:, None]
+
+        # additive: the right half-band, credited both ways
+        j0r = min(r0, m_pad - right_rows)
+        cr = slice(j0r, j0r + right_rows)
+        gj = (j0r + torch.arange(right_rows, device=dev))[None, :]
+        r_add = fdot(ya, add[cr]) / n
+        adj_add = 1.0 - (1.0 - r_add * r_add) * adj_c
+        upair = ((gj >= lo_i) & (gj <= hi_i) & usable[cr][None, :]
+                 & usable_i)
+        fwd = gj >= r0                     # against re-visits of a clipped j0r
+        row_base = upair & fwd & (gj != gi[:, None])
+        col_base = upair & (gj >= r0 + B)  # the pivot block: rows cover it
+        l2_acc[rows] += (adj_add * row_base.to(torch.float32)).sum(dim=1)
+        l2_acc[cr] += (adj_add * col_base.to(torch.float32)).sum(dim=0)
+        ws[rows] += row_base.sum(dim=1, dtype=i32)
+        ws[cr] += col_base.sum(dim=0, dtype=i32)
+        poison[rows] += (upair & fwd & add_sd_zero[cr][None, :]).sum(
+            dim=1, dtype=i32)
+        poison[cr] += (upair & poison_i & (gj >= r0 + B)).sum(dim=0,
+                                                              dtype=i32)
+
+        # dominance: the full band, row sums only
+        j0, cols = _band(m_pad, b, blk_lo, B, band_rows)
+        gjd = (j0 + torch.arange(band_rows, device=dev))[None, :]
+        r_dom = fdot(ya, res[cols]) / n
+        adj_dom = 1.0 - (1.0 - r_dom * r_dom) * adj_c
+        valid_k = gjd <= int(blk_hi[b]) * B + (B - 1)
+        dmask = ((gjd >= lo_i) & (gjd <= hi_i) & valid_k
+                 & usable[cols][None, :] & usable_i & (gjd != gi[:, None])
+                 & dom_ok[cols][None, :])
+        dom_parts.append((
+            (adj_dom * dmask.to(torch.float32)).sum(dim=1),
+            dmask.sum(dim=1, dtype=i32),
+            ((adj_dom > f32(rsq_thr)) & dmask).sum(dim=1, dtype=i32)))
+    l2d, wsd, wse = (torch.cat(x) for x in zip(*dom_parts))
+    return finalize_outputs(l2_acc, l2d, ws, wsd, wse, poison, usable,
+                            add_sd_zero)

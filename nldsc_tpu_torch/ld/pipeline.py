@@ -16,7 +16,11 @@ compact corrections, ``ld_split.py``) and ``global`` (the 8-product
 pass).  Engines: the symmetric one on every route (kernels K1 and K2
 on a GPU, with their annotation epilogues when ``annot`` is given), or
 the full-band torch engine ``ld_int8.ld_scores_int8`` (``--no-symmetric``;
-the default of clean partitioned runs on the CPU, as in ``nldsc_tpu``).
+the default of clean partitioned runs on the CPU, as in ``nldsc_tpu``);
+their products on int8 operands or, with ``--dot-dtype bf16``, on bf16
+ones (the same exact sums).  ``--engine f32`` (``use_int8=False``) runs
+the f32 engine of ``ld_xla.py`` instead, in core only: standardized
+float32 rows, symmetric or full band, and full band with ``annot``.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ from ..core.timing import STAGE_TIMES, elapsed_time, stage_add
 from ..io.ldscores import (make_output, make_output_annot, read_annot,
                            write_l2, write_m_files, write_m_files_annot)
 from ..io.plink import PackedBed, PlinkDataset
-from . import ld_int8, ld_pallas_sym, ld_split, preprocess, windows
+from . import ld_int8, ld_pallas_sym, ld_split, ld_xla, preprocess, windows
 from .ld_xla import finalize_outputs
 
 
@@ -62,7 +66,9 @@ def padded_shape(m: int, n: int, device_type: str,
     """``(m_pad, n_pad)`` of the engine's inputs: the rows padded to the
     kernel's row alignment on CUDA (a multiple of both of its branch
     tiles: the route is chosen after the padding) or to ``block_size``
-    for the CPU twin, the samples to a multiple of 128."""
+    for the CPU twin and for the engines in torch ops (the full-band and
+    f32 engines, which walk pivot blocks of ``block_size`` rows on any
+    device: pass ``"cpu"``), the samples to a multiple of 128."""
     B = ld_pallas_sym.ROW_ALIGN if device_type == "cuda" else block_size
     return -(-m // B) * B, -(-n // 128) * 128
 
@@ -127,6 +133,45 @@ def resolve_symmetric(symmetric: bool | None, annot, has_missing: bool,
     return annot is None or device_type == "cuda" or has_missing
 
 
+def _f32_pass(g_dev, pos_ok, lo: np.ndarray, hi: np.ndarray, lo_dev,
+              hi_dev, config: LDConfig, a_dev, n: int, symmetric: bool,
+              progress, m: int) -> dict:
+    """The f32 engine on the padded int8 codes ``g_dev`` (sample padding
+    missing): ``preprocess_block``, then ``ld_xla``'s symmetric or
+    full-band pass, or its partitioned pass (full band) with ``a_dev``
+    (``nldsc_tpu/ld/pipeline.py:396-437``)."""
+    B = config.block_size
+    m_pad = g_dev.shape[0]
+    pre = preprocess.preprocess_block(g_dev, pos_ok, config.maf_thr, n)
+    dom_ok = pre["usable"] & (pre["rstd"] > ld_int8.f32(config.std_thr))
+    blk_lo, blk_hi, band_k = windows.band_blocks(lo, hi, B, m_pad // B)
+    args = (pre.pop("add"), pre.pop("res"), lo_dev, hi_dev, pre["usable"],
+            dom_ok, pre["add_sd_zero"], blk_lo, blk_hi, config.rsq_thr)
+    kw = dict(block_size=B, band_k=band_k, n_samples=n)
+    log.info("LD route: f32 engine, %s%s",
+             "symmetric" if symmetric and a_dev is None else "full band",
+             "" if a_dev is None else f", {a_dev.shape[1]} annotations")
+    if config.matmul_precision == "high":
+        log.info("matmul_precision 'high' (the TPU's bf16_3x pass): the "
+                 "f32 engine runs full float32 products, as for 'highest'")
+    if progress is not None:
+        progress(0, m)
+    if a_dev is not None:
+        l2_a, l2d_a, *fin = ld_xla.ld_scores_xla_annot(*args, a_dev, **kw)
+    elif symmetric:
+        fin = ld_xla.ld_scores_xla_sym(
+            *args, right_k=windows.right_band_blocks(blk_hi, B), **kw)
+    else:
+        fin = ld_xla.ld_scores_xla(*args, **kw)
+    out = to_host_result(*fin, pre["maf"], pre["rstd"], m)
+    if a_dev is not None:
+        out["l2_annot"] = l2_a[:m].cpu().numpy().astype(np.float64)
+        out["l2d_annot"] = l2d_a[:m].cpu().numpy().astype(np.float64)
+    if progress is not None:
+        progress(m, m)
+    return out
+
+
 def compute_ld_scores(genotypes, positions: np.ndarray, config: LDConfig, *,
                       annot: np.ndarray | None = None, device="cuda",
                       progress=None) -> dict:
@@ -150,28 +195,39 @@ def compute_ld_scores(genotypes, positions: np.ndarray, config: LDConfig, *,
     l2_ws, l2d_ws, l2d_wse — the reference ``LDScoreResult`` fields; with
     ``annot`` also l2_annot and l2d_annot, float64 (M, p).
     """
-    if config.int8_dot_dtype != "int8":
-        raise NLDSCParameterError(
-            "--dot-dtype bf16 is not ported yet (ROADMAP queue 2: bf16 MMA "
-            "variant of K1); use --dot-dtype int8")
     if config.rsq_thr is None:
         raise NLDSCParameterError("resolve rsq_thr first (LDConfig.resolve_rsq)")
     dev = resolve_device(device)
     packed = isinstance(genotypes, PackedBed)
     m, n = genotypes.shape
+    use_int8 = config.use_int8 is not False
     # only real missing genotypes force the 8-product branch; without
-    # them pad with zeros and let g alias m
+    # them pad with zeros and let g alias m.  The f32 engine imputes the
+    # padding, so it always pads with missing codes.
     has_missing = (genotypes.has_missing if packed
                    else bool((genotypes < 0).any()))
-    pad_val = -1 if has_missing else 0
-    symmetric = resolve_symmetric(config.symmetric, annot, has_missing,
-                                  dev.type)
-    if config.use_pallas and not symmetric:
-        raise NLDSCParameterError(
-            "--engine pallas is the symmetric kernel; drop --no-symmetric")
-    # the full-band engine walks pivot blocks of block_size rows
-    m_pad, n_pad = padded_shape(m, n, dev.type if symmetric else "cpu",
+    pad_val = -1 if has_missing or not use_int8 else 0
+    if use_int8:
+        symmetric = resolve_symmetric(config.symmetric, annot, has_missing,
+                                      dev.type)
+        if config.use_pallas and not symmetric:
+            raise NLDSCParameterError(
+                "--engine pallas is the symmetric kernel; drop "
+                "--no-symmetric")
+    else:
+        # the f32 partitioned engine exists full band only
+        symmetric = annot is None and config.symmetric is not False
+        if config.use_pallas and annot is None:
+            raise NLDSCParameterError(
+                "--engine pallas runs the integer kernels; the f32 engine "
+                "has no Pallas or CUDA kernel (drop --engine pallas, or use "
+                "--engine f32 alone)")
+    # the engines in torch ops walk pivot blocks of block_size rows
+    kernels = use_int8 and symmetric
+    m_pad, n_pad = padded_shape(m, n, dev.type if kernels else "cpu",
                                 config.block_size)
+    if use_int8:
+        ld_int8.check_dot_dtype(config.int8_dot_dtype, n_pad)
     if annot is not None and (annot.ndim != 2 or annot.shape[0] != m
                               or annot.shape[1] < 1):
         raise NLDSCParameterError(
@@ -186,7 +242,7 @@ def compute_ld_scores(genotypes, positions: np.ndarray, config: LDConfig, *,
     if packed:
         # pad rows in byte space (0x55 = four missing bitpairs, 0x00 =
         # four zero codes); columns are padded inside the unpack
-        pad_byte = np.uint8(0x55) if has_missing else np.uint8(0x00)
+        pad_byte = np.uint8(0x55) if pad_val == -1 else np.uint8(0x00)
         raw_dev = _to_device(_pad_to(genotypes.raw, m_pad, pad_byte), dev)
         t_dev = time.time()
         g_dev = preprocess.unpack_bed(raw_dev, n_samples=n, n_pad=n_pad,
@@ -198,6 +254,19 @@ def compute_ld_scores(genotypes, positions: np.ndarray, config: LDConfig, *,
         g_dev = _to_device(g, dev)
         t_dev = time.time()
 
+    lo_dev = torch.from_numpy(lo_pad).to(dev)
+    hi_dev = torch.from_numpy(hi_pad).to(dev)
+    # zero rows for the padding, float32, sent once
+    a_dev = (None if annot is None else _to_device(
+        _pad_to(np.ascontiguousarray(annot, dtype=np.float32), m_pad,
+                np.float32(0.0)), dev))
+    if not use_int8:
+        out = _f32_pass(g_dev, torch.from_numpy(pos_ok_pad).to(dev), lo, hi,
+                        lo_dev, hi_dev, config, a_dev, n, symmetric,
+                        progress, m)
+        stage_add("device_s", t_dev)
+        return out
+
     # the split route reads the missing indicators only through the
     # contaminated rows, and the global route decides it needs all of them
     # only after the per-row missing counts: defer the full m to that
@@ -207,15 +276,12 @@ def compute_ld_scores(genotypes, positions: np.ndarray, config: LDConfig, *,
         n_samples=n, assume_no_missing=not has_missing,
         materialize_m=not lazy_m)
     dom_ok = pre["usable"] & (pre["rstd"] > ld_int8.f32(config.std_thr))
-    lo_dev = torch.from_numpy(lo_pad).to(dev)
-    hi_dev = torch.from_numpy(hi_pad).to(dev)
     scal = ld_int8.stack_scalars(pre)
-    # zero rows for the padding, float32, sent once
-    a_dev = (None if annot is None else _to_device(
-        _pad_to(np.ascontiguousarray(annot, dtype=np.float32), m_pad,
-                np.float32(0.0)), dev))
 
-    route, m_mat, split = "global" if has_missing else "clean", pre["m"], None
+    # the products' operands, taken out of pre so that under bf16 each
+    # int8 matrix is freed once its bf16 copy exists
+    route, split = "global" if has_missing else "clean", None
+    ops = {"g": pre.pop("g"), "m": pre.pop("m"), "h": pre.pop("h")}
     if lazy_m:
         rowmiss = (pre["cm"] > float(n_pad - n)) & pre["usable"]
         rowmiss_h = rowmiss.cpu().numpy()
@@ -228,29 +294,33 @@ def compute_ld_scores(genotypes, positions: np.ndarray, config: LDConfig, *,
             log.info("Split-missing engine: %.2f%% contaminated rows "
                      "(P=%d, Px=%d, %d segments)", 100.0 * frac,
                      plan["p_band"], plan["p_x"], plan["n_segs"])
-            split = (ld_split.compact_missing_rows(g_dev, plan["miss_idx"]),
-                     rowmiss, plan)
+            ops["m_c"] = ld_split.compact_missing_rows(g_dev,
+                                                       plan["miss_idx"])
+            split = (rowmiss, plan)
         elif route == "global":
-            m_mat = ld_int8.materialize_missing(g_dev)
+            ops["m"] = ld_int8.materialize_missing(g_dev)
     del g_dev                      # the raw codes are not read past here
-    log.info("LD route: %s%s%s", route,
+    dot_dtype = config.int8_dot_dtype
+    ld_int8.to_operands(ops, dot_dtype)
+    log.info("LD route: %s%s%s%s", route,
              "" if symmetric else ", full-band engine",
+             "" if dot_dtype == "int8" else f", {dot_dtype} operands",
              "" if annot is None else f", {annot.shape[1]} annotations")
 
     if progress is not None:
         progress(0, m)
     if symmetric:
         accs = ld_pallas_sym.sym_credits(
-            pre["g"], m_mat, pre["h"], scal, lo_dev, hi_dev, pre["usable"],
-            dom_ok, pre["add_sd_zero"], config.rsq_thr, n_samples=n,
-            has_missing=route == "global", block_size=config.block_size,
-            annot=a_dev)
+            ops["g"], ops["m"], ops["h"], scal, lo_dev, hi_dev,
+            pre["usable"], dom_ok, pre["add_sd_zero"], config.rsq_thr,
+            n_samples=n, has_missing=route == "global",
+            block_size=config.block_size, annot=a_dev)
         if split is not None:
-            m_c, rowmiss, plan = split
+            rowmiss, plan = split
             deltas = ld_split.split_corrections(
-                pre["g"], m_c, pre["h"], scal, lo_dev, hi_dev, pre["usable"],
-                dom_ok, rowmiss, config.rsq_thr, m_pad, plan, a_dev,
-                n_samples=n)
+                ops["g"], ops["m_c"], ops["h"], scal, lo_dev, hi_dev,
+                pre["usable"], dom_ok, rowmiss, config.rsq_thr, m_pad, plan,
+                a_dev, n_samples=n)
             # δ-credits of (l2, l2d, wse[, l2_annot, l2d_annot])
             accs = list(accs)
             for at, delta in zip((0, 3, 5, 6, 7), deltas):
@@ -267,10 +337,11 @@ def compute_ld_scores(genotypes, positions: np.ndarray, config: LDConfig, *,
         blk_lo, blk_hi, band_k = windows.band_blocks(
             lo, hi, config.block_size, m_pad // config.block_size)
         fin = ld_int8.ld_scores_int8(
-            pre["g"], m_mat, pre["h"], scal, lo_dev, hi_dev, pre["usable"],
-            dom_ok, pre["add_sd_zero"], blk_lo, blk_hi, config.rsq_thr, a_dev,
-            block_size=config.block_size, band_k=band_k, n_samples=n,
-            has_missing=has_missing)
+            ops["g"], ops["m"], ops["h"], scal, lo_dev, hi_dev,
+            pre["usable"], dom_ok, pre["add_sd_zero"], blk_lo, blk_hi,
+            config.rsq_thr, a_dev, block_size=config.block_size,
+            band_k=band_k, n_samples=n, has_missing=has_missing,
+            dot_dtype=dot_dtype)
         l2, l2d, ws, wsd, wse = fin[-5:]
         if a_dev is not None:
             l2_a, l2d_a = fin[:2]
@@ -336,22 +407,27 @@ def show_summary(result: dict) -> str:
 #: bytes (``nldsc_tpu/ld/pipeline.py:471``), kept on the CPU so that the
 #: CPU chooses as the JAX package does
 STREAMING_BYTES_THRESHOLD = 8 << 30
-#: device bytes per genotype of the in-core route at its peak: the global
-#: route peaked at 4.01 GiB for 65,536 x 16,384 genotypes on the H100
-#: (PERF.md section 5), the split and clean routes below it
-INCORE_BYTES_PER_GENOTYPE = 4.0
+#: device bytes per padded genotype of the in-core routes at their peak on
+#: the H100, per engine, rounded up (PERF.md section 5): the global route's
+#: 4.006 (int8) and 7.006 (bf16) at 65,536 x 16,384 genotypes
+#: (chip_smoke.py phase 21; the clean and split routes peak below them),
+#: the f32 engine's 9.908 (phase 22; add and res are 8 bytes)
+INCORE_BYTES_PER_GENOTYPE = {"int8": 4.01, "bf16": 7.01, "f32": 9.91}
 
 
-def wants_streaming(m: int, n: int, device: torch.device) -> bool:
+def wants_streaming(m: int, n: int, device: torch.device,
+                    engine: str = "int8") -> bool:
     """Whether ``estimate_lds(streaming=None)`` streams: on the CPU the
-    reference's rule (3 bytes per padded genotype above 8 GiB,
-    ``nldsc_tpu/ld/pipeline.py:583-588``); on CUDA when the in-core peak
-    would pass 90% of the device's free memory."""
+    reference's rule (3 bytes per padded genotype for the integer engines
+    and 8 for the f32 one, above 8 GiB, ``nldsc_tpu/ld/pipeline.py:583-588``);
+    on CUDA when the in-core peak of ``engine`` (``'int8'``, ``'bf16'``
+    or ``'f32'``) would pass 90% of the device's free memory."""
     genotypes = m * (-(-n // 128) * 128)
     if device.type == "cpu":
-        return 3 * genotypes > STREAMING_BYTES_THRESHOLD
+        bpe = 8 if engine == "f32" else 3
+        return bpe * genotypes > STREAMING_BYTES_THRESHOLD
     free, _ = torch.cuda.mem_get_info(device)
-    return INCORE_BYTES_PER_GENOTYPE * genotypes > 0.9 * free
+    return INCORE_BYTES_PER_GENOTYPE[engine] * genotypes > 0.9 * free
 
 
 def _progress_logger():
@@ -382,6 +458,7 @@ def estimate_lds(
     int8_dot_dtype: str = "int8",
     split_missing: bool | None = None,
     use_pallas: bool = False,
+    use_int8: bool | None = None,
     progress: bool | None = None,
     streaming: bool | None = None,
     chunk_rows: int = 8192,
@@ -400,6 +477,9 @@ def estimate_lds(
     ``split_missing``: None picks the split-missing route when at most
     25% of the usable rows carry a missing genotype; ``use_pallas``
     (``--engine pallas``) always runs the single global pass in core.
+    ``int8_dot_dtype``: the integer engines' operands, ``'int8'`` or
+    ``'bf16'``; ``use_int8=False`` (``--engine f32``) the f32 engine, in
+    core only.
     ``streaming``: None streams when the in-core working set would not
     fit (:func:`wants_streaming`); ``chunk_rows`` pivot rows per chunk;
     ``resume_path`` a checkpoint directory of the streaming route.
@@ -419,14 +499,16 @@ def estimate_lds(
         ld_wind=ld_wind, wind_metric=wind_metric, maf_thr=maf_thr,
         std_thr=std_thr, rsq_thr=rsq_thr, block_size=block_size,
         int8_dot_dtype=int8_dot_dtype, split_missing=split_missing,
-        use_pallas=use_pallas, symmetric=symmetric,
+        use_pallas=use_pallas, symmetric=symmetric, use_int8=use_int8,
     ).resolve_rsq(ds.n_snp)
 
     log.info("Input: %s, size: (M=%d, N=%d)", ds.bed_path, ds.n_snp,
              ds.n_samples)
     positions = ds.positions(config.wind_metric)
     if streaming is None:
-        streaming = wants_streaming(ds.n_snp, ds.n_samples, dev)
+        streaming = wants_streaming(
+            ds.n_snp, ds.n_samples, dev,
+            "f32" if config.use_int8 is False else config.int8_dot_dtype)
     annot_mat = annot_names = None
     if annot is not None:
         t_annot = time.time()

@@ -1,16 +1,26 @@
-"""On-device 2-bit PLINK .bed unpack (torch).
+"""On-device genotype preprocessing (torch): the 2-bit PLINK .bed unpack,
+and the float32 rows of the f32 engine.
 
 Shipping the packed bytes costs 4x less host-to-device traffic than int8
-codes; the unpack is a shift and mask per bitpair.
+codes; the unpack is a shift and mask per bitpair.  :func:`preprocess_block`
+is the f32 engine's per-SNP pipeline (``nldsc_tpu/ld/preprocess.py:57-149``):
+means and MAF from the non-missing codes, mean imputation, the dominance
+residual from the class-count closed forms and population-variance
+standardization.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .ld_int8 import dom_class_stats, f32
+
 #: rows unpacked per step: bounds the uint8 temporaries to ~1 GB at
 #: chromosome widths
 _ROWS_PER_STEP = 8192
+#: rows of :func:`preprocess_block` per step: bounds its float32
+#: temporaries to a few hundred MB at chromosome widths
+_F32_ROWS_PER_STEP = 2048
 
 
 def unpack_bed(raw: torch.Tensor, n_samples: int, n_pad: int,
@@ -39,3 +49,75 @@ def unpack_bed(raw: torch.Tensor, n_samples: int, n_pad: int,
         lo = (codes & 1).to(torch.int8)
         out[r0:r0 + part.shape[0], :n_samples] = hi - lo + 2 * hi * lo
     return out
+
+
+def preprocess_block(genotypes: torch.Tensor, pos_ok: torch.Tensor,
+                     maf_thr: float, n_samples: int) -> dict[str, torch.Tensor]:
+    """The f32 engine's standardized rows of int8 (M, N_pad) codes.
+
+    Any negative code is missing, and the sample padding must be negative
+    (missing): imputed entries centre to exactly 0, so padded columns add
+    nothing to a product.  Returns float32 ``add`` (M, N_pad), the
+    standardized additive rows (0 where unusable), ``res`` (M, N_pad), the
+    standardized dominance residuals (0 where unusable or the additive sd is
+    zero), ``maf`` (NaN where position-skipped), ``rstd`` (NaN where unusable
+    or the additive sd is zero), and bool ``usable`` and ``add_sd_zero``: the
+    float32 operations of ``nldsc_tpu.ld.preprocess.preprocess_block``, in
+    steps of rows.
+    """
+    m, n_pad = genotypes.shape
+    dev = genotypes.device
+    n = float(n_samples)
+    maf_thr = f32(maf_thr)
+    add = torch.empty((m, n_pad), dtype=torch.float32, device=dev)
+    res = torch.empty_like(add)
+    stats = {k: torch.empty(m, dtype=torch.float32, device=dev)
+             for k in ("maf", "rstd")}
+    flags = {k: torch.empty(m, dtype=torch.bool, device=dev)
+             for k in ("usable", "add_sd_zero")}
+    for r0 in range(0, m, _F32_ROWS_PER_STEP):
+        rows = slice(r0, r0 + _F32_ROWS_PER_STEP)
+        g = genotypes[rows]
+        valid = g >= 0
+        gf = torch.where(valid, g, 0).to(torch.float32)
+        n_valid_raw = valid.sum(dim=1)
+        # an all-missing SNP has a NaN mean in the reference: the MAF drop
+        # test is false, so it stays usable, as an additive-sum poison
+        all_missing = n_valid_raw == 0
+        n_valid = torch.clamp(n_valid_raw, min=1).to(torch.float32)
+        add_mean = gf.sum(dim=1) / n_valid       # integer sums: exact
+        f2 = add_mean * 0.5
+        maf = torch.minimum(f2, 1.0 - f2)
+        usable = pos_ok[rows] & ((maf > maf_thr) | all_missing)
+        a_c = torch.where(valid, gf, add_mean[:, None]) - add_mean[:, None]
+
+        c1 = (gf == 1.0).sum(dim=1, dtype=torch.float32)
+        c2 = (gf == 2.0).sum(dim=1, dtype=torch.float32)
+        c0 = n_valid - c1 - c2
+        va, _slope, rvar_sum, v0, v1, v2 = dom_class_stats(c0, c1, c2)
+        add_sd = torch.sqrt(va / n_valid / n)
+        add_sd_zero = usable & ((va <= 0.0) | all_missing)
+        zero = torch.zeros_like(gf)
+        r_c = torch.where(
+            valid,
+            v0[:, None] + torch.where(gf == 1.0, (v1 - v0)[:, None], zero)
+            + torch.where(gf == 2.0, (v2 - v0)[:, None], zero),
+            zero)
+        rstd = torch.sqrt(rvar_sum / n)
+
+        one = torch.ones_like(add_sd)
+        inv_add_sd = torch.where(add_sd > 0,
+                                 1.0 / torch.where(add_sd > 0, add_sd, one),
+                                 torch.zeros_like(add_sd))
+        inv_rstd = torch.where(rstd > 0, 1.0 / torch.where(rstd > 0, rstd, one),
+                               torch.zeros_like(rstd))
+        add[rows] = torch.where(usable[:, None], a_c * inv_add_sd[:, None],
+                                zero)
+        res[rows] = torch.where((usable & ~add_sd_zero)[:, None],
+                                r_c * inv_rstd[:, None], zero)
+        nan = torch.full_like(maf, float("nan"))
+        stats["maf"][rows] = torch.where(pos_ok[rows] & ~all_missing, maf, nan)
+        stats["rstd"][rows] = torch.where(usable & ~add_sd_zero, rstd, nan)
+        flags["usable"][rows] = usable
+        flags["add_sd_zero"][rows] = add_sd_zero
+    return {"add": add, "res": res, **stats, **flags}

@@ -20,6 +20,12 @@ Device memory is bounded by the band, whatever M.  With ``resume_path``
 each finished chunk is written once, atomically, as a shard file, and a
 restart skips the contiguous prefix of finished chunks.
 
+Under ``--dot-dtype bf16`` each band's code matrices become bf16
+operands on the device before K1 and K2 (the same exact sums, so the same
+scores); ``meta.json`` pins the operand type, so a checkpoint of one
+type refuses to resume a run of the other.  The f32 engine does not
+stream (ROADMAP queue 1 item 12).
+
 With ``annot`` (partitioned LD scores) the zero-padded annotation matrix
 is sent once; each band's kernels take its rows ``[p0, p0 + band_rows)``
 and return two ``(band_rows, p)`` accumulators more, which ride the same
@@ -289,16 +295,19 @@ def compute_ld_scores_streaming(bed: BedReader, positions: np.ndarray,
     """
     from .pipeline import resolve_device  # noqa: PLC0415
 
-    if config.int8_dot_dtype != "int8":
+    if config.use_int8 is False:
         raise NLDSCParameterError(
-            "--dot-dtype bf16 is not ported yet (ROADMAP queue 2: bf16 MMA "
-            "variant of K1); use --dot-dtype int8")
+            "--engine f32 streams through the full-band chunk engine, which "
+            "is not ported to nldsc_tpu_torch yet: ROADMAP queue 1 item 12 "
+            "(full-band streaming chunk engines)")
     if config.rsq_thr is None:
         raise NLDSCParameterError("resolve rsq_thr first (LDConfig.resolve_rsq)")
     dev = resolve_device(device)
     t_enter = time.time()
     m, n = bed.n_snp, bed.n_samples
     n_pad = -(-n // 128) * 128
+    dot_dtype = config.int8_dot_dtype
+    ld_int8.check_dot_dtype(dot_dtype, n_pad)
     lo, hi, pos_ok = windows.window_bounds(positions, config.ld_wind)
     geo = stream_geometry(m, lo, hi, chunk_rows, config.block_size, dev.type)
     c, h, band_rows = geo.chunk_rows, geo.halo, geo.band_rows
@@ -354,7 +363,7 @@ def compute_ld_scores_streaming(bed: BedReader, positions: np.ndarray,
             "engine": "sym-split2" if use_split else "sym",
             "annot_p": p_annot if annot is not None else -1,
             "annot_sha256": None if annot is None else annot_digest(annot),
-            "dot_dtype": config.int8_dot_dtype,
+            "dot_dtype": dot_dtype,
             **bed_identity(bed.path)})
         n_resumed = resume_shards(ck_dir, geo, out, carry, carry_a)
         if n_resumed:
@@ -412,21 +421,25 @@ def compute_ld_scores_streaming(bed: BedReader, positions: np.ndarray,
         # the band's annotations: rows [p0, p0 + band_rows) of the padded
         # matrix (a halo row's column credits weight by its pivot's row)
         annot_b = None if a_dev is None else a_dev[sl]
+        ops = {"g": pre.pop("g"), "m": pre.pop("m"), "h": pre.pop("h")}
+        if split_c:
+            rm_b = rowmiss_ext[sl]
+            plan = ld_split.plan_split_v2(rm_b, lo_b, hi_b, seg_rows,
+                                          band_rows)
+            ops["m_c"] = ld_split.compact_missing_rows(g, plan["miss_idx"])
+        del g
+        ld_int8.to_operands(ops, dot_dtype)
         l2, ws, poi, l2d, wsd, wse, *acc_a = ld_pallas_sym.sym_credits(
-            pre["g"], pre["m"], pre["h"], scal, lo_d, hi_d, pre["usable"],
+            ops["g"], ops["m"], ops["h"], scal, lo_d, hi_d, pre["usable"],
             dom_ok, pre["add_sd_zero"], config.rsq_thr, n_samples=n,
             has_missing=global_c, block_size=config.block_size,
             pivot_rows=c, annot=annot_b)
         if split_c:
             # pairs owned by their left member: own_hi = chunk_rows
-            rm_b = rowmiss_ext[sl]
-            plan = ld_split.plan_split_v2(rm_b, lo_b, hi_b, seg_rows,
-                                          band_rows)
             l2_d, l2d_d, wse_d, *delta_a = ld_split.split_corrections(
-                pre["g"], ld_split.compact_missing_rows(g, plan["miss_idx"]),
-                pre["h"], scal, lo_d, hi_d, pre["usable"], dom_ok,
-                torch.from_numpy(rm_b).to(dev), config.rsq_thr, c, plan,
-                annot_b, n_samples=n)
+                ops["g"], ops["m_c"], ops["h"], scal, lo_d, hi_d,
+                pre["usable"], dom_ok, torch.from_numpy(rm_b).to(dev),
+                config.rsq_thr, c, plan, annot_b, n_samples=n)
             l2, l2d, wse = l2 + l2_d, l2d + l2d_d, wse + wse_d
             acc_a = [a + d for a, d in zip(acc_a, delta_a)]
         routes["split" if split_c else "global" if global_c else "clean"] += 1

@@ -3,7 +3,7 @@
 
     python3 scripts/time_ld_sym_cuda.py [--m 65536] [--n 16384]
                                         [--half-window 1000] [--reps 5]
-                                        [--annot 53]
+                                        [--annot 53] [--dot-dtype bf16]
 
 Seeded random genotype codes are made on the card (MAF 0.05-0.5 per SNP;
 2% missing codes for the 8-product branch), preprocessed by the port and
@@ -20,8 +20,12 @@ timed by running it from a copy that holds the variant.  With
 too (its plain sums and counters bitwise equal to the plain launch's, the
 annotation accumulators within 1e-5) and timed with P seeded annotations
 (the first all ones, two binary, the rest uniform), with its bound
-(``chip_smoke.k1_annot_work``) and its peak device memory.  The last line
-is one JSON object of the numbers.
+(``chip_smoke.k1_annot_work``) and its peak device memory.  With
+``--dot-dtype bf16`` the kernel's bf16 instantiations run instead (on bf16
+copies of the codes), each also held bitwise against the int8 one at the
+small shape, with the bf16 bound, and the yardstick is a dense bf16
+product with float32 sums.  The last line is one JSON object of the
+numbers.
 """
 
 from __future__ import annotations
@@ -80,6 +84,8 @@ def engine_args(m: int, n: int, half_window: int, missing_rate: float,
 
 
 def k1(args, n: int, has_missing: bool, annot=None):
+    """K1 on ``args``; the operands' dtype picks the int8 or bf16
+    instantiation."""
     return ld_pallas_sym.sym_credits(*args, RSQ, n_samples=n,
                                      has_missing=has_missing,
                                      block_size=ld_pallas_sym.ROW_ALIGN,
@@ -108,13 +114,22 @@ def device_split(fn, reps: int = 3) -> tuple[float, list]:
     return k1_ms, sorted(other, reverse=True)
 
 
-def check_small(has_missing: bool, dev, p: int = 0) -> tuple[float, float]:
+def check_small(has_missing: bool, dev, p: int = 0,
+                dot_dtype: str = "int8") -> tuple[float, float]:
     """The kernel against the twin at M = 1,000, N = 1,000, window 150;
-    with ``p`` annotations its annotation epilogue too.  Returns the max
-    abs error of l2/l2d and of the annotation accumulators."""
+    with ``p`` annotations its annotation epilogue too; under bf16 each
+    bf16 instantiation bitwise against the int8 one first.  Returns the
+    max abs error of l2/l2d and of the annotation accumulators."""
     args = engine_args(1000, 1000, 150, 0.02 if has_missing else 0.0, 7,
                        dev)
-    kern, again = k1(args, 1000, has_missing), k1(args, 1000, has_missing)
+    if dot_dtype == "bf16":
+        for q in {0, p}:
+            annot = (chip_smoke.seeded_annot(torch, args[0].shape[0], 1000,
+                                             q, 7, dev) if q else None)
+            chip_smoke.check_k1_bf16(torch, args, 1000, has_missing, annot)
+        args = chip_smoke.as_bf16(args)
+    kern = k1(args, 1000, has_missing)
+    again = k1(args, 1000, has_missing)
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(kern, again)):
         raise RuntimeError("two kernel runs differ")
@@ -125,6 +140,12 @@ def check_small(has_missing: bool, dev, p: int = 0) -> tuple[float, float]:
     if not p:
         return err, 0.0
     annot = chip_smoke.seeded_annot(torch, args[0].shape[0], 1000, p, 7, dev)
+    if dot_dtype == "bf16":       # held against int8 above, bitwise
+        twin = chip_smoke.twin_credits(args, 1000, has_missing,
+                                       ld_pallas_sym.ROW_ALIGN, annot)
+        return err, chip_smoke.hold_accumulators(
+            k1(args, 1000, has_missing, annot)[6:], twin[6:],
+            "K1 bf16 accumulators")
     err_a = chip_smoke.check_k1_annot(torch, args, 1000, has_missing, annot,
                                       kern)
     return err, err_a
@@ -140,6 +161,8 @@ def main() -> int:
     ap.add_argument("--annot", type=int, default=0, metavar="P",
                     help="also check and time the annotation epilogue with "
                          "P annotations")
+    ap.add_argument("--dot-dtype", choices=["int8", "bf16"], default="int8",
+                    help="the operand type of the instantiations timed")
     opt = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -159,17 +182,20 @@ def main() -> int:
     if not spills or any(spills):
         print(f"ptxas reports spills: {spills}", file=sys.stderr)
         return 1
+    dt = opt.dot_dtype
     out = {"card": card, "m": opt.m, "n": opt.n,
-           "half_window": opt.half_window}
+           "half_window": opt.half_window, "dot_dtype": dt}
     for has_missing in (False, True):
         name = "8prod" if has_missing else "clean"
-        err, err_a = check_small(has_missing, dev, opt.annot)
+        err, err_a = check_small(has_missing, dev, opt.annot, dt)
         args = engine_args(opt.m, opt.n, opt.half_window,
                            0.02 if has_missing else 0.0, opt.seed, dev)
+        if dt == "bf16":
+            args = chip_smoke.as_bf16(args)
         work = chip_smoke.k1_work(args[5], args[0].shape[1], has_missing,
-                                  ld_pallas_sym.tile(has_missing))
-        ms = chip_smoke.cuda_ms(torch, lambda: k1(args, opt.n, has_missing),
-                                opt.reps)
+                                  ld_pallas_sym.tile(has_missing), dt)
+        ms = chip_smoke.cuda_ms(
+            torch, lambda: k1(args, opt.n, has_missing), opt.reps)
         out[name] = {"ms": ms, "max_abs_err_small": err, **work,
                      "tops": work["tile_ops"] / ms / 1e9,
                      "window_tops": work["ops"] / ms / 1e9,
@@ -184,12 +210,13 @@ def main() -> int:
             annot = chip_smoke.seeded_annot(torch, args[0].shape[0], opt.m,
                                             opt.annot, opt.seed, dev)
             work_a = chip_smoke.k1_annot_work(work, args[0].shape[0],
-                                              opt.annot)
+                                              opt.annot, dt)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
             ms_a = chip_smoke.cuda_ms(
-                torch, lambda: k1(args, opt.n, has_missing, annot), opt.reps)
+                torch, lambda: k1(args, opt.n, has_missing, annot),
+                opt.reps)
             peak = (torch.cuda.max_memory_allocated() - base) / 2**30
             ms_again = chip_smoke.cuda_ms(
                 torch, lambda: k1(args, opt.n, has_missing), opt.reps)
@@ -219,11 +246,17 @@ def main() -> int:
         torch.cuda.empty_cache()
     a = torch.randint(-2, 3, (8192, 16384), dtype=torch.int8, device=dev)
     bt = torch.randint(-2, 3, (8192, 16384), dtype=torch.int8, device=dev)
-    ms = chip_smoke.cuda_ms(torch, lambda: torch._int_mm(a, bt.t()),
-                            opt.reps * 4)
-    out["int_mm"] = {"ms": ms, "tops": 2.0 * 8192 * 16384 * 8192 / ms / 1e9}
-    print(f"torch._int_mm 8192x16384 . 16384x8192: {ms:.3f} ms, "
-          f"{out['int_mm']['tops']:.0f} TOPS; on {card}", flush=True)
+    if dt == "bf16":
+        a, bt = a.to(torch.bfloat16), bt.to(torch.bfloat16)
+        ms, what = chip_smoke.library_bf16_ms(torch, [(a, bt)], opt.reps * 4)
+    else:
+        ms = chip_smoke.cuda_ms(torch, lambda: torch._int_mm(a, bt.t()),
+                                opt.reps * 4)
+        what = "torch._int_mm"
+    out["library"] = {"call": what, "ms": ms,
+                      "tops": 2.0 * 8192 * 16384 * 8192 / ms / 1e9}
+    print(f"{what} 8192x16384 . 16384x8192: {ms:.3f} ms, "
+          f"{out['library']['tops']:.0f} TOPS; on {card}", flush=True)
     out["ptxas"] = ptxas
     print(json.dumps(out))
     return 0

@@ -3,7 +3,7 @@
 
     python3 scripts/time_split_corr_cuda.py [--m 65536] [--n 16384]
         [--half-window 1000] [--row-frac 0.05] [--entry-rate 0.02]
-        [--reps 5]
+        [--reps 5] [--dot-dtype bf16]
 
 Seeded random genotype codes are made on the card (MAF 0.05-0.5 per SNP),
 then ``--entry-rate`` of the codes of ``--row-frac`` of the rows are set
@@ -16,8 +16,12 @@ same products, and times both beside K1's clean pass and the global
 8-product pass on the same rows, with K2's bound (``chip_smoke.k2_work``).
 Also printed: the ptxas report of the build.  The script times whatever
 ``split_corr.cu`` its checkout holds: a variant of the kernel is timed by
-running it from a copy that holds the variant.  The last line is one JSON
-object of the numbers.
+running it from a copy that holds the variant.  With ``--dot-dtype bf16``
+K2's bf16 instantiations are held bitwise against the int8 ones
+(``chip_smoke.check_k2_bf16``: products mode and ``split_corrections``)
+and timed beside them (int8, bf16, bf16, int8) with the bf16 bound, and
+the yardstick is a bf16 product with float32 sums on the same products.
+The last line is one JSON object of the numbers.
 """
 
 from __future__ import annotations
@@ -71,6 +75,36 @@ def engine_args(m: int, n: int, half_window: int, row_frac: float,
             pre["add_sd_zero"]), codes
 
 
+def time_bf16(sargs, opt, card: str, ptxas: list) -> int:
+    """K2's bf16 instantiations against the int8 ones, bitwise, and both
+    timed in turns, with the bf16 bound and a bf16 library yardstick on
+    the same products."""
+    from nldsc_tpu_torch.ld import ld_split
+
+    plan = sargs[-1]
+    bsargs, k_int8, k_bf16 = chip_smoke.check_k2_bf16(torch, sargs, opt.n)
+    ms8, ms, ms_b, ms8_b = (chip_smoke.cuda_ms(torch, f, 2 * opt.reps)
+                            for f in (k_int8, k_bf16, k_bf16, k_int8))
+    work = chip_smoke.k2_work(sargs, "bf16")
+    pairs = []
+    for _, s0, *_, x, cat3, m_xc in ld_split.segments(*bsargs[:3], plan):
+        pairs += [(x, cat3), (bsargs[2][s0:s0 + x.shape[0]],
+                              cat3[:2 * plan["p_band"]]), (m_xc, cat3)]
+    lib_ms, what = chip_smoke.library_bf16_ms(torch, pairs, opt.reps)
+    print(f"[bf16] split_corrections bf16 {ms:.3f} / {ms_b:.3f} ms against "
+          f"int8 {ms8:.3f} / {ms8_b:.3f} ms (bitwise equal, products mode "
+          f"too); bound {work['bound_ms']:.3f} ms ({work['bound_by']}), "
+          f"{100 * work['bound_ms'] / min(ms, ms_b):.1f}% of it; {what} on "
+          f"the same products {lib_ms:.3f} ms; on {card}", flush=True)
+    print(json.dumps({"card": card, "m": opt.m, "n": opt.n,
+                      "dot_dtype": "bf16", "n_miss": plan["n_miss"],
+                      "ms": min(ms, ms_b), "int8_ms": min(ms8, ms8_b),
+                      "library_ms": lib_ms, "library": what,
+                      "bound_ms": work["bound_ms"],
+                      "bound_by": work["bound_by"], "ptxas": ptxas}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--m", type=int, default=65_536)
@@ -80,6 +114,8 @@ def main() -> int:
     ap.add_argument("--entry-rate", type=float, default=0.02)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=2026)
+    ap.add_argument("--dot-dtype", choices=["int8", "bf16"], default="int8",
+                    help="the operand type of the instantiations timed")
     opt = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -99,6 +135,8 @@ def main() -> int:
                               opt.entry_rate, opt.seed, dev)
     sargs = chip_smoke.split_args(args, codes, opt.n)
     plan = sargs[-1]
+    if opt.dot_dtype == "bf16":
+        return time_bf16(sargs, opt, card, ptxas)
     t = chip_smoke.split_timing(torch, args, sargs, codes, opt.n, opt.reps)
     shape = f"M={opt.m} N={opt.n} +-{opt.half_window} SNPs"
     for tag, msg in chip_smoke.split_report(t, plan, shape, card):

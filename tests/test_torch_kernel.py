@@ -258,3 +258,74 @@ def test_refused_launch_raises(rng, cuda, monkeypatch, has_missing):
         ld_pallas_sym.sym_credits(off, off, off, *args[3:], RSQ, n_samples=n,
                                   has_missing=has_missing, block_size=64)
     assert ld_pallas_sym.launches == before
+
+
+def bf16_args(args):
+    """``args`` with g, m, h as bf16 operands (aliases kept)."""
+    ops = dict(zip("gmh", args[:3]))
+    ld_int8.to_operands(ops, "bf16")
+    return (ops["g"], ops["m"], ops["h"], *args[3:])
+
+
+# K1's four bf16 instantiations (clean and 8-product, with and without the
+# annotation epilogue) hold the int8 sums exactly: bitwise equal outputs
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [0, 37])
+@pytest.mark.parametrize("case", ["clean", "missing", "ring_wrap_clean",
+                                  "ring_wrap_missing", "single_stage_clean",
+                                  "multi_tile_band"])
+def test_bf16_instantiations_equal_int8(rng, cuda, case, p):
+    args, n, has_missing, m = engine_args(rng, case, cuda)
+    T = ld_pallas_sym.tile(has_missing)
+    annot = seeded_annot(rng, args[0].shape[0], m, p, cuda) if p else None
+    kw = dict(n_samples=n, has_missing=has_missing, block_size=T,
+              annot=annot)
+    ref = ld_pallas_sym.sym_credits(*args, RSQ, **kw)
+    before = (ld_pallas_sym.launches, ld_pallas_sym.bf16_launches)
+    kern = ld_pallas_sym.sym_credits(*bf16_args(args), RSQ, **kw)
+    torch.cuda.synchronize()
+    assert (ld_pallas_sym.launches, ld_pallas_sym.bf16_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert len(kern) == len(ref)
+    for a, b in zip(kern, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_bf16_launch_needs_bf16_operands(rng, cuda):
+    args, n, _, _ = engine_args(rng, "clean", cuda)
+    kw = dict(n_samples=n, has_missing=False, block_size=128)
+    b = bf16_args(args)
+    # g picks the instantiation; an h of another type is refused
+    with pytest.raises(ValueError, match="bfloat16"):
+        ld_pallas_sym.sym_credits(b[0], args[1], args[2], *args[3:], RSQ,
+                                  **kw)
+    with pytest.raises(ValueError, match="int8 or bf16"):
+        ld_pallas_sym.sym_credits(*(x.half() for x in b[:3]), *args[3:],
+                                  RSQ, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("symmetric, annot", [(True, False), (False, False),
+                                              (None, True)])
+def test_f32_engine_on_cuda_matches_cpu(rng, cuda, symmetric, annot):
+    # float32 products in another order on the card: the golden
+    # tolerances for the scores, the window counts equal
+    from nldsc_tpu_torch.config import LDConfig
+    from nldsc_tpu_torch.ld.pipeline import compute_ld_scores
+
+    g = random_genotypes(rng, 700, 389, missing_rate=0.02)
+    pos = make_positions(700, spacing=100, jitter_rng=rng)
+    a = (np.column_stack([np.ones(700), rng.random(700)]) if annot
+         else None)
+    cfg = LDConfig(ld_wind=20000.0, maf_thr=0.01, std_thr=1e-4,
+                   rsq_thr=RSQ, block_size=64, use_int8=False,
+                   symmetric=symmetric)
+    ours = compute_ld_scores(g, pos, cfg, annot=a, device="cuda")
+    ref = compute_ld_scores(g, pos, cfg, annot=a, device="cpu")
+    for k in ("l2", "l2d") + (("l2_annot", "l2d_annot") if annot else ()):
+        np.testing.assert_allclose(ours[k], ref[k], rtol=2e-5, atol=2e-4,
+                                   equal_nan=True, err_msg=k)
+    for k in ("l2_ws", "l2d_ws"):
+        np.testing.assert_array_equal(ours[k], ref[k], err_msg=k)
+    assert (ours["l2d_wse"] != ref["l2d_wse"]).sum() <= 3

@@ -168,8 +168,7 @@ def test_cuda_without_gpu_raises(rng, tmp_path):
     (["--shard-axis", "grid"], "item 10"),
     (["--n-devices", "2"], "item 10"),
     (["--profile-dir", "x"], "item 8"),
-    (["--engine", "f32"], "item 9"),
-    (["--dot-dtype", "bf16"], "bf16 MMA"),
+    (["--engine", "f32", "--streaming"], "item 12"),
 ])
 def test_unported_flags_name_their_roadmap_item(tmp_path, caplog, argv, item):
     g = random_genotypes(np.random.default_rng(0), 20, 30, missing_rate=0.0)
@@ -180,6 +179,37 @@ def test_unported_flags_name_their_roadmap_item(tmp_path, caplog, argv, item):
     assert ex.value.code == 1
     assert "ROADMAP" in str(ex.value.__cause__)
     assert item in str(ex.value.__cause__)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--dot-dtype", "bf16"],
+    ["--dot-dtype", "bf16", "--no-symmetric"],
+    ["--dot-dtype", "bf16", "--streaming", "--chunk-rows", "64"],
+    ["--engine", "f32"],
+    ["--engine", "f32", "--no-symmetric"],
+], ids=["bf16", "bf16-full-band", "bf16-streamed", "f32", "f32-full-band"])
+def test_cli_engine_flags_against_the_int8_run(rng, tmp_path, flags):
+    # bf16 operands give the int8 run's .L2 byte for byte; the f32 engine
+    # its scores within the golden tolerances and its window counts
+    g = random_genotypes(rng, 200, 150, missing_rate=0.0)
+    bp = make_positions(200, spacing=600, jitter_rng=rng).astype(np.int64)
+    prefix = write_plink(tmp_path / "c", g, bp=bp)
+    argv = ["ld", "--bfile", prefix, "-kb", "5", "-maf", "0.01", "--extra",
+            "--device", "cpu", "--block-size", "32"]
+    stream = flags[flags.index("--streaming"):] if "--streaming" in flags \
+        else []
+    cli.main(argv + stream + ["-o", str(tmp_path / "int8.L2")])
+    cli.main(argv + flags + ["-o", str(tmp_path / "flag.L2")])
+    ours = (tmp_path / "flag.L2").read_bytes()
+    if "bf16" in flags:
+        assert ours == (tmp_path / "int8.L2").read_bytes()
+        return
+    a, b = _read_l2(tmp_path / "flag.L2"), _read_l2(tmp_path / "int8.L2")
+    for k in ("L2", "L2D"):
+        np.testing.assert_allclose(a[k], b[k], rtol=2e-5, atol=2e-4,
+                                   equal_nan=True, err_msg=k)
+    for k in ("WSA", "WSD"):
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 @pytest.mark.parametrize("command, argv, item", [

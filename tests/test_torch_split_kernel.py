@@ -256,7 +256,7 @@ def test_refused_tensor_map_raises(rng, cuda, monkeypatch, entry):
         assert off.data_ptr() % 16
         return off
 
-    monkeypatch.setattr(ld_split, "_check_int8", lambda *a: None)
+    monkeypatch.setattr(ld_split, "_check_operand", lambda *a: None)
     before = (ld_split.corr_launches, ld_split.fused_launches)
     with pytest.raises(RuntimeError, match="launch failed"):
         if entry == "corr_products":
@@ -265,3 +265,49 @@ def test_refused_tensor_map_raises(rng, cuda, monkeypatch, entry):
             ld_split.split_corrections(args[0], misaligned(args[1]),
                                        *args[2:], n_samples=n)
     assert (ld_split.corr_launches, ld_split.fused_launches) == before
+
+
+def bf16(args):
+    """``split_inputs``' arguments with g, m_c and h as bf16 operands."""
+    ops = dict(zip(("g", "m_c", "h"), args[:3]))
+    ld_int8.to_operands(ops, "bf16")
+    return (ops["g"], ops["m_c"], ops["h"], *args[3:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows_x, rows_cat, p2, n_pad", [
+    (8, 24, 0, 128), (200, 72, 48, 384), (300, 130, 100, 256)])
+def test_bf16_products_equal_int8(rng, cuda, rows_x, rows_cat, p2, n_pad):
+    x = torch.from_numpy(rng.integers(0, 3, (rows_x, n_pad),
+                                      dtype=np.int8)).to(cuda)
+    cat = torch.from_numpy(rng.integers(0, 3, (rows_cat, n_pad),
+                                        dtype=np.int8)).to(cuda)
+    before = ld_split.bf16_launches
+    a, b = ld_split.corr_products(x.to(torch.bfloat16),
+                                  cat.to(torch.bfloat16), p2)
+    a8, b8 = ld_split.corr_products(x, cat, p2)
+    torch.cuda.synchronize()
+    assert ld_split.bf16_launches == before + 1
+    assert torch.equal(a, a8) and a.dtype == torch.int32
+    assert (b is None and b8 is None) or torch.equal(b, b8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [0, 37])
+@pytest.mark.parametrize("m, n, seg_rows, wind", [
+    (700, 389, 256, 20000.0), (300, 101, 64, 20000.0),
+    (1500, 389, 512, 60000.0)])
+def test_bf16_split_corrections_equal_int8(rng, cuda, m, n, seg_rows, wind,
+                                           p):
+    args, n, g, _ = split_inputs(rng, m, n, seg_rows, cuda, wind)
+    annot = seeded_annot(rng, args[0].shape[0], m, p, cuda) if p else None
+    ref = ld_split.split_corrections(*args, annot, n_samples=n)
+    before = ld_split.bf16_launches
+    kern = ld_split.split_corrections(*bf16(args), annot, n_samples=n)
+    prods = ld_split.segment_products(*bf16(args)[:3], args[-1])
+    torch.cuda.synchronize()
+    assert ld_split.bf16_launches == before + 4          # d, fused; d, a/b
+    for a, b in zip(kern, ref):
+        assert torch.equal(a, b)
+    for a, b in zip(prods, ld_split.segment_products(*args[:3], args[-1])):
+        assert torch.equal(a, b)
