@@ -125,7 +125,27 @@ Phases, one line each (or a few):
      wse under the counter contract of tests/contract.py, its tolerance
      from the f32 engine's measured error, at most 2 apart per row), a
      rerun with TF32 allowed process-wide bitwise equal, and
-     ``--engine f32 --streaming`` refused.
+     ``--engine f32 --streaming --resume`` run to its end;
+ 23. the full-band streaming chunk engines on phases 5's and 9's bfiles
+     at ``--chunk-rows 8192``: ``ld --no-symmetric --streaming`` (int8),
+     the same with ``--dot-dtype bf16`` (its .L2 byte-identical to
+     int8's) and ``ld --engine f32 --streaming``, none launching K1 or
+     K2; through the API, int8 streamed against the in-core full band
+     (counters equal, scores within rtol 1e-6) and f32 streamed against
+     the in-core f32 full band (ws/wsd equal, wse under phase 22's
+     contract, scores within rtol 2e-5, atol 2e-4), each streaming pass
+     profiled (device busy time, idle share), peak device memory and
+     ``STAGE_TIMES`` of each command; the f32 engine with phase 19's 53
+     annotations streamed against in core; phase 22's checkpoint resumed
+     with shards 2 and 5 deleted (6 chunks resumed, .L2 byte-identical);
+ 24. ``compat.calculate`` on phase 5's bfile, on the card by default:
+     bitwise equal to ``compute_ld_scores`` in core, and streamed when
+     ``wants_streaming`` is forced (K1 per chunk, counters equal, scores
+     within KERNEL_TOL);
+ 25. ``nldsc-tpu-torch --log-file ld --profile-dir DIR`` on phase 5's
+     bfile: the .L2 byte-identical to phase 5's, the trace's kernel
+     events holding K1 (``ld_sym_kernel``), the ten device ops with the
+     most time, and ``nldsc.log`` holding the completion line.
 
 Then one JSON line of the kernels (each with its time, its plain
 version's, its bound from this run's inputs, its launches on the main
@@ -682,6 +702,12 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_busy_ms(torch, prof) -> float:
+    """Milliseconds of device work (kernels and copies) in a profile."""
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+
 def launch_counts() -> dict:
     from nldsc_tpu_torch.ld import ld_pallas_sym, ld_split
 
@@ -1073,8 +1099,7 @@ def streaming_phases(torch, tmp: str, prefix5: str, out5: str, prefix9: str,
                 ds.bed, pos, cfg, chunk_rows=chunk, device="cuda")
             torch.cuda.synchronize()
             stream_s = time.time() - t0
-        busy = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        busy = device_busy_ms(torch, prof)
         err = compare_results(streamed, incore)
         runs[phase] = r
         say(f"{phase} stream {tag}", f"M={m5} -kb 100 --streaming "
@@ -1569,6 +1594,7 @@ def annot_full_width(torch, tmp: str, prefix5: str, out5: str, prefix6: str,
         f"{err:.3g} (KERNEL_TOL); twin with "
         f"annotations {plain_ms:.1f} ms; peak device memory of a call "
         f"{peak:.3f} GiB; on {card}")
+    out["path"] = apath
     return out
 
 
@@ -1930,19 +1956,21 @@ def bf16_cli_phase(torch, tmp: str, prefix5: str, out5: str, prefix6: str,
         "streamed": counts["clean streamed"]["ld_sym_bf16"]}
 
 
-def f32_phase(torch, tmp: str, prefix5: str, m5: int, dev, card: str) -> None:
+def f32_phase(torch, tmp: str, prefix5: str, m5: int, dev,
+              card: str) -> dict:
     """Phase 22: ``ld --engine f32`` on the card: the golden fixtures
     (symmetric, full band, annot); phase 5's chromosome in core, symmetric
     and full band, against the int8 engine (``ws``/``wsd`` equal, ``wse``
     under the counter contract of ``tests/contract.py`` with a tolerance
     from the f32 engine's measured error, at most 2 apart on a row and on
     at most 1/64 of the rows); a rerun with TF32 enabled process-wide
-    bitwise equal; ``--engine f32 --streaming`` refused."""
+    bitwise equal; ``ld --engine f32 --streaming`` with a checkpoint.
+    Returns what phase 23 reads: the config, the wse tolerance, the
+    in-core full band's result and the streamed run."""
     sys.path.insert(0, str(ROOT / "tests"))
     from contract import (INT_TOL, assert_counters_match, f32_adj_error,
                           f32_tol)
 
-    from nldsc_tpu_torch.cli import main as cli_main
     from nldsc_tpu_torch.config import LDConfig
     from nldsc_tpu_torch.core.timing import STAGE_TIMES
     from nldsc_tpu_torch.io.plink import PlinkDataset
@@ -2016,8 +2044,7 @@ def f32_phase(torch, tmp: str, prefix5: str, m5: int, dev, card: str) -> None:
                             torch.profiler.ProfilerActivity.CUDA]) as prof:
             compute_ld_scores(packed, pos, fcfg, device="cuda")
             torch.cuda.synchronize()
-        busy = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        busy = device_busy_ms(torch, prof)
         n_exempt = assert_counters_match(res, ref, codes, pos, cfg, tol,
                                          device=dev)
         row_diff = int(np.abs(res["l2d_wse"] - ref["l2d_wse"]).max())
@@ -2051,16 +2078,281 @@ def f32_phase(torch, tmp: str, prefix5: str, m5: int, dev, card: str) -> None:
     for k, v in runs["symmetric"].items():
         if not np.array_equal(v, tf32[k], equal_nan=True):
             raise RuntimeError(f"phase 22: {k} moved with TF32 enabled")
-    try:
-        cli_main(["ld", "--bfile", prefix5, "-kb", "100", "--engine", "f32",
-                  "--streaming", "-o", os.path.join(tmp, "f32s.L2")])
-        raise RuntimeError("phase 22: --engine f32 --streaming ran")
-    except SystemExit as ex:
-        if ex.code != 1 or "item 12" not in str(ex.__cause__):
-            raise RuntimeError(f"phase 22: wrong refusal {ex.__cause__}")
+    # the f32 engine streamed (the full-band chunk engine), checkpointed:
+    # phase 23 holds it against the in-core run and resumes it
+    ck = os.path.join(tmp, "ck_f32")
+    out_s = os.path.join(tmp, "f32_streamed.L2")
+    r = run_ld(torch, ["--bfile", prefix5, "-kb", "100", "-maf", "0.01",
+                       "--extra", "--engine", "f32", "--streaming",
+                       "--chunk-rows", "8192", "--resume", ck, "-o", out_s])
+    check_outputs(out_s, m5)
     say("22 f32 guards", "a rerun with torch.set_float32_matmul_precision("
         "'high') (TF32 allowed process-wide) bitwise equal; --engine f32 "
-        "--streaming exits 1 naming ROADMAP queue 1 item 12")
+        f"--streaming runs ({r['wall']:.2f} s; phase 23 checks it)")
+    return {"cfg": cfg, "tol": tol, "full band": runs["full band"],
+            "run": r, "out": out_s, "ck": ck}
+
+
+def full_band_phase(torch, tmp: str, prefix5: str, prefix9: str, m5: int,
+                    dev, card: str, f32: dict, apath: str,
+                    chunk: int = 8192) -> None:
+    """Phase 23: the full-band streaming chunk engines on phase 5's and
+    phase 9's bfiles (``ld --no-symmetric --streaming`` on int8 and bf16
+    operands, ``ld --engine f32 --streaming``): no K1 or K2 launch; bf16's
+    .L2 byte-identical to int8's; int8 streamed against the in-core full
+    band (counters equal, scores within rtol 1e-6, atol 1e-6); f32
+    streamed against the in-core f32 full band (``ws``/``wsd`` equal,
+    ``wse`` under phase 22's contract, scores within rtol 2e-5, atol
+    2e-4); peak memory, ``STAGE_TIMES``, the streaming pass's device busy
+    time and idle share; the f32 engine with phase 19's annotations
+    against in core; phase 22's checkpointed f32 run resumed with shards 2
+    and 5 deleted."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from contract import assert_counters_match
+
+    from nldsc_tpu_torch.io.ldscores import read_annot
+    from nldsc_tpu_torch.io.plink import PlinkDataset
+    from nldsc_tpu_torch.ld import preprocess
+    from nldsc_tpu_torch.ld.pipeline import compute_ld_scores
+    from nldsc_tpu_torch.ld.streaming import compute_ld_scores_streaming
+
+    base = ["-kb", "100", "-maf", "0.01", "--extra"]
+    stream = ["--streaming", "--chunk-rows", str(chunk)]
+    n_chunks = m5 // chunk
+    route = (f"LD route: streaming ({n_chunks} chunks of {chunk} rows, halo "
+             "1024: full band, ")
+    cfg, tol = f32["cfg"], f32["tol"]
+    c8 = dataclasses.replace(cfg, symmetric=False)
+    cf = dataclasses.replace(cfg, use_int8=False, symmetric=False)
+
+    def check_run(what: str, r: dict) -> None:
+        if any(r["launches"].values()) or not r["log"].has(route):
+            raise RuntimeError(f"phase 23 {what}: launches {r['launches']}, "
+                               "or no full-band route line")
+
+    def streamed(bed, pos, c, annot=None):
+        """The streaming pass alone, profiled: the result, its wall
+        seconds and the device's busy milliseconds."""
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            res = compute_ld_scores_streaming(bed, pos, c, chunk_rows=chunk,
+                                              annot=annot, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        return res, wall, device_busy_ms(torch, prof)
+
+    def max_diff(a: dict, b: dict, keys, tol: dict) -> float:
+        worst = 0.0
+        for k in keys:
+            np.testing.assert_allclose(a[k], b[k], equal_nan=True,
+                                       err_msg=k, **tol)
+            worst = max(worst, float(np.nanmax(np.abs(a[k] - b[k]))))
+        return worst
+
+    def idle(busy_ms: float, wall_s: float) -> str:
+        return (f"device busy {busy_ms:.1f} ms "
+                f"({100 * (1 - busy_ms / 1e3 / wall_s):.1f}% idle)")
+
+    for tag, prefix in (("clean", prefix5), ("split", prefix9)):
+        ds = PlinkDataset.parse(prefix)
+        pos = ds.positions("bp")
+        runs, outs = {}, {}
+        for eng, flags in (("int8", ["--no-symmetric"]),
+                           ("bf16", ["--no-symmetric", "--dot-dtype",
+                                     "bf16"]),
+                           ("f32", ["--engine", "f32"])):
+            if eng == "f32" and prefix == prefix5:
+                r, out = f32["run"], f32["out"]          # phase 22's run
+            else:
+                out = os.path.join(tmp, f"full_{tag}_{eng}.L2")
+                r = run_ld(torch, ["--bfile", prefix, *base, *flags, *stream,
+                                   "-o", out])
+                check_outputs(out, m5)
+            check_run(f"{tag} {eng}", r)
+            runs[eng], outs[eng] = r, out
+        if Path(outs["bf16"]).read_bytes() != Path(outs["int8"]).read_bytes():
+            raise RuntimeError(f"phase 23 {tag}: the bf16 .L2 is not the "
+                               "int8 one")
+        say(f"23 full band {tag}", f"M={m5} -kb 100 --streaming --chunk-rows "
+            f"{chunk}: " + "; ".join(
+                f"{eng} {r['wall']:.2f} s wall, peak device memory "
+                f"{r['peak']:.3f} GiB, stages {r['stages']}"
+                for eng, r in runs.items())
+            + f"; K1/K2 launches 0 in each; bf16 .L2 byte-identical to "
+            f"int8's; on {card}")
+        packed = ds.bed.read_raw()
+        s8, w8, b8 = streamed(ds.bed, pos, c8)
+        i8 = compute_ld_scores(packed, pos, c8, device="cuda")
+        err8 = max_diff(s8, i8, ("l2", "l2d", "maf", "residuals_std"),
+                        dict(rtol=1e-6, atol=1e-6))
+        for k in ("l2_ws", "l2d_ws", "l2d_wse"):
+            np.testing.assert_array_equal(s8[k], i8[k], err_msg=k)
+        del s8, i8
+        sf, wf, bf = streamed(ds.bed, pos, cf)
+        ref = (f32["full band"] if prefix == prefix5
+               else compute_ld_scores(packed, pos, cf, device="cuda"))
+        codes = preprocess.unpack_bed(torch.from_numpy(packed.raw).to(dev),
+                                      ds.n_samples, ds.n_samples, -1)
+        n_exempt = assert_counters_match(sf, ref, codes, pos, cfg, tol,
+                                         device=dev)
+        del codes
+        errf = {k: max_diff(sf, ref, (k,), dict(rtol=2e-5, atol=2e-4))
+                for k in ("l2", "l2d")}
+        say(f"23 full band {tag} API", f"int8 streaming pass {w8:.3f} s, "
+            f"{idle(b8, w8)}; against the in-core full band: counters "
+            f"equal, max |l2,l2d,maf,rstd| diff {err8:.3g} (rtol 1e-6); f32 "
+            f"streaming pass {wf:.3f} s, {idle(bf, wf)}; against the in-core "
+            f"f32 full band: l2_ws, l2d_ws equal, l2d_wse differs on "
+            f"{n_exempt} rows within the contract (tol {tol:.3g}), max abs "
+            f"diff l2 {errf['l2']:.3g}, l2d {errf['l2d']:.3g}; on {card}")
+        del sf, ref, packed
+
+    # the f32 engine with phase 19's annotations, streamed against in core
+    ds5 = PlinkDataset.parse(prefix5)
+    pos5 = ds5.positions("bp")
+    annot, names = read_annot(apath, ds5.bim)
+    sa, wa, ba = streamed(ds5.bed, pos5, cf, annot)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.time()
+    ia = compute_ld_scores(ds5.bed.read_raw(), pos5, cf, annot=annot,
+                           device="cuda")
+    torch.cuda.synchronize()
+    wia = time.time() - t0
+    peak_ia = (torch.cuda.max_memory_allocated() - mem0) / 2**30
+    erra = max_diff(sa, ia, ("l2_annot", "l2d_annot", "l2", "l2d"),
+                    dict(rtol=2e-5, atol=2e-4))
+    for k in ("l2_ws", "l2d_ws"):
+        np.testing.assert_array_equal(sa[k], ia[k], err_msg=k)
+    say("23 full band f32 annot", f"p={len(names)}: streaming pass "
+        f"{wa:.3f} s, {idle(ba, wa)}; in core {wia:.3f} s, peak "
+        f"{peak_ia:.3f} GiB; l2_ws, l2d_ws equal, max abs diff of "
+        f"l2_annot, l2d_annot, l2, l2d {erra:.3g} (rtol 2e-5, atol 2e-4); "
+        f"on {card}")
+    del sa, ia, annot
+
+    # phase 22's checkpoint, two shards deleted: only they run again
+    ck = f32["ck"]
+    shards = sorted(f for f in os.listdir(ck) if f.startswith("chunk_"))
+    if len(shards) != n_chunks:
+        raise RuntimeError(f"phase 23: {len(shards)} shards")
+    for i in (2, 5):
+        os.remove(os.path.join(ck, shards[i]))
+    out_r = os.path.join(tmp, "f32_resumed.L2")
+    r = run_ld(torch, ["--bfile", prefix5, *base, "--engine", "f32",
+                       *stream, "--resume", ck, "-o", out_r])
+    check_run("resume", r)
+    if Path(out_r).read_bytes() != Path(f32["out"]).read_bytes():
+        raise RuntimeError("phase 23: the resumed .L2 is not byte-identical")
+    n_res = n_chunks - 2
+    if not (r["log"].has(f"Resuming: {n_res} chunks already complete")
+            and r["log"].has(f"f32 2, resumed {n_res})")):
+        raise RuntimeError(f"phase 23: the resume did not report {n_res} "
+                           "chunks")
+    say("23 full band resume", f"phase 22's f32 checkpoint with shards 2 and "
+        f"5 deleted: {n_res} chunks resumed, 2 run, .L2 byte-identical; "
+        f"{r['wall']:.2f} s wall; on {card}")
+
+
+def compat_phase(torch, prefix5: str, m5: int, card: str) -> None:
+    """Phase 24: ``compat.calculate`` on phase 5's bfile, on the card by
+    default: in core bitwise equal to ``compute_ld_scores``; with
+    ``pipeline.wants_streaming`` forced, streamed (K1 per chunk) within
+    KERNEL_TOL, counters equal."""
+    from nldsc_tpu_torch import compat
+    from nldsc_tpu_torch.config import LDConfig
+    from nldsc_tpu_torch.io.plink import PlinkDataset
+    from nldsc_tpu_torch.ld import pipeline
+
+    ds = PlinkDataset.parse(prefix5)
+    pos = ds.positions("bp")
+    params = compat.LDScoreParams(
+        bfile=prefix5 + ".bed", n_snp=m5, n_org=ds.n_samples,
+        ld_wind=100_000.0, maf=0.01, std_thr=1e-4, rsq_thr=1.0 / m5,
+        positions=pos.tolist())
+    ref = pipeline.compute_ld_scores(
+        ds.bed.read_raw(), pos, LDConfig(ld_wind=100_000.0, maf_thr=0.01,
+                                         std_thr=1e-4, rsq_thr=1.0 / m5),
+        device="cuda")
+
+    def run():
+        reset_counts()
+        t0 = time.time()
+        res = compat.calculate(params)
+        return ({k: np.asarray(getattr(res, k)) for k in ref},
+                time.time() - t0, launch_counts())
+
+    res, wall, c = run()
+    for k in ref:
+        if not np.array_equal(res[k], ref[k], equal_nan=True):
+            raise RuntimeError(f"phase 24: compat.calculate's {k} is not "
+                               "compute_ld_scores'")
+    wants = pipeline.wants_streaming
+    pipeline.wants_streaming = lambda *a, **k: True
+    try:
+        res_s, wall_s, c_s = run()
+    finally:
+        pipeline.wants_streaming = wants
+    err = compare_results(res_s, ref)
+    if c["ld_sym"] != 1 or c_s["ld_sym"] != m5 // 8192:
+        raise RuntimeError(f"phase 24: launches {c} in core, {c_s} streamed")
+    say("24 compat", f"compat.calculate (device cuda by default) on phase "
+        f"5's bfile: in core {wall:.2f} s, bitwise equal to "
+        f"compute_ld_scores (K1 {c['ld_sym']}); streamed (wants_streaming "
+        f"forced) {wall_s:.2f} s, K1 {c_s['ld_sym']}, counters equal, max "
+        f"|l2,l2d| diff {err:.3g} (KERNEL_TOL); on {card}")
+
+
+def profile_phase(torch, tmp: str, prefix5: str, out5: str,
+                  card: str) -> None:
+    """Phase 25: ``nldsc-tpu-torch --log-file ld --profile-dir`` on phase
+    5's bfile: the .L2 byte-identical to phase 5's, the trace's kernel
+    events include K1's, the ten device ops with the most time, and
+    ``nldsc.log`` holding the run's completion line."""
+    from nldsc_tpu_torch.cli import main as cli_main
+    from nldsc_tpu_torch.ld.pipeline import TRACE_FILE
+
+    work = os.path.join(tmp, "profiled")
+    os.makedirs(work)
+    prof_dir, out = os.path.join(work, "prof"), os.path.join(work, "p.L2")
+    cwd = os.getcwd()
+    os.chdir(work)                       # --log-file writes ./nldsc.log
+    try:
+        t0 = time.time()
+        cli_main(["--log-file", "ld", "--bfile", prefix5, "-kb", "100",
+                  "-maf", "0.01", "--extra", "-o", out, "--profile-dir",
+                  prof_dir])
+        wall = time.time() - t0
+    finally:
+        os.chdir(cwd)
+    if Path(out).read_bytes() != Path(out5).read_bytes():
+        raise RuntimeError("phase 25: the profiled .L2 is not phase 5's")
+    trace_path = Path(prof_dir, TRACE_FILE)
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not any("ld_sym_kernel" in e.get("name", "") for e in device
+               if e.get("cat") == "kernel"):
+        raise RuntimeError("phase 25: no ld_sym_kernel event in the trace")
+    totals: dict = {}
+    for e in device:
+        totals[e["name"]] = totals.get(e["name"], 0.0) + float(e.get("dur", 0))
+    top = sorted(totals.items(), key=lambda kv: -kv[1])[:10]
+    log_text = Path(work, "nldsc.log").read_text()
+    if "Estimation completed" not in log_text:
+        raise RuntimeError("phase 25: nldsc.log lacks the completion line")
+    say("25 profile", f"--log-file ld --profile-dir: {wall:.2f} s wall; .L2 "
+        f"byte-identical to phase 5's; {trace_path.name} "
+        f"{trace_path.stat().st_size / 1e6:.1f} MB, {len(device)} device "
+        f"events, {sum(totals.values()) / 1e3:.2f} ms of device time; the "
+        "ten with the most: " + "; ".join(
+            f"{name[:70]} {us / 1e3:.3f} ms" for name, us in top)
+        + f"; nldsc.log {len(log_text.splitlines())} lines with the "
+        f"completion line; on {card}")
 
 
 def main() -> int:
@@ -2416,7 +2708,16 @@ def main() -> int:
         bf16_launches = bf16_cli_phase(torch, tmp, prefix5, out5, prefix6,
                                        out6, prefix9, out9, card)
         torch.cuda.empty_cache()
-        f32_phase(torch, tmp, prefix5, M5, dev, card)
+        f32 = f32_phase(torch, tmp, prefix5, M5, dev, card)
+
+        # 23-25. the full-band streaming engines, compat, the profiler
+        torch.cuda.empty_cache()
+        full_band_phase(torch, tmp, prefix5, prefix9, M5, dev, card, f32,
+                        annot19["path"])
+        del f32
+        torch.cuda.empty_cache()
+        compat_phase(torch, prefix5, M5, card)
+        profile_phase(torch, tmp, prefix5, out5, card)
 
     bad = sorted({k.split(".")[0] for k in sys.modules}
                  & {"jax", "nldsc_tpu", "pandas"})

@@ -3,11 +3,13 @@ and ``convert`` commands.
 
 Flag-compatible with ``nldsc_tpu``'s CLI (``ld`` and ``ld-genome`` on
 one device, in core or streaming, plain or partitioned by ``--annot``,
-every ``--engine`` and ``--dot-dtype``), plus ``--device`` on ``ld``,
-``ld-genome`` and ``h2``.  The flags of the JAX CLI that are not ported
-yet (``_UNPORTED_LD_FLAGS``, and ``--engine f32`` with streaming) are
-recognised and refused with the ROADMAP item that will port them.  Needs only the standard library (argparse) and
-numpy until a command runs.
+every ``--engine``, ``--dot-dtype`` and ``--symmetric/--no-symmetric``,
+``ld --profile-dir`` and the group flag ``--log-file``), plus
+``--device`` on ``ld``, ``ld-genome`` and ``h2``.  The multi-device flags
+of the JAX CLI and its ``--pallas`` (``_UNPORTED_LD_FLAGS``) are
+recognised and refused, naming the ROADMAP item that will port them or
+the flag to use.  Needs only the standard library (argparse) and numpy
+until a command runs.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import re
 import sys
 
 from .core.errors import NLDSCParameterError
-from .core.logging import log
+from .core.logging import enable_file_logging, log
 from .version import __version__
 
 __header__ = (
@@ -36,8 +38,6 @@ _UNPORTED_LD_FLAGS = {
                         "use --engine pallas"),
     "--n-devices": (True, "ROADMAP queue 1 item 10 (multi-GPU)"),
     "--shard-axis": (True, "ROADMAP queue 1 item 10 (multi-GPU)"),
-    "--profile-dir": (True, "ROADMAP queue 1 item 8 (user surface)"),
-    "--log-file": (False, "ROADMAP queue 1 item 8 (user surface)"),
 }
 #: the flags of the JAX ``ld-genome`` not ported yet
 _UNPORTED_GENOME_FLAGS = ("--n-devices", "--shard-axis")
@@ -57,8 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
         prog="nldsc-tpu-torch", allow_abbrev=False,
         description="Additive and non-additive LD scores on PyTorch/CUDA")
     parser.add_argument("--version", action="version", version=__version__)
-    parser.add_argument("--log-file", action=_Unported, nargs=0,
-                        help=argparse.SUPPRESS)
+    parser.add_argument("--log-file", action="store_true",
+                        help="Also write the log to ./nldsc.log")
     sub = parser.add_subparsers(dest="command", required=True)
 
     ld = sub.add_parser("ld", allow_abbrev=False,
@@ -93,8 +93,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="int8 (default) and pallas both run the fused "
                          "symmetric kernels; pallas never takes the "
                          "split-missing route; f32 runs standardized "
-                         "float32 rows through float32 products (in core "
-                         "only)")
+                         "float32 rows through float32 products (full band "
+                         "when streamed)")
     ld.add_argument("--dot-dtype", choices=["int8", "bf16"], default="int8",
                     help="Tensor-core operand type of the integer engines: "
                          "int8, or bf16 (the same exact sums, at most "
@@ -112,7 +112,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "the default, except on the CPU for clean --annot "
                          "data")
     ld.add_argument("--no-symmetric", dest="symmetric", action="store_false",
-                    help="Full-band engine in plain PyTorch ops (in core)")
+                    help="Full-band engine in plain PyTorch ops, in core or "
+                         "streamed")
     _add_annot_flag(ld, "compute partitioned LD scores (<name>.L2 / "
                         "<name>.L2D per annotation)")
     ld.add_argument("--progress", dest="progress", action="store_true",
@@ -124,6 +125,10 @@ def build_parser() -> argparse.ArgumentParser:
                     default=None,
                     help="Checkpoint directory for chunk-granular resume "
                          "(streaming; one shard file per completed chunk)")
+    ld.add_argument("--profile-dir", metavar="DIR", default=None,
+                    help="Capture a torch.profiler trace of the compute pass "
+                         "(CPU, and CUDA on a GPU) into DIR/ld_trace.json "
+                         "(Chrome trace format)")
     ld.add_argument("--device", default="cuda",
                     help="torch device: cuda (default; the CUDA kernel) or "
                          "cpu (the plain PyTorch path)")
@@ -309,7 +314,8 @@ def run_ld(args) -> None:
         progress=args.progress,
         streaming=args.streaming, chunk_rows=args.chunk_rows,
         resume_path=args.resume_path, annot=args.annot,
-        symmetric=args.symmetric, device=args.device)
+        symmetric=args.symmetric, profile_dir=args.profile_dir,
+        device=args.device)
     if table is not None and args.out is None:
         from .io.ldscores import format_table  # noqa: PLC0415
 
@@ -385,8 +391,11 @@ def main(argv: list[str] | None = None) -> None:
     shows the traceback)."""
     argv = sys.argv[1:] if argv is None else list(argv)
     print(__header__)
+    log_file = None
     try:
         args = build_parser().parse_args(argv)
+        if args.log_file:
+            log_file = enable_file_logging()
         {"ld": run_ld, "ld-genome": run_ld_genome, "h2": run_h2,
          "convert": run_convert}[args.command](args)
     except Exception as ex:
@@ -395,6 +404,10 @@ def main(argv: list[str] | None = None) -> None:
                      ex.__class__.__name__, ex,
                      exc_info="--display" in argv)
         raise SystemExit(1) from ex
+    finally:
+        if log_file is not None:
+            log.removeHandler(log_file)
+            log_file.close()
 
 
 if __name__ == "__main__":

@@ -29,13 +29,15 @@ def get_logger(name: str | None = None) -> logging.Logger:
     return logger
 
 
-def enable_file_logging(path: str = "nldsc.log") -> None:
-    """Add an INFO file handler (reference writes ``./nldsc.log`` always)."""
+def enable_file_logging(path: str = "nldsc.log") -> logging.FileHandler:
+    """Add an INFO file handler (reference writes ``./nldsc.log`` always);
+    returns it, for the caller to remove and close."""
     logger = get_logger()
     fh = logging.FileHandler(path)
     fh.setLevel(logging.INFO)
     fh.setFormatter(logging.Formatter(_FMT, _DATEFMT))
     logger.addHandler(fh)
+    return fh
 
 
 log = get_logger()

@@ -290,6 +290,29 @@ def corr_from_dots(dots: dict, sc_i: dict, sc_j: dict, n: float,
     return r_add, r_dom_a, r_dom_b
 
 
+def int8_tile(g, m, h, scal, n_samples: int, has_missing: bool,
+              dot_dtype: str):
+    """The full-band engines' ``tile`` (``ld_xla.band_pass``) on the codes
+    ``g``/``m``/``h`` and their scalars: ``(r_add, r_dom)`` of the pivot
+    rows ``rows`` against their band rows ``cols``, two products (six
+    with missing genotypes) and :func:`corr_from_dots` (the reference's
+    ``corr_tiles``, not symmetric)."""
+    idot = make_idot(dot_dtype)
+    n, n_padf = float(n_samples), float(g.shape[1])
+
+    def tile(rows, cols):
+        g_i, g_j, h_j = g[rows], g[cols], h[cols]
+        dots = {"sgg": idot(g_i, g_j), "sgh": idot(g_i, h_j)}
+        if has_missing:
+            m_i, m_j = m[rows], m[cols]
+            dots.update(sgm=idot(g_i, m_j), smg=idot(m_i, g_j),
+                        smm=idot(m_i, m_j), smh=idot(m_i, h_j))
+        return corr_from_dots(dots, scal_views(scal[rows], "col"),
+                              scal_views(scal[cols], "row"), n, n_padf,
+                              has_missing)
+    return tile
+
+
 def band_extent(hi: torch.Tensor, block_size: int) -> tuple[torch.Tensor, int]:
     """Per pivot block, the last block its rows' windows reach (int32;
     -1 for padding blocks, whose rows carry hi = -1), and the right
@@ -349,85 +372,33 @@ def ld_scores_int8(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
                    has_missing: bool, dot_dtype: str = "int8"):
     """Full-band LD pass in plain torch ops, on any device: each pivot
     block against its whole band (both sides), two int8 products per tile
-    (six with missing data), row credits only.  The engine of
-    ``--no-symmetric``, and on the CPU of clean partitioned runs; the
-    reference runs it outside any Pallas kernel
-    (``nldsc_tpu/ld/ld_int8.py::ld_scores_int8``).
+    (six with missing data), row credits only (``ld_xla.band_pass`` with
+    :func:`int8_tile`).  The engine of ``--no-symmetric``, and on the CPU
+    of clean partitioned runs; the reference runs it outside any Pallas
+    kernel (``nldsc_tpu/ld/ld_int8.py::ld_scores_int8``).
 
-    ``blk_lo``/``blk_hi``: per pivot block, the first and last block its
-    rows' windows reach (``windows.band_blocks``), on the host.  Returns
-    finalized ``(l2, l2d, ws, wsd, wse)``; with ``annot`` float32
+    ``blk_lo``: per pivot block, the first block its rows' windows reach
+    (``windows.band_blocks``), on the host.  ``blk_hi`` is not read: the
+    reference masks the band at its last block, which no window passes.
+    Returns finalized ``(l2, l2d, ws, wsd, wse)``; with ``annot`` float32
     ``(M_pad, p)`` (padding rows 0), ``(l2_annot, l2d_annot)`` first.
     ``dot_dtype``: the contraction (:func:`make_idot`); under ``"bf16"`` it
     is a float32 product on the bf16 codes, not a library bf16 call, on
     either device.
     """
-    from .ld_xla import finalize_outputs  # noqa: PLC0415
+    from .ld_xla import band_pass, finalize_outputs  # noqa: PLC0415
 
-    m_pad, n_pad = g.shape
-    check_dot_dtype(dot_dtype, n_pad)
-    idot = make_idot(dot_dtype)
-    B = block_size
-    band_rows = min(band_k * B, m_pad)
-    n, n_padf = float(n_samples), float(n_pad)
-    adj_c = adj_constant(n_samples)
-    rsq = f32(rsq_thr)
-    dev = g.device
-    l2_f = torch.zeros(m_pad, dtype=torch.float32, device=dev)
-    l2d_f = torch.zeros_like(l2_f)
-    ws_f, wsd_f, wse_f, poi_f = (torch.zeros(m_pad, dtype=torch.int32,
-                                             device=dev) for _ in range(4))
-    if annot is not None:
-        l2a_f = torch.zeros((m_pad, annot.shape[1]), dtype=torch.float32,
-                            device=dev)
-        l2da_f = torch.zeros_like(l2a_f)
-
-    for b in range(m_pad // B):
-        r0 = b * B
-        rows = slice(r0, r0 + B)
-        gi = r0 + torch.arange(B, device=dev)
-        lo_i, hi_i = lo[rows][:, None], hi[rows][:, None]
-        sc_i = scal_views(scal[rows], "col")
-        j0 = min(max(int(blk_lo[b]) * B, 0), m_pad - band_rows)
-        cols = slice(j0, j0 + band_rows)
-        gj = (j0 + torch.arange(band_rows, device=dev))[None, :]
-        sc_j = scal_views(scal[cols], "row")
-
-        g_i, g_j, h_j = g[rows], g[cols], h[cols]
-        dots = {"sgg": idot(g_i, g_j), "sgh": idot(g_i, h_j)}
-        if has_missing:
-            m_i, m_j = m[rows], m[cols]
-            dots.update(sgm=idot(g_i, m_j), smg=idot(m_i, g_j),
-                        smm=idot(m_i, m_j), smh=idot(m_i, h_j))
-        r_add, r_dom = corr_from_dots(dots, sc_i, sc_j, n, n_padf,
-                                      has_missing)
-        adj_add = 1.0 - (1.0 - r_add * r_add) * adj_c
-        adj_dom = 1.0 - (1.0 - r_dom * r_dom) * adj_c
-
-        valid_k = gj <= int(blk_hi[b]) * B + (B - 1)
-        pair = ((gj >= lo_i) & (gj <= hi_i) & valid_k
-                & usable[cols][None, :] & usable[rows][:, None])
-        base = pair & (gj != gi[:, None])
-        dmask = base & dom_ok[cols][None, :]
-        add_m = adj_add * base.to(torch.float32)
-        dom_m = adj_dom * dmask.to(torch.float32)
-
-        l2_f[rows] = add_m.sum(dim=1)
-        l2d_f[rows] = dom_m.sum(dim=1)
-        ws_f[rows] = base.sum(dim=1, dtype=torch.int32)
-        wsd_f[rows] = dmask.sum(dim=1, dtype=torch.int32)
-        wse_f[rows] = ((adj_dom > rsq) & dmask).sum(dim=1, dtype=torch.int32)
-        poi_f[rows] = (pair & add_sd_zero[cols][None, :]).sum(
-            dim=1, dtype=torch.int32)
-        if annot is not None:
-            l2a_f[rows] = annot_dot(add_m, annot[cols])
-            l2da_f[rows] = annot_dot(dom_m, annot[cols])
-
+    del blk_hi
+    check_dot_dtype(dot_dtype, g.shape[1])
+    l2_f, l2d_f, ws_f, wsd_f, wse_f, poi_f, *acc_a = band_pass(
+        int8_tile(g, m, h, scal, n_samples, has_missing, dot_dtype), lo, hi,
+        usable, dom_ok, add_sd_zero, blk_lo, rsq_thr, annot,
+        block_size=block_size, band_k=band_k, n_samples=n_samples)
     fin = finalize_outputs(l2_f, l2d_f, ws_f, wsd_f, wse_f, poi_f, usable,
                            add_sd_zero)
     if annot is None:
         return fin
-    return (*finalize_annot(l2a_f, l2da_f, annot, usable, add_sd_zero, poi_f,
+    return (*finalize_annot(*acc_a, annot, usable, add_sd_zero, poi_f,
                             wsd_f), *fin)
 
 

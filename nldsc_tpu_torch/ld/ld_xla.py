@@ -24,18 +24,15 @@ def fdot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return annot_dot(x, y.t())
 
 
-def _tile_epilogue(c_add, c_dom, gi, gj, lo_i, hi_i, usable_i, usable_j,
+def _tile_epilogue(r_add, r_dom, gi, gj, lo_i, hi_i, usable_i, usable_j,
                    dom_ok_j, poison_j, n_samples: int, rsq_thr: float,
                    aj=None):
-    """Mask algebra of one (B_i × B_j) tile of raw dot products (sums over
-    samples, not yet divided by n).  Returns per-row partial sums
-    ``(l2, l2d, ws, wsd, wse, poison)``; with ``aj`` (B_j, p) also the
-    masked adjusted r² contracted with it, ``(l2_annot, l2d_annot)``."""
-    n = f32(n_samples)
+    """Mask algebra of one (B_i × B_j) tile of correlations.  Returns
+    per-row partial sums ``(l2, l2d, ws, wsd, wse, poison)``; with ``aj``
+    (B_j, p) also the masked adjusted r² contracted with it,
+    ``(l2_annot, l2d_annot)``."""
     adj_c = adj_constant(n_samples)
-    r_add = c_add / n
     adj_add = 1.0 - (1.0 - r_add * r_add) * adj_c
-    r_dom = c_dom / n
     adj_dom = 1.0 - (1.0 - r_dom * r_dom) * adj_c
 
     in_win = (gj[None, :] >= lo_i[:, None]) & (gj[None, :] <= hi_i[:, None])
@@ -78,33 +75,70 @@ def finalize_outputs(l2_acc, l2d_acc, ws, wsd, wse, poison, usable,
     return l2, l2d, ws_o, wsd_o, wse_o
 
 
-def _band(m_pad: int, b: int, blk_lo, B: int, band_rows: int):
-    """Pivot block ``b``'s band: its first row and the rows' slice (the
-    reference's clipped ``dynamic_slice``)."""
-    j0 = min(max(int(blk_lo[b]) * B, 0), m_pad - band_rows)
-    return j0, slice(j0, j0 + band_rows)
+def band_pass(tile, lo, hi, usable, dom_ok, add_sd_zero, blk_lo,
+              rsq_thr: float, annot, *, block_size: int, band_k: int,
+              n_samples: int, n_pivots: int | None = None, g0: int = 0,
+              piv_off: int = 0, m_pad: int | None = None):
+    """Per-row partials of the full-band pass: each pivot block against
+    its whole band, both sides, one :func:`_tile_epilogue` a block (the
+    reference's ``pivot_block`` of ``ld_scores_xla`` in core and of the
+    streaming chunks ``_banded_chunk``/``_banded_chunk_int8``).
+
+    The rows (``usable``, ``dom_ok``, ``add_sd_zero``, ``annot``) are a
+    band whose first row is global row ``g0``; the pivots are its
+    ``n_pivots`` rows from ``piv_off`` on (default: all of them), with
+    global window bounds ``lo``/``hi`` (``n_pivots``,) and, per pivot
+    block, ``blk_lo`` (host), the first block its windows reach.  Rows at
+    or past ``m_pad`` are no neighbours.  ``tile(rows, cols)`` returns
+    the additive and dominance correlations of the pivot rows ``rows``
+    against the band rows ``cols`` (:func:`f32_tile`,
+    ``ld_int8.int8_tile``).  The reference's integer chunk scales its
+    correlations back to sums by n for an epilogue that divides again
+    (``nldsc_tpu/ld/streaming.py:101-102``); ATen's CUDA division by a
+    scalar multiplies by its reciprocal, so that round trip would move
+    the last bit of a third of the values and the streamed run's counters
+    off the in-core run's: the tiles hand over the correlations."""
+    rows_total = usable.shape[0]
+    B = block_size
+    n_piv = rows_total if n_pivots is None else n_pivots
+    slab = min(band_k * B, rows_total)
+    dev = usable.device
+    parts = []
+    for b in range(n_piv // B):
+        r0 = piv_off + b * B
+        rows = slice(r0, r0 + B)
+        # the reference's clipped dynamic_slice of the band
+        j0 = min(max(int(blk_lo[b]) * B - g0, 0), rows_total - slab)
+        cols = slice(j0, j0 + slab)
+        gj = g0 + j0 + torch.arange(slab, device=dev)
+        ok = True if m_pad is None else gj < m_pad
+        r_add, r_dom = tile(rows, cols)
+        parts.append(_tile_epilogue(
+            r_add, r_dom, g0 + r0 + torch.arange(B, device=dev), gj,
+            lo[b * B:(b + 1) * B], hi[b * B:(b + 1) * B], usable[rows],
+            usable[cols] & ok, dom_ok[cols] & ok, add_sd_zero[cols] & ok,
+            n_samples, rsq_thr, None if annot is None else annot[cols]))
+    return [torch.cat(x) for x in zip(*parts)]
+
+
+def f32_tile(add, res, n_samples: int):
+    """The f32 engine's ``tile`` for :func:`band_pass`: full-float32
+    products of the standardized rows, divided by n."""
+    n = f32(n_samples)
+
+    def tile(rows, cols):
+        ya = add[rows]
+        return fdot(ya, add[cols]) / n, fdot(ya, res[cols]) / n
+    return tile
 
 
 def _full_band(add, res, lo, hi, usable, dom_ok, add_sd_zero, blk_lo,
                rsq_thr, annot, block_size: int, band_k: int, n_samples: int):
-    """Per-row partials of the full-band pass: each pivot block against
-    its whole band, both sides (``ld_scores_xla``'s ``pivot_block``)."""
-    m_pad = add.shape[0]
-    B = block_size
-    band_rows = min(band_k * B, m_pad)
-    dev = add.device
-    parts = []
-    for b in range(m_pad // B):
-        rows = slice(b * B, (b + 1) * B)
-        j0, cols = _band(m_pad, b, blk_lo, B, band_rows)
-        ya = add[rows]
-        parts.append(_tile_epilogue(
-            fdot(ya, add[cols]), fdot(ya, res[cols]),
-            b * B + torch.arange(B, device=dev),
-            j0 + torch.arange(band_rows, device=dev), lo[rows], hi[rows],
-            usable[rows], usable[cols], dom_ok[cols], add_sd_zero[cols],
-            n_samples, rsq_thr, None if annot is None else annot[cols]))
-    return [torch.cat(x) for x in zip(*parts)]
+    """:func:`band_pass` in core, on the f32 engine's rows."""
+    return band_pass(f32_tile(add, res, n_samples), lo, hi, usable, dom_ok,
+                     add_sd_zero, blk_lo, rsq_thr, annot,
+                     block_size=block_size, band_k=band_k,
+                     n_samples=n_samples)
 
 
 def ld_scores_xla(add, res, lo, hi, usable, dom_ok, add_sd_zero, blk_lo,
@@ -196,7 +230,8 @@ def ld_scores_xla_sym(add, res, lo, hi, usable, dom_ok, add_sd_zero, blk_lo,
                                                               dtype=i32)
 
         # dominance: the full band, row sums only
-        j0, cols = _band(m_pad, b, blk_lo, B, band_rows)
+        j0 = min(max(int(blk_lo[b]) * B, 0), m_pad - band_rows)
+        cols = slice(j0, j0 + band_rows)
         gjd = (j0 + torch.arange(band_rows, device=dev))[None, :]
         r_dom = fdot(ya, res[cols]) / n
         adj_dom = 1.0 - (1.0 - r_dom * r_dom) * adj_c

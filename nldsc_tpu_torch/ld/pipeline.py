@@ -19,12 +19,17 @@ the full-band torch engine ``ld_int8.ld_scores_int8`` (``--no-symmetric``;
 the default of clean partitioned runs on the CPU, as in ``nldsc_tpu``);
 their products on int8 operands or, with ``--dot-dtype bf16``, on bf16
 ones (the same exact sums).  ``--engine f32`` (``use_int8=False``) runs
-the f32 engine of ``ld_xla.py`` instead, in core only: standardized
-float32 rows, symmetric or full band, and full band with ``annot``.
+the f32 engine of ``ld_xla.py`` instead: standardized float32 rows,
+symmetric or full band in core, and full band with ``annot`` or streamed.
+The streaming route (``streaming.py``) runs the symmetric engine, or the
+full band with ``--no-symmetric`` and the f32 engine, as the reference
+does.  ``profile_dir`` traces the compute pass with ``torch.profiler``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 
 import numpy as np
@@ -441,6 +446,44 @@ def _progress_logger():
     return cb
 
 
+#: the file that ``estimate_lds(profile_dir=DIR)`` writes into DIR
+TRACE_FILE = "ld_trace.json"
+
+
+@contextlib.contextmanager
+def profiled(profile_dir: str | None, device: torch.device):
+    """Trace the enclosed work with ``torch.profiler`` into
+    ``<profile_dir>/ld_trace.json`` (Chrome trace format, as the
+    reference's ``jax.profiler.trace`` wraps its compute pass,
+    ``nldsc_tpu/ld/pipeline.py:601-605``): CPU activity, and CUDA activity
+    on a CUDA device.  A profiler that cannot trace the card raises; it
+    never writes a CPU-only trace of a CUDA run.  Nothing when
+    ``profile_dir`` is None."""
+    if profile_dir is None:
+        yield
+        return
+    act = torch.profiler.ProfilerActivity
+    activities = [act.CPU]
+    if device.type == "cuda":
+        if act.CUDA not in torch.profiler.supported_activities():
+            raise RuntimeError("--profile-dir: this torch cannot trace CUDA "
+                               "activity (no CUPTI)")
+        activities.append(act.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    if device.type == "cuda" and not any(
+            e.device_type == torch.autograd.DeviceType.CUDA
+            for e in prof.events()):
+        raise RuntimeError("--profile-dir: the profiler recorded no CUDA "
+                           "activity in a CUDA run")
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, TRACE_FILE)
+    prof.export_chrome_trace(path)
+    log.info("Wrote the profiler trace: %s", path)
+
+
 @elapsed_time
 def estimate_lds(
     bfile: str,
@@ -465,6 +508,7 @@ def estimate_lds(
     resume_path: str | None = None,
     annot: str | None = None,
     symmetric: bool | None = None,
+    profile_dir: str | None = None,
     device="cuda",
 ):
     """Estimate additive + dominance LD scores from a PLINK bfile.
@@ -486,8 +530,11 @@ def estimate_lds(
     ``annot``: a per-SNP annotation file (:func:`..io.ldscores.read_annot`):
     partitioned LD scores, one ``<name>.L2`` and one ``<name>.L2D`` column
     per annotation (``extra`` adds nothing to that table) and
-    per-annotation ``.M``/``.M_5_50``.  ``symmetric``: the in-core engine
-    (:func:`resolve_symmetric`); the streaming route is always symmetric.
+    per-annotation ``.M``/``.M_5_50``.  ``symmetric``: the engine; in core
+    :func:`resolve_symmetric`; streamed, the symmetric one unless it is
+    False or ``use_int8`` is False, then the full band.
+    ``profile_dir``: a directory for a ``torch.profiler`` trace of the
+    compute pass (:func:`profiled`).
     """
     STAGE_TIMES.clear()
     dev = resolve_device(device)
@@ -518,29 +565,27 @@ def estimate_lds(
                  len(annot_names), annot)
 
     t0 = time.time()
-    if streaming:
-        from .streaming import compute_ld_scores_streaming  # noqa: PLC0415
+    with profiled(profile_dir, dev):
+        if streaming:
+            from .streaming import compute_ld_scores_streaming  # noqa: PLC0415
 
-        if symmetric is False:
-            log.warning("--no-symmetric selects the in-core full-band "
-                        "engine; the streaming route runs the symmetric one")
-        log.info("Running the LD estimator on %s (streaming, chunk=%d "
-                 "rows)...", dev, chunk_rows)
-        result = compute_ld_scores_streaming(
-            ds.bed, positions, config, chunk_rows=chunk_rows,
-            resume_path=resume_path, annot=annot_mat, device=dev)
-    else:
-        if resume_path:
-            log.warning("--resume checkpoints the streaming route only; "
-                        "this run is in core")
-        genotypes = ds.bed.read_raw()
-        stage_add("disk_s", t0)
-        log.info("Running the LD estimator on %s...", dev)
-        want_prog = progress if progress is not None else ds.n_snp >= 20000
-        result = compute_ld_scores(genotypes, positions, config,
-                                   annot=annot_mat, device=dev,
-                                   progress=_progress_logger() if want_prog
-                                   else None)
+            log.info("Running the LD estimator on %s (streaming, chunk=%d "
+                     "rows)...", dev, chunk_rows)
+            result = compute_ld_scores_streaming(
+                ds.bed, positions, config, chunk_rows=chunk_rows,
+                resume_path=resume_path, annot=annot_mat, device=dev)
+        else:
+            if resume_path:
+                log.warning("--resume checkpoints the streaming route "
+                            "only; this run is in core")
+            genotypes = ds.bed.read_raw()
+            stage_add("disk_s", t0)
+            log.info("Running the LD estimator on %s...", dev)
+            want_prog = (progress if progress is not None
+                         else ds.n_snp >= 20000)
+            result = compute_ld_scores(
+                genotypes, positions, config, annot=annot_mat, device=dev,
+                progress=_progress_logger() if want_prog else None)
     dt = time.time() - t0
     log.info("Estimation completed: %d SNPs in %.2fs (%.0f SNPs/s)",
              ds.n_snp, dt, ds.n_snp / max(dt, 1e-9))

@@ -1,36 +1,53 @@
 """Out-of-core (streaming) LD scores on one device: chunked band recompute.
 
-Port of the single-device symmetric int8 route of
-``nldsc_tpu/ld/streaming.py``.  The pivot rows go in chunks of
-``chunk_rows``; the band of a chunk holds its pivots and the ``halo``
-rows after them, as far as any window reaches.  Per chunk:
+Port of the single-device routes of ``nldsc_tpu/ld/streaming.py``.  The
+pivot rows go in chunks of ``chunk_rows``; each chunk is computed against
+a band of rows read for it alone.  Two engines, picked as the reference
+picks them (``symmetric = config.symmetric is not False and use_int8``):
 
-  host (one prefetch thread): read the band's packed .bed rows into a
-      page-locked staging buffer; with band-tail retention only the
-      ``chunk_rows`` rows that the previous band did not hold
-  device: unpack -> class counts and per-SNP scalars -> kernel K1 over
-      the pivots, the halo rows being neighbours only -> on split chunks
-      kernel K2's corrections for the pairs whose left member is a pivot
-      -> one payload of credits and pivot statistics, copied back
-  host: add the column credits that earlier chunks earned for these
-      rows (a float64 carry), carry the halo's credits forward, finalize
-      in float32, write the checkpoint shard
+symmetric (the integer engines by default): the band holds the chunk's
+    pivots and the ``halo`` rows after them, as far as any window reaches.
+    Per chunk:
+
+      host (one prefetch thread): read the band's packed .bed rows into a
+          page-locked staging buffer; with band-tail retention only the
+          ``chunk_rows`` rows that the previous band did not hold
+      device: unpack -> class counts and per-SNP scalars -> kernel K1 over
+          the pivots, the halo rows being neighbours only -> on split
+          chunks kernel K2's corrections for the pairs whose left member is
+          a pivot -> one payload of credits and pivot statistics, copied
+          back
+      host: add the column credits that earlier chunks earned for these
+          rows (a float64 carry), carry the halo's credits forward,
+          finalize in float32, write the checkpoint shard
+
+full band (``--no-symmetric``, and the f32 engine ``--engine f32``): the
+    band holds ``halo`` rows before the pivots too, ``chunk_rows + 2·halo``
+    rows, so every pair of a pivot is in its own chunk and no credit
+    crosses chunks: no carry, no row scan, no band-tail retention.  The
+    device unpacks the band and runs, per pivot block, the reference's
+    ``_banded_chunk_int8`` (two integer products, six with missing
+    genotypes in the band, on int8 or bf16 operands) or ``_banded_chunk``
+    (``preprocess.preprocess_block`` on the band, two float32 products,
+    TF32 off), then the tile epilogue with row credits only
+    (``ld_xla.band_pass``): plain torch ops, as the reference's are XLA
+    products; neither K1 nor K2 runs.
 
 Device memory is bounded by the band, whatever M.  With ``resume_path``
-each finished chunk is written once, atomically, as a shard file, and a
-restart skips the contiguous prefix of finished chunks.
+each finished chunk is written once, atomically, as a shard file; a
+restart skips the contiguous prefix of finished chunks on the symmetric
+route (its credits flow forward), and every finished chunk on the full
+band.  ``meta.json`` pins the engine and the operand type (``int8``,
+``bf16`` or ``f32``), so a checkpoint of one refuses to resume another.
 
 Under ``--dot-dtype bf16`` each band's code matrices become bf16
-operands on the device before K1 and K2 (the same exact sums, so the same
-scores); ``meta.json`` pins the operand type, so a checkpoint of one
-type refuses to resume a run of the other.  The f32 engine does not
-stream (ROADMAP queue 1 item 12).
+operands on the device (the same exact sums, so the same scores).
 
 With ``annot`` (partitioned LD scores) the zero-padded annotation matrix
-is sent once; each band's kernels take its rows ``[p0, p0 + band_rows)``
-and return two ``(band_rows, p)`` accumulators more, which ride the same
-payload, a second float64 carry ``(2, halo, p)`` and the shard's
-``tail_a``.
+is sent once; each band's engine takes its rows and returns two
+``(rows, p)`` accumulators more, which ride the same payload (on the
+symmetric route with a second float64 carry ``(2, halo, p)`` and the
+shard's ``tail_a``).
 """
 
 from __future__ import annotations
@@ -52,7 +69,8 @@ from ..core.errors import NLDSCParameterError
 from ..core.logging import log
 from ..core.timing import STAGE_TIMES, stage_add
 from ..io.plink import BedReader, _packed_has_missing, scan_rowmiss
-from . import ld_int8, ld_pallas_sym, ld_split, preprocess, windows
+from . import (ld_int8, ld_pallas_sym, ld_split, ld_xla, preprocess,
+               windows)
 
 #: credit quantities of a band, in payload order
 CREDITS = ("l2", "ws", "poison", "l2d", "wsd", "wse")
@@ -66,19 +84,22 @@ _FLOAT_KEYS = ("l2", "l2d", "maf", "residuals_std")
 @dataclass(frozen=True)
 class Geometry:
     """Rows of the streaming pass.  ``unit`` divides every row count:
-    ``block_size`` (the twin's pivot block) on the CPU, and on CUDA also
-    ``ld_pallas_sym.ROW_ALIGN``, so that every chunk and halo is whole K1
-    tiles."""
+    ``block_size`` (the pivot block of the twins and of the full-band
+    engines) on the CPU and on the full-band routes, and on the symmetric
+    route on CUDA also ``ld_pallas_sym.ROW_ALIGN``, so that every chunk
+    and halo is whole K1 tiles.  ``lead``: band rows before the pivots
+    (``halo`` on the full band, 0 on the symmetric route)."""
 
     unit: int
     chunk_rows: int
     halo: int
     m_pad: int
     n_chunks: int
+    lead: int = 0
 
     @property
     def band_rows(self) -> int:
-        return self.chunk_rows + self.halo
+        return self.chunk_rows + self.halo + self.lead
 
     @property
     def m_ext(self) -> int:
@@ -86,16 +107,19 @@ class Geometry:
 
 
 def stream_geometry(m: int, lo: np.ndarray, hi: np.ndarray, chunk_rows: int,
-                    block_size: int, device_type: str) -> Geometry:
+                    block_size: int, device_type: str,
+                    full_band: bool = False) -> Geometry:
     """Chunk and halo rows rounded as the reference rounds them
-    (``streaming.py:484-504``), to ``unit``."""
-    unit = (block_size if device_type == "cpu"
+    (``streaming.py:484-504``), to ``unit``; the full band's lead halo
+    (``:528-529``)."""
+    unit = (block_size if device_type == "cpu" or full_band
             else math.lcm(block_size, ld_pallas_sym.ROW_ALIGN))
     chunk_rows = max(unit, (chunk_rows // unit) * unit)
     m_pad = -(-m // unit) * unit
     halo = -(-windows.max_halo_rows(lo, hi) // unit) * unit
     return Geometry(unit=unit, chunk_rows=chunk_rows, halo=halo, m_pad=m_pad,
-                    n_chunks=-(-m_pad // chunk_rows))
+                    n_chunks=-(-m_pad // chunk_rows),
+                    lead=halo if full_band else 0)
 
 
 def split_selected(rowmiss: np.ndarray,
@@ -192,30 +216,54 @@ def annot_digest(annot: np.ndarray) -> str:
     return hashlib.sha256(repr(a.shape).encode() + a.tobytes()).hexdigest()
 
 
-def resume_shards(ck_dir: Path, geo: Geometry, out: dict, carry: np.ndarray,
-                  carry_a: np.ndarray | None = None) -> int:
-    """Load the contiguous prefix of finished chunks into ``out`` and fold
-    their stored tails into ``carry`` (and ``tail_a`` into ``carry_a``,
-    the annotation carry), aligned at the first chunk still to run, in
-    chunk order, as the uninterrupted run folded them.  Credits flow
-    forward, so a shard after a gap is recomputed.  Returns the number of
-    chunks resumed."""
+def resume_shards(ck_dir: Path, geo: Geometry, out: dict,
+                  carry: np.ndarray | None = None,
+                  carry_a: np.ndarray | None = None) -> list[int]:
+    """Load finished chunks into ``out``; returns their indices.
+
+    With ``carry`` (the symmetric route) only the contiguous prefix of
+    finished chunks: their stored tails fold into ``carry`` (and
+    ``tail_a`` into ``carry_a``, the annotation carry), aligned at the
+    first chunk still to run, in chunk order, as the uninterrupted run
+    folded them; credits flow forward, so a shard after a gap is
+    recomputed.  Without (the full band, whose chunks are independent)
+    every finished chunk, contiguous or not (reference
+    ``streaming.py:689-712``)."""
     shards = {int(f.stem.split("_")[1]): f
               for f in ck_dir.glob("chunk_*.npz")}
-    k = 0
-    while k in shards:
-        k += 1
+    if carry is None:
+        done = sorted(ci for ci in shards if ci < geo.n_chunks)
+    else:
+        k = 0
+        while k in shards:
+            k += 1
+        done = list(range(k))
     c, h = geo.chunk_rows, geo.halo
-    for ci in range(k):
+    for ci in done:
         with np.load(shards[ci]) as saved:
             for key in out:
                 out[key][ci * c:(ci + 1) * c] = saved[key]
-            offset = (k - 1 - ci) * c
-            if offset < h:
+            offset = (len(done) - 1 - ci) * c
+            if carry is not None and offset < h:
                 carry[:, :h - offset] += saved["tail"][:, offset:]
                 if carry_a is not None:
                     carry_a[:, :h - offset] += saved["tail_a"][:, offset:]
-    return k
+    return done
+
+
+def fold_carry(local: np.ndarray, carry: np.ndarray,
+               tail: np.ndarray) -> np.ndarray:
+    """Add to ``local`` (credits of a chunk's rows, along axis 1) the
+    column credits that earlier chunks earned for them, and return the
+    carry moved on to the next chunk's first row, with ``tail`` (this
+    chunk's credits for the rows after it) added."""
+    c, h = local.shape[1], carry.shape[1]
+    w = min(h, c)
+    local[:, :w] += carry[:, :w]
+    moved = np.zeros_like(carry)
+    if h > c:
+        moved[:, :h - c] = carry[:, c:]
+    return moved + tail
 
 
 @dataclass
@@ -246,14 +294,14 @@ class _BandReader:
         self.events: list = [None, None]
 
     def read(self, ci: int, slot: int, tail_only: bool) -> _Band:
-        """Chunk ``ci``'s band rows ``[p0, p0 + band_rows)``, or with
-        ``tail_only`` its last ``chunk_rows`` rows (the rows the previous
-        band does not hold); rows past the .bed are 0x55, four missing
-        bitpairs per byte."""
+        """Chunk ``ci``'s band rows ``[p0 - lead, p0 - lead + band_rows)``,
+        or with ``tail_only`` its last ``chunk_rows`` rows (the rows the
+        previous band does not hold); rows before row 0 and past the .bed
+        are 0x55, four missing bitpairs per byte."""
         t0 = time.time()
         geo, bed = self.geo, self.bed
         rows = geo.chunk_rows if tail_only else geo.band_rows
-        band_lo = ci * geo.chunk_rows
+        band_lo = ci * geo.chunk_rows - geo.lead
         first = band_lo + geo.band_rows - rows
         if self.pinned:
             if self.events[slot] is not None:
@@ -262,16 +310,19 @@ class _BandReader:
         else:
             stage = torch.empty((rows, bed.bytes_per_snp), dtype=torch.uint8)
         buf = stage.numpy()
-        real = max(0, min(rows, bed.n_snp - first))
-        if real:
-            bed.read_into(first, buf[:real])
-        buf[real:] = 0x55
+        # buf[a:b] holds the .bed's rows; the rest is padding
+        a = min(max(-first, 0), rows)
+        b = max(a, min(rows, bed.n_snp - first))
+        buf[:a] = 0x55
+        if b > a:
+            bed.read_into(first + a, buf[a:b])
+        buf[b:] = 0x55
         # the band's missing state: from the row scan when there is one
         # (a tail-only read needs it), else from the rows just read
         has_missing = (
             bool(self.rowmiss[band_lo:band_lo + geo.band_rows].any())
             if self.rowmiss is not None
-            else _packed_has_missing(buf[:real], bed.n_samples))
+            else _packed_has_missing(buf[a:b], bed.n_samples))
         stage_add("stream_read_s", t0)
         return _Band(ci, stage, slot, tail_only, has_missing)
 
@@ -284,46 +335,61 @@ def compute_ld_scores_streaming(bed: BedReader, positions: np.ndarray,
     """Streamed LD scores from a :class:`~..io.plink.BedReader`.
 
     Same result contract as :func:`..pipeline.compute_ld_scores`; the
-    device holds one band of ``chunk_rows`` plus halo rows at a time.
-    ``resume_path``: a checkpoint directory (one shard file per finished
-    chunk, ``meta.json`` pinning every parameter that changes a chunk,
-    the device type and the rounded geometry included, and the rowmiss
+    device holds one band of ``chunk_rows`` plus halo rows at a time
+    (plus a lead halo on the full band).  The engine: symmetric unless
+    ``config.symmetric`` is False or ``config.use_int8`` is False (the
+    f32 engine), then full band.  ``resume_path``: a checkpoint directory
+    (one shard file per finished chunk, ``meta.json`` pinning every
+    parameter that changes a chunk, the engine, the device type and the
+    rounded geometry included, and on the symmetric route the rowmiss
     cache).  ``annot``: optional (M, p) annotation matrix; adds
     ``l2_annot`` and ``l2d_annot``, float64 (M, p), to the result, and its
-    column count and digest to ``meta.json``.  CUDA runs the kernels;
-    ``device="cpu"`` runs their twins.
+    column count and digest to ``meta.json``.  CUDA runs every product on
+    the card (the kernels on the symmetric route); ``device="cpu"`` runs
+    their plain versions.
     """
     from .pipeline import resolve_device  # noqa: PLC0415
 
-    if config.use_int8 is False:
-        raise NLDSCParameterError(
-            "--engine f32 streams through the full-band chunk engine, which "
-            "is not ported to nldsc_tpu_torch yet: ROADMAP queue 1 item 12 "
-            "(full-band streaming chunk engines)")
     if config.rsq_thr is None:
         raise NLDSCParameterError("resolve rsq_thr first (LDConfig.resolve_rsq)")
     dev = resolve_device(device)
     t_enter = time.time()
     m, n = bed.n_snp, bed.n_samples
     n_pad = -(-n // 128) * 128
-    dot_dtype = config.int8_dot_dtype
-    ld_int8.check_dot_dtype(dot_dtype, n_pad)
+    use_int8 = config.use_int8 is not False
+    # the reference's choice (streaming.py:512-513): the f32 engine and
+    # --no-symmetric run the full band
+    symmetric = config.symmetric is not False and use_int8
+    dot_dtype = config.int8_dot_dtype if use_int8 else "f32"
+    if use_int8:
+        ld_int8.check_dot_dtype(dot_dtype, n_pad)
+    B = config.block_size
     lo, hi, pos_ok = windows.window_bounds(positions, config.ld_wind)
-    geo = stream_geometry(m, lo, hi, chunk_rows, config.block_size, dev.type)
-    c, h, band_rows = geo.chunk_rows, geo.halo, geo.band_rows
+    geo = stream_geometry(m, lo, hi, chunk_rows, B, dev.type,
+                          full_band=not symmetric)
+    c, h, lead, band_rows = geo.chunk_rows, geo.halo, geo.lead, geo.band_rows
     ck_dir = Path(resume_path) if resume_path else None
 
-    # rows past the .bed (to the last band's end) have empty windows
-    ext = geo.m_ext + h
+    # global row r at index lead + r; rows before row 0 and past the .bed
+    # (to the last band's end) have empty windows
+    ext = lead + geo.m_ext + h
     lo_ext = np.full(ext, geo.m_pad, np.int32)
     hi_ext = np.full(ext, -1, np.int32)
     pos_ok_ext = np.zeros(ext, bool)
-    lo_ext[:m], hi_ext[:m], pos_ok_ext[:m] = lo, hi, pos_ok
+    lo_ext[lead:lead + m], hi_ext[lead:lead + m] = lo, hi
+    pos_ok_ext[lead:lead + m] = pos_ok
+    if not symmetric:
+        # per pivot block, the first block its windows reach; padding
+        # blocks their own (reference streaming.py:539-541)
+        blk_lo, _, band_k = windows.band_blocks(lo, hi, B, geo.m_pad // B)
+        blk_lo = np.concatenate([blk_lo, np.arange(
+            len(blk_lo), geo.m_ext // B, dtype=np.int32)])
 
-    # one pass over the .bed bytes tells which rows carry missing
-    # genotypes: the split choice, and each band's route without a decode
-    rowmiss = (load_rowmiss(bed, ck_dir) if config.split_missing is not False
-               else None)
+    # on the symmetric route one pass over the .bed bytes tells which rows
+    # carry missing genotypes: the split choice, and each band's route
+    # without a decode
+    rowmiss = (load_rowmiss(bed, ck_dir)
+               if symmetric and config.split_missing is not False else None)
     use_split = False
     if rowmiss is not None:
         use_split, frac = split_selected(rowmiss, config.split_missing)
@@ -336,9 +402,9 @@ def compute_ld_scores_streaming(bed: BedReader, positions: np.ndarray,
 
     out = {k: np.full(geo.m_ext, np.nan) for k in _FLOAT_KEYS}
     out.update({k: np.full(geo.m_ext, -1, dtype=np.int64) for k in _INT_KEYS})
-    # column credits of rows of later chunks, aligned at the next chunk's
-    # first row
-    carry = np.zeros((len(CREDITS), h), dtype=np.float64)
+    # symmetric: column credits of rows of later chunks, aligned at the
+    # next chunk's first row
+    carry = np.zeros((len(CREDITS), h), dtype=np.float64) if symmetric else None
     p_annot, annot_ext, carry_a, a_dev = 0, None, None, None
     if annot is not None:
         if annot.ndim != 2 or annot.shape[0] != m or annot.shape[1] < 1:
@@ -346,48 +412,49 @@ def compute_ld_scores_streaming(bed: BedReader, positions: np.ndarray,
                 f"annot must be ({m}, p >= 1), got {annot.shape}")
         p_annot = annot.shape[1]
         annot_ext = np.zeros((ext, p_annot), dtype=np.float32)
-        annot_ext[:m] = annot
+        annot_ext[lead:lead + m] = annot
         for key in ("l2_annot", "l2d_annot"):
             out[key] = np.full((geo.m_ext, p_annot), np.nan)
-        carry_a = np.zeros((2, h, p_annot), dtype=np.float64)
-    n_resumed = 0
+        if symmetric:
+            carry_a = np.zeros((2, h, p_annot), dtype=np.float64)
+    done: list[int] = []
     if ck_dir is not None:
         open_checkpoint(ck_dir, {
             "m": m, "n": n, "chunk_rows": c, "halo": h, "row_unit": geo.unit,
-            "block_size": config.block_size, "device": dev.type,
+            "block_size": B, "device": dev.type,
             "ld_wind": float(config.ld_wind),
             "wind_metric": config.wind_metric,
             "maf_thr": float(config.maf_thr),
             "std_thr": float(config.std_thr),
             "rsq_thr": float(config.rsq_thr),
-            "engine": "sym-split2" if use_split else "sym",
+            "engine": ("sym-split2" if use_split else "sym" if symmetric
+                       else "full"),
             "annot_p": p_annot if annot is not None else -1,
             "annot_sha256": None if annot is None else annot_digest(annot),
             "dot_dtype": dot_dtype,
             **bed_identity(bed.path)})
-        n_resumed = resume_shards(ck_dir, geo, out, carry, carry_a)
-        if n_resumed:
-            log.info("Resuming: %d chunks already complete", n_resumed)
+        done = resume_shards(ck_dir, geo, out, carry, carry_a)
+        if done:
+            log.info("Resuming: %d chunks already complete", len(done))
 
     thresholds = (ld_int8.f32(config.maf_thr), ld_int8.f32(config.std_thr))
     seg_rows = min(ld_split.SEG_ROWS_DEFAULT, band_rows)
-    # band-tail retention: consecutive bands overlap by exactly the halo,
-    # so while the previous band's packed rows stay on the device only the
-    # chunk_rows new rows are read and sent; it needs the row scan for a
-    # band's missing state
+    # band-tail retention: consecutive symmetric bands overlap by exactly
+    # the halo, so while the previous band's packed rows stay on the
+    # device only the chunk_rows new rows are read and sent; it needs the
+    # row scan for a band's missing state
     retain = rowmiss is not None
     retained: dict = {"ci": None, "raw": None}
     routes: Counter = Counter()
     reader = _BandReader(bed, geo, rowmiss, dev)
-    if annot is not None and n_resumed < geo.n_chunks:
+    todo = sorted(set(range(geo.n_chunks)) - set(done))
+    if annot is not None and todo:
         a_dev = torch.from_numpy(annot_ext).to(dev)
 
-    def dispatch(band: _Band):
-        """Queue chunk ``band.ci``'s device work; returns its payload,
-        being copied to the host, and the event behind the copy."""
+    def put_band(band: _Band) -> torch.Tensor:
+        """The band's packed rows on the device (with retention, the
+        previous band's last halo rows and the new ones)."""
         ci = band.ci
-        p0 = ci * c
-        sl = slice(p0, p0 + band_rows)
         if band.tail_only:
             if retained["ci"] != ci - 1:
                 raise RuntimeError(
@@ -406,7 +473,27 @@ def compute_ld_scores_streaming(bed: BedReader, positions: np.ndarray,
                                         + band.stage.nbytes / 1e6)
         if retain:
             retained["ci"], retained["raw"] = ci, raw
+        return raw
 
+    def to_host(payload: torch.Tensor):
+        """The payload copied to page-locked host memory behind an event
+        on CUDA; as it is on the CPU."""
+        if not reader.pinned:
+            return payload, None
+        host = torch.empty(payload.shape, dtype=payload.dtype,
+                           pin_memory=True)
+        host.copy_(payload, non_blocking=True)
+        done_ev = torch.cuda.Event()
+        done_ev.record()
+        return host, done_ev
+
+    def dispatch_sym(band: _Band):
+        """Queue chunk ``band.ci``'s device work on the symmetric route;
+        returns its payload, being copied to the host, and the event
+        behind the copy."""
+        p0 = band.ci * c
+        sl = slice(p0, p0 + band_rows)
+        raw = put_band(band)
         lo_b, hi_b = lo_ext[sl] - p0, hi_ext[sl] - p0
         win = torch.from_numpy(np.stack([lo_b, hi_b])).to(dev)
         lo_d, hi_d = win[0], win[1]
@@ -432,8 +519,7 @@ def compute_ld_scores_streaming(bed: BedReader, positions: np.ndarray,
         l2, ws, poi, l2d, wsd, wse, *acc_a = ld_pallas_sym.sym_credits(
             ops["g"], ops["m"], ops["h"], scal, lo_d, hi_d, pre["usable"],
             dom_ok, pre["add_sd_zero"], config.rsq_thr, n_samples=n,
-            has_missing=global_c, block_size=config.block_size,
-            pivot_rows=c, annot=annot_b)
+            has_missing=global_c, block_size=B, pivot_rows=c, annot=annot_b)
         if split_c:
             # pairs owned by their left member: own_hi = chunk_rows
             l2_d, l2d_d, wse_d, *delta_a = ld_split.split_corrections(
@@ -443,40 +529,67 @@ def compute_ld_scores_streaming(bed: BedReader, positions: np.ndarray,
             l2, l2d, wse = l2 + l2_d, l2d + l2d_d, wse + wse_d
             acc_a = [a + d for a, d in zip(acc_a, delta_a)]
         routes["split" if split_c else "global" if global_c else "clean"] += 1
-        stats = torch.stack([pre["usable"], pre["add_sd_zero"], pre["maf"],
-                             pre["rstd"]])[:, :c]
-        payload = torch.cat([torch.stack([l2, ws, poi, l2d, wsd, wse])
-                             .double().reshape(-1),
-                             stats.double().reshape(-1),
-                             *(a.double().reshape(-1) for a in acc_a)])
-        if not reader.pinned:
-            return payload, None
-        host = torch.empty(payload.shape, dtype=payload.dtype,
-                           pin_memory=True)
-        host.copy_(payload, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return host, done
+        return to_host(_payload((l2, ws, poi, l2d, wsd, wse), pre, 0, c,
+                                acc_a))
 
-    def collect(ci: int, payload: torch.Tensor, done) -> None:
+    def dispatch_full(band: _Band):
+        """Queue chunk ``band.ci``'s device work on the full band
+        (reference ``streaming.py:915-951``): as :func:`dispatch_sym`."""
+        p0 = band.ci * c
+        sl = slice(p0, p0 + band_rows)           # the band, in ext rows
+        piv = slice(lead + p0, lead + p0 + c)    # its pivots
+        raw = put_band(band)
+        win = torch.from_numpy(np.stack([lo_ext[piv], hi_ext[piv]])).to(dev)
+        g = preprocess.unpack_bed(raw, n_samples=n, n_pad=n_pad, pad_val=-1)
+        pos_b = torch.from_numpy(pos_ok_ext[sl]).to(dev)
+        if use_int8:
+            pre = ld_int8.preprocess_int8(g, pos_b, thresholds[0],
+                                          n_samples=n,
+                                          materialize_m=band.has_missing)
+            ops = {"g": pre.pop("g"), "m": pre.pop("m"), "h": pre.pop("h")}
+            del g
+            ld_int8.to_operands(ops, dot_dtype)
+            tile = ld_int8.int8_tile(ops["g"], ops["m"], ops["h"],
+                                     ld_int8.stack_scalars(pre), n,
+                                     band.has_missing, dot_dtype)
+            routes["global" if band.has_missing else "clean"] += 1
+        else:
+            pre = preprocess.preprocess_block(g, pos_b, config.maf_thr, n)
+            del g
+            tile = ld_xla.f32_tile(pre.pop("add"), pre.pop("res"), n)
+            routes["f32"] += 1
+        dom_ok = pre["usable"] & (pre["rstd"] > thresholds[1])
+        l2, l2d, ws, wsd, wse, poi, *acc_a = ld_xla.band_pass(
+            tile, win[0], win[1], pre["usable"], dom_ok, pre["add_sd_zero"],
+            blk_lo[p0 // B:(p0 + c) // B], config.rsq_thr,
+            None if a_dev is None else a_dev[sl], block_size=B,
+            band_k=band_k, n_samples=n, n_pivots=c, g0=p0 - lead,
+            piv_off=lead, m_pad=geo.m_pad)
+        return to_host(_payload((l2, ws, poi, l2d, wsd, wse), pre, lead, c,
+                                acc_a))
+
+    dispatch = dispatch_sym if symmetric else dispatch_full
+    # the payload's credits per quantity: the band's rows (symmetric: the
+    # halo's are column credits for later chunks), or the pivots'
+    width = band_rows if symmetric else c
+    n_sums = len(CREDITS) * width
+    n_run = 0
+
+    def collect(ci: int, payload: torch.Tensor, done_ev) -> None:
         """Finalize chunk ``ci`` on the host and write its shard."""
-        nonlocal carry, carry_a
-        if done is not None:
-            done.synchronize()
+        nonlocal carry, carry_a, n_run
+        if done_ev is not None:
+            done_ev.synchronize()
         pp = payload.numpy()
-        sums = pp[:len(CREDITS) * band_rows].reshape(len(CREDITS), band_rows)
-        local, tail = sums[:, :c].copy(), sums[:, c:]
-        n_sums = len(CREDITS) * band_rows
+        sums = pp[:n_sums].reshape(len(CREDITS), width)
+        local = sums[:, :c].copy()
         stats = pp[n_sums:n_sums + len(STATS) * c].reshape(len(STATS), c)
-        # credits earned by earlier chunks, then the carry moved on to the
-        # next chunk's first row
-        w = min(h, c)
-        local[:, :w] += carry[:, :w]
-        nc = np.zeros_like(carry)
-        if h > c:
-            nc[:, :h - c] = carry[:, c:]
-        nc += tail
-        carry = nc
+        tails = {}
+        if symmetric:
+            # credits earned by earlier chunks, then the carry moved on to
+            # the next chunk's first row
+            tails["tail"] = sums[:, c:]
+            carry = fold_carry(local, carry, tails["tail"])
         l2a, ws_c, poi_c, l2da, wsd_c, wse_c = local
         usable, sd_zero = stats[0] > 0, stats[1] > 0
         l2, l2d, ws, wsd, wse = finalize_np(
@@ -487,39 +600,35 @@ def compute_ld_scores_streaming(bed: BedReader, positions: np.ndarray,
                          ("residuals_std", stats[3]), ("l2_ws", ws),
                          ("l2d_ws", wsd), ("l2d_wse", wse)):
             out[key][rows] = val
-        tails = {"tail": tail}
         if annot is not None:
-            # the annotation accumulators: carried like the credits, then
-            # the sentinels of ld_int8.finalize_annot in float64 (reference
-            # streaming.py:985-1003)
-            sums_a = pp[n_sums + len(STATS) * c:].reshape(
-                2, band_rows, p_annot)
-            local_a, tail_a = sums_a[:, :c].copy(), sums_a[:, c:]
-            local_a[:, :w] += carry_a[:, :w]
-            nca = np.zeros_like(carry_a)
-            if h > c:
-                nca[:, :h - c] = carry_a[:, c:]
-            nca += tail_a
-            carry_a = nca
+            # the annotation accumulators (carried like the credits on the
+            # symmetric route), then the sentinels of
+            # ld_int8.finalize_annot in float64 (reference
+            # streaming.py:985-1003, 1061-1075)
+            sums_a = pp[n_sums + len(STATS) * c:].reshape(2, width, p_annot)
+            local_a = sums_a[:, :c].copy()
+            if symmetric:
+                tails["tail_a"] = sums_a[:, c:]
+                carry_a = fold_carry(local_a, carry_a, tails["tail_a"])
             good = (usable & (poi_c == 0))[:, None]
             out["l2_annot"][rows] = np.where(
-                good, annot_ext[rows].astype(np.float64) + local_a[0], np.nan)
+                good, annot_ext[lead:][rows].astype(np.float64) + local_a[0],
+                np.nan)
             l2d_bad = np.where(wsd_c > 0, np.nan, 0.0)[:, None]
             out["l2d_annot"][rows] = np.where(
                 usable[:, None],
                 np.where(sd_zero[:, None], l2d_bad, local_a[1]), np.nan)
-            tails["tail_a"] = tail_a
         if ck_dir is not None:
             _save_npz(ck_dir / f"chunk_{ci:06d}.npz",
                       **{k: v[rows] for k, v in out.items()}, **tails)
-        n_done = ci + 1 - n_resumed
+        n_run += 1
+        n_done = len(done) + n_run
         elapsed = time.time() - t_start
         log.info("chunk %d/%d done (%.0f%%, rows %d..%d) | elapsed %.1fs "
                  "| ETA %.1fs", ci + 1, geo.n_chunks,
-                 100.0 * (ci + 1) / geo.n_chunks, rows.start, rows.stop,
-                 elapsed, elapsed * (geo.n_chunks - ci - 1) / max(n_done, 1))
+                 100.0 * n_done / geo.n_chunks, rows.start, rows.stop,
+                 elapsed, elapsed * (geo.n_chunks - n_done) / n_run)
 
-    todo = list(range(n_resumed, geo.n_chunks))
     t_start = time.time()
     log.info("streaming setup %.1fs (windows, rowmiss, checkpoint); %d "
              "chunks of %d rows (halo %d) to run", t_start - t_enter,
@@ -544,9 +653,21 @@ def compute_ld_scores_streaming(bed: BedReader, positions: np.ndarray,
                 t0 = time.time()
                 collect(*in_flight.popleft())
                 stage_add("stream_collect_s", t0)
-    parts = [f"{k} {v}" for k, v in sorted(routes.items())]
-    if n_resumed:
-        parts.append(f"resumed {n_resumed}")
+    parts = [] if symmetric else ["full band"]
+    parts += [f"{k} {v}" for k, v in sorted(routes.items())]
+    if done:
+        parts.append(f"resumed {len(done)}")
     log.info("LD route: streaming (%d chunks of %d rows, halo %d: %s)",
              geo.n_chunks, c, h, ", ".join(parts) or "none")
     return {k: v[:m] for k, v in out.items()}
+
+
+def _payload(credits, pre: dict, lead: int, c: int, acc_a) -> torch.Tensor:
+    """One float64 vector of a chunk's results: the credits (in
+    :data:`CREDITS` order), the pivot rows' :data:`STATS` (band rows
+    ``[lead, lead + c)``), then the annotation accumulators."""
+    stats = torch.stack([pre["usable"], pre["add_sd_zero"], pre["maf"],
+                         pre["rstd"]])[:, lead:lead + c]
+    return torch.cat([torch.stack(credits).double().reshape(-1),
+                      stats.double().reshape(-1),
+                      *(a.double().reshape(-1) for a in acc_a)])

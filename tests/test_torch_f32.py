@@ -247,20 +247,3 @@ def test_cli_engine_f32_matches_jax(rng, tmp_path, symmetric):
         {v: a[k] for k, v in names.items()},
         {v: b[k] for k, v in names.items()}, g, bp.astype(np.float64), cfg,
         f32_tol(256, 140, cfg.rsq_thr)) <= 3
-
-
-@pytest.mark.parametrize("flags", [["--streaming"], ["--streaming",
-                                                     "--annot"]])
-def test_engine_f32_streaming_names_its_roadmap_item(rng, tmp_path, flags):
-    g = random_genotypes(rng, 40, 60, missing_rate=0.0)
-    prefix = write_plink(tmp_path / "c", g)
-    if "--annot" in flags:
-        path = tmp_path / "c.annot"
-        path.write_text("SNP\tbase\n" + "".join(
-            f"rs{i + 1}\t1\n" for i in range(40)))
-        flags = ["--streaming", "--annot", str(path)]
-    with pytest.raises(SystemExit) as ex:
-        _cli(prefix, str(tmp_path / "o.L2"), "--engine", "f32", *flags)
-    assert ex.value.code == 1
-    assert "ROADMAP queue 1 item 12" in str(ex.value.__cause__)
-    assert not (tmp_path / "o.L2").exists()

@@ -164,11 +164,8 @@ def test_cuda_without_gpu_raises(rng, tmp_path):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--log-file"], "item 8"),
     (["--shard-axis", "grid"], "item 10"),
     (["--n-devices", "2"], "item 10"),
-    (["--profile-dir", "x"], "item 8"),
-    (["--engine", "f32", "--streaming"], "item 12"),
 ])
 def test_unported_flags_name_their_roadmap_item(tmp_path, caplog, argv, item):
     g = random_genotypes(np.random.default_rng(0), 20, 30, missing_rate=0.0)
@@ -252,7 +249,7 @@ def test_ported_commands_run_on_cpu(rng, tmp_path, command):
 def test_port_never_imports_jax():
     code = ("import sys, nldsc_tpu_torch, nldsc_tpu_torch.cli, "
             "nldsc_tpu_torch.ld.pipeline, nldsc_tpu_torch.ld.convert, "
-            "nldsc_tpu_torch.ld.streaming, "
+            "nldsc_tpu_torch.ld.streaming, nldsc_tpu_torch.compat, "
             "nldsc_tpu_torch.h2.pipeline, nldsc_tpu_torch.io.sumstats, "
             "nldsc_tpu_torch.io.convert, nldsc_tpu_torch.routines; "
             "bad = [k for k in sys.modules if k.split('.')[0] in "
