@@ -145,11 +145,32 @@ Phases, one line each (or a few):
  25. ``nldsc-tpu-torch --log-file ld --profile-dir DIR`` on phase 5's
      bfile: the .L2 byte-identical to phase 5's, the trace's kernel
      events holding K1 (``ld_sym_kernel``), the ten device ops with the
-     most time, and ``nldsc.log`` holding the completion line.
+     most time, and ``nldsc.log`` holding the completion line;
+ 26. multi-device in core, the shards placed round-robin on the visible
+     devices (several to a device on one card): phase 5's bfile through
+     ``ld_scores_sharded`` on 1, 2 and 4 shards (K1 launched once per
+     shard, l2/l2d bitwise equal across the counts, counters equal to
+     phase 5's in-core run, wall, CUDA-event span, K1 device time and
+     peak memory per device), phase 9's on 2 shards (the 8-product
+     branch per shard against the in-core global route), phase 19's 53
+     annotations on 2 shards (K1's annotation instantiation against in
+     core), ``ld_scores_sample_sharded`` on 1 and 2 shards and
+     ``ld_scores_grid_sharded`` on 2x2 and 4x1 against the in-core full
+     band (counters equal, bitwise invariant in the layout); ``ld
+     --n-devices 1 --shard-axis snp`` byte-identical to phase 5, and
+     ``--n-devices 2`` refused on one card (run on each axis with two);
+ 27. phase 14's bfile streamed through the devices ring of 2 at
+     ``--chunk-rows 8192``: K1 once per chunk and K2 on the contaminated
+     chunks (counted per device), the .L2 byte-identical to phase 14's,
+     and again after a resume with shards 3-7 deleted; a sample mesh of
+     2 and a grid of 2x2 against the single-device streamed full band
+     (l2_ws and l2d_ws equal, l2d_wse under the counter contract of
+     tests/contract.py, scores within KERNEL_TOL), the two bitwise equal.
 
 Then one JSON line of the kernels (each with its time, its plain
 version's, its bound from this run's inputs, its launches on the main
-path of phases 5 and 9 and in phases 13-14, and ``library_ms``: null
+path of phases 5 and 9, in phases 13-14, on the SNP shards of phase 26
+and the ring of phase 27, and ``library_ms``: null
 for K1, which no PyTorch call computes; for K2 ``torch._int_mm`` on its
 products, which the port never calls; null for the annotation
 instantiations, whose epilogues no one PyTorch call fuses), the
@@ -718,7 +739,9 @@ def launch_counts() -> dict:
             "split_corr": ld_split.corr_launches,
             "split_fused": ld_split.fused_launches,
             "split_annot": ld_split.annot_launches,
-            "split_bf16": ld_split.bf16_launches}
+            "split_bf16": ld_split.bf16_launches,
+            "ld_sym_by_device": dict(ld_pallas_sym.device_launches),
+            "split_by_device": dict(ld_split.device_launches)}
 
 
 def reset_counts() -> None:
@@ -728,6 +751,8 @@ def reset_counts() -> None:
     ld_pallas_sym.annot_launches = ld_pallas_sym.bf16_launches = 0
     ld_split.corr_launches = ld_split.fused_launches = 0
     ld_split.annot_launches = ld_split.bf16_launches = 0
+    ld_pallas_sym.device_launches.clear()
+    ld_split.device_launches.clear()
 
 
 def run_cli(prefix: str, out: str):
@@ -2355,6 +2380,328 @@ def profile_phase(torch, tmp: str, prefix5: str, out5: str,
         f"completion line; on {card}")
 
 
+def same_bits(a: dict, b: dict, keys=("l2", "l2d")) -> bool:
+    """Whether the float arrays of ``keys`` are bitwise equal (NaN in the
+    same places)."""
+    return all(np.array_equal(a[k], b[k], equal_nan=True) for k in keys)
+
+
+def counters_equal(a: dict, b: dict, what: str) -> None:
+    for k in ("l2_ws", "l2d_ws", "l2d_wse"):
+        if not np.array_equal(a[k], b[k]):
+            raise RuntimeError(f"{what}: {k} differs in "
+                               f"{int((a[k] != b[k]).sum())} rows")
+
+
+def within(a: dict, b: dict, keys, what: str) -> float:
+    """The largest difference of ``keys`` between two results, held to
+    KERNEL_TOL."""
+    worst = 0.0
+    for k in keys:
+        np.testing.assert_allclose(a[k], b[k], equal_nan=True,
+                                   err_msg=f"{what}: {k}", **KERNEL_TOL)
+        d = np.abs(np.asarray(a[k], np.float64) - b[k])
+        worst = max(worst, float(np.nanmax(d)) if np.isfinite(d).any()
+                    else 0.0)
+    return worst
+
+
+def timed_run(torch, fn, devices):
+    """``fn()`` once: its result, wall seconds, the CUDA-event span and the
+    peak memory above the start (GiB) on each distinct device, and the
+    device time of K1's kernels (profiler, ms)."""
+    distinct = sorted({d.index for d in devices})
+    torch.cuda.synchronize()
+    base = {i: torch.cuda.memory_allocated(i) for i in distinct}
+    ev = {}
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for i in distinct:
+            torch.cuda.reset_peak_memory_stats(i)
+            with torch.cuda.device(i):
+                ev[i] = (torch.cuda.Event(enable_timing=True),
+                         torch.cuda.Event(enable_timing=True))
+                ev[i][0].record()
+        t0 = time.time()
+        out = fn()
+        for i in distinct:
+            with torch.cuda.device(i):
+                ev[i][1].record()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    k1_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "ld_sym_kernel" in e.key) / 1e3
+    per_dev = {f"cuda:{i}": {
+        "event_ms": ev[i][0].elapsed_time(ev[i][1]),
+        "peak_gib": (torch.cuda.max_memory_allocated(i) - base[i]) / 2**30}
+        for i in distinct}
+    return out, wall, per_dev, k1_ms
+
+
+def multi_device_phase(torch, tmp: str, prefix5: str, out5: str,
+                       prefix9: str, apath: str, m5: int, card: str) -> dict:
+    """Phase 26: the SNP, sample and grid axes in core at phase 5's shape
+    (shards placed round-robin on the visible devices), and the ``ld``
+    flags; returns K1's launches and device times per device count."""
+    from nldsc_tpu_torch.cli import main as cli_main
+    from nldsc_tpu_torch.config import LDConfig
+    from nldsc_tpu_torch.core.errors import NLDSCParameterError
+    from nldsc_tpu_torch.io.ldscores import read_annot
+    from nldsc_tpu_torch.io.plink import PlinkDataset
+    from nldsc_tpu_torch.ld.pipeline import compute_ld_scores
+    from nldsc_tpu_torch.parallel import (grid_devices,
+                                          ld_scores_grid_sharded,
+                                          ld_scores_sample_sharded,
+                                          ld_scores_sharded, mesh,
+                                          snp_devices)
+
+    k = torch.cuda.device_count()
+    cfg = LDConfig(ld_wind=100.0, wind_metric="kbp", maf_thr=0.01,
+                   std_thr=1e-4).resolve_rsq(m5)
+    ds5 = PlinkDataset.parse(prefix5)
+    packed5, pos5 = ds5.bed.read_raw(), ds5.positions("bp")
+    incore = compute_ld_scores(packed5, pos5, cfg, device="cuda")
+    found = {"launches": {}, "k1_ms": {}}
+    runs = {}
+    for d in (1, 2, 4):
+        devs = snp_devices(d, "cuda", share=True)
+        reset_counts()
+        mesh.exchange_bytes = 0
+        res, wall, per_dev, k1_ms = timed_run(
+            torch, lambda: ld_scores_sharded(packed5, pos5, cfg, devs), devs)
+        c = launch_counts()
+        if c["ld_sym"] != d or c["ld_sym_8prod"] or c["split_corr"]:
+            raise RuntimeError(f"phase 26 d={d}: launches {c}, expected K1 "
+                               f"{d} (clean)")
+        counters_equal(res, incore, f"phase 26 d={d} vs in core")
+        if d > 1 and not same_bits(res, runs[1]):
+            raise RuntimeError(f"phase 26: l2/l2d at d={d} differ from d=1")
+        bit = same_bits(res, incore)
+        err = within(res, incore, ("l2", "l2d"), f"phase 26 d={d}")
+        runs[d] = res
+        found["launches"][str(d)] = c["ld_sym"]
+        found["k1_ms"][str(d)] = k1_ms
+        say("26 snp axis", f"M={m5} N=16384 -kb 100, ld_scores_sharded on "
+            f"{d} shard(s) over {len(set(devs))} distinct device(s) of {k}: "
+            f"K1 launches {c['ld_sym']} ({c['ld_sym_by_device']}); wall "
+            f"{wall:.3f} s; K1 device time {k1_ms:.3f} ms; per device "
+            f"{per_dev}; exchanged {mesh.exchange_bytes / 1e6:.1f} MB; "
+            f"counters equal to in core, l2/l2d "
+            f"{'bitwise equal to' if bit else f'{err:.3g} off'} in core"
+            f"{'' if d == 1 else ', bitwise equal to d=1'}; on {card}")
+    del runs
+
+    # the 8-product branch per shard, and the annotation instantiation
+    ds9 = PlinkDataset.parse(prefix9)
+    packed9, pos9 = ds9.bed.read_raw(), ds9.positions("bp")
+    glob = compute_ld_scores(
+        packed9, pos9, dataclasses.replace(cfg, split_missing=False),
+        device="cuda")
+    devs2 = snp_devices(2, "cuda", share=True)
+    reset_counts()
+    res9 = ld_scores_sharded(packed9, pos9, cfg, devs2)
+    c = launch_counts()
+    if c["ld_sym_8prod"] != 2 or c["split_corr"]:
+        raise RuntimeError(f"phase 26 missing: launches {c}")
+    counters_equal(res9, glob, "phase 26 missing vs in-core global")
+    err9 = within(res9, glob, ("l2", "l2d"), "phase 26 missing")
+    say("26 snp axis missing", f"phase 9's bfile on 2 shards: 8-product K1 "
+        f"launches {c['ld_sym_8prod']}; vs the in-core global route: "
+        f"counters equal, l2/l2d {'bitwise equal' if same_bits(res9, glob) else f'max diff {err9:.3g}'}")
+    del glob, res9, packed9
+    annot, _ = read_annot(apath, ds5.bim)
+    a_in = compute_ld_scores(packed5, pos5, cfg, annot=annot, device="cuda")
+    reset_counts()
+    a_sh = ld_scores_sharded(packed5, pos5, cfg, devs2, annot=annot)
+    c = launch_counts()
+    if c["ld_sym_annot"] != 2:
+        raise RuntimeError(f"phase 26 annot: launches {c}")
+    counters_equal(a_sh, a_in, "phase 26 annot")
+    err_a = within(a_sh, a_in, ("l2", "l2d", "l2_annot", "l2d_annot"),
+                   "phase 26 annot")
+    say("26 snp axis annot", f"p={annot.shape[1]} on 2 shards: K1 annot "
+        f"launches {c['ld_sym_annot']}; vs in core: counters equal, "
+        f"l2/l2d/annot {'bitwise equal' if same_bits(a_sh, a_in, ('l2', 'l2d', 'l2_annot', 'l2d_annot')) else f'max diff {err_a:.3g}'}")
+    del a_in, a_sh, annot
+
+    # the sample axis and the grid: the integer full band, in torch ops
+    full = compute_ld_scores(packed5, pos5,
+                             dataclasses.replace(cfg, symmetric=False),
+                             device="cuda")
+    tabs = {}
+    for name, run, layout in (
+            ("samples 1", ld_scores_sample_sharded, snp_devices(1, "cuda")),
+            ("samples 2", ld_scores_sample_sharded,
+             snp_devices(2, "cuda", share=True)),
+            ("grid 2x2", ld_scores_grid_sharded,
+             grid_devices(2, 2, "cuda", share=True)),
+            ("grid 4x1", ld_scores_grid_sharded,
+             grid_devices(4, 1, "cuda", share=True))):
+        reset_counts()
+        mesh.exchange_bytes = 0
+        flat = [d for row in layout for d in
+                (row if isinstance(row, list) else [row])]
+        res, wall, per_dev, _ = timed_run(
+            torch, lambda: run(packed5, pos5, cfg, layout), flat)
+        if launch_counts()["ld_sym"] or launch_counts()["split_corr"]:
+            raise RuntimeError(f"phase 26 {name}: a kernel ran")
+        counters_equal(res, full, f"phase 26 {name}")
+        err = within(res, full, ("l2", "l2d"), f"phase 26 {name}")
+        tabs[name] = res
+        say(f"26 {name.split()[0]}", f"{name} (in core, full band, "
+            f"torch._int_mm products summed over the shards): wall "
+            f"{wall:.3f} s; per device {per_dev}; exchanged "
+            f"{mesh.exchange_bytes / 1e6:.1f} MB; vs the in-core full band: "
+            f"counters equal, l2/l2d "
+            f"{'bitwise equal' if same_bits(res, full) else f'max diff {err:.3g}'}; on {card}")
+    for a, b in (("samples 1", "samples 2"), ("grid 2x2", "grid 4x1")):
+        if not same_bits(tabs[a], tabs[b]):
+            raise RuntimeError(f"phase 26: {a} and {b} differ")
+    del tabs, full, incore
+
+    # the ld flags
+    base = ["--bfile", prefix5, "-kb", "100", "-maf", "0.01", "--extra"]
+    out1 = os.path.join(tmp, "nd1.L2")
+    r1 = run_ld(torch, base + ["--n-devices", "1", "--shard-axis", "snp",
+                               "-o", out1])
+    if Path(out1).read_bytes() != Path(out5).read_bytes():
+        raise RuntimeError("phase 26: ld --n-devices 1 differs from phase 5")
+    if k == 1:
+        try:
+            cli_main(["ld", *base, "--n-devices", "2", "-o",
+                      os.path.join(tmp, "nd2.L2")])
+            raise RuntimeError("phase 26: --n-devices 2 ran on one card")
+        except SystemExit as ex:
+            if not isinstance(ex.__cause__, NLDSCParameterError):
+                raise RuntimeError(f"phase 26: wrong refusal {ex.__cause__}")
+        flags = "--n-devices 2 refused (NLDSCParameterError: one card)"
+    else:
+        one_full = os.path.join(tmp, "nd1_full.L2")
+        run_ld(torch, base + ["--no-symmetric", "-o", one_full])
+        for axis, want in (("snp", out5), ("samples", one_full),
+                           ("grid", None)):
+            out = os.path.join(tmp, f"nd2_{axis}.L2")
+            run_ld(torch, base + ["--n-devices", "2", "--shard-axis", axis,
+                                  "-o", out])
+            if want and Path(out).read_bytes() != Path(want).read_bytes():
+                raise RuntimeError(f"phase 26: ld --n-devices 2 "
+                                   f"--shard-axis {axis} differs")
+        flags = ("--n-devices 2 on each axis: snp byte-identical to phase 5, "
+                 "samples to the one-device --no-symmetric run, grid ran "
+                 "(2 devices: no 2-D factorization, the SNP axis)")
+    say("26 ld flags", f"ld --n-devices 1 --shard-axis snp: .L2 "
+        f"byte-identical to phase 5's ({r1['wall']:.2f} s); {flags}; "
+        f"{k} visible device(s)")
+    return found
+
+
+def multi_stream_phase(torch, tmp: str, prefix9: str, out14: str, m5: int,
+                       card: str, chunk: int = 8192) -> dict:
+    """Phase 27: phase 14's bfile through the devices ring of 2 (K1 per
+    chunk, K2 per contaminated chunk, .L2 byte-identical to phase 14's,
+    resumed), a sample mesh of 2 and a grid of 2x2 against the
+    single-device streamed full band; returns the ring's launches."""
+    from nldsc_tpu_torch.config import LDConfig
+    from nldsc_tpu_torch.io.ldscores import make_output, write_l2
+    from nldsc_tpu_torch.io.plink import PlinkDataset, scan_rowmiss
+    from nldsc_tpu_torch.ld.streaming import compute_ld_scores_streaming
+    from nldsc_tpu_torch.parallel import grid_devices, snp_devices
+
+    cfg = LDConfig(ld_wind=100.0, wind_metric="kbp", maf_thr=0.01,
+                   std_thr=1e-4).resolve_rsq(m5)
+    ds = PlinkDataset.parse(prefix9)
+    pos = ds.positions("bp")
+    n_chunks = m5 // chunk
+    want_k2 = band_chunks(scan_rowmiss(ds.bed), chunk, 1024)
+    ring = snp_devices(2, "cuda", share=True)
+
+    def write(res, name):
+        out = os.path.join(tmp, name)
+        write_l2(make_output(ds.bim, res, extra=True), out)
+        return Path(out).read_bytes()
+
+    want = Path(out14).read_bytes()
+    reset_counts()
+    res, wall, per_dev, k1_ms = timed_run(
+        torch, lambda: compute_ld_scores_streaming(
+            ds.bed, pos, cfg, chunk_rows=chunk, device="cuda", devices=ring),
+        ring)
+    c = launch_counts()
+    if (c["ld_sym"] != n_chunks or c["ld_sym_8prod"]
+            or c["split_corr"] != 2 * want_k2):
+        raise RuntimeError(f"phase 27 ring: launches {c}, expected K1 "
+                           f"{n_chunks}, K2 {2 * want_k2}")
+    if write(res, "ring.L2") != want:
+        raise RuntimeError("phase 27: the ring's .L2 differs from phase 14's")
+    found = {"ld_sym": c["ld_sym"], "split_corr": c["split_corr"]}
+    say("27 ring", f"phase 14's bfile, devices ring of 2 ({len(set(ring))} "
+        f"distinct device(s)), --chunk-rows {chunk}: K1 {c['ld_sym']} "
+        f"({c['ld_sym_by_device']}), K2 {c['split_corr']} "
+        f"({c['split_by_device']}); .L2 byte-identical to phase 14's; wall "
+        f"{wall:.3f} s, K1 device time {k1_ms:.3f} ms, per device "
+        f"{per_dev}; on {card}")
+
+    ck = os.path.join(tmp, "ring_ck")
+    compute_ld_scores_streaming(ds.bed, pos, cfg, chunk_rows=chunk,
+                                device="cuda", devices=ring, resume_path=ck)
+    for f in sorted(Path(ck).glob("chunk_*.npz"))[3:]:
+        f.unlink()
+    reset_counts()
+    resumed = compute_ld_scores_streaming(
+        ds.bed, pos, cfg, chunk_rows=chunk, device="cuda", devices=ring,
+        resume_path=ck)
+    if write(resumed, "ring_resumed.L2") != want:
+        raise RuntimeError("phase 27: the resumed ring's .L2 differs")
+    say("27 ring resume", f"shards 3-{n_chunks - 1} deleted: "
+        f"{launch_counts()['ld_sym']} K1 launches, .L2 byte-identical to "
+        "phase 14's")
+
+    # the sample-sharded rings run the symmetric pass in torch ops: the
+    # mirrored dominance value of a pair may round otherwise than the full
+    # band's direct one, so l2d_wse is held to tests/contract.py
+    sys.path.insert(0, str(ROOT / "tests"))
+    from contract import INT_TOL, assert_counters_match
+    from nldsc_tpu_torch.ld.preprocess import unpack_bed
+
+    full = compute_ld_scores_streaming(
+        ds.bed, pos, dataclasses.replace(cfg, symmetric=False),
+        chunk_rows=chunk, device="cuda")
+    codes = unpack_bed(torch.from_numpy(ds.bed.read_raw().raw).cuda(),
+                       ds.n_samples, ds.n_samples, -1)
+    sampled = {}
+    for name, kw in (("sample mesh of 2",
+                      {"sample_mesh": snp_devices(2, "cuda", share=True)}),
+                     ("grid 2x2",
+                      {"grid": grid_devices(2, 2, "cuda", share=True)})):
+        reset_counts()
+        flat = kw.get("sample_mesh") or [d for r in kw["grid"] for d in r]
+        res, wall, per_dev, _ = timed_run(
+            torch, lambda kw=kw: compute_ld_scores_streaming(
+                ds.bed, pos, cfg, chunk_rows=chunk, device="cuda", **kw),
+            flat)
+        if launch_counts()["ld_sym"] or launch_counts()["split_corr"]:
+            raise RuntimeError(f"phase 27 {name}: a kernel ran")
+        n_exempt = assert_counters_match(res, full, codes, pos, cfg, INT_TOL,
+                                         device="cuda")
+        if n_exempt > m5 // 1024:
+            raise RuntimeError(f"phase 27 {name}: l2d_wse differs on "
+                               f"{n_exempt} rows")
+        err = within(res, full, ("l2", "l2d"), f"phase 27 {name}")
+        sampled[name] = res
+        say("27 samples", f"{name}, streamed (symmetric, torch ops, products "
+            f"summed over the sample shards): wall {wall:.3f} s, per device "
+            f"{per_dev}; vs the single-device streamed full band: l2_ws, "
+            f"l2d_ws equal, l2d_wse on {n_exempt} rows within the contract "
+            f"(tol {INT_TOL:.3g}), max |l2,l2d| diff {err:.3g}; on {card}")
+    if not same_bits(*sampled.values(), keys=tuple(full)):
+        raise RuntimeError("phase 27: the grid's results differ from the "
+                           "sample mesh's")
+    say("27 samples", "the grid 2x2 bitwise equal to the sample mesh of 2")
+    return found
+
+
 def main() -> int:
     if not (ROOT / "nldsc_tpu_torch" / "csrc" / "ld_sym.cu").exists():
         print("chip_smoke.py must run from a checkout that holds "
@@ -2719,6 +3066,14 @@ def main() -> int:
         compat_phase(torch, prefix5, M5, card)
         profile_phase(torch, tmp, prefix5, out5, card)
 
+        # 26-27. multi-device: in core on each axis, and the streaming rings
+        torch.cuda.empty_cache()
+        multi = multi_device_phase(torch, tmp, prefix5, out5, prefix9,
+                                   annot19["path"], M5, card)
+        ring = multi_stream_phase(torch, tmp, prefix9,
+                                  os.path.join(tmp, "stream_split.L2"), M5,
+                                  card)
+
     bad = sorted({k.split(".")[0] for k in sys.modules}
                  & {"jax", "nldsc_tpu", "pandas"})
     if bad:
@@ -2730,6 +3085,9 @@ def main() -> int:
         "launches": launches["ld_sym"],
         "launches_stream_clean": streamed["13"]["ld_sym"],
         "launches_stream_split": streamed["14"]["ld_sym"],
+        "launches_sharded": multi["launches"],
+        "launches_ring": ring["ld_sym"],
+        "ms_sharded": multi["k1_ms"],
         "max_abs_err": max(errs + [err5, err5m]),
         "ms": ms, "plain_ms": plain[best_b], "bound_ms": work["bound_ms"],
         "bound_by": work["bound_by"], "library_ms": None,
@@ -2742,6 +3100,7 @@ def main() -> int:
         "launches": launches["split_corr"],
         "launches_stream_clean": streamed["13"]["split_corr"],
         "launches_stream_split": streamed["14"]["split_corr"],
+        "launches_ring": ring["split_corr"],
         "max_abs_err": max(err8, err10, float(k2_err)),
         "ms": t10["ms_corr"], "plain_ms": t10["ms_corr_plain"],
         "bound_ms": work2["bound_ms"], "bound_by": work2["bound_by"],

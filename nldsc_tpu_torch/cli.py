@@ -1,13 +1,13 @@
 """Command-line interface of the port: the ``ld``, ``ld-genome``, ``h2``
 and ``convert`` commands.
 
-Flag-compatible with ``nldsc_tpu``'s CLI (``ld`` and ``ld-genome`` on
-one device, in core or streaming, plain or partitioned by ``--annot``,
-every ``--engine``, ``--dot-dtype`` and ``--symmetric/--no-symmetric``,
+Flag-compatible with ``nldsc_tpu``'s CLI (``ld`` and ``ld-genome`` in
+core or streaming, plain or partitioned by ``--annot``, every
+``--engine``, ``--dot-dtype`` and ``--symmetric/--no-symmetric``, on one
+device or sharded with ``--n-devices`` and ``--shard-axis``,
 ``ld --profile-dir`` and the group flag ``--log-file``), plus
-``--device`` on ``ld``, ``ld-genome`` and ``h2``.  The multi-device flags
-of the JAX CLI and its ``--pallas`` (``_UNPORTED_LD_FLAGS``) are
-recognised and refused, naming the ROADMAP item that will port them or
+``--device`` on ``ld``, ``ld-genome`` and ``h2``.  The JAX CLI's
+``--pallas`` (``_UNPORTED_LD_FLAGS``) is recognised and refused, naming
 the flag to use.  Needs only the standard library (argparse) and numpy
 until a command runs.
 """
@@ -32,15 +32,11 @@ __header__ = (
     f"==============================================================\n"
 )
 
-#: flags of the JAX CLI not ported yet -> (takes a value, where)
+#: flags of the JAX CLI not ported -> (takes a value, what to use)
 _UNPORTED_LD_FLAGS = {
     "--pallas": (False, "the fused kernel is the default engine here; "
                         "use --engine pallas"),
-    "--n-devices": (True, "ROADMAP queue 1 item 10 (multi-GPU)"),
-    "--shard-axis": (True, "ROADMAP queue 1 item 10 (multi-GPU)"),
 }
-#: the flags of the JAX ``ld-genome`` not ported yet
-_UNPORTED_GENOME_FLAGS = ("--n-devices", "--shard-axis")
 
 
 class _Unported(argparse.Action):
@@ -132,6 +128,7 @@ def build_parser() -> argparse.ArgumentParser:
     ld.add_argument("--device", default="cuda",
                     help="torch device: cuda (default; the CUDA kernel) or "
                          "cpu (the plain PyTorch path)")
+    _add_device_flags(ld)
     ld.add_argument("--display", action="store_true",
                     help="Display traceback")
     _add_unported(ld, _UNPORTED_LD_FLAGS)
@@ -175,10 +172,9 @@ def build_parser() -> argparse.ArgumentParser:
                         action="store_false", help=argparse.SUPPRESS)
     genome.add_argument("--device", default="cuda",
                         help="torch device: cuda (default) or cpu")
+    _add_device_flags(genome)
     genome.add_argument("--display", action="store_true",
                         help="Display traceback")
-    _add_unported(genome, {f: _UNPORTED_LD_FLAGS[f]
-                           for f in _UNPORTED_GENOME_FLAGS})
 
     h2 = sub.add_parser("h2", allow_abbrev=False,
                         help="Estimate additive and non-additive heritability")
@@ -254,6 +250,21 @@ def _add_streaming_flags(parser) -> None:
                         help="Pivot rows per streaming chunk")
 
 
+def _add_device_flags(parser) -> None:
+    parser.add_argument("--n-devices", metavar="N", type=int, default=None,
+                        help="Shard the run over N devices (default: every "
+                             "visible CUDA device, one on the CPU; on the "
+                             "CPU N runs N CPU shards)")
+    parser.add_argument("--shard-axis", choices=["snp", "samples", "grid"],
+                        default="snp",
+                        help="Multi-device axis: snp (SNP rows with halo "
+                             "exchange, default), samples (per-tile sums "
+                             "over sample shards; composes with "
+                             "--streaming), or grid (2-D snp x sample; "
+                             "streamed, chunks round-robin over the grid's "
+                             "rows, each row sample-sharding its chunk)")
+
+
 def _add_annot_flag(parser, what: str) -> None:
     parser.add_argument("--annot", metavar="FILE", default=None,
                         help="Per-SNP annotation file (a SNP column and one "
@@ -315,27 +326,40 @@ def run_ld(args) -> None:
         streaming=args.streaming, chunk_rows=args.chunk_rows,
         resume_path=args.resume_path, annot=args.annot,
         symmetric=args.symmetric, profile_dir=args.profile_dir,
-        device=args.device)
+        **_device_kwargs(args))
     if table is not None and args.out is None:
         from .io.ldscores import format_table  # noqa: PLC0415
 
         print(format_table(table), end="")
 
 
+def _device_kwargs(args) -> dict:
+    """``estimate_lds``'s device arguments of ``--device``, ``--n-devices``
+    and ``--shard-axis``."""
+    return {"device": args.device, "n_devices": args.n_devices,
+            "shard_samples": args.shard_axis == "samples",
+            "shard_grid": args.shard_axis == "grid"}
+
+
 def run_ld_genome(args) -> None:
-    """``ld`` over every bfile of ``--bfiles``, into ``--out-dir``; one
-    process takes every chromosome (``nldsc_tpu/cli.py:207-256``)."""
+    """``ld`` over every bfile of ``--bfiles``, into ``--out-dir``; in a
+    process group the chromosomes go round-robin over its processes
+    (``parallel.distributed.assign_chromosomes``), else this process takes
+    them all (``nldsc_tpu/cli.py:207-256``)."""
     wind_metric, ld_wind = _window(args)
     prefixes = genome_prefixes(args.bfiles)
 
     from .ld.pipeline import estimate_lds  # noqa: PLC0415
+    from .parallel.distributed import assign_chromosomes  # noqa: PLC0415
 
+    mine = assign_chromosomes(prefixes)
     os.makedirs(args.out_dir, exist_ok=True)
-    log.info("ld-genome: %d bfiles", len(prefixes))
-    for i, prefix in enumerate(prefixes):
+    log.info("ld-genome: %d bfiles total, %d in this process",
+             len(prefixes), len(mine))
+    for i, prefix in enumerate(mine):
         name = os.path.basename(prefix)
         out = os.path.join(args.out_dir, name + ".L2")
-        log.info("[%d/%d] %s -> %s", i + 1, len(prefixes), prefix, out)
+        log.info("[%d/%d] %s -> %s", i + 1, len(mine), prefix, out)
         estimate_lds(
             prefix, ld_wind=ld_wind, wind_metric=wind_metric,
             maf_thr=args.maf_thr, std_thr=args.std_thr, rsq_thr=args.rsq_thr,
@@ -343,8 +367,8 @@ def run_ld_genome(args) -> None:
             chunk_rows=args.chunk_rows,
             resume_path=(os.path.join(args.resume_dir, name)
                          if args.resume_dir else None),
-            annot=args.annot, device=args.device)
-    log.info("ld-genome: %d chromosomes done", len(prefixes))
+            annot=args.annot, **_device_kwargs(args))
+    log.info("ld-genome: %d chromosomes done", len(mine))
 
 
 def run_h2(args) -> None:

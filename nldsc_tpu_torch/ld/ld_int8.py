@@ -121,6 +121,31 @@ def _row_counts(g: torch.Tensor, pred) -> torch.Tensor:
                       for r in range(0, g.shape[0], _COUNT_ROWS)])
 
 
+def code_matrices(genotypes: torch.Tensor, n_samples: int,
+                  assume_no_missing: bool = False,
+                  materialize_m: bool = True):
+    """The int8 ``g``/``m``/``h`` matrices of int8 codes and their exact
+    per-row class counts ``(n_valid_raw, c1, c2)`` (float32): the
+    per-shard half of :func:`preprocess_int8`, whose counts add up
+    exactly over shards of the samples."""
+    g = genotypes
+    n_pad = g.shape[1]
+    if assume_no_missing:
+        gq = g
+        n_valid_raw = torch.full((g.shape[0],), float(n_samples),
+                                 dtype=torch.float32, device=g.device)
+    else:
+        # codes are {-1, 0, 1, 2}: clamping at 0 masks the missing ones
+        gq = torch.clamp(g, min=0)
+        n_valid_raw = float(n_pad) - _row_counts(g, lambda x: x < 0)
+    missing_m = materialize_m and not assume_no_missing
+    mq = materialize_missing(g) if missing_m else gq   # alias: never read
+    hq = torch.clamp(gq, max=1).mul_(2)      # in place: one M·N buffer
+    c1 = _row_counts(gq, lambda x: x == 1)
+    c2 = _row_counts(gq, lambda x: x == 2)
+    return {"g": gq, "m": mq, "h": hq}, (n_valid_raw, c1, c2)
+
+
 def preprocess_int8(genotypes: torch.Tensor, pos_ok: torch.Tensor,
                     maf_thr: float, n_samples: int,
                     assume_no_missing: bool = False,
@@ -139,27 +164,13 @@ def preprocess_int8(genotypes: torch.Tensor, pos_ok: torch.Tensor,
     global route builds them later with :func:`materialize_missing`.  The
     per-SNP statistics do not depend on it.
     """
-    g = genotypes
-    n_pad = g.shape[1]
-    if assume_no_missing:
-        gq = g
-        cm = torch.full((g.shape[0],), float(n_pad - n_samples),
-                        dtype=torch.float32, device=g.device)
-        n_valid_raw = torch.full_like(cm, float(n_samples))
-    else:
-        # codes are {-1, 0, 1, 2}: clamping at 0 masks the missing ones
-        gq = torch.clamp(g, min=0)
-        cm = _row_counts(g, lambda x: x < 0)             # incl. padding
-        n_valid_raw = float(n_pad) - cm
-    missing_m = materialize_m and not assume_no_missing
-    mq = materialize_missing(g) if missing_m else gq   # alias: never read
-    hq = torch.clamp(gq, max=1).mul_(2)      # in place: one M·N buffer
-    c1 = _row_counts(gq, lambda x: x == 1)
-    c2 = _row_counts(gq, lambda x: x == 2)
-
-    out = finish_preprocess_int8(n_valid_raw, c1, c2, cm, pos_ok, maf_thr,
-                                 n_samples)
-    out.update({"g": gq, "m": mq, "h": hq})
+    mats, (n_valid_raw, c1, c2) = code_matrices(
+        genotypes, n_samples, assume_no_missing, materialize_m)
+    # cm counts the missing codes, the sample padding included
+    out = finish_preprocess_int8(n_valid_raw, c1, c2,
+                                 float(genotypes.shape[1]) - n_valid_raw,
+                                 pos_ok, maf_thr, n_samples)
+    out.update(mats)
     return out
 
 
@@ -290,27 +301,53 @@ def corr_from_dots(dots: dict, sc_i: dict, sc_j: dict, n: float,
     return r_add, r_dom_a, r_dom_b
 
 
-def int8_tile(g, m, h, scal, n_samples: int, has_missing: bool,
-              dot_dtype: str):
-    """The full-band engines' ``tile`` (``ld_xla.band_pass``) on the codes
-    ``g``/``m``/``h`` and their scalars: ``(r_add, r_dom)`` of the pivot
-    rows ``rows`` against their band rows ``cols``, two products (six
-    with missing genotypes) and :func:`corr_from_dots` (the reference's
-    ``corr_tiles``, not symmetric)."""
+def tile_products(g, m, h, has_missing: bool, dot_dtype: str,
+                  symmetric: bool = False):
+    """``dots(rows, cols)``: the exact products of the pivot rows ``rows``
+    of ``g``/``m``/``h`` with their band rows ``cols`` that
+    :func:`corr_from_dots` reads, float32 tiles: sgg, sgh (+ shg when
+    ``symmetric``; + sgm, smg, smm, smh (+ shm) when ``has_missing``),
+    contracted as ``dot_dtype`` says (:func:`make_idot`)."""
     idot = make_idot(dot_dtype)
-    n, n_padf = float(n_samples), float(g.shape[1])
 
-    def tile(rows, cols):
+    def dots(rows, cols):
         g_i, g_j, h_j = g[rows], g[cols], h[cols]
-        dots = {"sgg": idot(g_i, g_j), "sgh": idot(g_i, h_j)}
+        out = {"sgg": idot(g_i, g_j), "sgh": idot(g_i, h_j)}
+        if symmetric:
+            out["shg"] = idot(h[rows], g_j)
         if has_missing:
             m_i, m_j = m[rows], m[cols]
-            dots.update(sgm=idot(g_i, m_j), smg=idot(m_i, g_j),
-                        smm=idot(m_i, m_j), smh=idot(m_i, h_j))
-        return corr_from_dots(dots, scal_views(scal[rows], "col"),
+            out.update(sgm=idot(g_i, m_j), smg=idot(m_i, g_j),
+                       smm=idot(m_i, m_j), smh=idot(m_i, h_j))
+            if symmetric:
+                out["shm"] = idot(h[rows], m_j)
+        return out
+    return dots
+
+
+def dots_tile(dots, scal, n_samples: int, n_pad: int, has_missing: bool):
+    """The full-band engines' ``tile`` (``ld_xla.band_pass``) on a
+    products function ``dots`` (:func:`tile_products`, or a sum over
+    shards of the samples) and the rows' scalars: ``(r_add, r_dom)`` of
+    the pivot rows ``rows`` against their band rows ``cols``
+    (:func:`corr_from_dots`, not symmetric)."""
+    n, n_padf = float(n_samples), float(n_pad)
+
+    def tile(rows, cols):
+        return corr_from_dots(dots(rows, cols), scal_views(scal[rows], "col"),
                               scal_views(scal[cols], "row"), n, n_padf,
                               has_missing)
     return tile
+
+
+def int8_tile(g, m, h, scal, n_samples: int, has_missing: bool,
+              dot_dtype: str):
+    """The full-band engines' ``tile`` (``ld_xla.band_pass``) on the codes
+    ``g``/``m``/``h`` and their scalars: two products (six with missing
+    genotypes) and :func:`corr_from_dots` (the reference's
+    ``corr_tiles``, not symmetric)."""
+    return dots_tile(tile_products(g, m, h, has_missing, dot_dtype), scal,
+                     n_samples, g.shape[1], has_missing)
 
 
 def band_extent(hi: torch.Tensor, block_size: int) -> tuple[torch.Tensor, int]:
@@ -426,16 +463,31 @@ def sym_scan_segment(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
     ``dot_dtype``: the contraction (:func:`make_idot`), as the kernel's
     int8 or bf16 instantiations compute it.
     """
-    m_pad, n_pad = g.shape
-    check_dot_dtype(dot_dtype, n_pad)
-    idot = make_idot(dot_dtype)
+    check_dot_dtype(dot_dtype, g.shape[1])
+    return sym_scan(
+        tile_products(g, m, h, has_missing, dot_dtype, symmetric=True),
+        scal, lo, hi, usable, dom_ok, add_sd_zero, rsq_thr, blk0, annot,
+        block_size=block_size, right_k=right_k, n_samples=n_samples,
+        n_pad=g.shape[1], n_scan_blocks=n_scan_blocks,
+        has_missing=has_missing)
+
+
+def sym_scan(dots, scal, lo, hi, usable, dom_ok, add_sd_zero,
+             rsq_thr: float, blk0: int = 0, annot=None, *, block_size: int,
+             right_k: int, n_samples: int, n_pad: int, n_scan_blocks: int,
+             has_missing: bool):
+    """:func:`sym_scan_segment` on a products function ``dots``
+    (:func:`tile_products` with ``symmetric=True``, or its sum over
+    shards of the samples) of ``n_pad`` padded samples; the rows are
+    those of ``scal``."""
+    m_pad = scal.shape[0]
     B = block_size
     right_rows = min(right_k * B, m_pad)
     n = float(n_samples)
     n_padf = float(n_pad)
     adj_c = adj_constant(n_samples)
     rsq = f32(rsq_thr)
-    dev = g.device
+    dev = scal.device
 
     l2_f = torch.zeros(m_pad, dtype=torch.float32, device=dev)
     l2d_f = torch.zeros_like(l2_f)
@@ -468,16 +520,9 @@ def sym_scan_segment(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
         dom_ok_j = dom_ok[cols][None, :]
         sc_j = scal_views(scal[cols], "row")
 
-        g_i, h_i, g_j, h_j = g[rows], h[rows], g[cols], h[cols]
-        dots = {"sgg": idot(g_i, g_j), "sgh": idot(g_i, h_j),
-                "shg": idot(h_i, g_j)}
-        if has_missing:
-            m_i, m_j = m[rows], m[cols]
-            dots.update(sgm=idot(g_i, m_j), smg=idot(m_i, g_j),
-                        smm=idot(m_i, m_j), smh=idot(m_i, h_j),
-                        shm=idot(h_i, m_j))
         r_add, r_dom_a, r_dom_b = corr_from_dots(
-            dots, sc_i, sc_j, n, n_padf, has_missing, symmetric=True)
+            dots(rows, cols), sc_i, sc_j, n, n_padf, has_missing,
+            symmetric=True)
 
         adj_add = 1.0 - (1.0 - r_add * r_add) * adj_c
         adj_da = 1.0 - (1.0 - r_dom_a * r_dom_a) * adj_c
@@ -513,3 +558,94 @@ def sym_scan_segment(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
     if annot is not None:
         return l2_f, ws_f, poi_f, l2d_f, wsd_f, wse_f, l2a_f, l2da_f
     return l2_f, ws_f, poi_f, l2d_f, wsd_f, wse_f
+
+
+def sym_tile_partials(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
+                      rsq_thr: float, annot=None, *, tile: int, band: int,
+                      n_samples: int, has_missing: bool,
+                      dot_dtype: str = "int8"):
+    """The plain twin of the kernel's unfolded partials
+    (``ld_pallas_sym.sym_partials``): the symmetric pass in tiles of
+    ``tile`` rows, per pivot tile x and slot k < ``band`` the row credits
+    that tile x + k gives tile x's rows and the column credits that tile
+    x gives tile x + k's rows (k ≥ 1), as the pair algebra of
+    :func:`sym_scan_segment`, each slot summed on its own.
+
+    Returns ``(fpart, ipart, apart)``: float32 ``(n_tiles, band, 2, 2,
+    T)`` (l2, l2d), int32 ``(n_tiles, band, 2, 4, T)`` (ws, wsd, wse,
+    poison) and, with ``annot``, float32 ``(n_tiles, band, 2, 2, T, p)``
+    (else None); direction 0 holds the row credits, 1 the column credits.
+    A pivot tile's slots past its rows' window ends, or past the rows,
+    stay zero.  Every slot is computed from the rows of its two tiles
+    alone, so a run split into shards of whole tiles gives each pivot
+    tile the same partials.
+    """
+    rows_total, n_pad = g.shape
+    T = tile
+    nt = rows_total // T
+    check_dot_dtype(dot_dtype, n_pad)
+    dots = tile_products(g, m, h, has_missing, dot_dtype, symmetric=True)
+    n = float(n_samples)
+    adj_c = adj_constant(n_samples)
+    rsq = f32(rsq_thr)
+    dev = g.device
+    tile_hi, depth = band_extent(hi, T)
+    if depth > band:
+        raise ValueError(f"band {band} is below the rows' depth {depth}")
+    fpart = torch.zeros((nt, band, 2, 2, T), dtype=torch.float32,
+                        device=dev)
+    ipart = torch.zeros((nt, band, 2, 4, T), dtype=torch.int32, device=dev)
+    apart = (None if annot is None else torch.zeros(
+        (nt, band, 2, 2, T, annot.shape[1]), dtype=torch.float32,
+        device=dev))
+    for x, last in enumerate(tile_hi.tolist()):
+        last = min(last, nt - 1)
+        if last < x:
+            continue
+        K = last - x + 1
+        r0 = x * T
+        rows, cols = slice(r0, r0 + T), slice(r0, (last + 1) * T)
+        sc_i, sc_j = scal_views(scal[rows], "col"), scal_views(scal[cols],
+                                                                "row")
+        r_add, r_dom_a, r_dom_b = corr_from_dots(
+            dots(rows, cols), sc_i, sc_j, n, float(n_pad), has_missing,
+            symmetric=True)
+        adj_add = 1.0 - (1.0 - r_add * r_add) * adj_c
+        adj_da = 1.0 - (1.0 - r_dom_a * r_dom_a) * adj_c
+        adj_db = 1.0 - (1.0 - r_dom_b * r_dom_b) * adj_c
+
+        gi = (r0 + torch.arange(T, device=dev))[:, None]
+        gj = (r0 + torch.arange(K * T, device=dev))[None, :]
+        upair = ((gj >= lo[rows][:, None]) & (gj <= hi[rows][:, None])
+                 & usable[cols][None, :] & usable[rows][:, None])
+        row_base = upair & (gj != gi)
+        col_base = upair & (gj >= r0 + T)
+        dm_a = row_base & dom_ok[cols][None, :]
+        dm_b = col_base & dom_ok[rows][:, None]
+
+        def by_slot(v, direction):
+            """(K, T) sums of a (T, K·T) tile per slot: over each slot's
+            columns (row credits) or over the pivot rows (column ones)."""
+            v = v.view(T, K, T)
+            return v.sum(dim=2).t() if direction == 0 else v.sum(dim=0)
+
+        vals = {0: (adj_add * row_base, adj_da * dm_a),
+                1: (adj_add * col_base, adj_db * dm_b)}
+        counts = {0: (row_base, dm_a, (adj_da > rsq) & dm_a,
+                      upair & add_sd_zero[cols][None, :]),
+                  1: (col_base, dm_b, (adj_db > rsq) & dm_b,
+                      col_base & add_sd_zero[rows][:, None])}
+        for d in (0, 1):
+            for q, v in enumerate(vals[d]):
+                fpart[x, :K, d, q] = by_slot(v, d)
+            for q, c in enumerate(counts[d]):
+                ipart[x, :K, d, q] = by_slot(c.to(torch.int32), d)
+        if annot is not None:
+            p = annot.shape[1]
+            a_j = annot[cols].view(K, T, p)
+            for q in range(2):
+                row_v = vals[0][q].view(T, K, T).permute(1, 0, 2)
+                col_v = vals[1][q].view(T, K, T).permute(1, 2, 0)
+                apart[x, :K, 0, q] = annot_dot(row_v, a_j)
+                apart[x, :K, 1, q] = annot_dot(col_v, annot[rows])
+    return fpart, ipart, apart

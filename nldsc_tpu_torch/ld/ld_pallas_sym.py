@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from collections import Counter
 
 import torch
 
@@ -52,13 +53,16 @@ TILE_CLEAN = 128
 TILE_MISSING = 64
 ROW_ALIGN = math.lcm(TILE_CLEAN, TILE_MISSING)
 
-#: kernel launches made by :func:`sym_credits` (CUDA tensors only), how
-#: many of them ran the 8-product (missing-data) branch, how many the
-#: annotation epilogue and how many the bf16 operands
+#: kernel launches made by :func:`sym_credits` and :func:`sym_partials`
+#: (CUDA tensors only), how many of them ran the 8-product (missing-data)
+#: branch, how many the annotation epilogue and how many the bf16
+#: operands
 launches = 0
 missing_launches = 0
 annot_launches = 0
 bf16_launches = 0
+#: the launches per device (``str(device)``)
+device_launches: Counter = Counter()
 
 _P = ctypes.c_void_p
 _ARGTYPES = [_P] * 14 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4 + [
@@ -155,8 +159,14 @@ def _fold_annot(apart):
     return tot[:, 0].reshape(-1, p), tot[:, 1].reshape(-1, p)
 
 
-def _launch(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
-            rsq_thr: float, n_samples: int, has_missing: bool, annot=None):
+def _launch_partials(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
+                     rsq_thr: float, n_samples: int, has_missing: bool,
+                     annot=None, band: int | None = None):
+    """One kernel launch: the unfolded partials ``(fpart, ipart, apart)``
+    (``apart`` None without ``annot``) of :func:`_fold`'s layout.  The
+    launch runs with the tensors' device current, whichever is current
+    in the caller.  ``band``: the slots per pivot tile, at least the
+    rows' own right half-band depth (default: that depth)."""
     global launches, missing_launches, annot_launches, bf16_launches
     _check_inputs(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
                   has_missing, annot)
@@ -164,39 +174,88 @@ def _launch(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
     m_pad, n_pad = g.shape
     T = tile(has_missing)
     nt = m_pad // T
-    tile_hi, band = ld_int8.band_extent(hi, T)
-    fpart = torch.zeros((nt, band, 2, 2, T), dtype=torch.float32,
-                        device=g.device)
-    ipart = torch.zeros((nt, band, 2, 4, T), dtype=torch.int32,
-                        device=g.device)
-    apart = None
-    if annot is not None:
-        # zero-filled: the tiles outside the band, and the column credits
-        # of the pivot tiles, are never written
-        apart = torch.zeros((nt, band, 2, 2, T, annot.shape[1]),
-                            dtype=torch.float32, device=g.device)
-    lib = _library()
-    stream = torch.cuda.current_stream(g.device).cuda_stream
-    mm = m if has_missing else g                # clean: never read
-    err = lib.ld_sym_launch(
-        g.data_ptr(), mm.data_ptr(), h.data_ptr(), scal.data_ptr(),
-        lo.data_ptr(), hi.data_ptr(), usable.data_ptr(), dom_ok.data_ptr(),
-        add_sd_zero.data_ptr(), tile_hi.data_ptr(), fpart.data_ptr(),
-        ipart.data_ptr(), None if annot is None else annot.data_ptr(),
-        None if annot is None else apart.data_ptr(),
-        0 if annot is None else annot.shape[1], nt, band, n_pad,
-        float(n_samples), float(n_pad),
-        ld_int8.adj_constant(n_samples), ld_int8.f32(rsq_thr),
-        int(has_missing), int(bf16), stream)
+    with torch.cuda.device(g.device):
+        tile_hi, depth = ld_int8.band_extent(hi, T)
+        if band is None:
+            band = depth
+        elif band < depth:
+            raise ValueError(f"band {band} is below the rows' depth {depth}")
+        fpart = torch.zeros((nt, band, 2, 2, T), dtype=torch.float32,
+                            device=g.device)
+        ipart = torch.zeros((nt, band, 2, 4, T), dtype=torch.int32,
+                            device=g.device)
+        apart = None
+        if annot is not None:
+            # zero-filled: the tiles outside the band, and the column
+            # credits of the pivot tiles, are never written
+            apart = torch.zeros((nt, band, 2, 2, T, annot.shape[1]),
+                                dtype=torch.float32, device=g.device)
+        lib = _library()
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        mm = m if has_missing else g                # clean: never read
+        err = lib.ld_sym_launch(
+            g.data_ptr(), mm.data_ptr(), h.data_ptr(), scal.data_ptr(),
+            lo.data_ptr(), hi.data_ptr(), usable.data_ptr(),
+            dom_ok.data_ptr(), add_sd_zero.data_ptr(), tile_hi.data_ptr(),
+            fpart.data_ptr(), ipart.data_ptr(),
+            None if annot is None else annot.data_ptr(),
+            None if annot is None else apart.data_ptr(),
+            0 if annot is None else annot.shape[1], nt, band, n_pad,
+            float(n_samples), float(n_pad),
+            ld_int8.adj_constant(n_samples), ld_int8.f32(rsq_thr),
+            int(has_missing), int(bf16), stream)
     if err != 0:
         raise RuntimeError(f"ld_sym kernel launch failed: CUDA error {err}")
     launches += 1
+    device_launches[str(g.device)] += 1
     missing_launches += int(has_missing)
     bf16_launches += int(bf16)
-    if annot is None:
+    annot_launches += int(annot is not None)
+    return fpart, ipart, apart
+
+
+def fold_partials(fpart, ipart, apart=None):
+    """The un-finalized credit vectors of a run's unfolded partials:
+    ``(l2, ws, poison, l2d, wsd, wse)`` (:func:`_fold`), and with
+    ``apart`` also ``(l2_annot, l2d_annot)`` (:func:`_fold_annot`)."""
+    if apart is None:
         return _fold(fpart, ipart)
-    annot_launches += 1
     return (*_fold(fpart, ipart), *_fold_annot(apart))
+
+
+def _launch(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
+            rsq_thr: float, n_samples: int, has_missing: bool, annot=None):
+    return fold_partials(*_launch_partials(
+        g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero, rsq_thr,
+        n_samples, has_missing, annot))
+
+
+def sym_partials(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
+                 rsq_thr: float, *, n_samples: int, has_missing: bool,
+                 band: int, block_size: int, annot=None):
+    """The symmetric pass's unfolded per-tile partials ``(fpart, ipart,
+    apart)`` (``apart`` None without ``annot``): for pivot tile x and slot
+    k < ``band``, the row credits that tile x + k gives tile x's rows and
+    the column credits that tile x gives tile x + k's rows (the layout of
+    :func:`_fold`, which reduces them).  One SNP shard's pass: every
+    shard of a run gets the run's ``band``, so that the shards' pivot
+    tiles, put together in order, fold as one run's.
+
+    CUDA tensors launch the kernel (tile :func:`tile` of the branch) or
+    raise; CPU tensors run the twin
+    (:func:`nldsc_tpu_torch.ld.ld_int8.sym_tile_partials`) with tiles of
+    ``block_size`` rows.  Rows whose windows are empty (lo past hi) are
+    neighbours only: their tiles give nothing."""
+    if g.device.type == "cpu":
+        return ld_int8.sym_tile_partials(
+            g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero, rsq_thr,
+            annot, tile=block_size, band=band, n_samples=n_samples,
+            has_missing=has_missing, dot_dtype=ld_int8.dot_dtype_of(g))
+    if g.device.type != "cuda":
+        raise ValueError(f"no LD kernel for device {g.device}")
+    return _launch_partials(g, m, h, scal, lo, hi, usable, dom_ok,
+                            add_sd_zero, rsq_thr, n_samples, has_missing,
+                            annot, band)
 
 
 def sym_credits(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,

@@ -40,6 +40,7 @@ card; the twin by four skinny float32 contractions per segment.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import numpy as np
 import torch
@@ -61,6 +62,8 @@ corr_launches = 0
 fused_launches = 0
 annot_launches = 0
 bf16_launches = 0
+#: K2's launches (either mode) per device (``str(device)``)
+device_launches: Counter = Counter()
 
 #: x rows and compact columns of one CTA of K2, checked against the library
 TILE_X = 128
@@ -187,15 +190,17 @@ def _products(x, blocks, boffs, seg, n_segs: int, rows_seg: int, P: int,
     if -(-rows_seg // TILE_X) > 65535 or n_segs > 65535:
         raise ValueError(f"{rows_seg} rows in {n_segs} segments exceed the "
                          "kernel's grid")
-    err = _library().split_corr_products_launch(
-        x.data_ptr(), x.shape[0], *(b.data_ptr() for b in blocks),
-        blocks[0].shape[0], *boffs,
-        None if seg is None else seg.data_ptr(), n_segs, rows_seg, P,
-        x.shape[1], out_a.data_ptr(), ld_a,
-        None if out_b is None else out_b.data_ptr(), ld_b, int(bf16),
-        _stream(x))
+    with torch.cuda.device(x.device):       # launch on the tensors' device
+        err = _library().split_corr_products_launch(
+            x.data_ptr(), x.shape[0], *(b.data_ptr() for b in blocks),
+            blocks[0].shape[0], *boffs,
+            None if seg is None else seg.data_ptr(), n_segs, rows_seg, P,
+            x.shape[1], out_a.data_ptr(), ld_a,
+            None if out_b is None else out_b.data_ptr(), ld_b, int(bf16),
+            _stream(x))
     _check_launch(err, "products")
     corr_launches += 1
+    device_launches[str(x.device)] += 1
     bf16_launches += int(bf16)
 
 
@@ -587,6 +592,7 @@ def _kernel_corrections(g, m_c, h, scal, lo, hi, usable, dom_ok, rowmiss,
         int(bf16), _stream(g))
     _check_launch(err, "fused")
     corr_launches += 1
+    device_launches[str(dev)] += 1
     fused_launches += 1
     bf16_launches += int(bf16)
     full, compact = _fold(rpf, rpi, cpf, cpi,
@@ -623,7 +629,9 @@ def split_corrections(g, m_c, h, scal, lo, hi, usable, dom_ok, rowmiss,
                                        dot_dtype=ld_int8.dot_dtype_of(g))
     if g.device.type != "cuda":
         raise ValueError(f"no split-corrections engine for device {g.device}")
-    return _kernel_corrections(*args, n_samples=n_samples)
+    # both launches run with the tensors' device current
+    with torch.cuda.device(g.device):
+        return _kernel_corrections(*args, n_samples=n_samples)
 
 
 def ld_scores_split(g, m_c, h, scal, lo, hi, usable, dom_ok, add_sd_zero,

@@ -446,6 +446,38 @@ def _progress_logger():
     return cb
 
 
+def _sharded(genotypes, positions, config, annot, dev, n_dev: int,
+             axis: str, grid) -> dict:
+    """An in-core run over ``n_dev`` devices of ``dev``'s type on
+    ``axis`` (``snp``, ``samples`` or ``grid`` of shape ``grid``)."""
+    from ..parallel import (grid_sharded, mesh, sample_sharded,  # noqa: PLC0415
+                            sharded)
+
+    if axis != "snp" and config.use_int8 is False:
+        raise NLDSCParameterError(
+            f"--shard-axis {axis} runs the integer engine only (the "
+            "reference's sample and grid bodies); use --shard-axis snp with "
+            "--engine f32")
+    t0 = time.time()
+    mesh.exchange_bytes = 0
+    if axis == "grid":
+        log.info("Running the LD estimator on a %dx%d snp-x-sample grid of "
+                 "%s devices...", *grid, dev.type)
+        result = grid_sharded.ld_scores_grid_sharded(
+            genotypes, positions, config, mesh.grid_devices(*grid, dev),
+            annot)
+    else:
+        log.info("Running the LD estimator on %d %s devices (%s axis)...",
+                 n_dev, dev.type, axis.upper())
+        run = (sample_sharded.ld_scores_sample_sharded if axis == "samples"
+               else sharded.ld_scores_sharded)
+        result = run(genotypes, positions, config,
+                     mesh.snp_devices(n_dev, dev), annot)
+    stage_add("device_s", t0)
+    STAGE_TIMES["exchange_mb"] = mesh.exchange_bytes / 1e6
+    return result
+
+
 #: the file that ``estimate_lds(profile_dir=DIR)`` writes into DIR
 TRACE_FILE = "ld_trace.json"
 
@@ -484,6 +516,39 @@ def profiled(profile_dir: str | None, device: torch.device):
     log.info("Wrote the profiler trace: %s", path)
 
 
+def grid_shape(n_dev: int) -> tuple[int, int] | None:
+    """The squarest (rows, columns) factorization of ``n_dev`` devices for
+    ``--shard-axis grid``, or None when there is none (``n_dev`` prime or
+    below 4): the caller then shards the SNP axis, with the reference's
+    warning (``nldsc_tpu/ld/pipeline.py:474-487``)."""
+    c = max(d for d in range(1, int(n_dev ** 0.5) + 1) if n_dev % d == 0)
+    if c == 1:
+        log.warning("--shard-axis grid: %d devices have no 2-D "
+                    "factorization; using 1-D SNP sharding", n_dev)
+        return None
+    return n_dev // c, c
+
+
+def resolve_n_devices(n_devices: int | None, device: torch.device) -> int:
+    """The device count of a run: ``None`` means every visible CUDA device
+    (one on a one-card machine, or with an indexed device), and one on
+    the CPU; an explicit N runs N shards, on the CPU N repeated CPU
+    shards.  More than the visible CUDA devices is refused, as the
+    reference refuses more than ``jax.devices()``
+    (``nldsc_tpu/ld/pipeline.py:592-600``)."""
+    if n_devices is not None and n_devices < 1:
+        raise NLDSCParameterError(f"--n-devices must be >= 1, got "
+                                  f"{n_devices}")
+    if device.type == "cpu":
+        return 1 if n_devices is None else n_devices
+    avail = 1 if device.index is not None else torch.cuda.device_count()
+    if n_devices is not None and n_devices > avail:
+        raise NLDSCParameterError(
+            f"--n-devices {n_devices} exceeds the {avail} visible CUDA "
+            f"device(s) of {device}; run with fewer devices")
+    return avail if n_devices is None else n_devices
+
+
 @elapsed_time
 def estimate_lds(
     bfile: str,
@@ -509,6 +574,9 @@ def estimate_lds(
     annot: str | None = None,
     symmetric: bool | None = None,
     profile_dir: str | None = None,
+    n_devices: int | None = None,
+    shard_samples: bool = False,
+    shard_grid: bool = False,
     device="cuda",
 ):
     """Estimate additive + dominance LD scores from a PLINK bfile.
@@ -535,6 +603,12 @@ def estimate_lds(
     False or ``use_int8`` is False, then the full band.
     ``profile_dir``: a directory for a ``torch.profiler`` trace of the
     compute pass (:func:`profiled`).
+    ``n_devices`` (:func:`resolve_n_devices`): above one, the run is
+    sharded (``nldsc_tpu_torch.parallel``), routed as the reference routes
+    it (``nldsc_tpu/ld/pipeline.py:611-760``): the SNP axis by default
+    (in core ``ld_scores_sharded``, streamed chunks round-robin over the
+    devices), the samples with ``shard_samples``, a 2-D grid with
+    ``shard_grid`` (:func:`grid_shape`; the SNP axis when there is none).
     """
     STAGE_TIMES.clear()
     dev = resolve_device(device)
@@ -564,28 +638,45 @@ def estimate_lds(
         log.info("Partitioned LD scores: %d annotations from %s",
                  len(annot_names), annot)
 
+    n_dev = resolve_n_devices(n_devices, dev)
+    grid = grid_shape(n_dev) if shard_grid and n_dev > 1 else None
+    axis = ("grid" if grid else "samples" if shard_samples and n_dev > 1
+            else "snp" if n_dev > 1 else None)
     t0 = time.time()
     with profiled(profile_dir, dev):
         if streaming:
+            from ..parallel import mesh  # noqa: PLC0415
             from .streaming import compute_ld_scores_streaming  # noqa: PLC0415
 
+            layout = ({} if axis is None else
+                      {"grid": mesh.grid_devices(*grid, dev)} if grid else
+                      {"sample_mesh" if axis == "samples" else "devices":
+                       mesh.snp_devices(n_dev, dev)})
             log.info("Running the LD estimator on %s (streaming, chunk=%d "
-                     "rows)...", dev, chunk_rows)
+                     "rows%s)...", dev, chunk_rows,
+                     "" if axis is None else
+                     f", {n_dev} devices, {axis} axis")
             result = compute_ld_scores_streaming(
                 ds.bed, positions, config, chunk_rows=chunk_rows,
-                resume_path=resume_path, annot=annot_mat, device=dev)
+                resume_path=resume_path, annot=annot_mat, device=dev,
+                **layout)
         else:
             if resume_path:
                 log.warning("--resume checkpoints the streaming route "
                             "only; this run is in core")
             genotypes = ds.bed.read_raw()
             stage_add("disk_s", t0)
-            log.info("Running the LD estimator on %s...", dev)
-            want_prog = (progress if progress is not None
-                         else ds.n_snp >= 20000)
-            result = compute_ld_scores(
-                genotypes, positions, config, annot=annot_mat, device=dev,
-                progress=_progress_logger() if want_prog else None)
+            if axis is None:
+                log.info("Running the LD estimator on %s...", dev)
+                want_prog = (progress if progress is not None
+                             else ds.n_snp >= 20000)
+                result = compute_ld_scores(
+                    genotypes, positions, config, annot=annot_mat,
+                    device=dev,
+                    progress=_progress_logger() if want_prog else None)
+            else:
+                result = _sharded(genotypes, positions, config, annot_mat,
+                                  dev, n_dev, axis, grid)
     dt = time.time() - t0
     log.info("Estimation completed: %d SNPs in %.2fs (%.0f SNPs/s)",
              ds.n_snp, dt, ds.n_snp / max(dt, 1e-9))

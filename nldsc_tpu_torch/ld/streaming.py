@@ -1,6 +1,7 @@
-"""Out-of-core (streaming) LD scores on one device: chunked band recompute.
+"""Out-of-core (streaming) LD scores: chunked band recompute.
 
-Port of the single-device routes of ``nldsc_tpu/ld/streaming.py``.  The
+Port of ``nldsc_tpu/ld/streaming.py``, on one device or a ring of them
+(``compute_ld_scores_streaming(devices=, sample_mesh=, grid=)``).  The
 pivot rows go in chunks of ``chunk_rows``; each chunk is computed against
 a band of rows read for it alone.  Two engines, picked as the reference
 picks them (``symmetric = config.symmetric is not False and use_int8``):
@@ -69,6 +70,8 @@ from ..core.errors import NLDSCParameterError
 from ..core.logging import log
 from ..core.timing import STAGE_TIMES, stage_add
 from ..io.plink import BedReader, _packed_has_missing, scan_rowmiss
+from ..parallel import mesh, sample_sharded
+from ..parallel.mesh import on_device
 from . import (ld_int8, ld_pallas_sym, ld_split, ld_xla, preprocess,
                windows)
 
@@ -331,7 +334,8 @@ def compute_ld_scores_streaming(bed: BedReader, positions: np.ndarray,
                                 config, *, chunk_rows: int = 8192,
                                 resume_path: str | None = None,
                                 annot: np.ndarray | None = None,
-                                device="cuda") -> dict:
+                                device="cuda", devices=None,
+                                sample_mesh=None, grid=None) -> dict:
     """Streamed LD scores from a :class:`~..io.plink.BedReader`.
 
     Same result contract as :func:`..pipeline.compute_ld_scores`; the
@@ -347,12 +351,43 @@ def compute_ld_scores_streaming(bed: BedReader, positions: np.ndarray,
     column count and digest to ``meta.json``.  CUDA runs every product on
     the card (the kernels on the symmetric route); ``device="cpu"`` runs
     their plain versions.
+
+    The dispatch ring (reference ``streaming.py:434-520``, ``:778-780``),
+    of ``device``'s type: ``devices``, a list of devices, takes the chunks
+    round-robin, each on one device (K1 per band and K2 per contaminated
+    band there; band-tail retention only on one device); ``sample_mesh``,
+    a list of devices, splits the samples of every chunk over them
+    (``parallel.sample_sharded``: the symmetric pass in torch ops, its
+    products summed over the shards, no split route); ``grid``, rows of
+    devices, takes the chunks round-robin over its rows, each row
+    sample-sharding its chunk.  The three are mutually exclusive; the
+    sample-sharded rings need the symmetric integer engine.  Up to one
+    chunk per ring entry is in flight; the host carry stays in chunk
+    order.
     """
     from .pipeline import resolve_device  # noqa: PLC0415
 
     if config.rsq_thr is None:
         raise NLDSCParameterError("resolve rsq_thr first (LDConfig.resolve_rsq)")
     dev = resolve_device(device)
+    # the dispatch ring: one entry, a list of devices (its first one
+    # leads), per independent device resource
+    if grid is not None:
+        if sample_mesh is not None or devices:
+            raise ValueError("grid is mutually exclusive with sample_mesh "
+                             "and devices")
+        ring = [[torch.device(d) for d in row] for row in grid]
+    elif sample_mesh is not None:
+        if devices:
+            raise ValueError("sample_mesh and devices are mutually "
+                             "exclusive — the mesh already uses its devices")
+        ring = [[torch.device(d) for d in sample_mesh]]
+    else:
+        ring = [[torch.device(d)] for d in (devices or [dev])]
+    if any(d.type != dev.type for grp in ring for d in grp):
+        raise ValueError(f"the ring's devices must all be {dev.type} devices")
+    samples = grid is not None or sample_mesh is not None
+    mesh.exchange_bytes = 0
     t_enter = time.time()
     m, n = bed.n_snp, bed.n_samples
     n_pad = -(-n // 128) * 128
@@ -360,6 +395,14 @@ def compute_ld_scores_streaming(bed: BedReader, positions: np.ndarray,
     # the reference's choice (streaming.py:512-513): the f32 engine and
     # --no-symmetric run the full band
     symmetric = config.symmetric is not False and use_int8
+    if samples and not symmetric:
+        raise ValueError(f"{'grid' if grid is not None else 'sample'}-sharded"
+                         " streaming requires the symmetric integer engine "
+                         "(use_int8, symmetric not disabled)")
+    if samples:
+        # whole 32-byte lanes per sample shard (sample_sharded.host_rows)
+        width = sample_sharded.LANE_BYTES * len(ring[0])
+        n_pad = 4 * (-(-bed.bytes_per_snp // width) * width)
     dot_dtype = config.int8_dot_dtype if use_int8 else "f32"
     if use_int8:
         ld_int8.check_dot_dtype(dot_dtype, n_pad)
@@ -389,7 +432,8 @@ def compute_ld_scores_streaming(bed: BedReader, positions: np.ndarray,
     # carry missing genotypes: the split choice, and each band's route
     # without a decode
     rowmiss = (load_rowmiss(bed, ck_dir)
-               if symmetric and config.split_missing is not False else None)
+               if symmetric and not samples
+               and config.split_missing is not False else None)
     use_split = False
     if rowmiss is not None:
         use_split, frac = split_selected(rowmiss, config.split_missing)
@@ -427,8 +471,8 @@ def compute_ld_scores_streaming(bed: BedReader, positions: np.ndarray,
             "maf_thr": float(config.maf_thr),
             "std_thr": float(config.std_thr),
             "rsq_thr": float(config.rsq_thr),
-            "engine": ("sym-split2" if use_split else "sym" if symmetric
-                       else "full"),
+            "engine": ("sym-split2" if use_split else "sym-samples" if
+                       samples else "sym" if symmetric else "full"),
             "annot_p": p_annot if annot is not None else -1,
             "annot_sha256": None if annot is None else annot_digest(annot),
             "dot_dtype": dot_dtype,
@@ -442,16 +486,21 @@ def compute_ld_scores_streaming(bed: BedReader, positions: np.ndarray,
     # band-tail retention: consecutive symmetric bands overlap by exactly
     # the halo, so while the previous band's packed rows stay on the
     # device only the chunk_rows new rows are read and sent; it needs the
-    # row scan for a band's missing state
-    retain = rowmiss is not None
+    # row scan for a band's missing state, and one device (a ring places
+    # consecutive chunks on different devices)
+    retain = rowmiss is not None and len(ring) == 1
     retained: dict = {"ci": None, "raw": None}
     routes: Counter = Counter()
     reader = _BandReader(bed, geo, rowmiss, dev)
     todo = sorted(set(range(geo.n_chunks)) - set(done))
     if annot is not None and todo:
-        a_dev = torch.from_numpy(annot_ext).to(dev)
+        # the annotation rows on each lead device of the ring, sent once
+        a_dev = {}
+        for grp in ring:
+            if grp[0] not in a_dev:
+                a_dev[grp[0]] = torch.from_numpy(annot_ext).to(grp[0])
 
-    def put_band(band: _Band) -> torch.Tensor:
+    def put_band(band: _Band, dev: torch.device) -> torch.Tensor:
         """The band's packed rows on the device (with retention, the
         previous band's last halo rows and the new ones)."""
         ci = band.ci
@@ -487,13 +536,14 @@ def compute_ld_scores_streaming(bed: BedReader, positions: np.ndarray,
         done_ev.record()
         return host, done_ev
 
-    def dispatch_sym(band: _Band):
-        """Queue chunk ``band.ci``'s device work on the symmetric route;
-        returns its payload, being copied to the host, and the event
-        behind the copy."""
+    def dispatch_sym(band: _Band, grp: list):
+        """Queue chunk ``band.ci``'s device work on the symmetric route,
+        on the ring entry ``grp``'s device; returns its payload, being
+        copied to the host, and the event behind the copy."""
+        dev = grp[0]
         p0 = band.ci * c
         sl = slice(p0, p0 + band_rows)
-        raw = put_band(band)
+        raw = put_band(band, dev)
         lo_b, hi_b = lo_ext[sl] - p0, hi_ext[sl] - p0
         win = torch.from_numpy(np.stack([lo_b, hi_b])).to(dev)
         lo_d, hi_d = win[0], win[1]
@@ -507,7 +557,7 @@ def compute_ld_scores_streaming(bed: BedReader, positions: np.ndarray,
         scal = ld_int8.stack_scalars(pre)
         # the band's annotations: rows [p0, p0 + band_rows) of the padded
         # matrix (a halo row's column credits weight by its pivot's row)
-        annot_b = None if a_dev is None else a_dev[sl]
+        annot_b = None if a_dev is None else a_dev[dev][sl]
         ops = {"g": pre.pop("g"), "m": pre.pop("m"), "h": pre.pop("h")}
         if split_c:
             rm_b = rowmiss_ext[sl]
@@ -532,13 +582,14 @@ def compute_ld_scores_streaming(bed: BedReader, positions: np.ndarray,
         return to_host(_payload((l2, ws, poi, l2d, wsd, wse), pre, 0, c,
                                 acc_a))
 
-    def dispatch_full(band: _Band):
+    def dispatch_full(band: _Band, grp: list):
         """Queue chunk ``band.ci``'s device work on the full band
         (reference ``streaming.py:915-951``): as :func:`dispatch_sym`."""
+        dev = grp[0]
         p0 = band.ci * c
         sl = slice(p0, p0 + band_rows)           # the band, in ext rows
         piv = slice(lead + p0, lead + p0 + c)    # its pivots
-        raw = put_band(band)
+        raw = put_band(band, dev)
         win = torch.from_numpy(np.stack([lo_ext[piv], hi_ext[piv]])).to(dev)
         g = preprocess.unpack_bed(raw, n_samples=n, n_pad=n_pad, pad_val=-1)
         pos_b = torch.from_numpy(pos_ok_ext[sl]).to(dev)
@@ -562,13 +613,59 @@ def compute_ld_scores_streaming(bed: BedReader, positions: np.ndarray,
         l2, l2d, ws, wsd, wse, poi, *acc_a = ld_xla.band_pass(
             tile, win[0], win[1], pre["usable"], dom_ok, pre["add_sd_zero"],
             blk_lo[p0 // B:(p0 + c) // B], config.rsq_thr,
-            None if a_dev is None else a_dev[sl], block_size=B,
+            None if a_dev is None else a_dev[dev][sl], block_size=B,
             band_k=band_k, n_samples=n, n_pivots=c, g0=p0 - lead,
             piv_off=lead, m_pad=geo.m_pad)
         return to_host(_payload((l2, ws, poi, l2d, wsd, wse), pre, lead, c,
                                 acc_a))
 
-    dispatch = dispatch_sym if symmetric else dispatch_full
+    def dispatch_samples(band: _Band, grp: list):
+        """Queue chunk ``band.ci``'s device work with its samples split
+        over ``grp`` (reference ``_banded_chunk_int8_sym(psum_axis=)``,
+        ``streaming.py:115-192``): each device unpacks its lanes of the
+        band, the class counts and every tile's products are summed on
+        the first, which runs the symmetric pass over the pivots (the
+        halo rows neighbours only); as :func:`dispatch_sym`."""
+        lead_dev = grp[0]
+        p0 = band.ci * c
+        sl = slice(p0, p0 + band_rows)
+        stage = band.stage.numpy()
+        w = n_pad // 4 // len(grp)
+        parts = []
+        for q, d in enumerate(grp):
+            part = np.full((band_rows, w), 0x55, np.uint8)
+            cols = stage[:, q * w:(q + 1) * w]
+            part[:, :cols.shape[1]] = cols
+            parts.append(sample_sharded.unpack_columns(
+                torch.from_numpy(part).to(d), q, n))
+        reader.events[band.slot] = None        # the stage was copied
+        STAGE_TIMES["stream_put_mb"] = (STAGE_TIMES.get("stream_put_mb", 0.0)
+                                        + band.stage.nbytes / 1e6)
+        lo_b, hi_b = lo_ext[sl] - p0, hi_ext[sl] - p0
+        lo_b[c:], hi_b[c:] = band_rows, -1     # the halo: neighbours only
+        win = torch.from_numpy(np.stack([lo_b, hi_b])).to(lead_dev)
+        mats, pre = sample_sharded.sample_preprocess(
+            parts, torch.from_numpy(pos_ok_ext[sl]).to(lead_dev),
+            thresholds[0], n, n_pad, band.has_missing)
+        del parts
+        dom_ok = pre["usable"] & (pre["rstd"] > thresholds[1])
+        for x in mats:
+            ld_int8.to_operands(x, dot_dtype)
+        l2, ws, poi, l2d, wsd, wse, *acc_a = ld_int8.sym_scan(
+            sample_sharded.summed_products(mats, lead_dev, band.has_missing,
+                                           dot_dtype, symmetric=True),
+            ld_int8.stack_scalars(pre), win[0], win[1], pre["usable"],
+            dom_ok, pre["add_sd_zero"], config.rsq_thr, 0,
+            None if a_dev is None else a_dev[lead_dev][sl], block_size=B,
+            right_k=ld_int8.band_extent(win[1], B)[1], n_samples=n,
+            n_pad=n_pad, n_scan_blocks=-(-c // B),
+            has_missing=band.has_missing)
+        routes["global" if band.has_missing else "clean"] += 1
+        return to_host(_payload((l2, ws, poi, l2d, wsd, wse), pre, 0, c,
+                                acc_a))
+
+    dispatch = (dispatch_samples if samples else dispatch_sym if symmetric
+                else dispatch_full)
     # the payload's credits per quantity: the band's rows (symmetric: the
     # halo's are column credits for later chunks), or the pivots'
     width = band_rows if symmetric else c
@@ -646,17 +743,26 @@ def compute_ld_scores_streaming(bed: BedReader, positions: np.ndarray,
                 prefetch = pool.submit(reader.read, todo[idx + 1],
                                        (idx + 1) % 2, retain)
             t0 = time.time()
-            in_flight.append((ci, *dispatch(band)))
+            grp = ring[idx % len(ring)]
+            with on_device(grp[0]):
+                in_flight.append((ci, *dispatch(band, grp)))
             stage_add("stream_dispatch_s", t0)
-            # collect the previous chunk while the device works on this one
-            while len(in_flight) > (1 if idx + 1 < len(todo) else 0):
+            # collect the oldest chunk while the ring works on the newer
+            # ones (one in flight per ring entry)
+            while len(in_flight) > (len(ring) if idx + 1 < len(todo) else 0):
                 t0 = time.time()
                 collect(*in_flight.popleft())
                 stage_add("stream_collect_s", t0)
     parts = [] if symmetric else ["full band"]
+    if len(ring) > 1 or samples:
+        parts.append(f"{len(ring)}x{len(ring[0])} grid" if grid is not None
+                     else f"samples over {len(ring[0])} devices" if samples
+                     else f"{len(ring)} devices")
     parts += [f"{k} {v}" for k, v in sorted(routes.items())]
     if done:
         parts.append(f"resumed {len(done)}")
+    if samples:
+        STAGE_TIMES["exchange_mb"] = mesh.exchange_bytes / 1e6
     log.info("LD route: streaming (%d chunks of %d rows, halo %d: %s)",
              geo.n_chunks, c, h, ", ".join(parts) or "none")
     return {k: v[:m] for k, v in out.items()}

@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from nldsc_tpu_torch.ld import ld_int8, ld_pallas_sym, preprocess, windows
+from nldsc_tpu_torch.ld import (ld_int8, ld_pallas_sym, ld_split, preprocess,
+                                windows)
 from nldsc_tpu_torch.io.plink import encode_bed_bytes
 from nldsc_tpu_torch.ld.ld_xla import finalize_outputs
 from nldsc_tpu_torch.ld.pipeline import padded_shape
@@ -329,3 +330,58 @@ def test_f32_engine_on_cuda_matches_cpu(rng, cuda, symmetric, annot):
     for k in ("l2_ws", "l2d_ws"):
         np.testing.assert_array_equal(ours[k], ref[k], err_msg=k)
     assert (ours["l2d_wse"] != ref["l2d_wse"]).sum() <= 3
+
+
+@pytest.mark.gpu
+def test_launches_run_on_the_tensors_device(rng):
+    # K1 and K2 on cuda:1 while cuda:0 is current give what the same
+    # launches give on cuda:0: the wrappers make the tensors' device
+    # current for the attribute call, the tensor maps and the launch
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from test_torch_split_kernel import split_inputs
+
+    d0, d1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    state = rng.bit_generator.state
+    runs = {}
+    for dev in (d0, d1):
+        rng.bit_generator.state = state
+        args, n, has_missing, _ = engine_args(rng, "missing", dev)
+        sargs, sn, _, _ = split_inputs(rng, 700, 389, 256, dev)
+        with torch.cuda.device(d0):
+            before = dict(ld_pallas_sym.device_launches)
+            k1 = ld_pallas_sym.sym_credits(
+                *args, RSQ, n_samples=n, has_missing=has_missing,
+                block_size=ld_pallas_sym.tile(has_missing))
+            k2 = ld_split.split_corrections(*sargs, n_samples=sn)
+        torch.cuda.synchronize(dev)
+        assert (ld_pallas_sym.device_launches[str(dev)]
+                == before.get(str(dev), 0) + 1)
+        runs[dev] = [x.cpu() for x in (*k1, *k2)]
+    for a, b in zip(runs[d0], runs[d1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["clean", "missing", "multi_tile_band"])
+def test_sharded_kernel_runs_equal_the_incore_run(rng, cuda, case):
+    # K1 once per SNP shard (shards placed round-robin on the visible
+    # devices), the partials folded once in tile order: bitwise the
+    # in-core kernel run, on any shard count
+    from nldsc_tpu_torch.config import LDConfig
+    from nldsc_tpu_torch.ld.pipeline import compute_ld_scores
+    from nldsc_tpu_torch.parallel import ld_scores_sharded, snp_devices
+
+    m, n, rate, spacing, wind = CASES[case]
+    g = random_genotypes(rng, 2 * m, n, missing_rate=rate)
+    pos = make_positions(2 * m, spacing=spacing, jitter_rng=rng)
+    cfg = LDConfig(ld_wind=wind, maf_thr=0.01, std_thr=1e-4, rsq_thr=RSQ,
+                   block_size=128, split_missing=False)
+    incore = compute_ld_scores(g, pos, cfg, device="cuda")
+    for d in (1, 2, 4):
+        before = ld_pallas_sym.launches
+        res = ld_scores_sharded(g, pos, cfg,
+                                snp_devices(d, "cuda", share=True))
+        assert ld_pallas_sym.launches == before + d
+        for k, v in res.items():
+            np.testing.assert_array_equal(v, incore[k], err_msg=f"{k}@{d}")

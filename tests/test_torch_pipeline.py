@@ -15,6 +15,7 @@ from nldsc_tpu.ld import pipeline as jax_pipeline
 from nldsc_tpu_torch import cli
 from nldsc_tpu_torch.config import LDConfig
 from nldsc_tpu_torch.core.errors import NLDSCParameterError
+from nldsc_tpu_torch.core.logging import log
 from nldsc_tpu_torch.io.plink import PlinkDataset, write_plink
 from nldsc_tpu_torch.ld import ld_pallas_sym, pipeline
 
@@ -168,14 +169,29 @@ def test_cuda_without_gpu_raises(rng, tmp_path):
     (["--n-devices", "2"], "item 10"),
 ])
 def test_unported_flags_name_their_roadmap_item(tmp_path, caplog, argv, item):
-    g = random_genotypes(np.random.default_rng(0), 20, 30, missing_rate=0.0)
-    prefix = write_plink(tmp_path / "t", g)
-    with pytest.raises(SystemExit) as ex:
-        cli.main(["ld", "--bfile", prefix, "-kb", "5", "--device", "cpu",
-                  *argv])
-    assert ex.value.code == 1
-    assert "ROADMAP" in str(ex.value.__cause__)
-    assert item in str(ex.value.__cause__)
+    # the flags of ROADMAP item 10 (multi-GPU) were refused naming it until
+    # the item was ported: they now run, and route as the reference does
+    # (one CPU device by default: --shard-axis grid alone stays on one
+    # device; --n-devices 2 shards the SNP axis over two CPU shards)
+    g = random_genotypes(np.random.default_rng(0), 200, 60, missing_rate=0.0)
+    prefix = write_plink(tmp_path / "t", g, bp=np.arange(1, 201) * 500)
+    base = ["ld", "--bfile", prefix, "-kb", "5", "-maf", "0.01", "--extra",
+            "--device", "cpu", "--block-size", "32"]
+    cli.main(base + ["-o", str(tmp_path / "one.L2")])
+    log.addHandler(caplog.handler)
+    try:
+        with caplog.at_level("INFO", logger=log.name):
+            cli.main(base + argv + ["-o", str(tmp_path / "flag.L2")])
+    finally:
+        log.removeHandler(caplog.handler)
+    sharded = "--n-devices" in argv
+    assert ("2 cpu devices (SNP axis)" in caplog.text) == sharded, item
+    a, b = _read_l2(tmp_path / "flag.L2"), _read_l2(tmp_path / "one.L2")
+    for k in ("WSA", "WSD", "WSDE"):
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    for k in ("L2", "L2D"):          # printed to 5 decimals
+        np.testing.assert_allclose(a[k], b[k], rtol=2e-5, atol=2e-4,
+                                   equal_nan=True, err_msg=k)
 
 
 @pytest.mark.parametrize("flags", [
@@ -213,13 +229,23 @@ def test_cli_engine_flags_against_the_int8_run(rng, tmp_path, flags):
     ("ld-genome", ["--n-devices", "2"], "item 10"),
 ], ids=["ld-genome"])
 def test_unported_commands_raise(tmp_path, command, argv, item):
-    # what ld-genome does not port yet: the multi-device routes
+    # ld-genome refused the multi-device flags (ROADMAP item 10) until the
+    # item was ported; it now runs each chromosome on the shards, and
+    # still refuses a glob that matches no bfile before it makes --out-dir
+    g = random_genotypes(np.random.default_rng(1), 150, 60, missing_rate=0.0)
+    write_plink(tmp_path / "c1", g, bp=np.arange(1, 151) * 500)
+    args = ["--out-dir", str(tmp_path / "out"), "-kb", "5", "-maf", "0.01",
+            "--device", "cpu", *argv]
+    cli.main([command, "--bfiles", str(tmp_path / "c*.bed"), *args])
+    cli.main(["ld", "--bfile", str(tmp_path / "c1"), *args[2:],
+              "-o", str(tmp_path / "ld.L2")])
+    assert (tmp_path / "out" / "c1.L2").read_bytes() == \
+        (tmp_path / "ld.L2").read_bytes(), item
     with pytest.raises(SystemExit) as ex:
-        cli.main([command, "--bfiles", str(tmp_path / "c*.bed"), "--out-dir",
-                  str(tmp_path / "out"), "-kb", "5", "--device", "cpu", *argv])
-    assert "ROADMAP" in str(ex.value.__cause__)
-    assert item in str(ex.value.__cause__)
-    assert not (tmp_path / "out").exists()
+        cli.main([command, "--bfiles", str(tmp_path / "none*.bed"),
+                  "--out-dir", str(tmp_path / "out2"), *args[2:]])
+    assert "No bfiles match" in str(ex.value.__cause__)
+    assert not (tmp_path / "out2").exists()
 
 
 @pytest.mark.parametrize("command", ["h2", "convert"])
