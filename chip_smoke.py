@@ -24,7 +24,8 @@ Phases, one line each (or a few):
      of M=65,536 SNPs x N=16,384 samples, 100 bp apart, ``-kb 100``
      (a window of +-1000 SNPs), its LD strength drawn per 512 SNPs: the
      .L2/.M/.M_5_50 files, M finite rows, and the kernel's launches
-     counted in that run;
+     counted in that run: 16, one per segment of the pass (progress is on
+     by default at M >= 20,000);
   6. the same at M=16,384 with 2% missing genotypes (8-product branch);
   7. at phase 5's shape: K1's clean branch and its 8-product branch
      (on the same genotypes, with an all-zero missing matrix: every pair
@@ -42,7 +43,9 @@ Phases, one line each (or a few):
      division by a Python scalar against true division;
   9. the ``ld`` command on phase 5's genotypes with 2% missing genotypes
      injected in 5% of the rows: the split route, with K1's clean branch
-     and K2's fused mode launched and K1's 8-product branch not;
+     launched once per segment (16), K2's two launches (products, then the
+     fused mode, dispatched before the segments) and K1's 8-product
+     branch not;
  10. at that shape: ``split_corrections`` against its twin, K2's products
      mode against ``torch._int_mm`` (cuBLASLt) on the same products (a, b
      with h read from memory, d; exactly equal), their times and K2's
@@ -165,12 +168,30 @@ Phases, one line each (or a few):
      and again after a resume with shards 3-7 deleted; a sample mesh of
      2 and a grid of 2x2 against the single-device streamed full band
      (l2_ws and l2d_ws equal, l2d_wse under the counter contract of
-     tests/contract.py, scores within KERNEL_TOL), the two bitwise equal.
+     tests/contract.py, scores within KERNEL_TOL), the two bitwise equal;
+ 28. progress: phase 5's bfile through ``ld --no-progress`` (1 K1 launch)
+     and ``ld --pallas`` (16), each .L2 byte-identical to phase 5's, phase
+     5's 16 log lines each with an ETA; ``compute_ld_scores`` with and
+     without progress in turns (one, 16, 16, one), bitwise equal, K1's
+     device time summed over the 16 segments (profiler) beside the one
+     launch's, and both walls;
+ 29. one chromosome across two processes: two ``gloo`` ranks sharing
+     cuda:0 (``python3 chip_smoke.py --worker``, one pair of subprocesses
+     for every case, each waited for with a time limit) run
+     ``estimate_lds_mesh`` on phase 5's bfile, phase 9's (8 products a
+     shard) and phase 19's 53 annotations: each .L2/.M/.M_5_50
+     byte-identical to one process's run on two shards of cuda:0; per
+     rank the K1 launches by instantiation, wall, MB sent (staged through
+     the host) and peak device memory; then ``estimate_lds_multihost``
+     over phases 5 and 9, a chromosome a rank, byte-identical to those
+     phases' files; each worker reports that it imported no jax,
+     nldsc_tpu or pandas.
 
 Then one JSON line of the kernels (each with its time, its plain
 version's, its bound from this run's inputs, its launches on the main
-path of phases 5 and 9, in phases 13-14, on the SNP shards of phase 26
-and the ring of phase 27, and ``library_ms``: null
+path of phases 5 and 9, in phases 13-14, on the SNP shards of phase 26,
+the ring of phase 27, with and without progress (phase 28) and per rank
+of phase 29, and ``library_ms``: null
 for K1, which no PyTorch call computes; for K2 ``torch._int_mm`` on its
 products, which the port never calls; null for the annotation
 instantiations, whose epilogues no one PyTorch call fuses), the
@@ -1408,10 +1429,12 @@ def annot_full_width(torch, tmp: str, prefix5: str, out5: str, prefix6: str,
     # (tag, bfile, flags, expected K1, 8-product, K1 annot, K2, K2 annot);
     # the 2%-missing bfile's SNPs are the first of the annotation file's,
     # and every band of it goes global
-    plan = (("clean", prefix5, [], 1, 0, 1, 0, 0),
+    # in core at M >= 20,000 progress is on: 16 segments of K1
+    seg = ld_pallas_sym.MAX_SEGMENTS
+    plan = (("clean", prefix5, [], seg, 0, seg, 0, 0),
             ("clean streamed", prefix5, stream, n_chunks, 0, n_chunks, 0, 0),
-            ("split", prefix9, [], 1, 0, 1, 2, 1),
-            ("global", prefix9, ["--no-split-missing"], 1, 1, 1, 0, 0),
+            ("split", prefix9, [], seg, 0, seg, 2, 1),
+            ("global", prefix9, ["--no-split-missing"], seg, seg, seg, 0, 0),
             ("split streamed", prefix9, stream, n_chunks, 0, n_chunks,
              2 * n_chunks, n_chunks),
             ("dense missing", prefix6, [], 1, 1, 1, 0, 0),
@@ -1957,7 +1980,8 @@ def bf16_cli_phase(torch, tmp: str, prefix5: str, out5: str, prefix6: str,
         if (Path(out).read_bytes() != Path(ref).read_bytes()
                 or c["ld_sym_bf16"] != c["ld_sym"] or c["ld_sym"] < 1
                 or c["split_bf16"] != c["split_corr"]
-                or tag.startswith("global") and c["ld_sym_8prod"] != 1
+                or tag.startswith("global")
+                and c["ld_sym_8prod"] != c["ld_sym"]
                 or not r["log"].has("bf16 operands")
                 and "streamed" not in tag):
             raise RuntimeError(f"phase 21 {tag}: launches {c}, or the .L2 "
@@ -2702,6 +2726,224 @@ def multi_stream_phase(torch, tmp: str, prefix9: str, out14: str, m5: int,
     return found
 
 
+def progress_phase(torch, tmp: str, prefix5: str, out5: str, m5: int,
+                   card: str) -> dict:
+    """Phase 28: ``ld --no-progress`` and ``ld --pallas`` on phase 5's
+    bfile against phase 5's run (16 segments), and K1's device time over
+    the segments beside one launch; returns the launches with and
+    without progress."""
+    from nldsc_tpu_torch.config import LDConfig
+    from nldsc_tpu_torch.io.plink import PlinkDataset
+    from nldsc_tpu_torch.ld import ld_pallas_sym
+    from nldsc_tpu_torch.ld.pipeline import compute_ld_scores
+
+    seg = ld_pallas_sym.MAX_SEGMENTS
+    base = ["--bfile", prefix5, "-kb", "100", "-maf", "0.01", "--extra"]
+    runs = {}
+    for tag, flags, want in (("progress", [], seg),
+                             ("--no-progress", ["--no-progress"], 1),
+                             ("--pallas", ["--pallas"], seg)):
+        out = os.path.join(tmp, f"p28_{tag.strip('-')}.L2")
+        r = run_ld(torch, base + flags + ["-o", out])
+        c = r["launches"]
+        if c["ld_sym"] != want or c["ld_sym_8prod"] or c["split_corr"]:
+            raise RuntimeError(f"phase 28 {tag}: launches {c}, expected "
+                               f"K1 {want}")
+        if Path(out).read_bytes() != Path(out5).read_bytes():
+            raise RuntimeError(f"phase 28 {tag}: the .L2 is not phase 5's")
+        runs[tag] = r
+    ticks = [x for x in runs["progress"]["log"].lines
+             if x.startswith("LD pass")]
+    if len(ticks) != seg or not all("| ETA " in x for x in ticks):
+        raise RuntimeError(f"phase 28: {len(ticks)} progress lines {ticks}")
+    say("28 progress", f"ld on phase 5's bfile: progress on by default, "
+        f"{runs['progress']['launches']['ld_sym']} K1 launches, "
+        f"{runs['progress']['wall']:.2f} s wall, lines {ticks[0]!r} ... "
+        f"{ticks[-1]!r}; --no-progress {runs['--no-progress']['launches']['ld_sym']} "
+        f"launch, {runs['--no-progress']['wall']:.2f} s wall; --pallas "
+        f"{runs['--pallas']['launches']['ld_sym']} launches, "
+        f"{runs['--pallas']['wall']:.2f} s wall; each .L2 byte-identical to "
+        f"phase 5's; on {card}")
+
+    # the pass alone, one launch and 16 segments in turns
+    ds = PlinkDataset.parse(prefix5)
+    packed, pos = ds.bed.read_raw(), ds.positions("bp")
+    cfg = LDConfig(ld_wind=100.0, wind_metric="kbp", maf_thr=0.01,
+                   std_thr=1e-4).resolve_rsq(m5)
+    dev = [torch.device("cuda", 0)]
+    compute_ld_scores(packed, pos, cfg, device="cuda")        # warm up
+    timed = {"one": [], "segments": []}
+    results = {}
+    for tag in ("one", "segments", "segments", "one"):
+        prog = None if tag == "one" else (lambda done, total: None)
+        res, wall, _, k1_ms = timed_run(torch, lambda: compute_ld_scores(
+            packed, pos, cfg, device="cuda", progress=prog), dev)
+        timed[tag].append((wall, k1_ms))
+        results[tag] = res
+    if not same_bits(results["one"], results["segments"],
+                     keys=tuple(results["one"])):
+        raise RuntimeError("phase 28: the segmented pass differs from one "
+                           "launch")
+    say("28 segments", "compute_ld_scores on phase 5's chromosome, in turns "
+        "(one launch, 16 segments, 16 segments, one launch): K1 device time "
+        + ", ".join(f"{k1:.3f} ms" for _, k1 in (
+            timed["one"][0], *timed["segments"], timed["one"][1]))
+        + "; walls " + ", ".join(f"{w:.3f} s" for w, _ in (
+            timed["one"][0], *timed["segments"], timed["one"][1]))
+        + f"; outputs bitwise equal; on {card}")
+    return {"launches": {"progress": runs["progress"]["launches"]["ld_sym"],
+                         "no_progress":
+                             runs["--no-progress"]["launches"]["ld_sym"]},
+            "k1_ms": {k: [k1 for _, k1 in v] for k, v in timed.items()},
+            "wall_s": {k: [w for w, _ in v] for k, v in timed.items()}}
+
+
+#: the cases of phase 29: the bfile of phase 5 or 9, with phase 19's
+#: annotations or not
+MP_CASES = {"clean": ("prefix5", False), "missing": ("prefix9", False),
+            "annot": ("prefix5", True)}
+
+
+def mp_worker(rank: int, port: int, spec_path: str) -> int:
+    """One rank of phase 29 (``python3 chip_smoke.py --worker RANK PORT
+    SPEC``): every case of :data:`MP_CASES` through
+    ``estimate_lds_mesh`` on cuda:0, then ``estimate_lds_multihost``;
+    writes its report beside ``SPEC``."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from nldsc_tpu_torch.parallel import distributed, mesh
+
+    spec = json.loads(Path(spec_path).read_text())
+    distributed.init_distributed(f"127.0.0.1:{port}", 2, rank, "gloo",
+                                 timeout_s=300)
+    mesh.RECV_TIMEOUT_S = 300
+    run = dict(maf_thr=0.01, std_thr=1e-4)
+    report = {"cases": {}}
+    for name, (key, annot) in MP_CASES.items():
+        reset_counts()
+        mesh.exchange_bytes = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.time()
+        distributed.estimate_lds_mesh(
+            spec[key], 100.0, "kbp", extra=not annot, devices=["cuda:0"],
+            annot=spec["annot"] if annot else None,
+            out=os.path.join(spec["work"], f"mp_{name}.L2"), **run)
+        torch.cuda.synchronize()
+        c = launch_counts()
+        report["cases"][name] = {
+            "wall_s": time.time() - t0, "sent_mb": mesh.exchange_bytes / 1e6,
+            "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
+            "launches": {k: v for k, v in c.items() if k.startswith("ld_sym")
+                         and not k.endswith("device")}}
+    reset_counts()
+    t0 = time.time()
+    report["multihost"] = distributed.estimate_lds_multihost(
+        [spec["prefix5"], spec["prefix9"]],
+        os.path.join(spec["work"], f"mh{rank}", "{stem}.L2"), ld_wind=100.0,
+        wind_metric="kbp", extra=True, device="cuda", **run)
+    report["multihost_s"] = time.time() - t0
+    report["multihost_launches"] = launch_counts()["ld_sym"]
+    report["imported"] = sorted({k.split(".")[0] for k in sys.modules}
+                                & {"jax", "nldsc_tpu", "pandas"})
+    torch.distributed.destroy_process_group()
+    Path(spec["work"], f"rank{rank}.json").write_text(json.dumps(report))
+    return 0
+
+
+def multiprocess_phase(torch, tmp: str, prefix5: str, out5: str,
+                       prefix9: str, out9: str, apath: str,
+                       card: str) -> dict:
+    """Phase 29: two ``gloo`` ranks on cuda:0 against one process's run on
+    two shards of it; returns each rank's K1 launches per case."""
+    import socket
+
+    from nldsc_tpu_torch.parallel import distributed, mesh
+
+    work = os.path.join(tmp, "mp")
+    for d in ("", "mh0", "mh1"):
+        os.makedirs(os.path.join(work, d), exist_ok=True)
+    spec = {"work": work, "prefix5": prefix5, "prefix9": prefix9,
+            "annot": apath}
+    files = {"prefix5": prefix5, "prefix9": prefix9}
+    one = {}
+    for name, (key, annot) in MP_CASES.items():
+        reset_counts()
+        mesh.exchange_bytes = 0
+        t0 = time.time()
+        distributed.estimate_lds_mesh(
+            files[key], 100.0, "kbp", maf_thr=0.01, std_thr=1e-4,
+            extra=not annot, devices=["cuda:0", "cuda:0"],
+            annot=apath if annot else None,
+            out=os.path.join(work, f"one_{name}.L2"))
+        one[name] = (time.time() - t0, mesh.exchange_bytes / 1e6,
+                     launch_counts()["ld_sym"])
+    torch.cuda.empty_cache()
+    spec_path = os.path.join(work, "spec.json")
+    Path(spec_path).write_text(json.dumps(spec))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.time()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                               "--worker", str(r), str(port), spec_path])
+             for r in range(2)]
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.time() - t0
+    if rcs != [0, 0]:
+        raise RuntimeError(f"phase 29: the ranks exited {rcs}")
+    reports = [json.loads(Path(work, f"rank{r}.json").read_text())
+               for r in range(2)]
+    for name in MP_CASES:
+        for suffix in (".L2", ".M", ".M_5_50"):
+            if (Path(work, f"mp_{name}{suffix}").read_bytes()
+                    != Path(work, f"one_{name}{suffix}").read_bytes()):
+                raise RuntimeError(f"phase 29 {name}: {suffix} differs from "
+                                   "one process's run on two shards")
+        per = [r["cases"][name] for r in reports]
+        k1 = [p["launches"]["ld_sym"] for p in per]
+        if k1 != [1, 1]:
+            raise RuntimeError(f"phase 29 {name}: K1 launches {k1}")
+        say("29 ranks", f"{name}: estimate_lds_mesh on 2 gloo ranks x 1 shard "
+            f"(cuda:0 shared): .L2/.M/.M_5_50 byte-identical to one process "
+            f"on 2 shards ({one[name][0]:.2f} s, {one[name][1]:.1f} MB "
+            f"copied, K1 {one[name][2]}); per rank: "
+            + "; ".join(f"rank {r}: launches {p['launches']}, wall "
+                        f"{p['wall_s']:.2f} s, sent {p['sent_mb']:.1f} MB, "
+                        f"peak {p['peak_gib']:.3f} GiB"
+                        for r, p in enumerate(per)) + f"; on {card}")
+    want = {0: (prefix5, out5), 1: (prefix9, out9)}
+    for r, rep in enumerate(reports):
+        prefix, ref = want[r]
+        path = os.path.join(work, f"mh{r}", Path(prefix).stem + ".L2")
+        if rep["multihost"] != [path]:
+            raise RuntimeError(f"phase 29: rank {r} wrote {rep['multihost']}")
+        for suffix in (".L2", ".M", ".M_5_50"):
+            if (Path(path).with_suffix(suffix).read_bytes()
+                    != Path(ref).with_suffix(suffix).read_bytes()):
+                raise RuntimeError(f"phase 29: rank {r}'s {suffix} is not "
+                                   "the ld run's")
+        if rep["imported"]:
+            raise RuntimeError(f"phase 29: rank {r} imported {rep['imported']}")
+    say("29 multihost", "estimate_lds_multihost([phase 5, phase 9]): rank 0 "
+        f"wrote {Path(reports[0]['multihost'][0]).name} "
+        f"({reports[0]['multihost_s']:.2f} s, K1 "
+        f"{reports[0]['multihost_launches']}), rank 1 "
+        f"{Path(reports[1]['multihost'][0]).name} "
+        f"({reports[1]['multihost_s']:.2f} s, K1 "
+        f"{reports[1]['multihost_launches']}), each byte-identical to its "
+        f"phase's .L2/.M/.M_5_50; neither rank imported jax, nldsc_tpu or "
+        f"pandas; both processes {wall:.1f} s in all; on {card}")
+    return {str(r): {name: rep["cases"][name]["launches"]["ld_sym"]
+                     for name in MP_CASES} for r, rep in enumerate(reports)}
+
+
 def main() -> int:
     if not (ROOT / "nldsc_tpu_torch" / "csrc" / "ld_sym.cu").exists():
         print("chip_smoke.py must run from a checkout that holds "
@@ -2819,9 +3061,11 @@ def main() -> int:
         n_launch = counts5["ld_sym"]
         stages = dict(STAGE_TIMES)
         check_outputs(out5, M5)
-        if n_launch < 1 or counts5["ld_sym_8prod"]:
+        # M >= 20,000 turns progress on: the pass runs in 16 segments
+        if (n_launch != ld_pallas_sym.MAX_SEGMENTS
+                or counts5["ld_sym_8prod"]):
             raise RuntimeError("the main path did not launch the clean "
-                               f"kernel: {counts5}")
+                               f"kernel once per segment: {counts5}")
         launches["ld_sym"] = n_launch
         say("5 ld clean", f"M={M5} N={N5} -kb 100: {n_launch} kernel "
             f"launch(es); {wall:.2f} s wall, {M5 / wall:.0f} SNPs/s; "
@@ -2982,8 +3226,8 @@ def main() -> int:
         counts9, wall9 = run_cli(prefix9, out9)
         stages9 = dict(STAGE_TIMES)
         check_outputs(out9, M5)
-        if (counts9["ld_sym"] - counts9["ld_sym_8prod"] < 1
-                or counts9["split_corr"] < 1 or counts9["split_fused"] < 1
+        if (counts9["ld_sym"] != ld_pallas_sym.MAX_SEGMENTS
+                or counts9["split_corr"] != 2 or counts9["split_fused"] != 1
                 or counts9["ld_sym_8prod"]):
             raise RuntimeError(f"the ld run did not take the split route: "
                                f"{counts9}")
@@ -3074,6 +3318,12 @@ def main() -> int:
                                   os.path.join(tmp, "stream_split.L2"), M5,
                                   card)
 
+        # 28-29. progress in segments; one chromosome across processes
+        torch.cuda.empty_cache()
+        prog = progress_phase(torch, tmp, prefix5, out5, M5, card)
+        ranks = multiprocess_phase(torch, tmp, prefix5, out5, prefix9, out9,
+                                   annot19["path"], card)
+
     bad = sorted({k.split(".")[0] for k in sys.modules}
                  & {"jax", "nldsc_tpu", "pandas"})
     if bad:
@@ -3087,7 +3337,9 @@ def main() -> int:
         "launches_stream_split": streamed["14"]["ld_sym"],
         "launches_sharded": multi["launches"],
         "launches_ring": ring["ld_sym"],
-        "ms_sharded": multi["k1_ms"],
+        "launches_progress": prog["launches"],
+        "launches_multiprocess": ranks,
+        "ms_sharded": multi["k1_ms"], "ms_progress": prog["k1_ms"],
         "max_abs_err": max(errs + [err5, err5m]),
         "ms": ms, "plain_ms": plain[best_b], "bound_ms": work["bound_ms"],
         "bound_by": work["bound_by"], "library_ms": None,
@@ -3144,4 +3396,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--worker"]:
+        sys.exit(mp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

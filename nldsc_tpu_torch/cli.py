@@ -5,11 +5,10 @@ Flag-compatible with ``nldsc_tpu``'s CLI (``ld`` and ``ld-genome`` in
 core or streaming, plain or partitioned by ``--annot``, every
 ``--engine``, ``--dot-dtype`` and ``--symmetric/--no-symmetric``, on one
 device or sharded with ``--n-devices`` and ``--shard-axis``,
-``ld --profile-dir`` and the group flag ``--log-file``), plus
-``--device`` on ``ld``, ``ld-genome`` and ``h2``.  The JAX CLI's
-``--pallas`` (``_UNPORTED_LD_FLAGS``) is recognised and refused, naming
-the flag to use.  Needs only the standard library (argparse) and numpy
-until a command runs.
+``ld --profile-dir``, ``ld --pallas`` (an alias of ``--engine pallas``)
+and the group flag ``--log-file``), plus ``--device`` on ``ld``,
+``ld-genome`` and ``h2``.  Needs only the standard library (argparse)
+and numpy until a command runs.
 """
 
 from __future__ import annotations
@@ -31,22 +30,6 @@ __header__ = (
     f"* GNU General Public License v3\n"
     f"==============================================================\n"
 )
-
-#: flags of the JAX CLI not ported -> (takes a value, what to use)
-_UNPORTED_LD_FLAGS = {
-    "--pallas": (False, "the fused kernel is the default engine here; "
-                        "use --engine pallas"),
-}
-
-
-class _Unported(argparse.Action):
-    """Refuse a flag of the JAX CLI that the port does not have yet."""
-
-    def __call__(self, parser, namespace, values, option_string=None):
-        where = _UNPORTED_LD_FLAGS[option_string][1]
-        raise NLDSCParameterError(
-            f"{option_string} is not ported to nldsc_tpu_torch yet: {where}")
-
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
@@ -84,6 +67,8 @@ def build_parser() -> argparse.ArgumentParser:
     ld.add_argument("--block-size", metavar="B", type=int, default=512,
                     help="SNP rows per pivot block of the CPU path (the "
                          "CUDA kernel tiles by its own size)")
+    ld.add_argument("--pallas", action="store_true",
+                    help="Alias for --engine pallas")
     ld.add_argument("--engine", choices=["int8", "f32", "pallas"],
                     default=None,
                     help="int8 (default) and pallas both run the fused "
@@ -131,7 +116,6 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device_flags(ld)
     ld.add_argument("--display", action="store_true",
                     help="Display traceback")
-    _add_unported(ld, _UNPORTED_LD_FLAGS)
 
     genome = sub.add_parser(
         "ld-genome", allow_abbrev=False,
@@ -271,13 +255,6 @@ def _add_annot_flag(parser, what: str) -> None:
                              f"column per annotation): {what}")
 
 
-def _add_unported(parser, flags: dict) -> None:
-    for flag, (takes_value, _) in flags.items():
-        parser.add_argument(flag, action=_Unported,
-                            nargs="?" if takes_value else 0,
-                            help=argparse.SUPPRESS)
-
-
 def _window(args) -> tuple[str, float]:
     if sum(map(bool, [args.ld_wind_kb, args.ld_wind_cm])) != 1:
         raise RuntimeError("Please, specify exactly one --ld-wind option")
@@ -320,7 +297,7 @@ def run_ld(args) -> None:
         out=args.out, extra=args.extra, summary=True,
         block_size=args.block_size, int8_dot_dtype=args.dot_dtype,
         split_missing=args.split_missing,
-        use_pallas=args.engine == "pallas",
+        use_pallas=args.pallas or args.engine == "pallas",
         use_int8=None if args.engine is None else args.engine != "f32",
         progress=args.progress,
         streaming=args.streaming, chunk_rows=args.chunk_rows,

@@ -30,6 +30,13 @@ products on bf16 ``wgmma`` with float32 accumulators, which hold the
 int8 branch's sums exactly, so every output equals the int8 launch's bit
 for bit.  The operands' dtype picks the instantiation.
 
+A pass runs in one launch (:func:`sym_credits`) or in launches over
+ranges of pivot tiles with the whole pass's band
+(:func:`range_partials`), whose unfolded partials, put together in tile
+order and folded once, are bitwise the one launch's: the SNP shards of
+``parallel.sharded`` and the segments of a pass with progress
+(:func:`sym_credits_segmented`) run so.
+
 On a CPU tensor the wrapper runs the plain twin
 (:func:`nldsc_tpu_torch.ld.ld_int8.sym_scan_segment`, with the
 contraction of the operands' dtype); on a CUDA tensor it launches the
@@ -256,6 +263,117 @@ def sym_partials(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
     return _launch_partials(g, m, h, scal, lo, hi, usable, dom_ok,
                             add_sd_zero, rsq_thr, n_samples, has_missing,
                             annot, band)
+
+
+def range_partials(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
+                   rsq_thr: float, x0: int, x1: int, *, n_samples: int,
+                   has_missing: bool, band: int, block_size: int,
+                   annot=None):
+    """:func:`sym_partials` of the pivot tiles ``[x0, x1)`` alone: the
+    rows ``[x0·T, min(x1·T + halo, rows))`` (``halo`` = ``(band - 1)·T``,
+    T the kernel's tile on CUDA, ``block_size`` on the CPU), the halo
+    rows' windows emptied (they are neighbours only: their tiles give
+    nothing and the kernel's CTAs of them exit at once), and the first
+    ``x1 - x0`` tiles' unfolded partials returned.  ``lo``/``hi`` index
+    the given rows.  Every slot is computed from the rows of its two
+    tiles, so the partials of consecutive ranges, put together in tile
+    order, are those of one launch over all the tiles."""
+    T = tile(has_missing) if g.device.type == "cuda" else block_size
+    r0, r1 = x0 * T, min((x1 + band - 1) * T, g.shape[0])
+    lo, hi = lo[r0:r1] - r0, hi[r0:r1] - r0
+    lo[(x1 - x0) * T:], hi[(x1 - x0) * T:] = r1 - r0, -1
+
+    def rows(x):
+        return None if x is None else x[r0:r1]
+
+    out = sym_partials(
+        rows(g), rows(m), rows(h), rows(scal), lo, hi, rows(usable),
+        rows(dom_ok), rows(add_sd_zero), rsq_thr, n_samples=n_samples,
+        has_missing=has_missing, band=band, block_size=block_size,
+        annot=rows(annot))
+    return tuple(None if x is None else x[:x1 - x0] for x in out)
+
+
+#: the most segments of a symmetric pass run with progress, as the
+#: reference runs it (``nldsc_tpu/ld/pipeline.py:346-359``)
+MAX_SEGMENTS = 16
+
+
+def segments(m: int, block_size: int, progress: bool) -> list:
+    """The ``(first block, blocks)`` segments of a symmetric pass over
+    ``m`` rows in pivot blocks of ``block_size``: with ``progress``
+    ``min(16, n_blocks)`` segments of ``ceil(n_blocks / n_seg)`` blocks
+    (the last one shorter), else one."""
+    n_blocks = -(-m // block_size)
+    n_seg = min(MAX_SEGMENTS, n_blocks) if progress else 1
+    step = -(-n_blocks // n_seg)
+    return [(s0, min(step, n_blocks - s0))
+            for s0 in range(0, n_blocks, step)]
+
+
+def sym_credits_segmented(g, m, h, scal, lo, hi, usable, dom_ok,
+                          add_sd_zero, rsq_thr: float, *, n_samples: int,
+                          has_missing: bool, block_size: int, n_rows: int,
+                          progress=None, annot=None):
+    """:func:`sym_credits` over all the rows, run in the segments of
+    :func:`segments` when ``progress`` is given and the pass has more
+    than one block of ``block_size``: ``progress(0, n_rows)`` first, then
+    after each segment, once the device has finished it,
+    ``progress(rows done, n_rows)``, the ticks of the reference
+    (``nldsc_tpu/ld/pipeline.py:346-359``).  ``n_rows``: the real rows
+    (the padding rows after them are not counted).
+
+    CUDA tensors launch the kernel once per segment
+    (:func:`range_partials`, the segment's bounds rounded to the kernel's
+    tile, the whole pass's band) and fold all the segments' partials once:
+    the result equals one launch's bit for bit.  CPU tensors run the twin
+    (``ld_int8.sym_scan_segment``) per segment and add the segments'
+    credit vectors in order, as the reference adds its segments'."""
+    segs = segments(n_rows, block_size, progress is not None)
+    if len(segs) == 1:
+        return sym_credits(g, m, h, scal, lo, hi, usable, dom_ok,
+                           add_sd_zero, rsq_thr, n_samples=n_samples,
+                           has_missing=has_missing, block_size=block_size,
+                           annot=annot)
+    args = (g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero, rsq_thr)
+    kw = dict(n_samples=n_samples, has_missing=has_missing)
+    cuda = g.device.type == "cuda"
+    B = block_size
+    if cuda:
+        T = tile(has_missing)
+        nt = g.shape[0] // T
+        band = ld_int8.band_extent(hi, T)[1]
+        # segment i's pivot tiles [edges[i], edges[i + 1])
+        edges = [0, *(min(-(-s0 * B // T), nt) for s0, _ in segs[1:]), nt]
+        parts = None
+    else:
+        right_k = ld_int8.band_extent(hi, B)[1]
+        totals = None
+    progress(0, n_rows)
+    done = 0
+    for i, (s0, nb) in enumerate(segs):
+        if cuda:
+            x0, x1 = edges[i], edges[i + 1]
+            if x1 > x0:
+                seg = range_partials(*args, x0, x1, band=band, block_size=B,
+                                     annot=annot, **kw)
+                if parts is None:       # the whole pass's partials
+                    parts = [None if x is None else
+                             x.new_zeros((nt, *x.shape[1:])) for x in seg]
+                for whole, x in zip(parts, seg):
+                    if x is not None:
+                        whole[x0:x1] = x
+                del seg
+            torch.cuda.current_stream(g.device).synchronize()
+        else:
+            accs = ld_int8.sym_scan_segment(
+                *args, s0, annot, block_size=B, right_k=right_k,
+                n_scan_blocks=nb, dot_dtype=ld_int8.dot_dtype_of(g), **kw)
+            totals = accs if totals is None else tuple(
+                a + b for a, b in zip(totals, accs))
+        done = min(done + nb * B, n_rows)
+        progress(done, n_rows)
+    return fold_partials(*parts) if cuda else totals
 
 
 def sym_credits(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,

@@ -191,8 +191,11 @@ def compute_ld_scores(genotypes, positions: np.ndarray, config: LDConfig, *,
     config : LDConfig with ``rsq_thr`` resolved
     annot : optional (M, p) annotation matrix: partitioned LD scores
     device : 'cuda' (the kernels) or 'cpu' (the plain twins)
-    progress : optional callable ``progress(done_rows, total_rows)``,
-        called before and after the pass.
+    progress : optional callable ``progress(done_rows, total_rows)``.
+        The symmetric integer pass then runs in up to 16 segments and
+        ticks after each, once the device has finished it, as the
+        reference does (``ld_pallas_sym.sym_credits_segmented``; one
+        block: no tick); the other engines tick before and after.
 
     Returns
     -------
@@ -312,24 +315,24 @@ def compute_ld_scores(genotypes, positions: np.ndarray, config: LDConfig, *,
              "" if dot_dtype == "int8" else f", {dot_dtype} operands",
              "" if annot is None else f", {annot.shape[1]} annotations")
 
-    if progress is not None:
-        progress(0, m)
     if symmetric:
-        accs = ld_pallas_sym.sym_credits(
-            ops["g"], ops["m"], ops["h"], scal, lo_dev, hi_dev,
-            pre["usable"], dom_ok, pre["add_sd_zero"], config.rsq_thr,
-            n_samples=n, has_missing=route == "global",
-            block_size=config.block_size, annot=a_dev)
+        deltas = ()
         if split is not None:
+            # dispatched before the pass, so that its ticks cover both
             rowmiss, plan = split
             deltas = ld_split.split_corrections(
                 ops["g"], ops["m_c"], ops["h"], scal, lo_dev, hi_dev,
                 pre["usable"], dom_ok, rowmiss, config.rsq_thr, m_pad, plan,
                 a_dev, n_samples=n)
-            # δ-credits of (l2, l2d, wse[, l2_annot, l2d_annot])
-            accs = list(accs)
-            for at, delta in zip((0, 3, 5, 6, 7), deltas):
-                accs[at] = accs[at] + delta
+        accs = list(ld_pallas_sym.sym_credits_segmented(
+            ops["g"], ops["m"], ops["h"], scal, lo_dev, hi_dev,
+            pre["usable"], dom_ok, pre["add_sd_zero"], config.rsq_thr,
+            n_samples=n, has_missing=route == "global",
+            block_size=config.block_size, n_rows=m, progress=progress,
+            annot=a_dev))
+        # δ-credits of (l2, l2d, wse[, l2_annot, l2d_annot])
+        for at, delta in zip((0, 3, 5, 6, 7), deltas):
+            accs[at] = accs[at] + delta
         l2_c, ws_c, poi_c, l2d_c, wsd_c, wse_c = accs[:6]
         l2, l2d, ws, wsd, wse = finalize_outputs(
             l2_c, l2d_c, ws_c, wsd_c, wse_c, poi_c, pre["usable"],
@@ -339,6 +342,8 @@ def compute_ld_scores(genotypes, positions: np.ndarray, config: LDConfig, *,
                 accs[6], accs[7], a_dev, pre["usable"], pre["add_sd_zero"],
                 poi_c, wsd_c)
     else:
+        if progress is not None:
+            progress(0, m)
         blk_lo, blk_hi, band_k = windows.band_blocks(
             lo, hi, config.block_size, m_pad // config.block_size)
         fin = ld_int8.ld_scores_int8(
@@ -354,7 +359,7 @@ def compute_ld_scores(genotypes, positions: np.ndarray, config: LDConfig, *,
     if a_dev is not None:
         out["l2_annot"] = l2_a[:m].cpu().numpy().astype(np.float64)
         out["l2d_annot"] = l2d_a[:m].cpu().numpy().astype(np.float64)
-    if progress is not None:
+    if progress is not None and not symmetric:
         progress(m, m)
     stage_add("device_s", t_dev)
     return out
@@ -436,12 +441,18 @@ def wants_streaming(m: int, n: int, device: torch.device,
 
 
 def _progress_logger():
-    """Percent/elapsed logger for :func:`compute_ld_scores` progress."""
+    """Percent/elapsed/ETA logger for :func:`compute_ld_scores` progress
+    (``nldsc_tpu/ld/pipeline.py:489-501``): no line before any row is
+    done."""
     t0 = time.time()
 
     def cb(done: int, total: int) -> None:
-        log.info("LD pass: %d/%d SNPs (%.0f%%) | elapsed %.1fs",
-                 done, total, 100.0 * done / max(total, 1), time.time() - t0)
+        if done <= 0:
+            return
+        elapsed = time.time() - t0
+        eta = elapsed * (total - done) / done
+        log.info("LD pass: %d/%d SNPs (%.0f%%) | elapsed %.1fs | ETA %.1fs",
+                 done, total, 100.0 * done / total, elapsed, eta)
 
     return cb
 

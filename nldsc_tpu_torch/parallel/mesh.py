@@ -7,22 +7,31 @@ The reference lays its devices out as a JAX ``Mesh``
 and the sample axis take a list (:func:`snp_devices`), the 2-D grid a
 list of rows of devices (:func:`grid_devices`).  A device may appear
 more than once: several shards then share it, which is how the CPU
-tests and a machine with one card run d shards.  Every exchange goes
-through :func:`send`, a copy even between two shards of one device, so
-that the shards never share a tensor.
+tests and a machine with one card run d shards.  Inside a process every
+exchange goes through :func:`send`, a copy even between two shards of
+one device, so that the shards never share a tensor; between the
+processes of a ``torch.distributed`` process group (one chromosome's SNP
+shards across ranks, ``distributed.estimate_lds_mesh``) through
+:func:`exchange`.
 """
 
 from __future__ import annotations
 
 import contextlib
+import datetime
+import math
 
 import torch
 
 from ..core.errors import NLDSCParameterError
 
-#: bytes copied between shards by :func:`send` (halo rows, per-tile
-#: products summed over sample shards, partials gathered for the fold)
+#: bytes moved between shards by :func:`send` and sent to other ranks by
+#: :func:`exchange` (halo rows, per-tile products summed over sample
+#: shards, partials gathered for the fold)
 exchange_bytes = 0
+#: seconds that :func:`exchange` waits for a message from another rank
+#: before it raises: a rank that failed fails the others
+RECV_TIMEOUT_S = 600.0
 
 
 def send(x: torch.Tensor, dst: torch.device) -> torch.Tensor:
@@ -30,6 +39,63 @@ def send(x: torch.Tensor, dst: torch.device) -> torch.Tensor:
     global exchange_bytes
     exchange_bytes += x.numel() * x.element_size()
     return x.to(dst, copy=True)
+
+
+def _nbytes(shape, dtype) -> int:
+    return math.prod(shape) * dtype.itemsize
+
+
+def exchange(outgoing: dict, incoming: dict, dev: torch.device) -> dict:
+    """Point-to-point moves between the ranks of the process group:
+    ``outgoing`` maps a rank to the tensors this rank sends it, packed
+    into one message; ``incoming`` a rank to the ``(shape, dtype)`` of
+    each tensor of the one message this rank receives from it.  Every
+    rank plans both from what the ranks share (the run's geometry), so
+    no sizes travel.  Returns ``{rank: [tensors]}`` on ``dev``.
+
+    Under ``nccl`` the messages go from device to device; ``gloo`` sends
+    host tensors only, so CUDA tensors are staged through the host
+    (received into page-locked buffers).  Each wait fails after
+    :data:`RECV_TIMEOUT_S`.  The bytes sent count in
+    :data:`exchange_bytes`.  Nothing to move: nothing is done (in one
+    process too)."""
+    global exchange_bytes
+    outgoing = {r: ts for r, ts in outgoing.items()
+                if sum(t.numel() for t in ts)}
+    incoming = {r: specs for r, specs in incoming.items()
+                if sum(_nbytes(*x) for x in specs)}
+    if not outgoing and not incoming:
+        return {}
+    dist = torch.distributed
+    on_dev = dist.get_backend() == "nccl"
+    stage = torch.device(dev) if on_dev else torch.device("cpu")
+    ops = []
+    for r, ts in outgoing.items():
+        msg = torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
+                         for t in ts]).to(stage)
+        exchange_bytes += msg.numel()
+        ops.append(dist.P2POp(dist.isend, msg, r))
+    bufs = {}
+    for r, specs in incoming.items():
+        bufs[r] = torch.empty(
+            sum(_nbytes(*x) for x in specs), dtype=torch.uint8, device=stage,
+            pin_memory=not on_dev and torch.device(dev).type == "cuda")
+        ops.append(dist.P2POp(dist.irecv, bufs[r], r))
+    timeout = datetime.timedelta(seconds=RECV_TIMEOUT_S)
+    with on_device(stage):                  # nccl's communicator device
+        for work in dist.batch_isend_irecv(ops):
+            work.wait(timeout)
+    out = {}
+    for r, specs in incoming.items():
+        at, out[r] = 0, []
+        for shape, dtype in specs:
+            n = _nbytes(shape, dtype)
+            piece = bufs[r][at:at + n]
+            if at % dtype.itemsize:             # a view needs alignment
+                piece = piece.clone()
+            out[r].append(piece.view(dtype).reshape(shape).to(dev))
+            at += n
+    return out
 
 
 def visible_devices(device="cuda") -> list[torch.device]:

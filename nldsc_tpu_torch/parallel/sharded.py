@@ -1,7 +1,9 @@
 """SNP-sharded LD scores: each shard owns a contiguous range of rows.
 
 Port of ``nldsc_tpu/parallel/sharded.py`` on a list of devices driven by
-one process (:mod:`.mesh`).  Each shard holds ``rows`` rows, a multiple of
+one process (:mod:`.mesh`), or by the ranks of a process group, each
+holding its contiguous range of the shards.  Each shard holds ``rows``
+rows, a multiple of
 the row unit (``block_size``, and on the kernel's route
 ``lcm(block_size, ROW_ALIGN)``, so that no kernel tile straddles two
 shards), preprocesses them where they lie (packed rows are sent as bytes
@@ -37,6 +39,14 @@ full band (``--no-symmetric``, ``--engine f32``, and on the CPU
     zero rows after them that no pivot block's band is clamped, so that
     every block sums the same columns on any device count.  The grid
     (``grid_sharded.py``) runs this body with a sample-sharded tile.
+
+Across processes (``distributed.estimate_lds_mesh``) the bodies take the
+global list of shards with only this rank's present: before the pass
+each rank receives the rows of other ranks' shards that its windows
+reach and sends its own that theirs reach (:func:`fetch_rows`), and
+after it rank 0 gathers every shard's partials or accumulators and
+per-row statistics (:func:`gather_first`) and folds once, as one process
+does: the result is bitwise invariant in the process count too.
 """
 
 from __future__ import annotations
@@ -51,6 +61,7 @@ import torch.nn.functional as F
 from ..core.errors import NLDSCParameterError
 from ..io.plink import PackedBed
 from ..ld import ld_int8, ld_pallas_sym, ld_xla, preprocess, windows
+from . import mesh
 from .mesh import send
 
 
@@ -132,26 +143,118 @@ def sharded_geometry(m: int, n: int, positions: np.ndarray, config,
         tail_rows=tail)
 
 
-def row_window(parts: list, s: int, a: int, b: int,
-               dst: torch.device) -> torch.Tensor:
+def row_window(parts: list, s: int, a: int, b: int, dst: torch.device,
+               received: dict | None = None) -> torch.Tensor:
     """Rows ``[a, b)`` of the row-sharded tensors ``parts`` (shard t holds
     rows ``[t·L, (t+1)·L)``) on ``dst``, for shard ``s``: its own rows as
     they are, the other shards' rows sent (:func:`.mesh.send`), zero rows
-    outside ``[0, len(parts)·L)``."""
-    L = parts[0].shape[0]
-    total = L * len(parts)
+    outside ``[0, len(parts)·L)``.  ``parts[t]`` is None for another
+    rank's shard: its rows in ``[a, b)`` are ``received[t]``, already on
+    ``dst`` (:func:`fetch_rows`)."""
     like = parts[s]
+    L = like.shape[0]
+    total = L * len(parts)
     pieces = []
     if a < 0:
         pieces.append(like.new_zeros((min(b, 0) - a, *like.shape[1:])))
     for t, x in enumerate(parts):
         t0, t1 = max(a, t * L), min(b, (t + 1) * L)
-        if t1 > t0:
-            x = x[t0 - t * L:t1 - t * L]
-            pieces.append(x if t == s else send(x, dst))
+        if t1 <= t0:
+            continue
+        if x is None:
+            pieces.append(received[t])
+            continue
+        x = x[t0 - t * L:t1 - t * L]
+        pieces.append(x if t == s else send(x, dst))
     if b > total:
         pieces.append(like.new_zeros((b - max(a, total), *like.shape[1:])))
     return pieces[0] if len(pieces) == 1 else torch.cat(pieces)
+
+
+def process_layout(shards: list) -> tuple[int, int]:
+    """``(rank, k)`` of a global list of shards in which only this
+    process's entries are present (the others None): the process holds
+    shards ``[rank·k, (rank+1)·k)`` and rank r the r-th such range
+    (``distributed.shard_rows_for_process``).  ``(0, len(shards))`` in
+    one process."""
+    local = [s for s, sh in enumerate(shards) if sh is not None]
+    k = len(local)
+    rank = local[0] // k
+    if local != list(range(rank * k, (rank + 1) * k)):
+        raise ValueError(f"this process's shards {local} are not a rank's "
+                         "contiguous range")
+    return rank, k
+
+
+def _per_row(sh: dict) -> dict:
+    """A shard's row-sharded tensors by name: its matrices and its per-row
+    inputs, one device's."""
+    if len(sh["mats"]) != 1:
+        raise ValueError("a shard over several devices runs in one process")
+    return {**sh["mats"][0], **sh["rows"]}
+
+
+def fetch_rows(shards: list, geo: ShardGeometry, spans: list) -> dict:
+    """The rows of other ranks' shards in this process's windows: for each
+    of its shards s, ``{t: {name: rows [a, b) of shard t}}`` on s's
+    device, where ``spans[s] = (a, b)`` is shard s's window; and the rows
+    of its own shards in other ranks' windows, sent to them.  Every rank
+    plans the moves from the geometry they share, one message per pair of
+    ranks (:func:`.mesh.exchange`); nothing in one process."""
+    rank, k = process_layout(shards)
+    if k == len(shards):
+        return {}
+    L = geo.rows
+    like = _per_row(shards[rank * k])
+    outgoing, incoming, order = {}, {}, {}
+    for s, (a, b) in enumerate(spans):
+        for t in range(len(shards)):
+            t0, t1 = max(a, t * L), min(b, (t + 1) * L)
+            if t1 <= t0 or s // k == t // k:
+                continue
+            if t // k == rank:
+                outgoing.setdefault(s // k, []).extend(
+                    x[t0 - t * L:t1 - t * L]
+                    for x in _per_row(shards[t]).values())
+            elif s // k == rank:
+                incoming.setdefault(t // k, []).extend(
+                    ((t1 - t0, *x.shape[1:]), x.dtype) for x in like.values())
+                order.setdefault(t // k, []).append((s, t))
+    got = mesh.exchange(outgoing, incoming, shards[rank * k]["devices"][0])
+    out = {}
+    for r, pairs in order.items():
+        flat = iter(got[r])
+        for s, t in pairs:
+            dev = shards[s]["devices"][0]
+            out.setdefault(s, {})[t] = {name: next(flat).to(dev)
+                                        for name in like}
+    return out
+
+
+def gather_first(outs: list, shards: list) -> list | None:
+    """Every shard's list of tensors ``outs[s]`` on the first shard's first
+    device, in shard order: the first shard's as they are, the others
+    sent (:func:`.mesh.send`).  Another rank's shards (None) send theirs
+    to rank 0, which receives them (:func:`.mesh.exchange`; each shard's
+    list shaped as the first shard's) and returns the whole list; the
+    other ranks return None."""
+    rank, k = process_layout(shards)
+    if rank:
+        mesh.exchange({0: [x for o in outs if o is not None for x in o]},
+                      {}, shards[rank * k]["devices"][0])
+        return None
+    first = shards[0]["devices"][0]
+    specs = [(tuple(x.shape), x.dtype) for x in outs[0]]
+    got = mesh.exchange({}, {r: specs * k for r in range(1, len(shards) // k)},
+                        first)
+    gathered = []
+    for s, o in enumerate(outs):
+        if o is None:
+            j = s % k * len(specs)
+            gathered.append(got[s // k][j:j + len(specs)])
+        else:
+            gathered.append([x if s == 0 else send(x, first) for x in o])
+    return gathered
 
 
 def annot_rows(annot, m: int, m_pad: int) -> np.ndarray | None:
@@ -218,43 +321,65 @@ def preprocess_shard(codes: torch.Tensor, geo: ShardGeometry, config,
             "stats": (pre["maf"], pre["rstd"])}
 
 
-def symmetric_pass(shards: list, geo: ShardGeometry, config) -> list:
+def _windows(shards: list, s: int, a: int, b: int, received: dict,
+             q: int | None, dst: torch.device) -> dict:
+    """Rows ``[a, b)`` for shard s of each of the shards' matrices on
+    their device q, or with ``q`` None of their per-row inputs, on
+    ``dst`` (:func:`row_window`)."""
+    def group(sh):
+        return sh["rows"] if q is None else sh["mats"][q]
+
+    return {name: row_window(
+        [None if t is None else group(t)[name] for t in shards], s, a, b,
+        dst, {u: r[name] for u, r in received.items()})
+        for name in group(shards[s])}
+
+
+def symmetric_pass(shards: list, geo: ShardGeometry, config) -> list | None:
     """The symmetric body: K1 (or its twin) per shard on its rows and
-    right halo, the partials of its pivot tiles gathered on the first
-    device and folded once.  Returns the per-row accumulators ``(l2, l2d,
-    ws, wsd, wse, poison[, l2_annot, l2d_annot])`` of the ``m_pad`` rows
-    on the first device."""
+    right halo (``ld_pallas_sym.range_partials``), the partials of its
+    pivot tiles gathered on the first device (:func:`gather_first`) and
+    folded once.  Returns the per-row accumulators ``(l2, l2d, ws, wsd,
+    wse, poison[, l2_annot, l2d_annot])`` of the ``m_pad`` rows on the
+    first device; None on a rank other than 0 of a process group
+    (``shards`` holds only this rank's entries; the halo rows of other
+    ranks' shards come through :func:`fetch_rows`)."""
     L, T = geo.rows, geo.tile
-    first = shards[0]["devices"][0]
+    spans = [(s * L, min(s * L + L + geo.halo, geo.m_pad))
+             for s in range(len(shards))]
+    received = fetch_rows(shards, geo, spans)
     parts = []
     for s, sh in enumerate(shards):
+        if sh is None:
+            parts.append(None)
+            continue
         dev = sh["devices"][0]
-        r0 = s * L
-        stop = min(r0 + L + geo.halo, geo.m_pad)
-        mats = {k: row_window([t["mats"][0][k] for t in shards], s, r0,
-                              stop, dev) for k in sh["mats"][0]}
-        rows = {k: row_window([t["rows"][k] for t in shards], s, r0, stop,
-                              dev) for k in sh["rows"]}
-        # the halo rows are neighbours only: their windows are emptied
-        lo, hi = geo.lo[r0:stop] - r0, geo.hi[r0:stop] - r0
-        lo[L:], hi[L:] = stop - r0, -1
-        win = torch.from_numpy(np.stack([lo, hi])).to(dev)
+        a, b = spans[s]
+        got = received.get(s, {})
+        mats = _windows(shards, s, a, b, got, 0, dev)
+        rows = _windows(shards, s, a, b, got, None, dev)
+        win = torch.from_numpy(np.stack([geo.lo[a:b], geo.hi[a:b]]) - a
+                               ).to(dev)
         ops = {"g": mats["g"], "m": mats.get("m", mats["g"]),
                "h": mats["h"]}
         del mats
         ld_int8.to_operands(ops, config.int8_dot_dtype)
-        out = ld_pallas_sym.sym_partials(
+        out = ld_pallas_sym.range_partials(
             ops["g"], ops["m"], ops["h"], rows["scal"], win[0], win[1],
             rows["usable"], rows["dom_ok"], rows["add_sd_zero"],
-            config.rsq_thr, n_samples=geo.n, has_missing=geo.has_missing,
-            band=geo.band, block_size=T, annot=rows.get("annot"))
+            config.rsq_thr, 0, L // T, n_samples=geo.n,
+            has_missing=geo.has_missing, band=geo.band, block_size=T,
+            annot=rows.get("annot"))
         del ops, rows
-        parts.append([x[:L // T] if s == 0 else send(x[:L // T], first)
-                      for x in out if x is not None])
+        parts.append([x for x in out if x is not None])
+    gathered = gather_first(parts, shards)
+    del parts
+    if gathered is None:
+        return None
     nf = geo.fold_rows // T
     folded = ld_pallas_sym.fold_partials(
-        *(torch.cat(x)[:nf] for x in zip(*parts)))
-    del parts
+        *(torch.cat(x)[:nf] for x in zip(*gathered)))
+    del gathered
     pad = geo.m_pad - geo.fold_rows
     l2, ws, poi, l2d, wsd, wse, *acc_a = (
         F.pad(x, (0, 0) * (x.dim() - 1) + (0, pad)) for x in folded)
@@ -262,26 +387,31 @@ def symmetric_pass(shards: list, geo: ShardGeometry, config) -> list:
 
 
 def full_band_pass(shards: list, geo: ShardGeometry, config,
-                   make_tile) -> list:
+                   make_tile) -> list | None:
     """The full-band body: per shard ``ld_xla.band_pass`` over its pivot
     rows with ``geo.halo`` neighbour rows on each side (and
     ``geo.tail_rows`` zero rows), the tile ``make_tile(mats, rows, lead)``
     of its extended rows (``mats`` one dict per device of the shard, as
     :func:`preprocess_shard` gives them; ``rows`` on the shard's first
     device, ``lead``).  Returns ``band_pass``'s per-row accumulators of
-    the ``m_pad`` rows on the first shard's first device."""
+    the ``m_pad`` rows on the first shard's first device; in a process
+    group, as :func:`symmetric_pass` does."""
     L, H, B = geo.rows, geo.halo, config.block_size
-    first = shards[0]["devices"][0]
+    spans = [(s * L - H, s * L + L + H + geo.tail_rows)
+             for s in range(len(shards))]
+    received = fetch_rows(shards, geo, spans)
     outs = []
     for s, sh in enumerate(shards):
+        if sh is None:
+            outs.append(None)
+            continue
         lead = sh["devices"][0]
         r0 = s * L
-        a, b = r0 - H, r0 + L + H + geo.tail_rows
-        mats = [{k: row_window([t["mats"][q][k] for t in shards], s, a, b,
-                               dev) for k in sh["mats"][q]}
+        a, b = spans[s]
+        got = received.get(s, {})
+        mats = [_windows(shards, s, a, b, got, q, dev)
                 for q, dev in enumerate(sh["devices"])]
-        rows = {k: row_window([t["rows"][k] for t in shards], s, a, b, lead)
-                for k in sh["rows"]}
+        rows = _windows(shards, s, a, b, got, None, lead)
         win = torch.from_numpy(np.stack([geo.lo[r0:r0 + L],
                                          geo.hi[r0:r0 + L]])).to(lead)
         accs = ld_xla.band_pass(
@@ -291,8 +421,10 @@ def full_band_pass(shards: list, geo: ShardGeometry, config,
             rows.get("annot"), block_size=B, band_k=geo.band_k,
             n_samples=geo.n, n_pivots=L, g0=a, piv_off=H, m_pad=geo.m_pad)
         del mats, rows
-        outs.append([x if s == 0 else send(x, first) for x in accs])
-    return [torch.cat(x) for x in zip(*outs)]
+        outs.append(list(accs))
+    gathered = gather_first(outs, shards)
+    return None if gathered is None else [torch.cat(x)
+                                          for x in zip(*gathered)]
 
 
 def finish(accs: list, usable, add_sd_zero, maf, rstd, annot, m: int
@@ -315,37 +447,47 @@ def finish(accs: list, usable, add_sd_zero, maf, rstd, annot, m: int
     return out
 
 
-def finish_shards(accs: list, shards: list, a_host, m: int) -> dict:
+def finish_shards(accs: list | None, shards: list, a_host, m: int
+                  ) -> dict | None:
     """:func:`finish` with the shards' per-row flags and statistics
-    gathered on the first device."""
+    gathered on the first device (:func:`gather_first`); None on a rank
+    other than 0 of a process group, which sends its shards' to rank 0."""
+    stats = gather_first(
+        [None if sh is None else [sh["rows"]["usable"],
+                                  sh["rows"]["add_sd_zero"], *sh["stats"]]
+         for sh in shards], shards)
+    if stats is None:
+        return None
     first = shards[0]["devices"][0]
-
-    def gather(get):
-        return torch.cat([get(sh).to(first) for sh in shards])
-
+    usable, add_sd_zero, maf, rstd = (torch.cat(x) for x in zip(*stats))
     annot = None if a_host is None else torch.from_numpy(a_host).to(first)
-    return finish(accs, gather(lambda sh: sh["rows"]["usable"]),
-                  gather(lambda sh: sh["rows"]["add_sd_zero"]),
-                  gather(lambda sh: sh["stats"][0]),
-                  gather(lambda sh: sh["stats"][1]), annot, m)
+    return finish(accs, usable, add_sd_zero, maf, rstd, annot, m)
 
 
 def ld_scores_sharded_global(codes: list, positions: np.ndarray, config,
                              m: int, n: int, has_missing: bool,
-                             annot=None) -> dict:
+                             annot=None) -> dict | None:
     """Sharded LD scores on rows already placed: ``codes[s]`` is shard
     s's int8 ``(rows, n_pad)`` codes on its device, padded as
     :func:`sharded_geometry` pads them (``pad_val``).  The entry point of
     ``distributed.estimate_lds_mesh``, whose shards read their own byte
     ranges of the .bed; each entry of ``codes`` is released (set to None)
     once its shard is preprocessed.  ``annot``: optional (M, p)
-    annotation matrix."""
+    annotation matrix.
+
+    Across the processes of a process group, ``codes`` lists every
+    shard of the run and holds this rank's (:func:`process_layout`), the
+    others None: the halo rows cross the ranks (:func:`fetch_rows`), rank
+    0 gathers every shard's partials or accumulators, folds and returns
+    the result, and the other ranks return None.  Every rank must pass
+    the same ``has_missing``."""
     if config.rsq_thr is None:
         raise NLDSCParameterError("resolve rsq_thr first (LDConfig.resolve_rsq)")
-    devices = [c.device for c in codes]
+    local = [c for c in codes if c is not None]
     geo = sharded_geometry(m, n, positions, config, len(codes),
-                           devices[0].type, has_missing, annot is not None)
-    for c in codes:
+                           local[0].device.type, has_missing,
+                           annot is not None)
+    for c in local:
         if tuple(c.shape) != (geo.rows, geo.n_pad):
             raise ValueError(f"shard codes {tuple(c.shape)} != "
                              f"({geo.rows}, {geo.n_pad})")
@@ -354,7 +496,8 @@ def ld_scores_sharded_global(codes: list, positions: np.ndarray, config,
     a_host = annot_rows(annot, m, geo.m_pad)
     shards = []
     for s in range(len(codes)):
-        shards.append(preprocess_shard(codes[s], geo, config, s, a_host))
+        shards.append(None if codes[s] is None else
+                      preprocess_shard(codes[s], geo, config, s, a_host))
         codes[s] = None                 # preprocessed: free the raw codes
     if geo.symmetric:
         accs = symmetric_pass(shards, geo, config)

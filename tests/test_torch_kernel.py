@@ -37,6 +37,9 @@ CASES = {
     "ring_wrap_clean": (260, 600, 0.0, 100, 8000.0),   # 5 stages: 3 ∤ 5
     "ring_wrap_missing": (260, 600, 0.02, 100, 8000.0),        # 4 ∤ 5
     "clean_multi_tile_band": (700, 389, 0.0, 100, 30000.0),
+    # 16 pivot blocks of 128 rows: the 16 segments of a pass with progress
+    "segments_clean": (2048, 203, 0.0, 100, 30000.0),
+    "segments_missing": (2048, 203, 0.02, 100, 30000.0),
 }
 
 
@@ -113,6 +116,27 @@ def test_kernel_matches_twin(rng, cuda, case):
     for a, b in zip(ours[2:], ref[2:]):
         np.testing.assert_array_equal(a, b)
     assert np.isfinite(ours[1][:m]).sum() > m // 2      # l2d of usable rows
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["segments_clean", "segments_missing"])
+def test_segments_fold_once_to_one_launch(rng, cuda, case):
+    # the pass with progress: K1 once per segment (its halo tiles' CTAs
+    # exit at once), a fence and a tick after each, one fold over all the
+    # segments' partials: bitwise one launch
+    args, n, has_missing, m = engine_args(rng, case, cuda)
+    kw = dict(n_samples=n, has_missing=has_missing)
+    ticks = []
+    before = ld_pallas_sym.launches
+    seg = ld_pallas_sym.sym_credits_segmented(
+        *args, RSQ, block_size=128, n_rows=m,
+        progress=lambda done, total: ticks.append((done, total)), **kw)
+    assert ld_pallas_sym.launches == before + 16
+    assert ticks == [(128 * i, m) for i in range(17)]
+    one = ld_pallas_sym.sym_credits(
+        *args, RSQ, block_size=ld_pallas_sym.tile(has_missing), **kw)
+    for a, b in zip(seg, one):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
