@@ -186,6 +186,15 @@ Phases, one line each (or a few):
      over phases 5 and 9, a chromosome a rank, byte-identical to those
      phases' files; each worker reports that it imported no jax,
      nldsc_tpu or pandas.
+ 30. the per-SNP scalars' square roots (F4): in 3 fresh CPU processes,
+     started together (``python3 chip_smoke.py --scalars-worker``, 8
+     threads each, no CUDA device), ``preprocess_int8`` at M = 24,576,
+     N = 64, its inv_sd, inv_rstd and rstd bitwise equal to NumPy's
+     correctly rounded values and every per-SNP scalar bitwise equal to
+     the card's from the same codes (dividing by n = 64 is exact on both
+     devices, so only a square root could differ); each process then
+     reports how far ATen's own CPU ``torch.sqrt`` (MKL VML), its first
+     VML call, lies from them.
 
 Then one JSON line of the kernels (each with its time, its plain
 version's, its bound from this run's inputs, its launches on the main
@@ -2944,6 +2953,93 @@ def multiprocess_phase(torch, tmp: str, prefix5: str, out5: str,
                      for name in MP_CASES} for r, rep in enumerate(reports)}
 
 
+def scalars_worker(codes_path: str, out_path: str) -> int:
+    """One process of phase 30 (``python3 chip_smoke.py --scalars-worker
+    CODES OUT``, no CUDA device): the CPU per-SNP scalars of the F4 codes
+    at 8 threads, then ATen's own ``torch.sqrt`` of the additive variance
+    as the process's first MKL VML call; writes both to ``OUT``."""
+    import torch
+
+    torch.set_num_threads(8)
+    sys.path.insert(0, str(ROOT))
+    from nldsc_tpu_torch.ld import ld_int8
+
+    g = torch.from_numpy(np.load(codes_path))
+    n = g.shape[1]
+    pre = ld_int8.preprocess_int8(g, torch.ones(len(g), dtype=torch.bool),
+                                  0.01, n, assume_no_missing=True)
+    c1 = (g == 1).sum(1, dtype=torch.float32)
+    c2 = (g == 2).sum(1, dtype=torch.float32)
+    va = ld_int8.dom_class_stats(float(n) - c1 - c2, c1, c2)[0]
+    x = va / float(n) / float(n)
+    np.savez(out_path, x=x.numpy(), aten_sqrt=torch.sqrt(x).numpy(),
+             threads=torch.get_num_threads(),
+             capability=torch.backends.cpu.get_cpu_capability(),
+             **{k: pre[k].numpy() for k in (*ld_int8.SCAL_FIELDS, "rstd")})
+    return 0
+
+
+def numerics_phase(torch, tmp: str, dev, card: str) -> None:
+    """Phase 30: the CPU per-SNP scalars at the F4 shape in 3 fresh
+    processes against NumPy's correctly rounded values and the card's."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from numerics_ref import F4_CFG, f4_data, reference_scalars, sqrt64
+
+    from nldsc_tpu_torch.core.numerics import sqrt_rn
+    from nldsc_tpu_torch.ld import ld_int8
+
+    t0 = time.time()
+    g, _ = f4_data()
+    m, n = g.shape
+    codes = os.path.join(tmp, "f4_codes.npy")
+    np.save(codes, g)
+    ref = reference_scalars(g, F4_CFG["maf_thr"], n)
+    card_pre = ld_int8.preprocess_int8(
+        torch.from_numpy(g).to(dev), torch.ones(m, dtype=torch.bool,
+                                                device=dev),
+        F4_CFG["maf_thr"], n, assume_no_missing=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    outs = [os.path.join(tmp, f"f4_scalars{i}.npz") for i in range(3)]
+    # started together: importing torch takes most of each process's time
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                               "--scalars-worker", codes, out], env=env)
+             for out in outs]
+    try:
+        rcs = [p.wait(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    if rcs != [0, 0, 0]:
+        raise RuntimeError(f"phase 30: the CPU processes exited {rcs}")
+    runs = [dict(np.load(out)) for out in outs]
+    aten = []
+    for i, r in enumerate(runs):
+        for k in ("inv_sd", "inv_rstd", "rstd"):
+            if not np.array_equal(r[k], ref[k], equal_nan=True):
+                raise RuntimeError(f"phase 30, process {i}: the CPU {k} is not "
+                                   "correctly rounded")
+        for k in (*ld_int8.SCAL_FIELDS, "rstd"):
+            if not np.array_equal(r[k], card_pre[k].cpu().numpy(),
+                                  equal_nan=True):
+                raise RuntimeError(f"phase 30, process {i}: the CPU {k} "
+                                   "differs from the card's")
+        want = sqrt64(r["x"])
+        off = np.flatnonzero(r["aten_sqrt"] != want)
+        rel = (float(np.max(np.abs(r["aten_sqrt"][off] / want[off] - 1)))
+               if off.size else 0.0)
+        aten.append(f"{off.size} rows off (max rel {rel:.3g})")
+    x = torch.from_numpy(runs[0]["x"])
+    if not (np.array_equal(sqrt_rn(x).numpy(), sqrt64(runs[0]["x"]))
+            and torch.equal(sqrt_rn(x.to(dev)).cpu(), sqrt_rn(x))):
+        raise RuntimeError("phase 30: sqrt_rn differs between the devices")
+    say("30 scalars", f"M={m} N={n}: 3 fresh CPU processes at "
+        f"{int(runs[0]['threads'])} threads ({runs[0]['capability']}): "
+        "inv_sd, inv_rstd, rstd bitwise NumPy's correctly rounded values, "
+        "every per-SNP scalar bitwise the card's, sqrt_rn bitwise on both "
+        "devices; ATen's CPU torch.sqrt as each process's first VML call: "
+        + "; ".join(aten) + f"; {time.time() - t0:.1f} s; on {card}")
+
+
 def main() -> int:
     if not (ROOT / "nldsc_tpu_torch" / "csrc" / "ld_sym.cu").exists():
         print("chip_smoke.py must run from a checkout that holds "
@@ -3324,6 +3420,9 @@ def main() -> int:
         ranks = multiprocess_phase(torch, tmp, prefix5, out5, prefix9, out9,
                                    annot19["path"], card)
 
+        # 30. the per-SNP scalars' square roots on the CPU (F4)
+        numerics_phase(torch, tmp, dev, card)
+
     bad = sorted({k.split(".")[0] for k in sys.modules}
                  & {"jax", "nldsc_tpu", "pandas"})
     if bad:
@@ -3398,4 +3497,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--worker"]:
         sys.exit(mp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--scalars-worker"]:
+        sys.exit(scalars_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.numerics import sqrt_rn
 from . import jackknife as jk
 
 
@@ -52,10 +53,10 @@ def irwls(x: torch.Tensor, y: torch.Tensor, update_func, n_blocks: int,
         raise ValueError(f"w has shape {tuple(w.shape)}. w must have shape "
                          f"({n}, 1).")
 
-    w = torch.sqrt(w)
+    w = sqrt_rn(w)
     for _ in range(n_iter):
         coef = wls(x, y, w)
-        new_w = torch.sqrt(update_func(coef))
+        new_w = sqrt_rn(update_func(coef))
         if new_w.shape != w.shape:
             raise ValueError("New weights must have same shape.")
         w = new_w

@@ -22,6 +22,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..core.numerics import sqrt_rn
+
 
 @dataclass
 class JackknifeResult:
@@ -76,7 +78,7 @@ def jackknife_moments(pseudovalues: torch.Tensor):
     centered = pseudovalues - mean
     cov = centered.T @ centered / (n_blocks - 1) / n_blocks     # (p, p)
     var = torch.diag(cov)[None, :]
-    return mean, var, torch.sqrt(var), cov
+    return mean, var, sqrt_rn(var), cov
 
 
 def delete_values_to_pseudovalues(delete_values: torch.Tensor,

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..core.logging import log
+from ..core.numerics import sqrt_rn
 from . import irwls
 from . import jackknife as jk
 
@@ -144,10 +145,10 @@ def _extract_core(est, jk_cov, delete_values, M, N_mean):
     p = M.shape[1]
     coef_val = est[0, :p] / N_mean
     coef_cov = jk_cov[:p, :p] / N_mean**2
-    coef_std = torch.sqrt(torch.diag(coef_cov))
+    coef_std = sqrt_rn(torch.diag(coef_cov))
     cat_val = (M * coef_val).reshape(p)
     cat_cov = (M.T @ M) * coef_cov
-    cat_std = torch.sqrt(torch.diag(cat_cov))
+    cat_std = sqrt_rn(torch.diag(cat_cov))
     tot_val = torch.sum(cat_val)
     tot_cov = torch.sum(cat_cov)
     nb = delete_values.shape[0]

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..core.errors import NLDSCParameterError
+from ..core.numerics import sqrt_rn
 
 #: per-SNP f32 scalar fields the engines consume, in stacking order
 SCAL_FIELDS = ("am", "inv_sd", "inv_rstd", "v0", "v1", "v2",
@@ -85,9 +86,9 @@ def finish_preprocess_int8(n_valid_raw, c1, c2, cm, pos_ok, maf_thr: float,
 
     va, _slope, rvar_sum, v0, v1, v2 = dom_class_stats(c0, c1, c2)
     var_a_sum = va / n_valid
-    add_sd = torch.sqrt(var_a_sum / n)
+    add_sd = sqrt_rn(var_a_sum / n)
     add_sd_zero = usable & ((va <= 0.0) | all_missing)
-    rstd = torch.sqrt(rvar_sum / n)
+    rstd = sqrt_rn(rvar_sum / n)
 
     zero = torch.zeros_like(am)
     one = torch.ones_like(am)

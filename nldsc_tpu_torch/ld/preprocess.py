@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.numerics import sqrt_rn
 from .ld_int8 import dom_class_stats, f32
 
 #: rows unpacked per step: bounds the uint8 temporaries to ~1 GB at
@@ -101,7 +102,7 @@ def preprocess_block(genotypes: torch.Tensor, pos_ok: torch.Tensor,
         c2 = (gf == 2.0).sum(dim=1, dtype=torch.float32)
         c0 = n_valid - c1 - c2
         va, _slope, rvar_sum, v0, v1, v2 = dom_class_stats(c0, c1, c2)
-        add_sd = torch.sqrt(va / n_valid / n)
+        add_sd = sqrt_rn(va / n_valid / n)
         add_sd_zero = usable & ((va <= 0.0) | all_missing)
         zero = torch.zeros_like(gf)
         r_c = torch.where(
@@ -109,7 +110,7 @@ def preprocess_block(genotypes: torch.Tensor, pos_ok: torch.Tensor,
             v0[:, None] + torch.where(gf == 1.0, (v1 - v0)[:, None], zero)
             + torch.where(gf == 2.0, (v2 - v0)[:, None], zero),
             zero)
-        rstd = torch.sqrt(rvar_sum / n)
+        rstd = sqrt_rn(rvar_sum / n)
 
         one = torch.ones_like(add_sd)
         inv_add_sd = torch.where(add_sd > 0,
