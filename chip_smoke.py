@@ -195,6 +195,15 @@ Phases, one line each (or a few):
      devices, so only a square root could differ); each process then
      reports how far ATen's own CPU ``torch.sqrt`` (MKL VML), its first
      VML call, lies from them.
+ 31. F2's float32 arithmetic (the pair epilogue's fused multiply-adds and
+     f32(1/n), as XLA compiles the JAX package) on a bfile of M = 4,096,
+     N = 1,500 (not a power of two) with 2% missing genotypes in 5% of
+     the rows, ``-kb 20``: ``ld`` on the split route (K1 clean, K2) and the global
+     route (K1 8-product), each kernel's counters equal to its twin's on
+     the card, the card's counters and per-SNP scalars (clean and with
+     missing genotypes) bitwise equal to the CPU port's in the same
+     process, and K1's and K2's times at the chromosome shape (phases 7
+     and 10) beside the card's name and power limit.
 
 Then one JSON line of the kernels (each with its time, its plain
 version's, its bound from this run's inputs, its launches on the main
@@ -2026,8 +2035,8 @@ def f32_phase(torch, tmp: str, prefix5: str, m5: int, dev,
     Returns what phase 23 reads: the config, the wse tolerance, the
     in-core full band's result and the streamed run."""
     sys.path.insert(0, str(ROOT / "tests"))
-    from contract import (INT_TOL, assert_counters_match, f32_adj_error,
-                          f32_tol)
+    from contract import (EPILOGUE_TOL, assert_counters_match,
+                          f32_adj_error, f32_tol)
 
     from nldsc_tpu_torch.config import LDConfig
     from nldsc_tpu_torch.core.timing import STAGE_TIMES
@@ -2072,18 +2081,18 @@ def f32_phase(torch, tmp: str, prefix5: str, m5: int, dev,
                                   n, -1)
     # the worst-case bound N_pad * 2^-24 passes rsq_thr itself at this
     # N_pad; the tolerance is twice the f32 engine's error measured on
-    # the pairs that bound would exempt, plus the integer engine's
+    # the pairs that bound would exempt, plus the epilogue's rounding
     bound = f32_tol(-(-n // 128) * 128, n, cfg.rsq_thr)
     t0 = time.time()
     err32, n_near = f32_adj_error(codes, pos, cfg, bound, device=dev)
-    tol = INT_TOL + 2.0 * err32
+    tol = EPILOGUE_TOL + 2.0 * err32
     if not 0.0 < err32 < bound or n_near < m5 // 64:
         raise RuntimeError(f"phase 22: f32 adj error {err32:.3g} over "
                            f"{n_near} pairs, bound {bound:.3g}")
     say("22 f32 tolerance", f"max |adj_f32 - adj_f64| {err32:.4g} over the "
         f"{n_near} counted pairs within the worst-case bound {bound:.4g} of "
         f"rsq_thr {cfg.rsq_thr:.4g} ({time.time() - t0:.1f} s): wse "
-        f"tolerance INT_TOL + 2 x that = {tol:.4g}")
+        f"tolerance EPILOGUE_TOL + 2 x that = {tol:.4g}")
     runs = {}
     for tag, sym in (("symmetric", True), ("full band", False)):
         fcfg = dataclasses.replace(cfg, use_int8=False, symmetric=sym)
@@ -2692,10 +2701,11 @@ def multi_stream_phase(torch, tmp: str, prefix9: str, out14: str, m5: int,
         "phase 14's")
 
     # the sample-sharded rings run the symmetric pass in torch ops: the
-    # mirrored dominance value of a pair may round otherwise than the full
-    # band's direct one, so l2d_wse is held to tests/contract.py
+    # mirrored dominance value of a pair multiplies its per-SNP factors in
+    # another order than the full band's direct one, so l2d_wse is held to
+    # tests/contract.py with the epilogue's rounding as its tolerance
     sys.path.insert(0, str(ROOT / "tests"))
-    from contract import INT_TOL, assert_counters_match
+    from contract import EPILOGUE_TOL, assert_counters_match
     from nldsc_tpu_torch.ld.preprocess import unpack_bed
 
     full = compute_ld_scores_streaming(
@@ -2716,8 +2726,8 @@ def multi_stream_phase(torch, tmp: str, prefix9: str, out14: str, m5: int,
             flat)
         if launch_counts()["ld_sym"] or launch_counts()["split_corr"]:
             raise RuntimeError(f"phase 27 {name}: a kernel ran")
-        n_exempt = assert_counters_match(res, full, codes, pos, cfg, INT_TOL,
-                                         device="cuda")
+        n_exempt = assert_counters_match(res, full, codes, pos, cfg,
+                                         EPILOGUE_TOL, device="cuda")
         if n_exempt > m5 // 1024:
             raise RuntimeError(f"phase 27 {name}: l2d_wse differs on "
                                f"{n_exempt} rows")
@@ -2727,7 +2737,8 @@ def multi_stream_phase(torch, tmp: str, prefix9: str, out14: str, m5: int,
             f"summed over the sample shards): wall {wall:.3f} s, per device "
             f"{per_dev}; vs the single-device streamed full band: l2_ws, "
             f"l2d_ws equal, l2d_wse on {n_exempt} rows within the contract "
-            f"(tol {INT_TOL:.3g}), max |l2,l2d| diff {err:.3g}; on {card}")
+            f"(tol {EPILOGUE_TOL:.3g}), max |l2,l2d| diff {err:.3g}; on "
+            f"{card}")
     if not same_bits(*sampled.values(), keys=tuple(full)):
         raise RuntimeError("phase 27: the grid's results differ from the "
                            "sample mesh's")
@@ -3038,6 +3049,109 @@ def numerics_phase(torch, tmp: str, dev, card: str) -> None:
         "every per-SNP scalar bitwise the card's, sqrt_rn bitwise on both "
         "devices; ATen's CPU torch.sqrt as each process's first VML call: "
         + "; ".join(aten) + f"; {time.time() - t0:.1f} s; on {card}")
+
+
+def xla_f32_phase(torch, tmp: str, dev, card: str, times: dict) -> None:
+    """Phase 31: at N = 1,500 the kernels' counters equal their twins' on
+    the card, and the card's counters and per-SNP scalars are bitwise the
+    CPU port's, on the split and the global route."""
+    from nldsc_tpu_torch.config import LDConfig
+    from nldsc_tpu_torch.io.plink import PlinkDataset, write_plink
+    from nldsc_tpu_torch.ld import ld_int8, ld_pallas_sym, ld_split
+    from nldsc_tpu_torch.ld.pipeline import compute_ld_scores
+
+    t0 = time.time()
+    rng = np.random.default_rng(31)
+    m, n = 4096, 1500
+    g = synthetic_genotypes(rng, m, n)
+    inject_row_missing(rng, g, 0.05, 0.02)
+    bp = np.arange(1, m + 1, dtype=np.int64) * 100
+    prefix = write_plink(os.path.join(tmp, "f2_card"), g, bp=bp)
+    ds = PlinkDataset.parse(prefix)
+    packed, pos = ds.bed.read_raw(), ds.positions("bp")
+    # a +-200 SNP window (20 kb): the CPU runs each route once too
+    cfg = LDConfig(ld_wind=20_000.0, maf_thr=0.01, std_thr=1e-4,
+                   rsq_thr=RSQ)
+    keys = ("l2_ws", "l2d_ws", "l2d_wse")
+    for route, split in (("split", None), ("global", False)):
+        out = os.path.join(tmp, f"f2_{route}.L2")
+        run = run_ld(torch, ["--bfile", prefix, "-kb", "20", "-maf", "0.01",
+                             "-rsq", str(RSQ), "--extra", "-o", out]
+                     + ([] if split is None else ["--no-split-missing"]))
+        c = run["launches"]
+        if route == "split" and not (c["ld_sym"] and c["split_fused"] == 1
+                                     and not c["ld_sym_8prod"]):
+            raise RuntimeError(f"phase 31: ld took no split route: {c}")
+        if route == "global" and not (c["ld_sym_8prod"]
+                                      and not c["split_corr"]):
+            raise RuntimeError(f"phase 31: ld took no global route: {c}")
+        l2 = read_l2(out)
+        rcfg = dataclasses.replace(cfg, split_missing=split)
+        card_res = compute_ld_scores(packed, pos, rcfg, device="cuda")
+        cpu_res = compute_ld_scores(packed, pos, rcfg, device="cpu")
+        for k, col in zip(keys, ("WSA", "WSD", "WSDE")):
+            if not (np.array_equal(card_res[k], cpu_res[k])
+                    and np.array_equal(l2[col], card_res[k])):
+                raise RuntimeError(f"phase 31 {route}: {k} of the card "
+                                   "differs from the CPU port's")
+        for k in ("maf", "residuals_std"):
+            if not np.array_equal(card_res[k], cpu_res[k], equal_nan=True):
+                raise RuntimeError(f"phase 31 {route}: {k} of the card "
+                                   "differs from the CPU port's")
+        err = compare_results(card_res, cpu_res)
+        say("31 F2 ld", f"M={m} N={n}, {route} route: ld launches "
+            f"{ {k: v for k, v in c.items() if v and 'by_device' not in k} }; "
+            "card l2_ws, l2d_ws, l2d_wse, maf and rstd bitwise the CPU "
+            f"port's (and the .L2's), max |l2,l2d| diff {err:.3g}")
+
+    # each kernel against its twin on the card, counters exactly equal
+    wind = cfg.ld_wind
+    for has_missing in (False, True):
+        args, n_, _, raw = engine_inputs(torch, g, pos, wind, dev,
+                                         materialize_m=has_missing)
+        T = ld_pallas_sym.tile(has_missing)
+        kern = ld_pallas_sym.sym_credits(*args, RSQ, n_samples=n_,
+                                         has_missing=has_missing,
+                                         block_size=T)
+        err = compare(finalized(kern, args),
+                      finalized(twin_credits(args, n_, has_missing, T),
+                                args))
+        say("31 K1=twin", f"{'8-product' if has_missing else 'clean'} "
+            f"branch at N={n}: counters equal to the twin on the card, max "
+            f"|l2,l2d| diff {err:.3g}")
+        if not has_missing:
+            sargs = split_args(args, raw, n_)
+            kern = ld_split.split_corrections(*sargs, n_samples=n_)
+            err = compare_deltas(kern, ld_split.split_corrections_plain(
+                *sargs, n_samples=n_))
+            cpu_args = tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                             for a in sargs)
+            err = max(err, compare_deltas(
+                kern, ld_split.split_corrections_plain(*cpu_args,
+                                                       n_samples=n_)))
+            say("31 K2=twin", f"fused corrections at N={n}: wse equal to the "
+                "twin on the card and on the CPU, max |l2,l2d| diff "
+                f"{err:.3g}")
+        del args, raw, kern
+
+    # the per-SNP scalars, with a constant and a counted n_valid
+    pos_ok = torch.ones(m, dtype=torch.bool)
+    for tag, codes, clean in (("clean", np.maximum(g, 0), True),
+                              ("missing", g, False)):
+        pre = {d: ld_int8.preprocess_int8(
+            torch.from_numpy(codes).to(d), pos_ok.to(d), 0.01, n,
+            assume_no_missing=clean) for d in (dev, torch.device("cpu"))}
+        for k in (*ld_int8.SCAL_FIELDS, "maf", "rstd"):
+            a, b = pre[dev][k].cpu().numpy(), pre[torch.device("cpu")][k]
+            if not np.array_equal(a.view(np.int32), b.numpy().view(np.int32)):
+                raise RuntimeError(f"phase 31: the card's {tag} {k} differs "
+                                   "from the CPU port's")
+    say("31 scalars", f"M={m} N={n}: every per-SNP scalar bitwise the CPU "
+        "port's, clean (n_valid the constant n) and with missing genotypes")
+    say("31 times", "at the chromosome shape (M=65,536 N=16,384, phases 7 "
+        "and 10), with the fused multiply-adds and f32(1/n) in the "
+        "epilogue: " + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+        + f"; phase {time.time() - t0:.1f} s; on {card}")
 
 
 def main() -> int:
@@ -3422,6 +3536,10 @@ def main() -> int:
 
         # 30. the per-SNP scalars' square roots on the CPU (F4)
         numerics_phase(torch, tmp, dev, card)
+
+        # 31. F2: the card's epilogue and scalars against the CPU port's
+        xla_f32_phase(torch, tmp, dev, card, {
+            "K1 clean": ms, "K1 8-product": ms8, "K2": t10["ms_k2"]})
 
     bad = sorted({k.split(".")[0] for k in sys.modules}
                  & {"jax", "nldsc_tpu", "pandas"})

@@ -20,8 +20,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "nldsc_tpu_torch"
 
-# -fmad=false: every float32 operation of the epilogues rounds on its
-# own, in the order of the plain twins, so threshold counts agree exactly
+# -fmad=false: no float32 multiply and add are contracted except the
+# explicit __fmaf_rn of the epilogues, so every operation rounds as in the
+# plain twins and threshold counts agree exactly
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")

@@ -140,6 +140,7 @@ struct Params {
   int band;
   int n_pad;
   float n;
+  float inv_n;   // f32(1/n): the epilogue's division by n
   float n_padf;
   float adj_c;
   float rsq_thr;
@@ -332,7 +333,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
 
     const bool diag = (t == b);   // mirrored credits only past the pivot tile
-    const float n = p.n, adj_c = p.adj_c, rsq = p.rsq_thr;
+    const float n = p.n, inv_n = p.inv_n, adj_c = p.adj_c, rsq = p.rsq_thr;
     const int row0 = MISSING ? 0 : 64 * wg;          // this warpgroup's rows
     const int col0 = MISSING ? C::WG_COLS * wg : 0;  // and neighbour rows
     const int rslot = MISSING ? wg : 0;
@@ -398,7 +399,7 @@ __global__ void __launch_bounds__(THREADS, 1)
             shu = si[HSUM];
           }
           const PairAdj pa = pair_adj(sgg, sgh, shg, sgu, sug, suh, suu, shu,
-                                      si, sj, n, adj_c);
+                                      si, sj, inv_n, adj_c);
 
           const bool upair = gj >= rlo[u] && gj <= rhi[u] &&
                              (rfl[u] & FL_USABLE) && (fj & FL_USABLE);
@@ -579,8 +580,9 @@ extern "C" int ld_sym_launch(const void* g, const void* m, const void* h,
                              const void* poison, const void* tile_hi,
                              void* fpart, void* ipart, const void* annot,
                              void* apart, int n_annot, int n_tiles, int band,
-                             int n_pad, float n, float n_padf, float adj_c,
-                             float rsq_thr, int has_missing, int bf16,
+                             int n_pad, float n, float inv_n, float n_padf,
+                             float adj_c, float rsq_thr, int has_missing,
+                             int bf16,
                              void* stream) {
   Params p;
   p.scal = static_cast<const float*>(scal);
@@ -599,6 +601,7 @@ extern "C" int ld_sym_launch(const void* g, const void* m, const void* h,
   p.band = band;
   p.n_pad = n_pad;
   p.n = n;
+  p.inv_n = inv_n;
   p.n_padf = n_padf;
   p.adj_c = adj_c;
   p.rsq_thr = rsq_thr;

@@ -4,9 +4,13 @@
 // engine's delta epilogue) both turn a pair's exact integer dot products
 // into its three adjusted r^2 values here.  The split engine's clean
 // baseline must cancel the clean pass's value bit for bit, so both
-// kernels run this one function, and _build.py compiles every source
-// with -fmad=false: each float32 operation rounds on its own, in the
-// order of corr_from_dots (nldsc_tpu_torch/ld/ld_int8.py).
+// kernels run this one function.  Its float32 arithmetic is the one XLA
+// compiles the reference's corr_from_dots into (see
+// nldsc_tpu_torch/core/numerics.py): each multiply that feeds an add is
+// an explicit __fmaf_rn, at the sites where the twin calls fma_rn, and
+// the division by n is a product by inv_n = f32(1/n).  _build.py
+// compiles every source with -fmad=false, so no other multiply and add
+// are contracted.
 
 #pragma once
 
@@ -21,10 +25,15 @@ __device__ __forceinline__ float dom_dot(float sgg, float sgh, float sgu,
                                          float sug, float suh, float suu,
                                          float am_i, float v0, float v1,
                                          float v2) {
-  float a1 = (sgh - sgg) - am_i * (suh - sug);
-  float a2 = (sgg - 0.5f * sgh) - am_i * (sug - 0.5f * suh);
-  float a0 = (sgu - 0.5f * sgh) - am_i * (suu - 0.5f * suh);
-  return v0 * a0 + v1 * a1 + v2 * a2;
+  const float a1 = __fmaf_rn(-am_i, suh - sug, sgh - sgg);
+  const float a2 = __fmaf_rn(-am_i, sug - 0.5f * suh, sgg - 0.5f * sgh);
+  const float a0 = __fmaf_rn(-am_i, suu - 0.5f * suh, sgu - 0.5f * sgh);
+  return __fmaf_rn(v2, a2, __fmaf_rn(v0, a0, v1 * a1));
+}
+
+// 1 - (1 - r^2) * adj_c (ld_int8.adj_r2)
+__device__ __forceinline__ float adj_r2(float r, float adj_c) {
+  return __fmaf_rn(-__fmaf_rn(-r, r, 1.0f), adj_c, 1.0f);
 }
 
 struct PairAdj {
@@ -33,28 +42,29 @@ struct PairAdj {
   float db;    // dominance residual of i with the additive of j
 };
 
-// corr_from_dots(symmetric=True) followed by 1 - (1 - r^2) * adj_c.
-// sgg, sgh, shg are the exact products; sgu, sug, suh, suu, shu the
-// masked sums (plain per-SNP sums when no genotype is missing); si, sj
-// the NSCAL scalars of the pair's i and j.
+// corr_from_dots(symmetric=True) followed by adj_r2.  sgg, sgh, shg are
+// the exact products; sgu, sug, suh, suu, shu the masked sums (plain
+// per-SNP sums, and suu = n, when no genotype is missing); si, sj the
+// NSCAL scalars of the pair's i and j; inv_n = f32(1/n).
 __device__ __forceinline__ PairAdj pair_adj(float sgg, float sgh, float shg,
                                             float sgu, float sug, float suh,
                                             float suu, float shu,
                                             const float* si, const float* sj,
-                                            float n, float adj_c) {
+                                            float inv_n, float adj_c) {
   const float am_i = si[AM], am_j = sj[AM];
-  const float ac = sgg - am_i * sug - am_j * sgu + am_i * am_j * suu;
-  const float r_add = ac * si[INV_SD] * sj[INV_SD] / n;
+  const float ac = __fmaf_rn(am_i * am_j, suu,
+                             __fmaf_rn(-am_j, sgu, __fmaf_rn(-am_i, sug, sgg)));
+  const float r_add = ac * si[INV_SD] * sj[INV_SD] * inv_n;
   const float dom_a = dom_dot(sgg, sgh, sgu, sug, suh, suu, am_i, sj[V0],
                               sj[V1], sj[V2]);
-  const float r_da = dom_a * si[INV_SD] * sj[INV_RSTD] / n;
+  const float r_da = dom_a * si[INV_SD] * sj[INV_RSTD] * inv_n;
   const float dom_b = dom_dot(sgg, shg, sug, sgu, shu, suu, am_j, si[V0],
                               si[V1], si[V2]);
-  const float r_db = dom_b * si[INV_RSTD] * sj[INV_SD] / n;
+  const float r_db = dom_b * si[INV_RSTD] * sj[INV_SD] * inv_n;
   PairAdj out;
-  out.add = 1.0f - (1.0f - r_add * r_add) * adj_c;
-  out.da = 1.0f - (1.0f - r_da * r_da) * adj_c;
-  out.db = 1.0f - (1.0f - r_db * r_db) * adj_c;
+  out.add = adj_r2(r_add, adj_c);
+  out.da = adj_r2(r_da, adj_c);
+  out.db = adj_r2(r_db, adj_c);
   return out;
 }
 

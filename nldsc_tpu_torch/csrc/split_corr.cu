@@ -132,7 +132,7 @@ struct Params {
   float* cpart_a;          // [n_segs][n_xt][2][P][p]
   int p;
   int p_x, m_pad, own_hi;
-  float n, n_padf, pad_const, adj_c, rsq;
+  float n, inv_n, n_padf, pad_const, adj_c, rsq;   // inv_n = f32(1/n)
 };
 
 // the fused epilogue's per-row and per-column inputs, staged while the
@@ -374,7 +374,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     // visible
     asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
     const int P = p.P;
-    const float n = p.n, n_padf = p.n_padf, adj_c = p.adj_c, rsq = p.rsq;
+    const float n = p.n, inv_n = p.inv_n, n_padf = p.n_padf,
+                adj_c = p.adj_c, rsq = p.rsq;
     const int gx0 = a_row0 + x0;
     int gx[2], rlo[2], rhi[2], dr[2];
     unsigned fx[2];
@@ -449,10 +450,10 @@ __global__ void __launch_bounds__(THREADS, 1)
           const PairAdj ex = pair_adj(
               sgg, s_gh, s_hg, si[GSUM] - m_i, sj[GSUM] - m_j,
               sj[HSUM] - h_j, n_padf - si[CMISS] - sj[CMISS] + smm,
-              si[HSUM] - h_i, si, sj, n, adj_c);
+              si[HSUM] - h_i, si, sj, inv_n, adj_c);
           const PairAdj e0 = pair_adj(sgg, s_gh, s_hg, si[GSUM], sj[GSUM],
-                                      sj[HSUM], n, si[HSUM], si, sj, n,
-                                      adj_c);
+                                      sj[HSUM], n, si[HSUM], si, sj,
+                                      inv_n, adj_c);
           const float d_add = ex.add - e0.add;
           const float aDax = swap ? ex.db : ex.da;
           const float aDa0 = swap ? e0.db : e0.da;
@@ -652,8 +653,8 @@ extern "C" int split_corr_fused_launch(
     const void* usable_c, const void* dom_ok_c, void* rpart_f,
     void* rpart_i, void* cpart_f, void* cpart_i, const void* annot,
     const void* annot_c, void* rpart_a, void* cpart_a, int n_annot,
-    int own_hi, float n, float n_padf, float pad_const, float adj_c,
-    float rsq, int bf16, void* stream) {
+    int own_hi, float n, float inv_n, float n_padf, float pad_const,
+    float adj_c, float rsq, int bf16, void* stream) {
   Params p = {};
   p.seg = static_cast<const int32_t*>(seg);
   p.rows_a = S;
@@ -684,6 +685,7 @@ extern "C" int split_corr_fused_launch(
   p.m_pad = m_pad;
   p.own_hi = own_hi;
   p.n = n;
+  p.inv_n = inv_n;
   p.n_padf = n_padf;
   p.pad_const = pad_const;
   p.adj_c = adj_c;

@@ -121,12 +121,27 @@ def lstsq_jackknife_fast(x: torch.Tensor, y: torch.Tensor,
 
 def lstsq_jackknife_slow(x: torch.Tensor, y: torch.Tensor,
                          n_blocks: int | None = None,
-                         separators: np.ndarray | None = None
-                         ) -> JackknifeResult:
-    """Slow jackknife: re-fit per deleted block."""
+                         separators: np.ndarray | None = None,
+                         nn: bool = False) -> JackknifeResult:
+    """Slow jackknife: re-fit per deleted block.  ``nn``: non-negative
+    least squares (``scipy.optimize.nnls``, on the host in float64), the
+    estimate and the delete values returned on ``x``'s device."""
     n, p = x.shape
     separators = _check_separators(n, n_blocks, separators)
     nb = len(separators) - 1
+
+    if nn:
+        from scipy.optimize import nnls  # noqa: PLC0415
+
+        xh = x.detach().cpu().double().numpy()
+        yh = y.detach().cpu().double().numpy().ravel()
+        rows = [nnls(xh, yh)[0]]
+        for j in range(nb):
+            keep = np.r_[0:separators[j], separators[j + 1]:n]
+            rows.append(nnls(xh[keep], yh[keep])[0])
+        fits = torch.from_numpy(np.stack(rows)).to(device=x.device,
+                                                   dtype=x.dtype)
+        return _result(fits[:1], fits[1:], separators)
 
     est = lstsq_qr(x, y).reshape(1, p)
     rows = []

@@ -52,6 +52,7 @@ from collections import Counter
 import torch
 
 from .. import _build
+from ..core.numerics import recip_f32
 from . import ld_int8
 
 #: pivot and neighbour rows per CTA of the kernel's clean and missing
@@ -72,7 +73,7 @@ bf16_launches = 0
 device_launches: Counter = Counter()
 
 _P = ctypes.c_void_p
-_ARGTYPES = [_P] * 14 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4 + [
+_ARGTYPES = [_P] * 14 + [ctypes.c_int] * 4 + [ctypes.c_float] * 5 + [
     ctypes.c_int, ctypes.c_int, _P]
 
 
@@ -208,7 +209,7 @@ def _launch_partials(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
             None if annot is None else annot.data_ptr(),
             None if annot is None else apart.data_ptr(),
             0 if annot is None else annot.shape[1], nt, band, n_pad,
-            float(n_samples), float(n_pad),
+            float(n_samples), recip_f32(n_samples), float(n_pad),
             ld_int8.adj_constant(n_samples), ld_int8.f32(rsq_thr),
             int(has_missing), int(bf16), stream)
     if err != 0:

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..core.numerics import recip_f32
 from . import ld_int8, ld_pallas_sym
 from .ld_xla import finalize_outputs
 
@@ -160,7 +161,7 @@ def _library() -> ctypes.CDLL:
         lib.split_corr_products_launch.restype = _I
         lib.split_corr_fused_launch.argtypes = (
             [_P, _I] + [_P] * 3 + [_I, _P] + [_I] * 4 + [_P, _I]
-            + [_P] * 19 + [_I] * 2 + [_F] * 5 + [_I, _P])
+            + [_P] * 19 + [_I] * 2 + [_F] * 6 + [_I, _P])
         lib.split_corr_fused_launch.restype = _I
         lib.split_corr_tiles.argtypes = [ctypes.POINTER(_I)] * 2
         lib.split_corr_tiles.restype = _I
@@ -329,7 +330,7 @@ def split_corrections_plain(g, m_c, h, scal, lo, hi, usable, dom_ok, rowmiss,
             for rows_ in (m_pad, idx.shape[0]))
 
     def adj(r):
-        return 1.0 - (1.0 - r * r) * adj_c
+        return ld_int8.adj_r2(r, adj_c)
 
     for s, s0, c0, c_cnt, x0, x_cnt, x, cat3, m_xc in segments(
             g, m_c, h, plan):
@@ -586,7 +587,7 @@ def _kernel_corrections(g, m_c, h, scal, lo, hi, usable, dom_ok, rowmiss,
         g.data_ptr(), m_pad, g_c.data_ptr(), m_c.data_ptr(), h_c.data_ptr(),
         m_c.shape[0], ops["seg_x"].data_ptr(), n_segs, S, P, n_pad,
         d.data_ptr(), p_x, ops["drow"].data_ptr(), *ptrs, *a_ptrs, p,
-        int(own_hi), n,
+        int(own_hi), n, recip_f32(n_samples),
         float(n_pad), ld_int8.f32(float(n_pad) - n),
         ld_int8.adj_constant(n_samples), ld_int8.f32(rsq_thr),
         int(bf16), _stream(g))

@@ -16,7 +16,8 @@ from __future__ import annotations
 
 import torch
 
-from .ld_int8 import adj_constant, annot_dot, f32, finalize_annot
+from ..core.numerics import recip_f32
+from .ld_int8 import adj_constant, adj_r2, annot_dot, f32, finalize_annot
 
 def fdot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """x · yᵀ over the sample axis in full float32 (TF32 off for the call,
@@ -32,8 +33,8 @@ def _tile_epilogue(r_add, r_dom, gi, gj, lo_i, hi_i, usable_i, usable_j,
     (B_j, p) also the masked adjusted r² contracted with it,
     ``(l2_annot, l2d_annot)``."""
     adj_c = adj_constant(n_samples)
-    adj_add = 1.0 - (1.0 - r_add * r_add) * adj_c
-    adj_dom = 1.0 - (1.0 - r_dom * r_dom) * adj_c
+    adj_add = adj_r2(r_add, adj_c)
+    adj_dom = adj_r2(r_dom, adj_c)
 
     in_win = (gj[None, :] >= lo_i[:, None]) & (gj[None, :] <= hi_i[:, None])
     pair = in_win & usable_j[None, :] & usable_i[:, None]
@@ -94,10 +95,9 @@ def band_pass(tile, lo, hi, usable, dom_ok, add_sd_zero, blk_lo,
     against the band rows ``cols`` (:func:`f32_tile`,
     ``ld_int8.int8_tile``).  The reference's integer chunk scales its
     correlations back to sums by n for an epilogue that divides again
-    (``nldsc_tpu/ld/streaming.py:101-102``); ATen's CUDA division by a
-    scalar multiplies by its reciprocal, so that round trip would move
-    the last bit of a third of the values and the streamed run's counters
-    off the in-core run's: the tiles hand over the correlations."""
+    (``nldsc_tpu/ld/streaming.py:101-102``); XLA folds that round trip
+    away (its optimized HLO squares the correlation itself), so the tiles
+    hand over the correlations."""
     rows_total = usable.shape[0]
     B = block_size
     n_piv = rows_total if n_pivots is None else n_pivots
@@ -123,12 +123,13 @@ def band_pass(tile, lo, hi, usable, dom_ok, add_sd_zero, blk_lo,
 
 def f32_tile(add, res, n_samples: int):
     """The f32 engine's ``tile`` for :func:`band_pass`: full-float32
-    products of the standardized rows, divided by n."""
-    n = f32(n_samples)
+    products of the standardized rows, divided by n (a product by
+    ``f32(1/n)``, as XLA compiles the reference's division)."""
+    inv_n = recip_f32(n_samples)
 
     def tile(rows, cols):
         ya = add[rows]
-        return fdot(ya, add[cols]) / n, fdot(ya, res[cols]) / n
+        return fdot(ya, add[cols]) * inv_n, fdot(ya, res[cols]) * inv_n
     return tile
 
 
@@ -195,7 +196,7 @@ def ld_scores_xla_sym(add, res, lo, hi, usable, dom_ok, add_sd_zero, blk_lo,
     band_rows = min(band_k * B, m_pad)
     right_rows = min(right_k * B, m_pad)
     dev = add.device
-    n = f32(n_samples)
+    inv_n = recip_f32(n_samples)
     adj_c = adj_constant(n_samples)
     i32 = torch.int32
     l2_acc = torch.zeros(m_pad, dtype=torch.float32, device=dev)
@@ -213,8 +214,7 @@ def ld_scores_xla_sym(add, res, lo, hi, usable, dom_ok, add_sd_zero, blk_lo,
         j0r = min(r0, m_pad - right_rows)
         cr = slice(j0r, j0r + right_rows)
         gj = (j0r + torch.arange(right_rows, device=dev))[None, :]
-        r_add = fdot(ya, add[cr]) / n
-        adj_add = 1.0 - (1.0 - r_add * r_add) * adj_c
+        adj_add = adj_r2(fdot(ya, add[cr]) * inv_n, adj_c)
         upair = ((gj >= lo_i) & (gj <= hi_i) & usable[cr][None, :]
                  & usable_i)
         fwd = gj >= r0                     # against re-visits of a clipped j0r
@@ -233,8 +233,7 @@ def ld_scores_xla_sym(add, res, lo, hi, usable, dom_ok, add_sd_zero, blk_lo,
         j0 = min(max(int(blk_lo[b]) * B, 0), m_pad - band_rows)
         cols = slice(j0, j0 + band_rows)
         gjd = (j0 + torch.arange(band_rows, device=dev))[None, :]
-        r_dom = fdot(ya, res[cols]) / n
-        adj_dom = 1.0 - (1.0 - r_dom * r_dom) * adj_c
+        adj_dom = adj_r2(fdot(ya, res[cols]) * inv_n, adj_c)
         valid_k = gjd <= int(blk_hi[b]) * B + (B - 1)
         dmask = ((gjd >= lo_i) & (gjd <= hi_i) & valid_k
                  & usable[cols][None, :] & usable_i & (gjd != gi[:, None])

@@ -304,7 +304,7 @@ def preprocess_shard(codes: torch.Tensor, geo: ShardGeometry, config,
         pre = ld_int8.preprocess_int8(
             codes, ok, config.maf_thr, geo.n,
             assume_no_missing=not geo.has_missing,
-            materialize_m=geo.has_missing)
+            materialize_m=geo.has_missing, constant_n_valid=False)
         keys = ("g", "h", "m") if geo.has_missing else ("g", "h")
         mats = {k: pre.pop(k) for k in keys}
         rows["scal"] = ld_int8.stack_scalars(pre)

@@ -3,33 +3,31 @@ package, or one port engine against another), with no JAX import, so
 that ``chip_smoke.py`` holds the card's results to it as the tests hold
 the CPU's; ``tests/test_torch_contract.py`` tests it.
 
-``l2_ws`` and ``l2d_ws`` count pairs from integer masks and must be
-equal.  ``l2d_wse`` counts the pairs whose adjusted dominance r² passes
-``rsq_thr``, and that comparison sits on a float32 value: XLA compiles
-``corr_from_dots`` into one fused float32 expression where ATen (and the
-CUDA kernels, built with ``-fmad=false``) rounds each operation on its
-own, so a pair whose value lies within float32 rounding of ``rsq_thr``
-can count on one side only.  The contract:
+The integer engines (int8 or bf16 operands) compute every pair's
+adjusted r² with the float32 operations XLA compiles the reference into
+(``nldsc_tpu_torch/core/numerics.py``), so their counters ``l2_ws``,
+``l2d_ws`` and ``l2d_wse`` are equal: :func:`assert_counters_equal`.
 
+The f32 engine sums float32 products of standardized rows in another
+order than XLA, so its ``l2d_wse`` may differ on a pair whose adjusted
+dominance r² lies within the products' rounding of ``rsq_thr``.  Its
+contract (:func:`assert_counters_match`):
+
+* ``l2_ws`` and ``l2d_ws`` count pairs from integer masks and are equal;
 * ``l2d_wse`` is equal, except on rows that have a counted pair whose
   adjusted dominance r², computed in float64 from the same codes, lies
   within ``tol`` of ``rsq_thr``;
 * on such a row the difference is at most the number of those pairs.
 
-:func:`assert_counters_match` checks it and returns the number of
-exempted rows, which each caller holds small.
+It returns the number of exempted rows, which each caller holds small.
 
-Tolerances.  ``adj = 1 - (1 - r²)·c`` is rounded where its operands lie
-near 1, so the integer engines' float32 value of a pair near ``rsq_thr``
-(1e-3) carries an absolute error of a few float32 ulp of 1 (2⁻²³), not of
-``rsq_thr`` (2 ulp of ``rsq_thr`` would be 2.3e-10; the F2 draw's pair
-lies 3.6e-8 from it): :data:`INT_TOL` is 2 ulp of 1.  The f32 engine's
-products are float32 sums over N_pad samples of standardized rows, whose
-worst-case error is N_pad·2⁻²⁴ per unit of r (:func:`f32_tol`), and
-``adj`` moves by 2·c·|r| times that.  That bound is tight at the tests'
-few hundred samples; at a chromosome's N_pad = 16,384 it passes
-``rsq_thr`` itself, so there the tolerance comes from the f32 engine's
-measured error (:func:`f32_adj_error`).
+Tolerance.  A float32 dot of N_pad terms of standardized rows is off by
+up to N_pad·2⁻²⁴ of r (:func:`f32_tol`), and ``adj = 1 - (1 - r²)·c``
+moves by 2·c·|r| times that; ``adj`` itself is rounded where its
+operands lie near 1, a few float32 ulp of 1 (:data:`EPILOGUE_TOL`).  That
+bound is tight at the tests' few hundred samples; at a chromosome's
+N_pad = 16,384 it passes ``rsq_thr`` itself, so there the tolerance
+comes from the f32 engine's measured error (:func:`f32_adj_error`).
 """
 
 from __future__ import annotations
@@ -39,11 +37,14 @@ import math
 import numpy as np
 import torch
 
+from nldsc_tpu_torch.core.numerics import recip_f32
 from nldsc_tpu_torch.ld import ld_int8, ld_xla, preprocess, windows
 
-#: the integer engines' tolerance on the adjusted dominance r² (2 float32
-#: ulp of 1: the values the float32 epilogue rounds)
-INT_TOL = 2 * 2.0 ** -23
+#: the counters every engine must agree on
+COUNTERS = ("l2_ws", "l2d_ws", "l2d_wse")
+#: the float32 epilogue's rounding of an adjusted r² near ``rsq_thr``
+#: against its float64 value (2 float32 ulp of 1)
+EPILOGUE_TOL = 2 * 2.0 ** -23
 
 
 def f32_tol(n_pad: int, n_samples: int, rsq_thr: float) -> float:
@@ -51,10 +52,10 @@ def f32_tol(n_pad: int, n_samples: int, rsq_thr: float) -> float:
     a float32 dot of N_pad terms of standardized rows is off by up to
     N_pad·2⁻²⁴ of r, and ``adj = 1 - (1 - r²)·c`` moves by 2·c·|r| times
     that, at the |r| where ``adj`` meets ``rsq_thr``; plus
-    :data:`INT_TOL`."""
+    :data:`EPILOGUE_TOL`."""
     c = (n_samples - 1.0) / (n_samples - 2.0)
     r = math.sqrt(max(1.0 - (1.0 - rsq_thr) / c, 0.0))
-    return 2.0 * c * r * n_pad * 2.0 ** -24 + INT_TOL
+    return 2.0 * c * r * n_pad * 2.0 ** -24 + EPILOGUE_TOL
 
 
 def _standardized(codes: torch.Tensor, n: int):
@@ -166,7 +167,7 @@ def f32_adj_error(genotypes, positions: np.ndarray, cfg, window: float,
     m, n = codes.shape
     n_pad = -(-n // 128) * 128
     _, _, pos_ok = windows.window_bounds(positions, cfg.ld_wind)
-    n32 = ld_int8.f32(n)
+    inv_n = recip_f32(n)
     adj_c = ld_int8.adj_constant(n)
     worst, n_pairs = 0.0, 0
     for sel, s0, s1, counted, adj in _counted_pairs(
@@ -181,20 +182,33 @@ def f32_adj_error(genotypes, positions: np.ndarray, cfg, window: float,
         pre = preprocess.preprocess_block(
             span, torch.from_numpy(pos_ok[s0:s1]).to(device), cfg.maf_thr, n)
         piv = torch.from_numpy(sel - s0).to(device)
-        rd = ld_xla.fdot(pre["add"][piv], pre["res"]) / n32
-        adj32 = 1.0 - (1.0 - rd * rd) * adj_c
+        rd = ld_xla.fdot(pre["add"][piv], pre["res"]) * inv_n
+        adj32 = ld_int8.adj_r2(rd, adj_c)
         err = torch.where(near, (adj32.double() - adj).abs(), 0.0)
         worst = max(worst, float(err.max()))
         n_pairs += n_near
     return worst, n_pairs
 
 
+def assert_counters_equal(port: dict, ref: dict) -> None:
+    """Hold two integer-engine results (dicts with ``l2_ws``, ``l2d_ws``,
+    ``l2d_wse``) to equal counters."""
+    for k in COUNTERS:
+        a, b = np.asarray(port[k]), np.asarray(ref[k])
+        assert a.shape == b.shape, (k, a.shape, b.shape)
+        diff = np.flatnonzero(a != b)
+        assert not diff.size, (
+            f"{k} differs on {diff.size} rows (row, port, reference): "
+            f"{[(int(i), int(a[i]), int(b[i])) for i in diff[:10]]}")
+
+
 def assert_counters_match(port: dict, ref: dict, genotypes,
                           positions: np.ndarray, cfg, tol: float,
                           device="cpu") -> int:
-    """Hold two results (dicts with ``l2_ws``, ``l2d_ws``, ``l2d_wse``) to
-    the contract of the module docstring; returns the number of exempted
-    rows (0 when ``l2d_wse`` is equal)."""
+    """Hold an f32-engine result against another result (dicts with
+    ``l2_ws``, ``l2d_ws``, ``l2d_wse``) to the contract of the module
+    docstring; returns the number of exempted rows (0 when ``l2d_wse`` is
+    equal)."""
     for k in ("l2_ws", "l2d_ws"):
         np.testing.assert_array_equal(port[k], ref[k], err_msg=k)
     a, b = np.asarray(port["l2d_wse"]), np.asarray(ref["l2d_wse"])

@@ -9,7 +9,6 @@ result bit for bit.  Against the JAX package: scores within
 ``tests/contract.py``.
 """
 
-import types
 
 import numpy as np
 import pytest
@@ -29,7 +28,7 @@ from nldsc_tpu_torch.ld import (ld_int8, ld_pallas_sym, ld_split, pipeline,
 
 import test_torch_ld_sym as sym
 from test_ld_split import row_level_missing
-from contract import INT_TOL, assert_counters_match
+from contract import assert_counters_equal
 from utils import make_positions, random_genotypes
 
 KW = dict(ld_wind=9000.0, wind_metric="bp", maf_thr=0.01, std_thr=1e-4,
@@ -104,14 +103,10 @@ def test_sym_scan_bf16_matches_int8_and_jax_pallas(rng, case):
     ours = sym._finalized(bf16, inp)
     for a, b in zip(ours[:2], pallas[:2]):
         np.testing.assert_allclose(a[:m], np.asarray(b)[:m], **sym.TOL)
-    cfg = types.SimpleNamespace(ld_wind=6000.0, maf_thr=0.01, std_thr=1e-4,
-                                rsq_thr=sym.RSQ)
-    n_exempt = assert_counters_match(
+    assert_counters_equal(
         dict(zip(("l2_ws", "l2d_ws", "l2d_wse"), (x[:m] for x in ours[2:]))),
         dict(zip(("l2_ws", "l2d_ws", "l2d_wse"),
-                 (np.asarray(x)[:m] for x in pallas[2:]))),
-        g, pos, cfg, INT_TOL)
-    assert n_exempt <= 2
+                 (np.asarray(x)[:m] for x in pallas[2:]))))
 
 
 @pytest.mark.parametrize("case", ["clean", "missing"])
@@ -161,8 +156,7 @@ def test_compute_ld_scores_bf16_matches_int8_and_jax(rng, kind, split):
     for k in ("l2", "l2d") + (("l2_annot", "l2d_annot") if annot is not None
                               else ()):
         np.testing.assert_allclose(ours[k], theirs[k], err_msg=k, **E2E_TOL)
-    assert assert_counters_match(ours, theirs, g, pos, LDConfig(**kw),
-                                 INT_TOL) <= 2
+    assert_counters_equal(ours, theirs)
 
 
 def test_full_band_bf16_equals_int8(rng):

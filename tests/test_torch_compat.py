@@ -27,7 +27,7 @@ from nldsc_tpu_torch.core.errors import NLDSCParameterError
 from nldsc_tpu_torch.io.plink import write_plink
 from nldsc_tpu_torch.ld import pipeline, streaming
 
-from contract import INT_TOL, assert_counters_match, f32_tol
+from contract import assert_counters_equal, assert_counters_match, f32_tol
 from test_torch_pipeline import ROOT
 from utils import make_positions, random_genotypes
 
@@ -65,8 +65,7 @@ def test_calculate_matches_oracle_and_jax(tmp_path, rng):
     for k in ("l2", "l2d", "maf"):
         np.testing.assert_allclose(ours[k], theirs[k], err_msg=k,
                                    **GOLDEN_TOL)
-    cfg = LDConfig(ld_wind=5000.0, maf_thr=0.01, std_thr=1e-4, rsq_thr=1e-3)
-    assert assert_counters_match(ours, theirs, g, bp, cfg, INT_TOL) <= 3
+    assert_counters_equal(ours, theirs)
 
 
 def test_positions_sentinel_via_compat(tmp_path, rng):
@@ -117,9 +116,11 @@ def test_calculate_streams_when_the_rule_says_so(tmp_path, rng, monkeypatch,
         for k in ("l2", "l2d"):
             np.testing.assert_allclose(ours[k], ref[k], err_msg=k,
                                        **GOLDEN_TOL)
-    assert assert_counters_match(
-        ours, ref, g, bp, cfg,
-        INT_TOL if use_int8 else f32_tol(128, n, 1e-3)) <= 3
+    if use_int8:
+        assert_counters_equal(ours, ref)
+    else:
+        assert assert_counters_match(ours, ref, g, bp, cfg,
+                                     f32_tol(128, n, 1e-3)) <= 3
 
 
 def test_calculate_defaults_to_cuda(tmp_path, rng, monkeypatch):

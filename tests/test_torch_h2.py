@@ -326,6 +326,31 @@ def test_fast_jackknife_matches_slow_and_jax(rng):
                                        err_msg=f, **TOL)
 
 
+def test_nnls_slow_jackknife_matches_jax():
+    # a true coefficient below zero, so that the constraint is active in
+    # the full fit and in the delete fits
+    rng = np.random.default_rng(21)
+    n, p = 600, 3
+    x = np.column_stack([rng.uniform(1, 50, n), rng.normal(0, 1, n),
+                         np.ones(n)])
+    y = (x @ np.array([0.02, -0.4, 1.1])
+         + rng.normal(0, 0.6, n)).reshape(n, 1)
+    ours = jk.lstsq_jackknife_slow(torch.as_tensor(x), torch.as_tensor(y),
+                                   n_blocks=20, nn=True)
+    with jax.enable_x64(True):
+        theirs = jax_jk.lstsq_jackknife_slow(x, y, n_blocks=20, nn=True)
+    assert ours.est.dtype == torch.float64 and ours.est.shape == (1, p)
+    assert ours.delete_values.shape == (20, p)
+    assert (ours.est[0, 1] == 0) and (ours.delete_values[:, 1] == 0).all()
+    for f in ("est", "delete_values", "jk_est", "jk_std", "jk_cov"):
+        np.testing.assert_allclose(getattr(ours, f),
+                                   np.asarray(getattr(theirs, f)),
+                                   rtol=1e-12, atol=0, err_msg=f)
+    # without the constraint the fit goes negative
+    assert jk.lstsq_jackknife_slow(torch.as_tensor(x), torch.as_tensor(y),
+                                   n_blocks=20).est[0, 1] < 0
+
+
 def test_block_sums_equal_reduceat(rng):
     v = torch.as_tensor(rng.normal(size=(1003, 5)))
     seps = jk.get_separators(1003, 17)

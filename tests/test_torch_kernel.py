@@ -388,10 +388,13 @@ def test_launches_run_on_the_tensors_device(rng):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ["clean", "missing", "multi_tile_band"])
-def test_sharded_kernel_runs_equal_the_incore_run(rng, cuda, case):
+def test_sharded_kernel_runs_equal_the_incore_run(rng, cuda, monkeypatch,
+                                                  case):
     # K1 once per SNP shard (shards placed round-robin on the visible
     # devices), the partials folded once in tile order: bitwise the
     # in-core kernel run, on any shard count
+    from functools import partial
+
     from nldsc_tpu_torch.config import LDConfig
     from nldsc_tpu_torch.ld.pipeline import compute_ld_scores
     from nldsc_tpu_torch.parallel import ld_scores_sharded, snp_devices
@@ -401,7 +404,13 @@ def test_sharded_kernel_runs_equal_the_incore_run(rng, cuda, case):
     pos = make_positions(2 * m, spacing=spacing, jitter_rng=rng)
     cfg = LDConfig(ld_wind=wind, maf_thr=0.01, std_thr=1e-4, rsq_thr=RSQ,
                    block_size=128, split_missing=False)
-    incore = compute_ld_scores(g, pos, cfg, device="cuda")
+    # the in-core run with its valid counts taken at run time, as the SNP
+    # shards take them (on clean data the in-core preprocess, as the JAX
+    # package's, divides by the constant n as a product by f32(1/n))
+    with monkeypatch.context() as mp:
+        mp.setattr(ld_int8, "preprocess_int8", partial(
+            ld_int8.preprocess_int8, constant_n_valid=False))
+        incore = compute_ld_scores(g, pos, cfg, device="cuda")
     for d in (1, 2, 4):
         before = ld_pallas_sym.launches
         res = ld_scores_sharded(g, pos, cfg,

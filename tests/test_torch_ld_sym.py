@@ -157,7 +157,7 @@ def _emulate_kernel(args, rsq, n_samples, has_missing):
                 dots, ld_int8.scal_views(scal[ri], "col"),
                 ld_int8.scal_views(scal[rj], "row"), float(n_samples),
                 float(g.shape[1]), has_missing, symmetric=True)
-            adj_add, adj_da, adj_db = (1.0 - (1.0 - r * r) * adj_c
+            adj_add, adj_da, adj_db = (ld_int8.adj_r2(r, adj_c)
                                        for r in (r_add, r_da, r_db))
             gi = torch.arange(b * T, b * T + T)[:, None]
             gj = torch.arange(t * T, t * T + T)[None, :]

@@ -28,7 +28,7 @@ from nldsc_tpu_torch.io.plink import write_plink
 from nldsc_tpu_torch.ld import pipeline
 from nldsc_tpu_torch.parallel import distributed, sharded
 
-from contract import INT_TOL, assert_counters_match
+from contract import assert_counters_equal
 from utils import make_positions, random_genotypes
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -154,9 +154,7 @@ def _hold_to_jax(ours, theirs, g, bp, kb, counters=True):
         keys = {"l2_ws": "WSA", "l2d_ws": "WSD", "l2d_wse": "WSDE"}
         a = {k: ours[c].astype(np.int64) for k, c in keys.items()}
         b = {k: theirs[c].astype(np.int64) for k, c in keys.items()}
-        cfg = LDConfig(ld_wind=kb * 1000, maf_thr=0.01, std_thr=1e-4,
-                       rsq_thr=1.0 / len(g))
-        assert assert_counters_match(a, b, g, bp, cfg, INT_TOL) <= 3
+        assert_counters_equal(a, b)
 
 
 @pytest.mark.parametrize("case", list(CASES))

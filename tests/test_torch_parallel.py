@@ -23,7 +23,7 @@ from nldsc_tpu_torch.io.plink import PlinkDataset, write_plink
 from nldsc_tpu_torch.ld import ld_pallas_sym, pipeline
 from nldsc_tpu_torch.parallel import ld_scores_sharded, mesh, sharded
 
-from contract import INT_TOL, assert_counters_match, f32_tol
+from contract import assert_counters_equal, assert_counters_match, f32_tol
 from utils import adversarial_genotypes, make_positions, random_genotypes
 
 GOLDEN = dict(rtol=2e-5, atol=2e-4, equal_nan=True)
@@ -52,17 +52,16 @@ def _data(rng, case):
     return g, pos, {**BASE, "ld_wind": wind, **fields}
 
 
-def _tol(kw, n):
-    return INT_TOL if kw.get("use_int8", True) else f32_tol(
-        -(-n // 128) * 128, n, kw["rsq_thr"])
-
-
 def _hold(ours, theirs, g, pos, kw, keys=FLOATS):
     for k in keys:
         np.testing.assert_allclose(ours[k], theirs[k], err_msg=k, **GOLDEN)
-    cfg = LDConfig(**kw)
-    assert assert_counters_match(ours, theirs, g, pos, cfg,
-                                 _tol(kw, g.shape[1])) <= 3
+    if kw.get("use_int8", True):
+        assert_counters_equal(ours, theirs)
+        return
+    n = g.shape[1]
+    assert assert_counters_match(ours, theirs, g, pos, LDConfig(**kw),
+                                 f32_tol(-(-n // 128) * 128, n,
+                                         kw["rsq_thr"])) <= 3
 
 
 def _assert_bitwise(a, b, what):

@@ -22,7 +22,7 @@ from nldsc_tpu_torch.core.logging import log
 from nldsc_tpu_torch.io.plink import write_plink
 from nldsc_tpu_torch.ld import ld_int8, ld_pallas_sym, pipeline, windows
 
-from contract import INT_TOL, assert_counters_match
+from contract import assert_counters_equal
 from test_torch_split_kernel import row_level_missing
 from utils import make_positions, random_genotypes
 
@@ -83,8 +83,7 @@ def test_ticks_and_scores_match_jax(rng, port_log, case):
         np.testing.assert_allclose(ours[k], theirs[k], err_msg=k, **GOLDEN)
     for k in COUNTERS:
         np.testing.assert_array_equal(ours[k], whole[k], err_msg=k)
-    assert assert_counters_match(ours, theirs, g, pos, LDConfig(**kw),
-                                 INT_TOL) <= 3
+    assert_counters_equal(ours, theirs)
 
 
 def test_logger_skips_zero_and_prints_an_eta(port_log):

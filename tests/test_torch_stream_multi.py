@@ -26,7 +26,7 @@ from nldsc_tpu_torch.io.plink import PlinkDataset, write_plink
 from nldsc_tpu_torch.ld import streaming
 from nldsc_tpu_torch.parallel import grid_devices, snp_devices
 
-from contract import INT_TOL, assert_counters_match
+from contract import assert_counters_equal
 from test_ld_split import row_level_missing
 from utils import make_positions, random_genotypes
 
@@ -60,8 +60,7 @@ def _jax_stream(bed, pos, **layout):
 def _hold(ours, theirs, g, pos):
     for k in ("l2", "l2d", "maf", "residuals_std"):
         np.testing.assert_allclose(ours[k], theirs[k], err_msg=k, **GOLDEN)
-    assert assert_counters_match(ours, theirs, g, pos, LDConfig(**KW),
-                                 INT_TOL) <= 3
+    assert_counters_equal(ours, theirs)
 
 
 def _assert_bitwise(a, b, what):
