@@ -397,10 +397,11 @@ def twin_credits(args, n, has_missing, block_size, annot=None):
         has_missing=has_missing)
 
 
-#: published dense peaks of one H100 SXM (int8 and bf16 tensor cores,
-#: float32 outside the tensor cores, HBM3)
+#: published dense peaks of one H100 SXM (int8, bf16 and tf32 tensor
+#: cores, float32 outside the tensor cores, HBM3)
 INT8_OPS = 1979e12
 BF16_OPS = 989e12
+TF32_OPS = 495e12
 FP32_OPS = 67e12
 HBM_BYTES = 3.35e12
 #: the tensor-core peak and the bytes per operand element of each
@@ -448,28 +449,33 @@ def k1_work(hi, n_pad: int, has_missing: bool, tile: int,
 
 def annot_bound(work: dict, pairs: int, m_pad: int, p: int,
                 int8_ops: float, f32_ops: float = 0.0,
-                peak: float = INT8_OPS) -> dict:
+                peak: float = INT8_OPS, tensor_cores: bool = False) -> dict:
     """A kernel's work with its annotation epilogue: ``work`` (its plain
     ``bytes``) plus 4 contractions x 2 float32 operations x ``p`` per
     counted pair, the annotation matrix read once and the two (m_pad, p)
-    accumulators written once.  The operations' times add (tensor cores,
-    then the float32 rate); the bound is the larger of that and the
-    bytes' time."""
-    f32_ops += 4.0 * 2.0 * p * pairs
+    accumulators written once.  On CUDA cores (K2) those operations run
+    at the float32 rate; on the tensor cores (``tensor_cores``, K1) each
+    is three tf32 products (hi + lo split) at the tf32 rate.  The
+    operations' times add (the products, then the epilogue's); the bound
+    is the larger of that and the bytes' time."""
+    epi_ops = 4.0 * 2.0 * p * pairs
+    t_epi = 3 * epi_ops / TF32_OPS if tensor_cores else epi_ops / FP32_OPS
     nbytes = work["bytes"] + 3 * 4 * m_pad * p
-    t_ops = int8_ops / peak + f32_ops / FP32_OPS
+    t_ops = int8_ops / peak + f32_ops / FP32_OPS + t_epi
     t_bytes = nbytes / HBM_BYTES
-    return {"annot_f32_ops": 4.0 * 2.0 * p * pairs, "bytes": nbytes,
-            "bound_ms": 1e3 * max(t_ops, t_bytes),
+    return {"annot_f32_ops": epi_ops,
+            "annot_rate": "3 tf32 products" if tensor_cores else "float32",
+            "bytes": nbytes, "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def k1_annot_work(work: dict, m_pad: int, p: int,
                   dot_dtype: str = "int8") -> dict:
     """K1's work with ``p`` annotations, from ``k1_work``'s ``work`` on
-    the same ``m_pad`` rows (and ``dot_dtype``)."""
+    the same ``m_pad`` rows (and ``dot_dtype``): the epilogue on the
+    tensor cores."""
     return annot_bound(work, work["pairs"], m_pad, p, work["ops"],
-                       peak=DOT_PEAK[dot_dtype][0])
+                       peak=DOT_PEAK[dot_dtype][0], tensor_cores=True)
 
 
 def annot_values(rng, m: int, p: int) -> np.ndarray:
@@ -506,6 +512,55 @@ def hold_accumulators(kern, ref, what: str) -> float:
     return err
 
 
+def masked_values(torch, g, m, rest, n: int, has_missing: bool) -> tuple:
+    """The masked pair values of the pass in K1's tiles
+    (``ld_int8.sym_tile_values``), zero-padded to the band: the rows'
+    and the mirrored columns' ``(2, n_tiles, T, band T)`` (additive and
+    dominance values)."""
+    from nldsc_tpu_torch.ld import ld_int8, ld_pallas_sym
+
+    T = ld_pallas_sym.tile(has_missing)
+    nt = g.shape[0] // T
+    band = ld_int8.band_extent(rest[3], T)[1]
+    v_row = torch.zeros((2, nt, T, band * T), dtype=torch.float32,
+                        device=g.device)
+    v_col = torch.zeros_like(v_row)
+    for x, K, vals, _ in ld_int8.sym_tile_values(
+            g, m, *rest, RSQ, tile=T, n_samples=n, has_missing=has_missing):
+        for q in range(2):
+            v_row[q, x, :, :K * T] = vals[0][q]
+            v_col[q, x, :, :K * T] = vals[1][q]
+    return v_row, v_col
+
+
+def epilogue_bmm_ms(torch, values: tuple, annot, reps: int = 3) -> dict:
+    """The library yardstick of K1's annotation epilogue: one float32
+    ``torch.bmm`` per direction (TF32 off, set and restored) with the
+    contraction's shape, on the pass's masked values (``masked_values``):
+    the rows, ``(2 n_tiles, T, band T) x (2 n_tiles, band T, p)``
+    (additive and dominance values, the neighbours' annotations), and the
+    mirrored columns, ``(2 n_tiles, band T, T) x (2 n_tiles, T, p)``.
+    Returns the two times, their sum ``ms`` and the shape."""
+    v_row, v_col = values
+    _, nt, T, bT = v_row.shape
+    p = annot.shape[1]
+    a_pad = torch.cat([annot, annot.new_zeros((bT, p))])
+    a_cols = a_pad.as_strided((nt, bT, p), (T * p, p, 1)).repeat(2, 1, 1)
+    a_rows = annot.view(nt, T, p).repeat(2, 1, 1)
+    lhs_r = v_row.view(2 * nt, T, bT)
+    lhs_c = v_col.view(2 * nt, T, bT).transpose(1, 2)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        rows_ms = cuda_ms(torch, lambda: torch.bmm(lhs_r, a_cols), reps)
+        cols_ms = cuda_ms(torch, lambda: torch.bmm(lhs_c, a_rows), reps)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    del a_cols, a_rows
+    return {"rows_ms": rows_ms, "cols_ms": cols_ms, "ms": rows_ms + cols_ms,
+            "shape": f"({2 * nt}, {T}, {bT}) x ({2 * nt}, {bT}, {p})"}
+
+
 def check_k1_annot(torch, args, n: int, has_missing: bool, annot,
                    plain) -> float:
     """K1's annotation epilogue on engine inputs ``args``: two launches
@@ -524,8 +579,10 @@ def check_k1_annot(torch, args, n: int, has_missing: bool, annot,
     before = ld_pallas_sym.annot_launches
     kern, again = run(), run()
     torch.cuda.synchronize()
-    if ld_pallas_sym.annot_launches != before + 2:
-        raise RuntimeError("the annotation epilogue was not launched")
+    per_call = -(-annot.shape[1] // ld_pallas_sym.annot_max(has_missing))
+    if ld_pallas_sym.annot_launches != before + 2 * per_call:
+        raise RuntimeError("the annotation epilogue was not launched once "
+                           "per group of annotations")
     if not all(torch.equal(a, b) for a, b in zip(kern, again)):
         raise RuntimeError("two annot kernel runs differ")
     if not all(torch.equal(a, b) for a, b in zip(kern[:6], plain)):
@@ -1319,15 +1376,20 @@ def annot_kernel_phase(torch, rng, dev) -> dict:
             g[300] = -1
         args, n, has_missing, _ = engine_inputs(torch, g, pos, 100_000.0,
                                                 dev)
-        annot = seeded_annot(torch, args[0].shape[0], 4096, p, 2026, dev)
         plain = ld_pallas_sym.sym_credits(
             *args, RSQ, n_samples=n, has_missing=has_missing,
             block_size=ld_pallas_sym.tile(has_missing))
-        errs[name] = check_k1_annot(torch, args, n, has_missing, annot, plain)
-        say("17 annot kernel=twin", f"M=4096 N=3001 p={p} missing={rate}: "
-            f"{name}: plain credits and counters bitwise equal to the plain "
-            f"launch, max |accumulator| diff vs twin {errs[name]:.3g}, runs "
-            "bitwise equal")
+        # p = 97 (baselineLD v2.2): four chunks, nearly all the row credits
+        # a clean launch keeps
+        for pp in (p, 97):
+            annot = seeded_annot(torch, args[0].shape[0], 4096, pp, 2026,
+                                 dev)
+            err = check_k1_annot(torch, args, n, has_missing, annot, plain)
+            errs[name if pp == p else f"{name} p97"] = err
+            say("17 annot kernel=twin", f"M=4096 N=3001 p={pp} "
+                f"missing={rate}: {name}: plain credits and counters "
+                "bitwise equal to the plain launch, max |accumulator| diff "
+                f"vs twin {err:.3g}, runs bitwise equal")
         del args, plain
     g = synthetic_genotypes(rng, 4096, 3001)
     inject_row_missing(rng, g, 0.05, 0.1)
@@ -1554,47 +1616,73 @@ def annot_full_width(torch, tmp: str, prefix5: str, out5: str, prefix6: str,
             n_samples=n, has_missing=has_missing,
             block_size=Tm if has_missing else Tc, annot=a)
 
-    def twin(has_missing, B=512):
+    def twin(has_missing, a, B=512):
         return ld_int8.sym_scan_segment(
             args[0], m0 if has_missing else args[1], *args[2:], RSQ, 0,
-            a_dev, block_size=B, right_k=ld_int8.band_extent(args[5], B)[1],
+            a, block_size=B, right_k=ld_int8.band_extent(args[5], B)[1],
             n_samples=n, n_scan_blocks=m_pad // B, has_missing=has_missing)
 
+    # p = 53 (the baseline model) and 97 (baselineLD v2.2), kernel timings
+    # only for 97
+    a97 = seeded_annot(torch, m_pad, m5, 97, 2026, dev)
     for name, has_missing in (("ld_sym annot", False),
                               ("ld_sym annot 8-product", True)):
         T = Tm if has_missing else Tc
         work = k1_work(args[5], n_pad, has_missing, T)
-        work_a = k1_annot_work(work, m_pad, p)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        mem0 = torch.cuda.memory_allocated()
-        ms_plain = cuda_ms(torch, lambda: k1(has_missing), 5)
-        ms = cuda_ms(torch, lambda: k1(has_missing, a_dev), 5)
-        peak = (torch.cuda.max_memory_allocated() - mem0) / 2**30
-        ms2 = cuda_ms(torch, lambda: k1(has_missing, a_dev), 5)
-        ms_plain2 = cuda_ms(torch, lambda: k1(has_missing), 5)
-        kern, plain = k1(has_missing, a_dev), k1(has_missing)
-        if not all(torch.equal(a, b) for a, b in zip(kern[:6], plain)):
-            raise RuntimeError(f"phase 19 {name}: an annot launch's plain "
-                               "credits differ from the plain launch's")
-        err = hold_accumulators(kern[6:], twin(has_missing)[6:],
-                                f"phase 19 {name} against its twin")
-        del kern, plain
-        plain_ms = cuda_ms(torch, lambda: twin(has_missing), 1)
-        out[name] = {"ms": min(ms, ms2), "plain_ms": plain_ms,
-                     "max_abs_err": err, **work_a}
-        say("19 timing", f"M={m5} N={n} +-1000 SNPs p={p}, {name}: "
-            f"{ms:.3f} / {ms2:.3f} ms against {ms_plain:.3f} / "
-            f"{ms_plain2:.3f} ms without annotations (plain, annot, annot, "
-            f"plain); bound {work_a['bound_ms']:.3f} ms "
-            f"({work_a['bound_by']}: {work['ops'] / 1e12:.3f} T int8 ops + "
-            f"{work_a['annot_f32_ops'] / 1e9:.1f} G f32 ops, "
-            f"{work_a['bytes'] / 1e9:.2f} GB), "
-            f"{100 * work_a['bound_ms'] / min(ms, ms2):.1f}% of it; plain "
-            "credits and counters bitwise equal to the plain launch's, max "
-            f"|accumulator| diff vs twin {err:.3g} (KERNEL_TOL); twin "
-            f"with annotations {plain_ms:.1f} ms (B=512); peak device memory "
-            f"of a launch and its fold {peak:.3f} GiB; on {card}")
+        values = masked_values(torch, args[0], m0 if has_missing else args[1],
+                               args[2:], n, has_missing)
+        for pp, a in ((p, a_dev), (97, a97)):
+            work_a = k1_annot_work(work, m_pad, pp)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            mem0 = torch.cuda.memory_allocated()
+            ms_plain = cuda_ms(torch, lambda: k1(has_missing), 5)
+            ms = cuda_ms(torch, lambda: k1(has_missing, a), 5)
+            peak = (torch.cuda.max_memory_allocated() - mem0) / 2**30
+            ms2 = cuda_ms(torch, lambda: k1(has_missing, a), 5)
+            ms_plain2 = cuda_ms(torch, lambda: k1(has_missing), 5)
+            kern, plain = k1(has_missing, a), k1(has_missing)
+            if not all(torch.equal(x, y) for x, y in zip(kern[:6], plain)):
+                raise RuntimeError(f"phase 19 {name} p={pp}: an annot "
+                                   "launch's plain credits differ from the "
+                                   "plain launch's")
+            err = hold_accumulators(kern[6:], twin(has_missing, a)[6:],
+                                    f"phase 19 {name} p={pp} against its "
+                                    "twin")
+            del kern, plain
+            epi = min(ms, ms2) - min(ms_plain, ms_plain2)
+            lib = epilogue_bmm_ms(torch, values, a)
+            entry = {"ms": min(ms, ms2), "epilogue_ms": epi,
+                     "library_ms": lib["ms"], "max_abs_err": err,
+                     "peak_gib": peak, **work_a}
+            if pp == p:
+                entry["plain_ms"] = cuda_ms(torch,
+                                            lambda: twin(has_missing, a), 1)
+                out[name] = entry
+            else:
+                out[name]["p97"] = entry
+            say("19 timing", f"M={m5} N={n} +-1000 SNPs p={pp}, {name}: "
+                f"{ms:.3f} / {ms2:.3f} ms against {ms_plain:.3f} / "
+                f"{ms_plain2:.3f} ms without annotations (plain, annot, "
+                f"annot, plain): the epilogue's own cost {epi:.3f} ms; "
+                f"bound {work_a['bound_ms']:.3f} ms ({work_a['bound_by']}: "
+                f"{work['ops'] / 1e12:.3f} T int8 ops + "
+                f"{work_a['annot_f32_ops'] / 1e9:.1f} G f32 ops as "
+                f"{work_a['annot_rate']}, "
+                f"{work_a['bytes'] / 1e9:.2f} GB), "
+                f"{100 * work_a['bound_ms'] / min(ms, ms2):.1f}% of it; "
+                "plain credits and counters bitwise equal to the plain "
+                f"launch's, max |accumulator| diff vs twin {err:.3g} "
+                "(KERNEL_TOL); "
+                + (f"twin with annotations {entry['plain_ms']:.1f} ms "
+                   "(B=512); " if pp == p else "")
+                + f"library yardstick (float32 torch.bmm, TF32 off, "
+                f"{lib['shape']}, both directions) {lib['ms']:.3f} ms "
+                f"({lib['rows_ms']:.3f} + {lib['cols_ms']:.3f}); peak device "
+                f"memory of a launch and its fold {peak:.3f} GiB; on {card}")
+        del values
+        torch.cuda.empty_cache()
+    del a97
     # the full-band torch engine (--no-symmetric) at that shape
     lo, hi, _ = windows.window_bounds(pos5, 100_000.0)
     blk_lo, blk_hi, band_k = windows.band_blocks(lo, hi, 512, m_pad // 512)
@@ -3586,7 +3674,10 @@ def main() -> int:
         "max_abs_err_p5": errs_a[name], "ms": annot19[name]["ms"],
         "plain_ms": annot19[name]["plain_ms"],
         "bound_ms": annot19[name]["bound_ms"],
-        "bound_by": annot19[name]["bound_by"], "library_ms": None}
+        "bound_by": annot19[name]["bound_by"],
+        "library_ms": annot19[name].get("library_ms"),
+        **({k: annot19[name][k] for k in ("epilogue_ms", "peak_gib", "p97")}
+           if "p97" in annot19[name] else {})}
         for name, src, replaces in (
             ("ld_sym annot", "ld_sym", "nldsc_tpu/ld/ld_pallas_sym.py:52"),
             ("ld_sym annot 8-product", "ld_sym",

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: shared
 // memory addresses, mbarriers, TMA box loads, the K-major 128-byte-swizzle
-// wgmma descriptor, the int8 and bf16 wgmma products, and the host-side
+// wgmma descriptor, the int8 and bf16 wgmma products, the tf32 products of
+// the annotation epilogue, and the host-side
 // encoding of the tensor maps the TMA loads read.
 //
 // ld_sym.cu (K1) and split_corr.cu (K2) both keep their operands as
@@ -101,6 +102,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// until at most N committed groups are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // keep the compiler from moving register reads or writes across the
 // asynchronous products
@@ -396,6 +402,94 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t a,
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
       : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// float32 contractions on the tensor cores (the annotation epilogue):
+// D(64 x N, f32) (+)= A(64 x 8, tf32, registers) . B(N x 8, tf32,
+// K-major in shared memory)^T on wgmma.m64nNk8.f32.tf32.tf32, N = 8 to 32
+// of a 16-register accumulator (registers past N / 2 untouched).  A k8
+// tf32 step takes 32 bytes of K, as the int8 and bf16 forms above, so the
+// 128-byte-swizzle descriptor steps the same.  a[0..3] of lane (4 gq + tq)
+// in warp w hold row 16w + gq (a[0], a[2]) and 16w + gq + 8 (a[1], a[3]),
+// K index tq (a[0], a[1]) and tq + 4 (a[2], a[3]); the accumulator layout
+// is the int8 form's.
+__device__ __forceinline__ void wgmma_tf32_n8(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3"
+      "}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_n16(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_n24(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11"
+      "}, {%12, %13, %14, %15}, %16, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// the product of width N (a multiple of 8 up to 32)
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16],
+                                           const uint32_t (&a)[4], uint64_t b,
+                                           int scale_d) {
+  static_assert(N % 8 == 0 && N >= 8 && N <= 32, "N = 8, 16, 24 or 32");
+  if constexpr (N == 8) wgmma_tf32_n8(d, a, b, scale_d);
+  if constexpr (N == 16) wgmma_tf32_n16(d, a, b, scale_d);
+  if constexpr (N == 24) wgmma_tf32_n24(d, a, b, scale_d);
+  if constexpr (N == 32) wgmma_tf32_n32(d, a, b, scale_d);
+}
+
+// x as the round-to-nearest tf32 hi and the tf32 of the remainder lo:
+// hi + lo holds x to about 2^-22 of |x|
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  const float rest = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
+}
+
+// order this thread's generic-proxy writes to shared memory before the
+// wgmma reads of them (which go through the async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,

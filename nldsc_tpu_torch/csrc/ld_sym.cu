@@ -40,11 +40,23 @@
 // neighbours outside any kernel (nldsc_tpu/ld/ld_int8.py::sym_scan_segment,
 // annot branch).  Here the tile never leaves the registers, so the
 // epilogue stages the masked values it adds to the plain sums, the same
-// floats, in the freed ring, 32 neighbour rows at a time on the clean
-// branch and the whole tile on the missing one, and annot_epilogue.cuh
-// contracts them with the annotations of the neighbour rows (row credits)
-// and of the pivot rows (mirrored column credits).  The plain sums and
-// counters of an ANNOT launch are those of a plain launch bit for bit.
+// floats, in the freed ring and contracts them on the tensor cores
+// (annot_epilogue.cuh: tf32 hi + lo, three products) with the annotations
+// of the neighbour rows (row credits) and of the pivot rows (mirrored
+// column credits).  The missing branch stages its whole 64 x 64 tile and
+// contracts it once.  The clean branch's 128 x 128 tile would need 192 KiB
+// for its three value tiles, and the ring with the shared memory past it
+// holds 212 KiB, of which the partial sums and the stashed Shg still take
+// 91 KiB while the epilogue runs; so it stages two 64-column halves (102
+// KiB each with the bank padding) and contracts each once: the mirrored
+// column credits of a half are complete and written, the row credits stay
+// in registers (ANNOT_ROW_MAX annotations, 2 x 52 a thread) across both
+// halves and are written once.  A launch takes at most ANNOT_ROW_MAX
+// annotations on the clean branch (the wrapper launches once per group of
+// them).  Each chunk's annotation slabs are loaded once per half, into the
+// stashed Shg's consumed first half and the shared memory past the ring.
+// The plain sums and counters of an ANNOT launch are those of a plain
+// launch bit for bit.
 //
 // bf16 operands (the BF16 instantiations, the reference's dot_dtype="bf16"
 // branch, ld_pallas_sym.py:86-89 with float32 accumulators at :237): the
@@ -75,8 +87,12 @@
 // the caller):
 //   fpart f32  [n_tiles][band][2 (row, col)][2 (l2, l2d)][TILE]
 //   ipart int32[n_tiles][band][2 (row, col)][4 (ws, wsd, wse, poison)][TILE]
-// and, with annot f32 (M_pad, p) row-major,
-//   apart f32  [n_tiles][band][2 (row, col)][2 (l2, l2d)][TILE][p]
+// and, with annot f32 (M_pad, ld) row-major (p <= ld of its columns),
+//   apart f32  [n_tiles][band][2 (row, col)][2 (l2, l2d)][TILE][ld]
+// of which annotations [0, p) are written, every slot of the first n_piv
+// pivot tiles (zeros outside the band and in the pivot tile's column
+// slots), so apart needs no fill.  CTAs of pivot tiles from n_piv on
+// write nothing.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -111,16 +127,62 @@ struct Cfg {
   // the neighbour rows; reaching one neighbour row: one per 16-row warp
   static constexpr int ROW_SLOTS = MISSING ? 2 : 1;
   static constexpr int COL_SLOTS = TILE / 16;
-  // annotation epilogue: neighbour rows staged per contraction (both
-  // warpgroups' columns), in the ring stages past the partial sums (and
-  // past the stashed Shg on the clean branch)
-  static constexpr int ANNOT_COLS = MISSING ? TILE : 32;
-  static constexpr int ANNOT_STAGE = MISSING ? 1 : 2;
 };
 // staged value tiles: the additive value (row credits, and column credits
 // outside the pivot tile, where the two masks agree) and both dominance
 // values
 enum { V_ADD, V_DA, V_DB, V_TILES };
+
+// annotations a clean launch takes: its row credits stay in registers
+// across the two halves of its tile.  With the contractions in its body
+// the epilogue's step loop stays rolled, so the clean ANNOT
+// instantiations hold the products a1 in a 512-byte stack frame (written
+// once after the last product, each step's read back); that leaves the
+// registers to 2 x 52 row credits and the pipelined products.  Unrolled,
+// a1 stays in registers, but only 64 row credits fit and the epilogue
+// runs 1.7 ms longer at p = 53 on the H100 (scripts/time_ld_sym_cuda.py).
+constexpr int ANNOT_ROW_MAX = 104;
+
+// Where the annotation epilogue keeps its staged values (V_TILES tiles of
+// TILE rows x 64 columns) and the chunk's hi and lo slabs (pivot rows, K =
+// TILE; neighbour columns of the staged block, K = 64), as byte offsets
+// from the ring, past what the plain epilogue still holds: the partial
+// sums (RedSmem, from 0) and, on the clean branch, the stashed Shg
+// ([STAGE_BYTES, 2 STAGE_BYTES), 4 KiB per 8 columns: the first 32 KiB are
+// consumed by the end of the first half).  AREA: the bytes the ring's
+// region must span.
+template <bool MISSING>
+struct AnnotLayout;
+template <>
+struct AnnotLayout<false> {
+  static constexpr int TILE_B = tc_tile_bytes<128>();
+  static constexpr int V_ADD_AT = 131072, V_DA_AT = V_ADD_AT + TILE_B;
+  static constexpr int V_DB_AT = 27648;
+  static constexpr int ROWS_HI = 65536;
+  static constexpr int ROWS_LO = ROWS_HI + tc_slab_bytes<128>();
+  static constexpr int COLS_HI = 200704;
+  static constexpr int COLS_LO = COLS_HI + tc_slab_bytes<64>();
+  static constexpr int AREA = COLS_LO + tc_slab_bytes<64>();
+};
+template <>
+struct AnnotLayout<true> {
+  static constexpr int TILE_B = tc_tile_bytes<64>();
+  static constexpr int V_ADD_AT = 49152, V_DA_AT = V_ADD_AT + TILE_B;
+  static constexpr int V_DB_AT = V_DA_AT + TILE_B;
+  static constexpr int ROWS_HI = 102400;
+  static constexpr int ROWS_LO = ROWS_HI + tc_slab_bytes<64>();
+  static constexpr int COLS_HI = ROWS_LO + tc_slab_bytes<64>();
+  static constexpr int COLS_LO = COLS_HI + tc_slab_bytes<64>();
+  static constexpr int AREA = COLS_LO + tc_slab_bytes<64>();
+};
+
+// bytes from the ring's start to the barriers
+template <bool MISSING, bool ANNOT>
+__host__ __device__ constexpr int ring_area() {
+  constexpr int ring = Cfg<MISSING>::STAGES * Cfg<MISSING>::STAGE_BYTES;
+  constexpr int annot = AnnotLayout<MISSING>::AREA;
+  return ANNOT && annot > ring ? annot : ring;
+}
 
 struct Params {
   CUtensorMap tm_g, tm_h, tm_m;   // boxes of Cfg::BOX rows x KC bytes
@@ -133,9 +195,11 @@ struct Params {
   const int32_t* tile_hi;
   float* fpart;
   int32_t* ipart;
-  const float* annot;   // ANNOT only
+  const float* annot;   // ANNOT only: annotation 0 of row 0
   float* apart;
-  int p;
+  int p;                // annotations of this launch
+  int p_ld;             // floats per row of annot and apart
+  int n_piv;            // pivot tiles whose slots are written
   int n_tiles;
   int band;
   int n_pad;
@@ -180,17 +244,28 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int k = blockIdx.x;
   const int b = blockIdx.y;
   const int t = b + k;
-  if (t >= p.n_tiles || t > p.tile_hi[b]) return;   // outside the band
+  if (b >= p.n_piv) return;
+  if (t >= p.n_tiles || t > p.tile_hi[b]) {         // outside the band
+    if constexpr (ANNOT) {
+      // every annotation slot of a pivot tile is written, zeros here
+      const size_t ld = static_cast<size_t>(p.p_ld);
+      float* aout = p.apart + (static_cast<size_t>(b) * p.band + k) *
+                                  (2 * 2 * C::TILE) * ld;
+      for (int i = threadIdx.x; i < 2 * 2 * C::TILE * p.p; i += THREADS)
+        aout[(i / p.p) * ld + i % p.p] = 0.f;
+    }
+    return;
+  }
 
   // the ring first, on a swizzle-atom boundary; then the barriers and
   // the epilogue's inputs
   uint8_t* ring =
       smem_raw + (ATOM - smem_u32(smem_raw) % ATOM) % ATOM;
   const uint32_t ring_s = smem_u32(ring);
-  const uint32_t full0 = ring_s + C::STAGES * C::STAGE_BYTES;
+  constexpr int AREA = ring_area<MISSING, ANNOT>();
+  const uint32_t full0 = ring_s + AREA;
   const uint32_t empty0 = full0 + 8 * C::STAGES;
-  auto& es = *reinterpret_cast<EpiSmem<T>*>(
-      ring + C::STAGES * C::STAGE_BYTES + 16 * C::STAGES);
+  auto& es = *reinterpret_cast<EpiSmem<T>*>(ring + AREA + 16 * C::STAGES);
 
   const int tid = threadIdx.x;
   const int r0 = b * T, c0 = t * T;
@@ -338,13 +413,26 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int col0 = MISSING ? C::WG_COLS * wg : 0;  // and neighbour rows
     const int rslot = MISSING ? wg : 0;
     const int cslot = MISSING ? wi : 4 * wg + wi;
-    // staged values past the partial sums' stage (and the stashed Shg);
-    // the annotation chunk behind the partial sums
-    auto& as = *reinterpret_cast<AnnotValues<T, C::ANNOT_COLS, V_TILES>*>(
-        ring + C::ANNOT_STAGE * C::STAGE_BYTES);
-    auto& ac = *reinterpret_cast<AnnotChunk<T, C::ANNOT_COLS>*>(
-        ring + sizeof(RedSmem<MISSING>));
+    using AL = AnnotLayout<MISSING>;
+    auto vt = [&](int v) {
+      return reinterpret_cast<float*>(
+          ring + (v == V_ADD ? AL::V_ADD_AT
+                             : v == V_DA ? AL::V_DA_AT : AL::V_DB_AT));
+    };
     const size_t slot = static_cast<size_t>(b) * p.band + k;
+    if constexpr (ANNOT) {
+      // the pivot tile earns no column credit: its column slots are zeros
+      if (diag) {
+        const size_t ld = static_cast<size_t>(p.p_ld);
+        float* aout = p.apart + (slot * (2 * 2 * T) + 2 * T) * ld;
+        for (int i = tid; i < 2 * T * p.p; i += CONSUMERS)
+          aout[(i / p.p) * ld + i % p.p] = 0.f;
+      }
+    }
+    // clean: the row credits of up to ANNOT_ROW_MAX annotations, chunk c
+    // in racc[.][c], kept across the two halves
+    constexpr int NCH = (ANNOT_ROW_MAX + TC_NS - 1) / TC_NS;
+    float racc[2][(ANNOT && !MISSING) ? NCH : 1][16];
 
     int lr[2], rlo[2], rhi[2];
     unsigned rfl[2];
@@ -423,31 +511,11 @@ __global__ void __launch_bounds__(THREADS, 1)
             ccnt[v] += (1u << 8) + (pa.db > rsq ? 1u << 16 : 0u);
           }
           if constexpr (ANNOT) {
-            const int sc = lc % C::ANNOT_COLS;
-            as.v[V_ADD][lr[u]][sc] = row_base ? pa.add : 0.f;
-            as.v[V_DA][lr[u]][sc] = dm_a ? pa.da : 0.f;
-            as.v[V_DB][lr[u]][sc] = dm_b ? pa.db : 0.f;
+            const int sv = lr[u] * TC_LD + lc % 64;
+            vt(V_ADD)[sv] = row_base ? pa.add : 0.f;
+            vt(V_DA)[sv] = dm_a ? pa.da : 0.f;
+            vt(V_DB)[sv] = dm_b ? pa.db : 0.f;
           }
-        }
-      }
-      if constexpr (ANNOT) {
-        // a block of neighbour rows is staged: contract it.  Outside the
-        // pivot tile row_base = col_base, so V_ADD serves both directions;
-        // inside it no column credit is earned.
-        constexpr int JB = C::ANNOT_COLS / (MISSING ? 16 : 8);
-        if ((j + 1) % JB == 0) {
-          const int ac0 = MISSING ? 0 : (j / JB) * C::ANNOT_COLS;
-          const size_t np = static_cast<size_t>(p.p);
-          float* aout = p.apart + slot * (2 * 2 * T) * np;
-          annot_contract(
-              as, ac, tid, p.p, {V_ADD, V_DA}, {V_ADD, V_DB}, j / JB > 0,
-              !diag,
-              [&](int r) { return p.annot + (r0 + r) * np; },
-              [&](int c) { return p.annot + (c0 + ac0 + c) * np; },
-              [&](int val, int r) { return aout + (val * T + r) * np; },
-              [&](int val, int c) {
-                return aout + ((2 + val) * T + ac0 + c) * np;
-              });
         }
       }
       // columns: over the 8 quads of the warp, then to shared memory
@@ -468,6 +536,98 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
           for (int q = 0; q < 4; ++q)
             rs.coli[cslot][q][lc] = (ccnt[v] >> (8 * q)) & 255u;
+        }
+      }
+      if constexpr (ANNOT) {
+        // a block of 64 neighbour columns is staged (the clean tile's half
+        // j / JB, the missing tile whole): contract it.  Outside the pivot
+        // tile row_base = col_base, so V_ADD serves both directions;
+        // inside it no column credit is earned.
+        constexpr int JB = MISSING ? 4 : 8;
+        if ((j + 1) % JB == 0) {
+          const int h = j / JB;
+          const size_t ld = static_cast<size_t>(p.p_ld);
+          float* aout = p.apart + slot * (2 * 2 * T) * ld;
+          auto pivots = [&](int r) { return p.annot + (r0 + r) * ld; };
+          auto neighbours = [&](int c) {
+            return p.annot + (c0 + 64 * h + c) * ld;
+          };
+          consumer_sync();
+          if constexpr (MISSING) {
+            // both directions once per chunk, each warpgroup one value
+            for (int q0 = 0; q0 < p.p; q0 += TC_NS) {
+              if (q0 > 0) consumer_sync();
+              load_slab<64, false>(ring + AL::COLS_HI, ring + AL::COLS_LO,
+                                   neighbours, q0, p.p, tid);
+              if (!diag)
+                load_slab<T, true>(ring + AL::ROWS_HI, ring + AL::ROWS_LO,
+                                   pivots, q0, p.p, tid);
+              consumer_sync();
+              const int nq = p.p - q0;
+              with_width<TC_NS>(min(TC_NS, (nq + 7) & ~7), [&](auto W) {
+                constexpr int N = decltype(W)::value;
+                float acc[16];
+                tc_chunk<N, 64, 1, true>(
+                    acc, acc, vt(wg ? V_DA : V_ADD), nullptr,
+                    ring_s + AL::COLS_HI, ring_s + AL::COLS_LO, true, wi,
+                    lane);
+                tc_store<N>(acc, aout + (wg * T) * ld + q0, ld, nq, wi, lane);
+                if (!diag) {
+                  tc_chunk<N, T, 1, false>(
+                      acc, acc, vt(wg ? V_DB : V_ADD), nullptr,
+                      ring_s + AL::ROWS_HI, ring_s + AL::ROWS_LO, true, wi,
+                      lane);
+                  tc_store<N>(acc, aout + ((2 + wg) * T) * ld + q0, ld, nq,
+                              wi, lane);
+                }
+              });
+            }
+          } else {
+            // each warpgroup: the row credits of its 64 rows (both
+            // values, into racc) and the column credits of the half's 64
+            // columns (one value, written)
+            static_for<0, NCH>([&](auto C_) {
+              constexpr int c = decltype(C_)::value;
+              constexpr int CAP = ANNOT_ROW_MAX - TC_NS * c < TC_NS
+                                      ? ANNOT_ROW_MAX - TC_NS * c
+                                      : TC_NS;
+              const int q0 = TC_NS * c;
+              if (q0 < p.p) {
+                if (c > 0) consumer_sync();
+                load_slab<64, false>(ring + AL::COLS_HI, ring + AL::COLS_LO,
+                                     neighbours, q0, p.p, tid);
+                if (!diag)
+                  load_slab<T, true>(ring + AL::ROWS_HI, ring + AL::ROWS_LO,
+                                     pivots, q0, p.p, tid);
+                consumer_sync();
+                const int nq = p.p - q0;
+                with_width<CAP>(min(CAP, (nq + 7) & ~7), [&](auto W) {
+                  constexpr int N = decltype(W)::value;
+                  tc_chunk<N, 64, 2, true>(
+                      racc[0][c], racc[1][c], vt(V_ADD) + 64 * wg * TC_LD,
+                      vt(V_DA) + 64 * wg * TC_LD, ring_s + AL::COLS_HI,
+                      ring_s + AL::COLS_LO, h == 0, wi, lane);
+                  if (!diag) {
+                    float acc[16];
+                    tc_chunk<N, T, 1, false>(
+                        acc, acc, vt(wg ? V_DB : V_ADD), nullptr,
+                        ring_s + AL::ROWS_HI, ring_s + AL::ROWS_LO, true, wi,
+                        lane);
+                    tc_store<N>(acc, aout + ((2 + wg) * T + 64 * h) * ld + q0,
+                                ld, nq, wi, lane);
+                  }
+                  if (h == 1) {
+#pragma unroll
+                    for (int v = 0; v < 2; ++v)
+                      tc_store<N>(racc[v][c],
+                                  aout + (v * T + 64 * wg) * ld + q0, ld, nq,
+                                  wi, lane);
+                  }
+                });
+              }
+            });
+          }
+          consumer_sync();   // the staged values and slabs are free again
         }
       }
     }
@@ -520,25 +680,37 @@ template <bool MISSING, bool ANNOT, bool BF16>
 cudaError_t launch(Params& p, const void* g, const void* m, const void* h,
                    cudaStream_t stream) {
   using C = Cfg<MISSING>;
-  constexpr int SMEM = ATOM + C::STAGES * (C::STAGE_BYTES + 16) +
+  using AL = AnnotLayout<MISSING>;
+  constexpr int SMEM = ATOM + ring_area<MISSING, ANNOT>() + 16 * C::STAGES +
                        static_cast<int>(sizeof(EpiSmem<C::TILE>));
   static_assert(sizeof(RedSmem<MISSING>) <= C::STAGE_BYTES,
                 "the partial sums must fit in the ring's first stage");
   static_assert(MISSING || (C::STAGES - 1) * C::STAGE_BYTES >=
                                    CONSUMERS * 64 * sizeof(int),
                 "the stashed Shg must fit in the ring's later stages");
-  static_assert(sizeof(AnnotValues<C::TILE, C::ANNOT_COLS, V_TILES>) <=
-                    (C::STAGES - C::ANNOT_STAGE) * C::STAGE_BYTES,
-                "the staged annotation values must fit in the ring's last "
-                "stages");
-  static_assert(sizeof(RedSmem<MISSING>) % 16 == 0 &&
-                    sizeof(RedSmem<MISSING>) +
-                            sizeof(AnnotChunk<C::TILE, C::ANNOT_COLS>) <=
-                        C::STAGE_BYTES,
-                "the annotation chunk must fit behind the partial sums");
-  static_assert(C::TILE % C::ANNOT_COLS == 0 &&
-                    C::ANNOT_COLS % (MISSING ? 16 : 8) == 0,
-                "whole epilogue steps per staged block");
+  // the annotation epilogue's regions: apart from each other, from the
+  // partial sums and (clean) from the Shg still stashed; the slabs on
+  // swizzle atoms
+  constexpr int RED = static_cast<int>(sizeof(RedSmem<MISSING>));
+  constexpr int V_END = AL::V_DA_AT + AL::TILE_B;
+  static_assert(AL::TILE_B == tc_tile_bytes<C::TILE>(), "staged tiles");
+  static_assert(MISSING
+                    ? (AL::V_ADD_AT >= RED && AL::V_DB_AT + AL::TILE_B <=
+                                                  AL::ROWS_HI)
+                    : (AL::V_DB_AT >= RED &&
+                       AL::V_DB_AT + AL::TILE_B <= C::STAGE_BYTES &&
+                       AL::V_ADD_AT == 2 * C::STAGE_BYTES &&
+                       V_END <= AL::COLS_HI &&
+                       AL::ROWS_HI == C::STAGE_BYTES &&
+                       AL::ROWS_LO + tc_slab_bytes<C::TILE>() <=
+                           C::STAGE_BYTES + 8 * 16 * CONSUMERS),
+                "annotation epilogue regions overlap");
+  static_assert(AL::ROWS_LO - AL::ROWS_HI == tc_slab_bytes<C::TILE>() &&
+                    AL::ROWS_HI % ATOM == 0 && AL::ROWS_LO % ATOM == 0 &&
+                    AL::COLS_HI % ATOM == 0 && AL::COLS_LO % ATOM == 0 &&
+                    (!MISSING || AL::COLS_HI >= AL::ROWS_LO +
+                                                    tc_slab_bytes<C::TILE>()),
+                "annotation slabs on swizzle atoms, apart");
   static_assert(SMEM <= 232448, "shared memory of one CTA");
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
@@ -569,6 +741,11 @@ cudaError_t launch_branch(Params& p, const void* g, const void* m,
 
 }  // namespace
 
+// annotations one launch takes on each branch
+extern "C" int ld_sym_annot_max(int has_missing) {
+  return has_missing ? (1 << 30) : ANNOT_ROW_MAX;
+}
+
 // rows of a CTA's pivot (and neighbour) tile on each branch
 extern "C" int ld_sym_tile(int has_missing) {
   return has_missing ? Cfg<true>::TILE : Cfg<false>::TILE;
@@ -579,7 +756,8 @@ extern "C" int ld_sym_launch(const void* g, const void* m, const void* h,
                              const void* usable, const void* dom_ok,
                              const void* poison, const void* tile_hi,
                              void* fpart, void* ipart, const void* annot,
-                             void* apart, int n_annot, int n_tiles, int band,
+                             void* apart, int n_annot, int annot_ld,
+                             int n_piv, int n_tiles, int band,
                              int n_pad, float n, float inv_n, float n_padf,
                              float adj_c, float rsq_thr, int has_missing,
                              int bf16,
@@ -597,6 +775,8 @@ extern "C" int ld_sym_launch(const void* g, const void* m, const void* h,
   p.annot = static_cast<const float*>(annot);
   p.apart = static_cast<float*>(apart);
   p.p = n_annot;
+  p.p_ld = annot_ld;
+  p.n_piv = n_piv;
   p.n_tiles = n_tiles;
   p.band = band;
   p.n_pad = n_pad;
@@ -607,8 +787,15 @@ extern "C" int ld_sym_launch(const void* g, const void* m, const void* h,
   p.rsq_thr = rsq_thr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const void* mm = has_missing ? m : g;   // clean: never read
-  // annot (with apart and n_annot >= 1) selects the annotation epilogue,
-  // bf16 the instantiations on bf16 operands
+  // annot (with apart and 1 <= n_annot <= annot_ld; on the clean branch
+  // n_annot <= ANNOT_ROW_MAX) selects the annotation epilogue, bf16 the
+  // instantiations on bf16 operands; n_piv <= n_tiles pivot tiles write
+  // their slots
+  if (n_piv < 0 || n_piv > n_tiles ||
+      (annot != nullptr &&
+       (n_annot < 1 || n_annot > annot_ld ||
+        (!has_missing && n_annot > ANNOT_ROW_MAX))))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   if (bf16 != 0)
     err = launch_branch<true>(p, g, mm, h, has_missing, annot != nullptr, s);

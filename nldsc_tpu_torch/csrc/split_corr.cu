@@ -540,7 +540,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         const size_t m_pad = static_cast<size_t>(p.m_pad);
         const size_t t = static_cast<size_t>(sg) * gridDim.y + xt;
         annot_contract(
-            as, ac, tid, p.p, {V_XADD, V_XDOM}, {V_CADD, V_CDOM}, false, true,
+            as, ac, tid, p.p, {V_XADD, V_XDOM}, {V_CADD, V_CDOM},
             [&](int r) {
               return x0 + r < p.rows_a ? p.annot + (gx0 + r) * np : nullptr;
             },

@@ -386,13 +386,20 @@ def int8_tile(g, m, h, scal, n_samples: int, has_missing: bool,
                      n_samples, g.shape[1], has_missing)
 
 
-def band_extent(hi: torch.Tensor, block_size: int) -> tuple[torch.Tensor, int]:
+def block_hi(hi: torch.Tensor, block_size: int) -> torch.Tensor:
     """Per pivot block, the last block its rows' windows reach (int32;
-    -1 for padding blocks, whose rows carry hi = -1), and the right
-    half-band depth in blocks (at least 1, at most the block count)."""
+    -1 for padding blocks, whose rows carry hi = -1), without waiting for
+    the device."""
     nb = hi.shape[0] // block_size
-    blk_hi = torch.div(hi.view(nb, block_size).amax(dim=1), block_size,
-                       rounding_mode="floor").to(torch.int32).contiguous()
+    return torch.div(hi.view(nb, block_size).amax(dim=1), block_size,
+                     rounding_mode="floor").to(torch.int32).contiguous()
+
+
+def band_extent(hi: torch.Tensor, block_size: int) -> tuple[torch.Tensor, int]:
+    """:func:`block_hi`, and the right half-band depth in blocks (at least
+    1, at most the block count)."""
+    nb = hi.shape[0] // block_size
+    blk_hi = block_hi(hi, block_size)
     reach = blk_hi - torch.arange(nb, device=hi.device, dtype=torch.int32)
     return blk_hi, min(max(int(reach.max().item()) + 1, 1), nb)
 
@@ -596,26 +603,18 @@ def sym_scan(dots, scal, lo, hi, usable, dom_ok, add_sd_zero,
     return l2_f, ws_f, poi_f, l2d_f, wsd_f, wse_f
 
 
-def sym_tile_partials(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
-                      rsq_thr: float, annot=None, *, tile: int, band: int,
-                      n_samples: int, has_missing: bool,
-                      dot_dtype: str = "int8"):
-    """The plain twin of the kernel's unfolded partials
-    (``ld_pallas_sym.sym_partials``): the symmetric pass in tiles of
-    ``tile`` rows, per pivot tile x and slot k < ``band`` the row credits
-    that tile x + k gives tile x's rows and the column credits that tile
-    x gives tile x + k's rows (k ≥ 1), as the pair algebra of
-    :func:`sym_scan_segment`, each slot summed on its own.
-
-    Returns ``(fpart, ipart, apart)``: float32 ``(n_tiles, band, 2, 2,
-    T)`` (l2, l2d), int32 ``(n_tiles, band, 2, 4, T)`` (ws, wsd, wse,
-    poison) and, with ``annot``, float32 ``(n_tiles, band, 2, 2, T, p)``
-    (else None); direction 0 holds the row credits, 1 the column credits.
-    A pivot tile's slots past its rows' window ends, or past the rows,
-    stay zero.  Every slot is computed from the rows of its two tiles
-    alone, so a run split into shards of whole tiles gives each pivot
-    tile the same partials.
-    """
+def sym_tile_values(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
+                    rsq_thr: float, *, tile: int, n_samples: int,
+                    has_missing: bool, dot_dtype: str = "int8"):
+    """The masked pair values of the symmetric pass in tiles of ``tile``
+    rows, pivot tile by pivot tile: yields ``(x, K, vals, counts)`` for
+    each pivot tile x whose rows' windows reach its K >= 1 tiles x ..
+    x + K - 1, with ``vals[d]`` the two float32 ``(T, K·T)`` tiles that
+    direction d adds (0, rows: the additive and the dominance value of
+    each pair; 1, the mirrored columns: the same for the neighbours) and
+    ``counts[d]`` its four masks (ws, wsd, wse, poison).  What the
+    kernel's epilogue adds to its sums and contracts with the
+    annotations."""
     rows_total, n_pad = g.shape
     T = tile
     nt = rows_total // T
@@ -625,15 +624,7 @@ def sym_tile_partials(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
     adj_c = adj_constant(n_samples)
     rsq = f32(rsq_thr)
     dev = g.device
-    tile_hi, depth = band_extent(hi, T)
-    if depth > band:
-        raise ValueError(f"band {band} is below the rows' depth {depth}")
-    fpart = torch.zeros((nt, band, 2, 2, T), dtype=torch.float32,
-                        device=dev)
-    ipart = torch.zeros((nt, band, 2, 4, T), dtype=torch.int32, device=dev)
-    apart = (None if annot is None else torch.zeros(
-        (nt, band, 2, 2, T, annot.shape[1]), dtype=torch.float32,
-        device=dev))
+    tile_hi = block_hi(hi, T)
     for x, last in enumerate(tile_hi.tolist()):
         last = min(last, nt - 1)
         if last < x:
@@ -658,6 +649,52 @@ def sym_tile_partials(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
         col_base = upair & (gj >= r0 + T)
         dm_a = row_base & dom_ok[cols][None, :]
         dm_b = col_base & dom_ok[rows][:, None]
+        vals = {0: (adj_add * row_base, adj_da * dm_a),
+                1: (adj_add * col_base, adj_db * dm_b)}
+        counts = {0: (row_base, dm_a, (adj_da > rsq) & dm_a,
+                      upair & add_sd_zero[cols][None, :]),
+                  1: (col_base, dm_b, (adj_db > rsq) & dm_b,
+                      col_base & add_sd_zero[rows][:, None])}
+        yield x, K, vals, counts
+
+
+def sym_tile_partials(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
+                      rsq_thr: float, annot=None, *, tile: int, band: int,
+                      n_samples: int, has_missing: bool,
+                      dot_dtype: str = "int8"):
+    """The plain twin of the kernel's unfolded partials
+    (``ld_pallas_sym.sym_partials``): the symmetric pass in tiles of
+    ``tile`` rows, per pivot tile x and slot k < ``band`` the row credits
+    that tile x + k gives tile x's rows and the column credits that tile
+    x gives tile x + k's rows (k ≥ 1), as the pair algebra of
+    :func:`sym_scan_segment`, each slot summed on its own
+    (:func:`sym_tile_values`).
+
+    Returns ``(fpart, ipart, apart)``: float32 ``(n_tiles, band, 2, 2,
+    T)`` (l2, l2d), int32 ``(n_tiles, band, 2, 4, T)`` (ws, wsd, wse,
+    poison) and, with ``annot``, float32 ``(n_tiles, band, 2, 2, T, p)``
+    (else None); direction 0 holds the row credits, 1 the column credits.
+    A pivot tile's slots past its rows' window ends, or past the rows,
+    stay zero.  Every slot is computed from the rows of its two tiles
+    alone, so a run split into shards of whole tiles gives each pivot
+    tile the same partials.
+    """
+    T = tile
+    nt = g.shape[0] // T
+    dev = g.device
+    depth = band_extent(hi, T)[1]
+    if depth > band:
+        raise ValueError(f"band {band} is below the rows' depth {depth}")
+    fpart = torch.zeros((nt, band, 2, 2, T), dtype=torch.float32,
+                        device=dev)
+    ipart = torch.zeros((nt, band, 2, 4, T), dtype=torch.int32, device=dev)
+    apart = (None if annot is None else torch.zeros(
+        (nt, band, 2, 2, T, annot.shape[1]), dtype=torch.float32,
+        device=dev))
+    for x, K, vals, counts in sym_tile_values(
+            g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero, rsq_thr,
+            tile=T, n_samples=n_samples, has_missing=has_missing,
+            dot_dtype=dot_dtype):
 
         def by_slot(v, direction):
             """(K, T) sums of a (T, K·T) tile per slot: over each slot's
@@ -665,12 +702,6 @@ def sym_tile_partials(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
             v = v.view(T, K, T)
             return v.sum(dim=2).t() if direction == 0 else v.sum(dim=0)
 
-        vals = {0: (adj_add * row_base, adj_da * dm_a),
-                1: (adj_add * col_base, adj_db * dm_b)}
-        counts = {0: (row_base, dm_a, (adj_da > rsq) & dm_a,
-                      upair & add_sd_zero[cols][None, :]),
-                  1: (col_base, dm_b, (adj_db > rsq) & dm_b,
-                      col_base & add_sd_zero[rows][:, None])}
         for d in (0, 1):
             for q, v in enumerate(vals[d]):
                 fpart[x, :K, d, q] = by_slot(v, d)
@@ -678,10 +709,11 @@ def sym_tile_partials(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
                 ipart[x, :K, d, q] = by_slot(c.to(torch.int32), d)
         if annot is not None:
             p = annot.shape[1]
-            a_j = annot[cols].view(K, T, p)
+            r0 = x * T
+            a_j = annot[r0:r0 + K * T].view(K, T, p)
             for q in range(2):
                 row_v = vals[0][q].view(T, K, T).permute(1, 0, 2)
                 col_v = vals[1][q].view(T, K, T).permute(1, 2, 0)
                 apart[x, :K, 0, q] = annot_dot(row_v, a_j)
-                apart[x, :K, 1, q] = annot_dot(col_v, annot[rows])
+                apart[x, :K, 1, q] = annot_dot(col_v, annot[r0:r0 + T])
     return fpart, ipart, apart

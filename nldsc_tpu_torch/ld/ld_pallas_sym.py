@@ -19,9 +19,13 @@ stage), as the pipeline does.
 
 With ``annot`` (partitioned LD scores) the kernel's annotation epilogue
 also contracts each tile's masked values with the neighbours' annotation
-rows and writes per-tile ``(T, p)`` partials, which :func:`_fold_annot`
-reduces the same way.  The reference computes those contractions outside
-its Pallas kernel; here they are part of the hand-written one.
+rows, on the tensor cores (tf32 hi + lo, three products, float32
+accumulators), and writes per-tile ``(T, p)`` partials once, which
+:func:`_fold_annot` reduces the same way.  The reference computes those
+contractions outside its Pallas kernel; here they are part of the
+hand-written one.  A clean-branch launch takes at most
+:func:`annot_max` annotations (its row credits stay in registers); the
+wrapper launches once per group of them.
 
 bf16 operand tensors (``--dot-dtype bf16``, the reference's bf16 branch
 of the kernel: one ``.to`` of the int8 codes on the device,
@@ -35,7 +39,9 @@ ranges of pivot tiles with the whole pass's band
 (:func:`range_partials`), whose unfolded partials, put together in tile
 order and folded once, are bitwise the one launch's: the SNP shards of
 ``parallel.sharded`` and the segments of a pass with progress
-(:func:`sym_credits_segmented`) run so.
+(:func:`sym_credits_segmented`) run so.  The segments write straight into
+the whole pass's partials (``out=``): the plain ones zero-filled once,
+the annotation ones never (the kernel writes every slot), no copy.
 
 On a CPU tensor the wrapper runs the plain twin
 (:func:`nldsc_tpu_torch.ld.ld_int8.sym_scan_segment`, with the
@@ -45,7 +51,9 @@ kernel or raises.
 
 from __future__ import annotations
 
+import bisect
 import ctypes
+import itertools
 import math
 from collections import Counter
 
@@ -71,9 +79,11 @@ annot_launches = 0
 bf16_launches = 0
 #: the launches per device (``str(device)``)
 device_launches: Counter = Counter()
+#: the sets of partials buffers allocated by :func:`new_partials`
+partials_allocs = 0
 
 _P = ctypes.c_void_p
-_ARGTYPES = [_P] * 14 + [ctypes.c_int] * 4 + [ctypes.c_float] * 5 + [
+_ARGTYPES = [_P] * 14 + [ctypes.c_int] * 6 + [ctypes.c_float] * 5 + [
     ctypes.c_int, ctypes.c_int, _P]
 
 
@@ -84,6 +94,8 @@ def _library() -> ctypes.CDLL:
         lib.ld_sym_launch.restype = ctypes.c_int
         lib.ld_sym_tile.argtypes = [ctypes.c_int]
         lib.ld_sym_tile.restype = ctypes.c_int
+        lib.ld_sym_annot_max.argtypes = [ctypes.c_int]
+        lib.ld_sym_annot_max.restype = ctypes.c_int
     if (lib.ld_sym_tile(0), lib.ld_sym_tile(1)) != (TILE_CLEAN, TILE_MISSING):
         raise RuntimeError("ld_sym.cu and ld_pallas_sym's tiles disagree")
     return lib
@@ -92,6 +104,34 @@ def _library() -> ctypes.CDLL:
 def tile(has_missing: bool) -> int:
     """Pivot (and neighbour) rows per CTA of the branch that runs."""
     return TILE_MISSING if has_missing else TILE_CLEAN
+
+
+def annot_max(has_missing: bool) -> int:
+    """The most annotations one launch of the branch takes (the kernel's
+    ``ld_sym_annot_max``)."""
+    return _library().ld_sym_annot_max(int(has_missing))
+
+
+def partials_shapes(n_tiles: int, band: int, T: int, p: int = 0) -> list:
+    """The shapes of ``(fpart, ipart, apart)`` for ``n_tiles`` pivot
+    tiles of ``T`` rows, ``band`` slots and ``p`` annotations (``apart``
+    None without them)."""
+    return [(n_tiles, band, 2, 2, T), (n_tiles, band, 2, 4, T),
+            (n_tiles, band, 2, 2, T, p) if p else None]
+
+
+def new_partials(n_tiles: int, band: int, T: int, p: int, device) -> tuple:
+    """``(fpart, ipart, apart)`` (:func:`partials_shapes`): the plain
+    partials zero-filled (a launch leaves the slots past a tile's window
+    ends unwritten), the annotation partials not (a launch writes every
+    slot of its pivot tiles, zeros included)."""
+    global partials_allocs
+    partials_allocs += 1
+    fshape, ishape, ashape = partials_shapes(n_tiles, band, T, p)
+    return (torch.zeros(fshape, dtype=torch.float32, device=device),
+            torch.zeros(ishape, dtype=torch.int32, device=device),
+            None if ashape is None else torch.empty(
+                ashape, dtype=torch.float32, device=device))
 
 
 def _check_inputs(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
@@ -169,12 +209,19 @@ def _fold_annot(apart):
 
 def _launch_partials(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
                      rsq_thr: float, n_samples: int, has_missing: bool,
-                     annot=None, band: int | None = None):
-    """One kernel launch: the unfolded partials ``(fpart, ipart, apart)``
-    (``apart`` None without ``annot``) of :func:`_fold`'s layout.  The
-    launch runs with the tensors' device current, whichever is current
-    in the caller.  ``band``: the slots per pivot tile, at least the
-    rows' own right half-band depth (default: that depth)."""
+                     annot=None, band: int | None = None, out=None,
+                     out_tiles: int | None = None, check_band: bool = True):
+    """One kernel launch (one per group of :func:`annot_max` annotations):
+    the unfolded partials ``(fpart, ipart, apart)`` (``apart`` None
+    without ``annot``) of :func:`_fold`'s layout.  The launch runs with
+    the tensors' device current, whichever is current in the caller.
+    ``band``: the slots per pivot tile, at least the rows' own right
+    half-band depth (default: that depth; ``check_band=False`` trusts a
+    given band, since the check waits for the device).  ``out``:
+    partials to write into (:func:`new_partials`, or views of a larger
+    set), of at least ``out_tiles`` pivot tiles (default: all the rows'),
+    whose slots the launch writes; the pivot tiles past them write
+    nothing (their windows must be empty).  Else new ones."""
     global launches, missing_launches, annot_launches, bf16_launches
     _check_inputs(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
                   has_missing, annot)
@@ -182,44 +229,69 @@ def _launch_partials(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
     m_pad, n_pad = g.shape
     T = tile(has_missing)
     nt = m_pad // T
+    p = 0 if annot is None else annot.shape[1]
     with torch.cuda.device(g.device):
-        tile_hi, depth = ld_int8.band_extent(hi, T)
-        if band is None:
-            band = depth
-        elif band < depth:
-            raise ValueError(f"band {band} is below the rows' depth {depth}")
-        fpart = torch.zeros((nt, band, 2, 2, T), dtype=torch.float32,
-                            device=g.device)
-        ipart = torch.zeros((nt, band, 2, 4, T), dtype=torch.int32,
-                            device=g.device)
-        apart = None
-        if annot is not None:
-            # zero-filled: the tiles outside the band, and the column
-            # credits of the pivot tiles, are never written
-            apart = torch.zeros((nt, band, 2, 2, T, annot.shape[1]),
-                                dtype=torch.float32, device=g.device)
+        if band is None or check_band:
+            tile_hi, depth = ld_int8.band_extent(hi, T)
+            if band is None:
+                band = depth
+            elif band < depth:
+                raise ValueError(f"band {band} is below the rows' depth "
+                                 f"{depth}")
+        else:
+            tile_hi = ld_int8.block_hi(hi, T)
+        if out is None:
+            out = new_partials(nt, band, T, p, g.device)
+        else:
+            _check_out(out, nt if out_tiles is None else out_tiles, band, T,
+                       p, g.device)
+        fpart, ipart, apart = out
         lib = _library()
         stream = torch.cuda.current_stream(g.device).cuda_stream
         mm = m if has_missing else g                # clean: never read
-        err = lib.ld_sym_launch(
-            g.data_ptr(), mm.data_ptr(), h.data_ptr(), scal.data_ptr(),
-            lo.data_ptr(), hi.data_ptr(), usable.data_ptr(),
-            dom_ok.data_ptr(), add_sd_zero.data_ptr(), tile_hi.data_ptr(),
-            fpart.data_ptr(), ipart.data_ptr(),
-            None if annot is None else annot.data_ptr(),
-            None if annot is None else apart.data_ptr(),
-            0 if annot is None else annot.shape[1], nt, band, n_pad,
-            float(n_samples), recip_f32(n_samples), float(n_pad),
-            ld_int8.adj_constant(n_samples), ld_int8.f32(rsq_thr),
-            int(has_missing), int(bf16), stream)
-    if err != 0:
-        raise RuntimeError(f"ld_sym kernel launch failed: CUDA error {err}")
-    launches += 1
-    device_launches[str(g.device)] += 1
-    missing_launches += int(has_missing)
-    bf16_launches += int(bf16)
-    annot_launches += int(annot is not None)
+        step = p if annot is None else min(p, annot_max(has_missing))
+        for q0 in range(0, max(p, 1), max(step, 1)):
+            q = min(step, p - q0)
+            err = lib.ld_sym_launch(
+                g.data_ptr(), mm.data_ptr(), h.data_ptr(), scal.data_ptr(),
+                lo.data_ptr(), hi.data_ptr(), usable.data_ptr(),
+                dom_ok.data_ptr(), add_sd_zero.data_ptr(), tile_hi.data_ptr(),
+                fpart.data_ptr(), ipart.data_ptr(),
+                None if annot is None else annot.data_ptr() + 4 * q0,
+                None if annot is None else apart.data_ptr() + 4 * q0,
+                q, p, nt if out_tiles is None else out_tiles, nt, band, n_pad,
+                float(n_samples), recip_f32(n_samples), float(n_pad),
+                ld_int8.adj_constant(n_samples), ld_int8.f32(rsq_thr),
+                int(has_missing), int(bf16), stream)
+            if err != 0:
+                raise RuntimeError(
+                    f"ld_sym kernel launch failed: CUDA error {err}")
+            launches += 1
+            device_launches[str(g.device)] += 1
+            missing_launches += int(has_missing)
+            bf16_launches += int(bf16)
+            annot_launches += int(annot is not None)
     return fpart, ipart, apart
+
+
+def _check_out(out, n_tiles: int, band: int, T: int, p: int,
+               device) -> None:
+    """Raise unless ``out`` can take a launch's partials: the layouts of
+    :func:`partials_shapes`, at least ``n_tiles`` tiles, contiguous, on
+    ``device``."""
+    for i, (x, sh) in enumerate(zip(out, partials_shapes(n_tiles, band, T,
+                                                           p))):
+        if sh is None:
+            if x is not None:
+                raise ValueError("out holds annotation partials without "
+                                 "annot")
+            continue
+        dtype = torch.int32 if i == 1 else torch.float32
+        if (x is None or tuple(x.shape[1:]) != sh[1:] or x.shape[0] < sh[0]
+                or x.dtype != dtype or not x.is_contiguous()
+                or x.device != device):
+            raise ValueError(f"out must hold {dtype} {sh} partials on "
+                             f"{device}")
 
 
 def fold_partials(fpart, ipart, apart=None):
@@ -240,7 +312,8 @@ def _launch(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
 
 def sym_partials(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
                  rsq_thr: float, *, n_samples: int, has_missing: bool,
-                 band: int, block_size: int, annot=None):
+                 band: int, block_size: int, annot=None, out=None,
+                 out_tiles: int | None = None):
     """The symmetric pass's unfolded per-tile partials ``(fpart, ipart,
     apart)`` (``apart`` None without ``annot``): for pivot tile x and slot
     k < ``band``, the row credits that tile x + k gives tile x's rows and
@@ -253,23 +326,37 @@ def sym_partials(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
     raise; CPU tensors run the twin
     (:func:`nldsc_tpu_torch.ld.ld_int8.sym_tile_partials`) with tiles of
     ``block_size`` rows.  Rows whose windows are empty (lo past hi) are
-    neighbours only: their tiles give nothing."""
+    neighbours only: their tiles give nothing.
+
+    ``out`` (with ``out_tiles``): the partials to write the first
+    ``out_tiles`` tiles' slots into, as :func:`_launch_partials` takes
+    them; on the CPU the twin's are copied there.  Returns the partials
+    written."""
     if g.device.type == "cpu":
-        return ld_int8.sym_tile_partials(
+        parts = ld_int8.sym_tile_partials(
             g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero, rsq_thr,
             annot, tile=block_size, band=band, n_samples=n_samples,
             has_missing=has_missing, dot_dtype=ld_int8.dot_dtype_of(g))
+        if out is None:
+            return parts
+        n = parts[0].shape[0] if out_tiles is None else out_tiles
+        _check_out(out, n, band, block_size,
+                   0 if annot is None else annot.shape[1], g.device)
+        for dst, src in zip(out, parts):
+            if src is not None:
+                dst[:n] = src[:n]
+        return out
     if g.device.type != "cuda":
         raise ValueError(f"no LD kernel for device {g.device}")
     return _launch_partials(g, m, h, scal, lo, hi, usable, dom_ok,
                             add_sd_zero, rsq_thr, n_samples, has_missing,
-                            annot, band)
+                            annot, band, out, out_tiles)
 
 
 def range_partials(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
                    rsq_thr: float, x0: int, x1: int, *, n_samples: int,
                    has_missing: bool, band: int, block_size: int,
-                   annot=None):
+                   annot=None, out=None):
     """:func:`sym_partials` of the pivot tiles ``[x0, x1)`` alone: the
     rows ``[x0·T, min(x1·T + halo, rows))`` (``halo`` = ``(band - 1)·T``,
     T the kernel's tile on CUDA, ``block_size`` on the CPU), the halo
@@ -278,7 +365,14 @@ def range_partials(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
     ``x1 - x0`` tiles' unfolded partials returned.  ``lo``/``hi`` index
     the given rows.  Every slot is computed from the rows of its two
     tiles, so the partials of consecutive ranges, put together in tile
-    order, are those of one launch over all the tiles."""
+    order, are those of one launch over all the tiles.
+
+    ``band`` is the whole pass's (its depth bounds every range's), and on
+    CUDA is not checked against the range's rows: checking would wait
+    for the device.  ``out``: partials of at least ``x1 - x0`` tiles
+    (views of tiles ``[x0, x1)`` of the whole pass's,
+    :func:`new_partials`) that the range's slots are written into and
+    returned, as the segments of :func:`sym_credits_segmented` do."""
     T = tile(has_missing) if g.device.type == "cuda" else block_size
     r0, r1 = x0 * T, min((x1 + band - 1) * T, g.shape[0])
     lo, hi = lo[r0:r1] - r0, hi[r0:r1] - r0
@@ -287,12 +381,17 @@ def range_partials(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
     def rows(x):
         return None if x is None else x[r0:r1]
 
-    out = sym_partials(
-        rows(g), rows(m), rows(h), rows(scal), lo, hi, rows(usable),
-        rows(dom_ok), rows(add_sd_zero), rsq_thr, n_samples=n_samples,
-        has_missing=has_missing, band=band, block_size=block_size,
-        annot=rows(annot))
-    return tuple(None if x is None else x[:x1 - x0] for x in out)
+    sub = (rows(g), rows(m), rows(h), rows(scal), lo, hi, rows(usable),
+           rows(dom_ok), rows(add_sd_zero), rsq_thr)
+    if g.device.type == "cuda":
+        got = _launch_partials(*sub, n_samples, has_missing, rows(annot),
+                               band, out, x1 - x0, check_band=False)
+    else:
+        got = sym_partials(*sub, n_samples=n_samples,
+                           has_missing=has_missing, band=band,
+                           block_size=block_size, annot=rows(annot),
+                           out=out, out_tiles=x1 - x0)
+    return tuple(None if x is None else x[:x1 - x0] for x in got)
 
 
 #: the most segments of a symmetric pass run with progress, as the
@@ -312,6 +411,27 @@ def segments(m: int, block_size: int, progress: bool) -> list:
             for s0 in range(0, n_blocks, step)]
 
 
+def wave_bounds(ctas: list, n: int, sms: int) -> list:
+    """Tile boundaries ``[0, b_1, ..., b_{n-1}, n_tiles]`` of ``n``
+    launches over pivot tiles of ``ctas[x]`` CTAs each (``n`` at most
+    the tiles).  The waves of one launch over all the tiles (``sms``
+    CTAs a wave, one a multiprocessor) are shared out evenly, and launch
+    i takes the most tiles whose CTAs fit in its waves (at least one,
+    leaving one for each later launch; the last takes the rest).  So no
+    launch but the last leaves most multiprocessors idle while a last
+    wave of a few CTAs runs, and the launches take about the waves of
+    one launch."""
+    nt = len(ctas)
+    cum = list(itertools.accumulate(ctas, initial=0))
+    waves = -(-cum[-1] // sms)
+    bounds = [0]
+    for i in range(1, n):
+        share = round(i * waves / n) - round((i - 1) * waves / n)
+        x = bisect.bisect_right(cum, cum[bounds[-1]] + share * sms) - 1
+        bounds.append(min(max(x, bounds[-1] + 1), nt - (n - i)))
+    return bounds + [nt]
+
+
 def sym_credits_segmented(g, m, h, scal, lo, hi, usable, dom_ok,
                           add_sd_zero, rsq_thr: float, *, n_samples: int,
                           has_missing: bool, block_size: int, n_rows: int,
@@ -324,12 +444,19 @@ def sym_credits_segmented(g, m, h, scal, lo, hi, usable, dom_ok,
     (``nldsc_tpu/ld/pipeline.py:346-359``).  ``n_rows``: the real rows
     (the padding rows after them are not counted).
 
-    CUDA tensors launch the kernel once per segment
-    (:func:`range_partials`, the segment's bounds rounded to the kernel's
-    tile, the whole pass's band) and fold all the segments' partials once:
-    the result equals one launch's bit for bit.  CPU tensors run the twin
-    (``ld_int8.sym_scan_segment``) per segment and add the segments'
-    credit vectors in order, as the reference adds its segments'."""
+    CUDA tensors launch the kernel once per segment that holds a pivot
+    tile of the kernel (:func:`range_partials`, the whole pass's band),
+    each writing its pivot tiles' slots straight into the whole pass's
+    partials (:func:`new_partials`), all enqueued before the first wait:
+    an event after each launch, and a segment's tick once the launch
+    that holds its last tile has completed.  The launches' tiles are cut
+    at whole waves of the card's multiprocessors (:func:`wave_bounds`:
+    one CTA a multiprocessor, the kernel's shared memory), not at the
+    segments' edges.  One fold of all the partials: the result equals one
+    launch's bit for bit.  CPU tensors
+    run the twin (``ld_int8.sym_scan_segment``) per segment and add the
+    segments' credit vectors in order, as the reference adds its
+    segments'."""
     segs = segments(n_rows, block_size, progress is not None)
     if len(segs) == 1:
         return sym_credits(g, m, h, scal, lo, hi, usable, dom_ok,
@@ -338,43 +465,47 @@ def sym_credits_segmented(g, m, h, scal, lo, hi, usable, dom_ok,
                            annot=annot)
     args = (g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero, rsq_thr)
     kw = dict(n_samples=n_samples, has_missing=has_missing)
-    cuda = g.device.type == "cuda"
     B = block_size
-    if cuda:
-        T = tile(has_missing)
-        nt = g.shape[0] // T
-        band = ld_int8.band_extent(hi, T)[1]
-        # segment i's pivot tiles [edges[i], edges[i + 1])
-        edges = [0, *(min(-(-s0 * B // T), nt) for s0, _ in segs[1:]), nt]
-        parts = None
-    else:
+    rows_done = [min(sum(nb for _, nb in segs[:i + 1]) * B, n_rows)
+                 for i in range(len(segs))]
+    if g.device.type != "cuda":
         right_k = ld_int8.band_extent(hi, B)[1]
         totals = None
-    progress(0, n_rows)
-    done = 0
-    for i, (s0, nb) in enumerate(segs):
-        if cuda:
-            x0, x1 = edges[i], edges[i + 1]
-            if x1 > x0:
-                seg = range_partials(*args, x0, x1, band=band, block_size=B,
-                                     annot=annot, **kw)
-                if parts is None:       # the whole pass's partials
-                    parts = [None if x is None else
-                             x.new_zeros((nt, *x.shape[1:])) for x in seg]
-                for whole, x in zip(parts, seg):
-                    if x is not None:
-                        whole[x0:x1] = x
-                del seg
-            torch.cuda.current_stream(g.device).synchronize()
-        else:
+        progress(0, n_rows)
+        for (s0, nb), done in zip(segs, rows_done):
             accs = ld_int8.sym_scan_segment(
                 *args, s0, annot, block_size=B, right_k=right_k,
                 n_scan_blocks=nb, dot_dtype=ld_int8.dot_dtype_of(g), **kw)
             totals = accs if totals is None else tuple(
                 a + b for a, b in zip(totals, accs))
-        done = min(done + nb * B, n_rows)
+            progress(done, n_rows)
+        return totals
+    T = tile(has_missing)
+    nt = g.shape[0] // T
+    tile_hi, band = ld_int8.band_extent(hi, T)
+    # segment i's last pivot tile ends at edges[i + 1]
+    edges = [0, *(min(-(-s0 * B // T), nt) for s0, _ in segs[1:]), nt]
+    n_launch = sum(x1 > x0 for x0, x1 in zip(edges, edges[1:]))
+    ctas = [max(0, min(x_hi, nt - 1) - x + 1)
+            for x, x_hi in enumerate(tile_hi.tolist())]
+    bounds = wave_bounds(
+        ctas, n_launch,
+        torch.cuda.get_device_properties(g.device).multi_processor_count)
+    parts = new_partials(nt, band, T, 0 if annot is None else annot.shape[1],
+                         g.device)
+    stream = torch.cuda.current_stream(g.device)
+    progress(0, n_rows)
+    events = []
+    for x0, x1 in zip(bounds, bounds[1:]):
+        range_partials(*args, x0, x1, band=band, block_size=B, annot=annot,
+                       out=tuple(None if x is None else x[x0:x1]
+                                 for x in parts), **kw)
+        events.append(torch.cuda.Event())
+        events[-1].record(stream)
+    for end, done in zip(edges[1:], rows_done):
+        events[max(bisect.bisect_left(bounds, end) - 1, 0)].synchronize()
         progress(done, n_rows)
-    return fold_partials(*parts) if cuda else totals
+    return fold_partials(*parts)
 
 
 def sym_credits(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,

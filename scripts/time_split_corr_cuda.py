@@ -3,7 +3,7 @@
 
     python3 scripts/time_split_corr_cuda.py [--m 65536] [--n 16384]
         [--half-window 1000] [--row-frac 0.05] [--entry-rate 0.02]
-        [--reps 5] [--dot-dtype bf16]
+        [--reps 5] [--dot-dtype bf16] [--annot 53]
 
 Seeded random genotype codes are made on the card (MAF 0.05-0.5 per SNP),
 then ``--entry-rate`` of the codes of ``--row-frac`` of the rows are set
@@ -21,13 +21,23 @@ K2's bf16 instantiations are held bitwise against the int8 ones
 (``chip_smoke.check_k2_bf16``: products mode and ``split_corrections``)
 and timed beside them (int8, bf16, bf16, int8) with the bf16 bound, and
 the yardstick is a bf16 product with float32 sums on the same products.
-The last line is one JSON object of the numbers.
+With ``--annot P`` the fused annotation instantiation is held against the
+twin (plain δ bitwise the plain call's, annotation δ within KERNEL_TOL)
+and ``split_corrections(annot=)`` with P seeded annotations is timed
+beside the plain call (plain, annot, annot, plain), with the device time
+inside K2 and in the other ops (profiler) and the bound
+(``chip_smoke.annot_bound``).  Every mode prints, per kernel function of
+the build, its SASS instruction count and a hash of its SASS and of its
+opcodes (``cuobjdump -sass``), so that two checkouts' builds of K2 can be
+compared.  The last line is one JSON object of the numbers.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -105,6 +115,103 @@ def time_bf16(sargs, opt, card: str, ptxas: list) -> int:
     return 0
 
 
+def sass_digest(name: str) -> dict:
+    """Per kernel function of the built ``csrc/<name>.cu`` (keyed by its
+    name from ``_kernel`` on, without the anonymous namespace): the
+    instruction count and hashes of its SASS lines and of its opcodes."""
+    cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
+    text = subprocess.run(
+        [str(cuobjdump), "-sass", str(_build.library_path(name))],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    out = {}
+    for part in re.split(r"\n\s*Function : ", text)[1:]:
+        fname, body = part.split("\n", 1)
+        key = re.search(r"[a-z_]+_kernelI\w*?EE", fname)
+        instr = [ln.strip() for ln in body.splitlines()
+                 if re.match(r"\s*/\*[0-9a-f]{4,}\*/", ln)]
+        ops = [re.sub(r"/\*[0-9a-f]+\*/\s*", "", ln).split(" ")[0]
+               for ln in instr]
+        out[key.group(0) if key else fname.strip()] = {
+            "instructions": len(instr),
+            "sass_sha": hashlib.sha256("\n".join(instr).encode())
+            .hexdigest()[:16],
+            "ops_sha": hashlib.sha256(" ".join(ops).encode())
+            .hexdigest()[:16]}
+    return out
+
+
+def device_split(fn, reps: int = 3) -> tuple[float, float]:
+    """Device milliseconds per call of ``fn`` inside K2 and in the other
+    device ops, from the profiler."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    k2_ms = other_ms = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / 1e3 / reps
+        if "split_corr_kernel" in e.key:
+            k2_ms += ms
+        else:
+            other_ms += ms
+    return k2_ms, other_ms
+
+
+def time_annot(sargs, opt, card: str, ptxas: list, sass: dict,
+               dev) -> int:
+    """``split_corrections(annot=)`` with ``opt.annot`` seeded
+    annotations: held against the plain call and the twin, then timed
+    beside the plain call in turns."""
+    from nldsc_tpu_torch.ld import ld_split
+
+    p = opt.annot
+    m_pad = sargs[0].shape[0]
+    annot = chip_smoke.seeded_annot(torch, m_pad, opt.m, p, opt.seed, dev)
+
+    def k2(a=None):
+        return ld_split.split_corrections(*sargs, a, n_samples=opt.n)
+
+    kern, plain = k2(annot), k2()
+    if not all(torch.equal(a, b) for a, b in zip(kern[:3], plain)):
+        raise RuntimeError("the plain δ of an annot call differ from a "
+                           "plain call's")
+    err = chip_smoke.hold_accumulators(
+        kern[3:], ld_split.split_corrections_plain(
+            *sargs, annot, n_samples=opt.n)[3:],
+        "split_corrections annotation δ against its twin")
+    del kern, plain
+    ms_plain, ms, ms2, ms_plain2 = (
+        chip_smoke.cuda_ms(torch, f, 2 * opt.reps)
+        for f in (k2, lambda: k2(annot), lambda: k2(annot), k2))
+    k2_ms, other_ms = device_split(lambda: k2(annot))
+    k2_plain_ms, other_plain_ms = device_split(k2)
+    work = chip_smoke.k2_work(sargs)
+    work_a = chip_smoke.annot_bound(work, work["pairs"], m_pad, p,
+                                    work["int8_ops"], work["f32_ops"])
+    print(f"split_corrections(annot=) p={p}, {sargs[-1]['n_miss']} "
+          f"contaminated rows: {ms:.3f} / {ms2:.3f} ms against "
+          f"{ms_plain:.3f} / {ms_plain2:.3f} ms without annotations "
+          f"(plain, annot, annot, plain); device time per call: K2 "
+          f"{k2_ms:.3f} ms, other ops {other_ms:.3f} ms (plain: "
+          f"{k2_plain_ms:.3f} / {other_plain_ms:.3f}); bound "
+          f"{work_a['bound_ms']:.3f} ms ({work_a['bound_by']}), "
+          f"{100 * work_a['bound_ms'] / min(ms, ms2):.1f}% of it; max "
+          f"|annotation δ| diff vs twin {err:.3g}; on {card}", flush=True)
+    print(json.dumps({"card": card, "m": opt.m, "n": opt.n, "p": p,
+                      "n_miss": sargs[-1]["n_miss"], "ms": [ms, ms2],
+                      "plain_ms": [ms_plain, ms_plain2], "k2_ms": k2_ms,
+                      "other_ms": other_ms, "k2_plain_ms": k2_plain_ms,
+                      "other_plain_ms": other_plain_ms,
+                      "max_abs_err": err, "bound_ms": work_a["bound_ms"],
+                      "bound_by": work_a["bound_by"], "ptxas": ptxas,
+                      "sass": sass}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--m", type=int, default=65_536)
@@ -116,6 +223,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=2026)
     ap.add_argument("--dot-dtype", choices=["int8", "bf16"], default="int8",
                     help="the operand type of the instantiations timed")
+    ap.add_argument("--annot", type=int, default=0, metavar="P",
+                    help="check and time split_corrections with P "
+                         "annotations instead")
     opt = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -131,10 +241,15 @@ def main() -> int:
              .splitlines() if "registers" in ln or "spill" in ln
              or "C75" in ln]
     print("ptxas: " + " | ".join(ptxas), flush=True)
+    sass = sass_digest("split_corr")
+    for k, v in sass.items():
+        print(f"sass {k}: {v}", flush=True)
     args, codes = engine_args(opt.m, opt.n, opt.half_window, opt.row_frac,
                               opt.entry_rate, opt.seed, dev)
     sargs = chip_smoke.split_args(args, codes, opt.n)
     plan = sargs[-1]
+    if opt.annot:
+        return time_annot(sargs, opt, card, ptxas, sass, dev)
     if opt.dot_dtype == "bf16":
         return time_bf16(sargs, opt, card, ptxas)
     t = chip_smoke.split_timing(torch, args, sargs, codes, opt.n, opt.reps)
@@ -147,7 +262,7 @@ def main() -> int:
            "p_band": plan["p_band"], "p_x": plan["p_x"],
            "n_segs": plan["n_segs"], "ptxas": ptxas,
            **{k: v for k, v in t.items() if k != "other"},
-           "largest_other_ops": t["other"][:6]}
+           "largest_other_ops": t["other"][:6], "sass": sass}
     print(json.dumps(out))
     return 0
 

@@ -66,6 +66,7 @@ def _annot(rng, m, p=3):
     """The all-ones base, a binary, and continuous annotations."""
     cols = [np.ones(m), (rng.random(m) < 0.3).astype(np.float64),
             rng.uniform(0, 2, m), rng.uniform(0, 1, m)]
+    cols += [rng.uniform(0, 1, m) for _ in range(p - len(cols))]
     return np.column_stack(cols[:p])
 
 
@@ -137,7 +138,7 @@ def test_read_annot_refuses_bad_files(tmp_path, text, match):
 
 # --- engines ---------------------------------------------------------------
 
-def _sym_inputs(rng, case):
+def _sym_inputs(rng, case, p=4):
     g, pos, B = sym._case(rng, case)
     e = sym._engine_inputs(g, pos, B)
     pre, m_pad = e["pre"], e["lo"].shape[0]
@@ -145,13 +146,19 @@ def _sym_inputs(rng, case):
              jnp.asarray(e["lo"]), jnp.asarray(e["hi"]), pre["usable"],
              e["dom_ok"], pre["add_sd_zero"])
     inp, args = sym._port_args(e)
-    annot = _annot(rng, g.shape[0], 4)
+    annot = _annot(rng, g.shape[0], p)
     return g, pos, B, e, jargs, inp, args, annot, annot_from_jax(annot, m_pad)
 
 
-@pytest.mark.parametrize("case", ["clean", "missing"])
-def test_twin_annot_matches_jax(rng, case):
-    g, pos, B, e, jargs, inp, args, annot, a_t = _sym_inputs(rng, case)
+# p = 64 and 97: the widths of two whole and four chunks of the kernels'
+# annotation epilogue (97: baselineLD v2.2)
+@pytest.mark.parametrize("case, p", [
+    ("clean", 4), ("missing", 4), ("clean", 64), ("missing", 64),
+    ("clean", 97), ("missing", 97)],
+    ids=["clean", "missing", "clean-p64", "missing-p64", "clean-p97",
+         "missing-p97"])
+def test_twin_annot_matches_jax(rng, case, p):
+    g, pos, B, e, jargs, inp, args, annot, a_t = _sym_inputs(rng, case, p)
     m_pad = a_t.shape[0]
     theirs = jax_int8.sym_scan_segment(
         *jargs, jnp.float32(RSQ), jnp.int32(0), jnp.asarray(a_t.numpy()),
@@ -174,7 +181,7 @@ def test_twin_annot_matches_jax(rng, case):
     for at in (0, 3, 6, 7):
         np.testing.assert_allclose(ours[at].numpy(), np.asarray(theirs[at]),
                                    **ACC_TOL)
-    assert ours[6].shape == (m_pad, 4) and ours[6].abs().max() > 0
+    assert ours[6].shape == (m_pad, p) and ours[6].abs().max() > 0
 
 
 @pytest.mark.parametrize("case", ["clean", "missing"])

@@ -189,10 +189,13 @@ def twin_annot(args, n, has_missing, T, annot, scan_rows=None):
         torch.backends.cuda.matmul.allow_tf32 = saved
 
 
-# p = 37 spans two passes of 32 annotations; the cases cover one and
-# several staged column blocks and band slots of both branches
+# p = 37 spans two chunks of 32 annotations, 64 two whole ones, 97 four
+# (the last 8 wide) and nearly all the row credits a clean launch keeps,
+# 130 two clean launches a call (groups of annot_max annotations); the
+# cases cover one and both staged halves and several band slots of both
+# branches
 @pytest.mark.gpu
-@pytest.mark.parametrize("p", [1, 5, 37])
+@pytest.mark.parametrize("p", [1, 5, 37, 64, 97, 130])
 @pytest.mark.parametrize("case", ["clean", "missing", "multi_tile_band",
                                   "clean_multi_tile_band", "edge_clamp",
                                   "ring_wrap_clean"])
@@ -206,8 +209,9 @@ def test_kernel_annot_matches_twin(rng, cuda, case, p):
     kern = ld_pallas_sym.sym_credits(*args, RSQ, annot=annot, **kw)
     again = ld_pallas_sym.sym_credits(*args, RSQ, annot=annot, **kw)
     torch.cuda.synchronize()
+    per_call = -(-p // ld_pallas_sym.annot_max(has_missing))
     assert (ld_pallas_sym.launches, ld_pallas_sym.annot_launches) == (
-        before[0] + 2, before[1] + 2)
+        before[0] + 2 * per_call, before[1] + 2 * per_call)
     assert len(kern) == 8
     for a, b in zip(kern, again):
         assert torch.equal(a, b)                 # bitwise run to run
@@ -222,6 +226,92 @@ def test_kernel_annot_matches_twin(rng, cuda, case, p):
         for a, b in zip((kern[6][:, 0], kern[7][:, 0]), (kern[0], kern[3])):
             np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                        **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["segments_clean", "segments_missing"])
+def test_segmented_annot_pass_allocates_one_partials_buffer(rng, cuda, case):
+    # the 16 segments write into one set of whole-pass partials, zero-filled
+    # once: no buffer per segment, no copy; bitwise one launch
+    args, n, has_missing, m = engine_args(rng, case, cuda)
+    p = 37
+    annot = seeded_annot(rng, args[0].shape[0], m, p, cuda)
+    kw = dict(n_samples=n, has_missing=has_missing, annot=annot)
+    T = ld_pallas_sym.tile(has_missing)
+    one = ld_pallas_sym.sym_credits(*args, RSQ, block_size=T, **kw)
+    ticks = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    before = (ld_pallas_sym.partials_allocs, ld_pallas_sym.launches)
+    seg = ld_pallas_sym.sym_credits_segmented(
+        *args, RSQ, block_size=128, n_rows=m,
+        progress=lambda done, total: ticks.append((done, total)), **kw)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - mem0
+    assert (ld_pallas_sym.partials_allocs, ld_pallas_sym.launches) == (
+        before[0] + 1, before[1] + 16)
+    assert ticks == [(128 * i, m) for i in range(17)]
+    for a, b in zip(seg, one):
+        assert torch.equal(a, b)
+    m_pad = args[0].shape[0]
+    band = ld_int8.band_extent(args[5], T)[1]
+    parts = (m_pad // T) * band * T * (2 * 2 + 2 * 4 + 2 * 2 * p) * 4
+    # the whole pass's partials, the folded vectors and the fold's sums
+    # per tile: less than one more segment's partials
+    outs = m_pad * (6 + 2 * p) * 4
+    assert peak <= parts + 3 * outs, (peak, parts, outs)
+
+
+# new_partials leaves the annotation partials unfilled: a launch must write
+# every slot of its pivot tiles (zeros past the windows and in the diagonal
+# tile's column slots included) and nothing past them.  Annotation partials
+# filled with NaN must come out bitwise as zero-filled ones; p = 130 is two
+# clean launches, the ranges cover fewer pivot tiles than the launch's rows
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [5, 37, 130])
+@pytest.mark.parametrize("case", ["clean", "missing", "multi_tile_band",
+                                  "clean_multi_tile_band"])
+def test_kernel_writes_every_annot_partial_slot(rng, cuda, case, p):
+    args, n, has_missing, m = engine_args(rng, case, cuda)
+    T = ld_pallas_sym.tile(has_missing)
+    annot = seeded_annot(rng, args[0].shape[0], m, p, cuda)
+    nt = args[0].shape[0] // T
+    band = ld_int8.band_extent(args[5], T)[1]
+    kw = dict(n_samples=n, has_missing=has_missing, band=band,
+              block_size=T, annot=annot)
+
+    def parts_with(fill):
+        # the plain partials zero-filled, as new_partials gives them
+        parts = ld_pallas_sym.new_partials(nt, band, T, p, cuda)
+        parts[2].fill_(fill)
+        return parts
+
+    ref = ld_pallas_sym.sym_partials(*args, RSQ, out=parts_with(0.0), **kw)
+    got = ld_pallas_sym.sym_partials(*args, RSQ,
+                                     out=parts_with(float("nan")), **kw)
+    torch.cuda.synchronize()
+    assert not torch.isnan(got[2]).any(), "annotation slots left unwritten"
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    # pivot tiles [0, x1) into a whole pass's partials whose later tiles
+    # hold sentinels, then [x1, nt)
+    x1 = max(1, nt // 2)
+    parts = parts_with(float("nan"))
+    parts[0][x1:] = float("nan")
+    parts[1][x1:] = -7
+    ld_pallas_sym.range_partials(*args, RSQ, 0, x1, out=parts, **kw)
+    torch.cuda.synchronize()
+    assert torch.isnan(parts[0][x1:]).all(), "plain partials past n_piv"
+    assert bool((parts[1][x1:] == -7).all()), "counters past n_piv"
+    assert torch.isnan(parts[2][x1:]).all(), "annotation partials past n_piv"
+    for a, b in zip(parts, ref):
+        assert torch.equal(a[:x1], b[:x1])
+    parts[0][x1:], parts[1][x1:] = 0.0, 0
+    ld_pallas_sym.range_partials(*args, RSQ, x1, nt,
+                                 out=tuple(x[x1:] for x in parts), **kw)
+    for a, b in zip(parts, ref):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

@@ -99,12 +99,9 @@ def test_logger_skips_zero_and_prints_an_eta(port_log):
     assert lines[1].endswith("| ETA 0.0s")
 
 
-@pytest.mark.parametrize("has_missing, p", [(False, 0), (True, 0),
-                                            (True, 2)])
-def test_range_partials_put_together_equal_one_call(rng, has_missing, p):
-    # consecutive tile ranges, their halos' windows emptied, give each
-    # pivot tile the partials of one call over all the tiles
-    m, n, T = 256, 96, 16
+def _range_args(rng, has_missing, p, m=256, n=96, T=16):
+    """Engine inputs of ``m`` rows on the CPU, ``p`` annotations (None at
+    0), and the keywords of a whole pass's band in tiles of ``T``."""
     g = random_genotypes(rng, m, n, missing_rate=0.03 if has_missing else 0)
     pos = make_positions(m, spacing=500, jitter_rng=rng)
     lo, hi, ok = (torch.from_numpy(x) for x in
@@ -119,10 +116,18 @@ def test_range_partials_put_together_equal_one_call(rng, has_missing, p):
     annot = (torch.from_numpy(rng.random((m, p)).astype(np.float32))
              if p else None)
     band = ld_int8.band_extent(hi, T)[1]
-    kw = dict(n_samples=n, has_missing=has_missing, band=band,
-              block_size=T, annot=annot)
+    return args, dict(n_samples=n, has_missing=has_missing, band=band,
+                      block_size=T, annot=annot)
+
+
+@pytest.mark.parametrize("has_missing, p", [(False, 0), (True, 0),
+                                            (True, 2)])
+def test_range_partials_put_together_equal_one_call(rng, has_missing, p):
+    # consecutive tile ranges, their halos' windows emptied, give each
+    # pivot tile the partials of one call over all the tiles
+    args, kw = _range_args(rng, has_missing, p)
     one = ld_pallas_sym.sym_partials(*args, **kw)
-    nt = m // T
+    nt, band = 256 // 16, kw["band"]
     assert band > 1
     pieces = [ld_pallas_sym.range_partials(*args, x0, x1, **kw)
               for x0, x1 in ((0, 3), (3, 4), (4, 11), (11, nt))]
@@ -131,6 +136,46 @@ def test_range_partials_put_together_equal_one_call(rng, has_missing, p):
             assert all(x is None for x in parts)
         else:
             assert torch.equal(whole, torch.cat(parts))
+
+
+@pytest.mark.parametrize("has_missing, p", [(False, 0), (True, 0),
+                                            (False, 37), (True, 37)])
+def test_range_partials_into_one_buffer_equal_one_call(rng, has_missing, p):
+    # as the segmented pass on the card: one set of zero-filled partials
+    # for the whole pass, each range writing its tiles' slots into it
+    args, kw = _range_args(rng, has_missing, p)
+    one = ld_pallas_sym.sym_partials(*args, **kw)
+    nt = 256 // 16
+    whole = ld_pallas_sym.new_partials(nt, kw["band"], 16, p, "cpu")
+    assert (whole[2] is None) == (p == 0)
+    for x0, x1 in ((0, 3), (3, 4), (4, 11), (11, nt)):
+        got = ld_pallas_sym.range_partials(
+            *args, x0, x1, out=tuple(None if x is None else x[x0:x1]
+                                     for x in whole), **kw)
+        for a, b in zip(got, whole):
+            assert (a is None and b is None) or (
+                a.data_ptr() == b[x0:x1].data_ptr())
+    for a, b in zip(one, whole):
+        if a is None:
+            assert b is None
+        else:
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_wave_bounds_cut_the_launches_at_whole_waves():
+    # the chromosome shape of K1's clean branch: 512 pivot tiles of 9
+    # CTAs (the last few fewer), 132 multiprocessors, 16 launches
+    ctas = [9] * 500 + [5, 4, 3, 2, 1] + [0] * 7
+    b = ld_pallas_sym.wave_bounds(ctas, 16, 132)
+    assert len(b) == 17 and b[0] == 0 and b[-1] == len(ctas)
+    assert all(x0 < x1 for x0, x1 in zip(b, b[1:]))
+    waves = [-(-sum(ctas[x0:x1]) // 132) for x0, x1 in zip(b, b[1:])]
+    assert sum(waves) == -(-sum(ctas) // 132) == 35
+    # the segments' own edges (32 tiles, 288 CTAs each) take 3 waves each
+    assert sum(-(-sum(ctas[x:x + 32]) // 132)
+               for x in range(0, 512, 32)) == 47
+    # as many launches as tiles: one tile each
+    assert ld_pallas_sym.wave_bounds([4] * 16, 16, 132) == list(range(17))
 
 
 def test_segments_are_the_reference_count():
