@@ -107,14 +107,19 @@ Phases, one line each (or a few):
      bitwise equal to a launch without annotations, the accumulators
      within KERNEL_TOL: the ``max_abs_err`` of the kernels line), its
      time beside the plain launch's, its bound, the full-band torch
-     engine at that shape, and peak device memory;
+     engine at that shape, and peak device memory; K2's line adds the
+     epilogue's own cost, its launches' and the other ops' device time
+     (profiler), its live tiles and partial bytes, and one float32
+     ``torch.bmm`` per direction over the live tiles as a yardstick;
  20. the bf16 instantiations (``--dot-dtype bf16``) at phase 5's shape:
      K1's four (clean and annotated on phase 5's rows, 8-product and
      annotated on phase 9's with its real missing genotypes, p=53) and
      K2's products and fused modes (with and without annotations) on
      phase 9's split inputs, each bitwise equal to its int8 instantiation
      and within KERNEL_TOL of its twin (``dot_dtype="bf16"``), timed
-     beside int8 (int8, bf16, bf16, int8) with its bf16 bound; the
+     beside int8 (int8, bf16, bf16, int8) with its bf16 bound (K2
+     annotated also beside bf16 without annotations, with its device
+     time and the ``torch.bmm`` yardstick); the
      exactness probe at N_pad = 4,194,304 (Sgg = 2^24); ptxas's 16
      instantiations without a spill; a dense bf16 product with float32
      sums as a yardstick (the port never calls it);
@@ -453,9 +458,9 @@ def annot_bound(work: dict, pairs: int, m_pad: int, p: int,
     """A kernel's work with its annotation epilogue: ``work`` (its plain
     ``bytes``) plus 4 contractions x 2 float32 operations x ``p`` per
     counted pair, the annotation matrix read once and the two (m_pad, p)
-    accumulators written once.  On CUDA cores (K2) those operations run
-    at the float32 rate; on the tensor cores (``tensor_cores``, K1) each
-    is three tf32 products (hi + lo split) at the tf32 rate.  The
+    accumulators written once.  On the tensor cores (``tensor_cores``, K1
+    and K2) each is three tf32 products (hi + lo split) at the tf32 rate;
+    else those operations run at the float32 rate.  The
     operations' times add (the products, then the epilogue's); the bound
     is the larger of that and the bytes' time."""
     epi_ops = 4.0 * 2.0 * p * pairs
@@ -559,6 +564,157 @@ def epilogue_bmm_ms(torch, values: tuple, annot, reps: int = 3) -> dict:
     del a_cols, a_rows
     return {"rows_ms": rows_ms, "cols_ms": cols_ms, "ms": rows_ms + cols_ms,
             "shape": f"({2 * nt}, {T}, {bT}) x ({2 * nt}, {bT}, {p})"}
+
+
+def k2_epilogue_bmm_ms(torch, n_live: int, p: int, dev,
+                       reps: int = 3) -> dict:
+    """The library yardstick of K2's annotation epilogue: one float32
+    ``torch.bmm`` per direction (TF32 off, set and restored) with the
+    contraction's shape over the ``n_live`` live tiles, both values, on
+    seeded operands: the rows, ``(2 n_live, 128, 32) x (2 n_live, 32, p)``
+    (the staged credits to x, the compact columns' annotations), and the
+    mirrored columns, ``(2 n_live, 32, 128) x (2 n_live, 128, p)``.
+    Returns the two times, their sum ``ms`` and the shapes."""
+    from nldsc_tpu_torch.ld import ld_split
+
+    TM, TC, B = ld_split.TILE_X, ld_split.TILE_C, 2 * n_live
+    gen = torch.Generator(device=dev).manual_seed(2026)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    v_row, a_col, v_col, a_row = (rand(B, TM, TC), rand(B, TC, p),
+                                  rand(B, TC, TM), rand(B, TM, p))
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        rows_ms = cuda_ms(torch, lambda: torch.bmm(v_row, a_col), reps)
+        cols_ms = cuda_ms(torch, lambda: torch.bmm(v_col, a_row), reps)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    del v_row, a_col, v_col, a_row
+    return {"rows_ms": rows_ms, "cols_ms": cols_ms, "ms": rows_ms + cols_ms,
+            "shape": f"({B}, {TM}, {TC}) x ({B}, {TC}, {p}) and ({B}, {TC}, "
+                     f"{TM}) x ({B}, {TM}, {p})"}
+
+
+def aux_timing(torch, sargs, p: int, dev, reps: int = 10) -> dict:
+    """K2's two small kernels of ``split_corrections(annot=)`` on
+    ``split_args`` inputs, each held against its plain version on the card
+    (bitwise) and timed beside it, with its bound (each input read once,
+    each output written once): the reach kernel (``ld_split.live_tiles``:
+    the fused launch's live tiles) and the fold kernel
+    (``ld_split.fold_annot``) on seeded partials of the live tiles' shape,
+    whose library yardstick is ``index_add_`` of the row and the column
+    partials into the output (two calls, their order of addition not
+    fixed; none for the reach kernel)."""
+    from nldsc_tpu_torch.ld import ld_split
+
+    g, _, _, _, lo, hi, *_, plan = sargs
+    m_pad, S, P = g.shape[0], plan["seg_rows"], plan["p_band"]
+    TM, TC = ld_split.TILE_X, ld_split.TILE_C
+    ops = ld_split._operands(*sargs[:3], plan)
+    seg, cidx = ops["seg_x"], ops["cidx"]
+    reach_args = (seg, lo, hi, cidx, S, P)
+    before = (ld_split.reach_launches, ld_split.fold_launches)
+    live = ld_split.live_tiles(*reach_args)
+    if not torch.equal(live, ld_split.live_tiles_plain(*reach_args)):
+        raise RuntimeError("the reach kernel differs from its plain version")
+    slot = ld_split.tile_slots(live)
+    n_live = int(slot.max()) + 1
+    gen = torch.Generator(device=dev).manual_seed(2026)
+    pld = ld_split.annot_ld(p)
+    rpa = torch.randn((n_live, 2, TM, pld), generator=gen, device=dev)
+    cpa = torch.randn((n_live, TC, 2, pld), generator=gen, device=dev)
+    real = cidx[:plan["n_miss"]]
+    args = (rpa, cpa, slot, seg, real, S, m_pad, p)
+    kern, plain = ld_split.fold_annot(*args), ld_split.fold_annot_plain(*args)
+    if (ld_split.reach_launches, ld_split.fold_launches) != (
+            before[0] + 1, before[1] + 1):
+        raise RuntimeError("the reach and fold kernels were not launched")
+    if not all_bits_equal(torch, kern, plain):
+        raise RuntimeError("the annotation fold kernel differs from its "
+                           "plain version")
+    # the yardstick's destinations: every slot row's output row (v, gx),
+    # every slot column's (v, its compact row's global row); the rows
+    # and columns no output takes go to a last row
+    n_xt, n_ct = slot.shape[1:]
+    tiles = torch.nonzero(slot.view(-1) >= 0).view(-1)
+    t_sx, ct = tiles // n_ct, tiles % n_ct
+    t_s, xt = t_sx // n_xt, t_sx % n_xt
+    fl = seg.long()
+    v = torch.arange(2, device=dev)
+    xl = xt[:, None] * TM + torch.arange(TM, device=dev)
+    gx = fl[t_s, 0][:, None] + xl
+    owned = (gx >= fl[t_s, 3][:, None]) & (xl < S)
+    dest_r = torch.where(owned[:, None], v[:, None] * m_pad + gx[:, None],
+                         2 * m_pad)
+    cl = ct[:, None] * TC + torch.arange(TC, device=dev)
+    cc = (fl[t_s, 1][:, None] + cl).clamp(max=real.shape[0] - 1)
+    dest_c = torch.where((cl < fl[t_s, 2][:, None])[:, :, None],
+                         v * m_pad + real.long()[cc][:, :, None], 2 * m_pad)
+    out = torch.zeros((2 * m_pad + 1, p), device=dev)
+    rows_src, cols_src = (t[..., :p].reshape(-1, p) for t in (rpa, cpa))
+    dr, dc = dest_r.reshape(-1), dest_c.reshape(-1)
+
+    def library():
+        out.index_add_(0, dr, rows_src)
+        out.index_add_(0, dc, cols_src)
+
+    f_bytes = (rpa.nbytes + cpa.nbytes + slot.nbytes + seg.nbytes
+               + real.nbytes + 2 * 4 * m_pad * p)
+    r_bytes = lo.nbytes + hi.nbytes + cidx.nbytes + seg.nbytes + 4 * slot.numel()
+    out_d = {
+        "fold": {"ms": cuda_ms(torch, lambda: ld_split.fold_annot(*args),
+                               reps),
+                 "plain_ms": cuda_ms(
+                     torch, lambda: ld_split.fold_annot_plain(*args), 3),
+                 "library_ms": cuda_ms(torch, library, reps),
+                 "max_abs_err": 0.0, "live_tiles": n_live, "bytes": f_bytes,
+                 **bound(0.0, f_bytes)},
+        "reach": {"ms": cuda_ms(torch,
+                                lambda: ld_split.live_tiles(*reach_args),
+                                reps),
+                  "plain_ms": cuda_ms(
+                      torch, lambda: ld_split.live_tiles_plain(*reach_args),
+                      3),
+                  "library_ms": None, "max_abs_err": 0.0,
+                  "tiles": slot.numel(), "live_tiles": n_live,
+                  "bytes": r_bytes, **bound(0.0, r_bytes)}}
+    del rpa, cpa, rows_src, cols_src, out, kern, plain
+    return out_d
+
+
+def k2_device_split(torch, fn, reps: int = 3) -> dict:
+    """Device milliseconds per call of ``fn`` (``split_corrections``),
+    from the profiler: K2's fused launch, its products launch (d) and
+    every other device op (``other``; ``n_other`` of them per call).  One
+    call runs first as the profiler's warm-up step: without it a phase
+    19 run on the H100 recorded the kernels of two calls of three."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA],
+            schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                             active=reps)) as prof:
+        for i in range(reps + 1):
+            fn()
+            torch.cuda.synchronize()
+            if i < reps:     # the last active step ends with the profile
+                prof.step()
+    out = {"fused": 0.0, "products": 0.0, "other": 0.0, "n_other": 0}
+    for e in prof.key_averages():
+        # the steps' own ranges span their device time: not an op
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.key.startswith("ProfilerStep")):
+            continue
+        ms = e.self_device_time_total / 1e3 / reps
+        if "split_corr_kernel" in e.key:
+            fused = "<true" in e.key or "ILb1E" in e.key
+            out["fused" if fused else "products"] += ms
+        else:
+            out["other"] += ms
+            out["n_other"] += e.count // reps
+    return out
 
 
 def check_k1_annot(torch, args, n: int, has_missing: bool, annot,
@@ -835,6 +991,8 @@ def launch_counts() -> dict:
             "split_corr": ld_split.corr_launches,
             "split_fused": ld_split.fused_launches,
             "split_annot": ld_split.annot_launches,
+            "split_reach": ld_split.reach_launches,
+            "split_fold": ld_split.fold_launches,
             "split_bf16": ld_split.bf16_launches,
             "ld_sym_by_device": dict(ld_pallas_sym.device_launches),
             "split_by_device": dict(ld_split.device_launches)}
@@ -847,6 +1005,7 @@ def reset_counts() -> None:
     ld_pallas_sym.annot_launches = ld_pallas_sym.bf16_launches = 0
     ld_split.corr_launches = ld_split.fused_launches = 0
     ld_split.annot_launches = ld_split.bf16_launches = 0
+    ld_split.reach_launches = ld_split.fold_launches = 0
     ld_pallas_sym.device_launches.clear()
     ld_split.device_launches.clear()
 
@@ -1401,12 +1560,17 @@ def annot_kernel_phase(torch, rng, dev) -> dict:
     annot = seeded_annot(torch, args[0].shape[0], 4096, p, 2026, dev)
     plain = ld_split.split_corrections(*sargs, n_samples=n)
     errs["split_corr annot"] = check_k2_annot(torch, sargs, n, annot, plain)
+    aux = aux_timing(torch, sargs, p, dev, reps=1)
+    errs["split_tile_reach"] = aux["reach"]["max_abs_err"]
+    errs["split_annot_fold"] = aux["fold"]["max_abs_err"]
     say("17 annot K2=twin", f"M=4096 N=3001 p={p}, "
         f"{sargs[-1]['n_miss']} contaminated rows: split_corrections(annot=) "
         "(1 products + 1 fused launch with the annotation epilogue): plain δ "
         "bitwise equal to the plain call, max |annotation δ| diff vs twin "
-        f"{errs['split_corr annot']:.3g}, runs bitwise equal")
-    for name, want in (("ld_sym", 8), ("split_corr", 8)):
+        f"{errs['split_corr annot']:.3g}, runs bitwise equal; its reach "
+        "and fold kernels bitwise equal to their plain versions")
+    # split_corr.cu: K2's eight instantiations, its reach and fold kernels
+    for name, want in (("ld_sym", 8), ("split_corr", 10)):
         log = _build.BUILD_INFO[name]["log"]
         entries = re.findall(r"Compiling entry function '(\w+)'", log)
         regs = re.findall(r"Used (\d+) registers", log)
@@ -1526,10 +1690,12 @@ def annot_full_width(torch, tmp: str, prefix5: str, out5: str, prefix6: str,
         c = r["launches"]
         got = (c["ld_sym"], c["ld_sym_8prod"], c["ld_sym_annot"],
                c["split_corr"], c["split_annot"])
-        if got != (k1, k1m, k1a, k2, k2a):
+        if got != (k1, k1m, k1a, k2, k2a) or (
+                c["split_reach"], c["split_fold"]) != (k2a, k2a):
             raise RuntimeError(f"phase 19 {tag}: launches {c}, expected K1 "
                                f"{k1} ({k1m} 8-product, {k1a} annot), K2 "
-                               f"{k2} ({k2a} annot)")
+                               f"{k2} ({k2a} annot, each with one reach and "
+                               "one fold launch)")
         tabs[tag] = read_l2(out)
         header = list(tabs[tag])
         want = (["CHR", "BP"] + [f"{x}.L2" for x in names]
@@ -1596,12 +1762,18 @@ def annot_full_width(torch, tmp: str, prefix5: str, out5: str, prefix6: str,
     out = {"launches": {
         "ld_sym annot": runs["clean"]["launches"]["ld_sym_annot"],
         "ld_sym annot 8-product": runs["global"]["launches"]["ld_sym_annot"],
-        "split_corr annot": runs["split"]["launches"]["split_annot"]},
+        "split_corr annot": runs["split"]["launches"]["split_annot"],
+        "split_tile_reach": runs["split"]["launches"]["split_reach"],
+        "split_annot_fold": runs["split"]["launches"]["split_fold"]},
         "launches_streamed": {
         "ld_sym annot": runs["clean streamed"]["launches"]["ld_sym_annot"],
         "ld_sym annot 8-product":
             runs["dense missing streamed"]["launches"]["ld_sym_annot"],
-        "split_corr annot": runs["split streamed"]["launches"]["split_annot"]}}
+        "split_corr annot": runs["split streamed"]["launches"]["split_annot"],
+        "split_tile_reach":
+            runs["split streamed"]["launches"]["split_reach"],
+        "split_annot_fold":
+            runs["split streamed"]["launches"]["split_fold"]}}
     args, n, _, _ = packed_inputs(torch, ds5.bed.read_raw().raw, ds5.n_samples,
                                   False, pos5, 100_000.0, dev)
     m_pad, n_pad = args[0].shape
@@ -1713,7 +1885,7 @@ def annot_full_width(torch, tmp: str, prefix5: str, out5: str, prefix6: str,
 
     work2 = k2_work(sargs)
     work2_a = annot_bound(work2, work2["pairs"], m_pad, p, work2["int8_ops"],
-                          work2["f32_ops"])
+                          work2["f32_ops"], tensor_cores=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_allocated()
@@ -1733,21 +1905,53 @@ def annot_full_width(torch, tmp: str, prefix5: str, out5: str, prefix6: str,
     err = hold_accumulators(kern[3:], twin2()[3:],
                             "phase 19 split_corr annot against its twin")
     del kern, plain
+    n_live, part_gb = ld_split.annot_tiles, ld_split.annot_partial_bytes / 1e9
     plain_ms = cuda_ms(torch, twin2, 1)
+    dev_a, dev_p = (k2_device_split(torch, f) for f in (lambda: k2(a_dev),
+                                                         k2))
+    lib = k2_epilogue_bmm_ms(torch, n_live, p, dev)
+    epi = min(ms, ms2) - min(ms_plain, ms_plain2)
+    aux = aux_timing(torch, sargs, p, dev)
+    fold, reach = aux["fold"], aux["reach"]
+    out["split_annot_fold"], out["split_tile_reach"] = fold, reach
+    say("19 aux kernels", f"K2's reach kernel over {reach['tiles']} tiles "
+        f"({reach['live_tiles']} live): equal to its plain version; "
+        f"{reach['ms']:.4f} ms against plain {reach['plain_ms']:.3f} ms; "
+        f"bound {reach['bound_ms']:.4f} ms ({reach['bound_by']}), "
+        f"{100 * reach['bound_ms'] / reach['ms']:.1f}% of it. Its fold "
+        f"kernel on the live tiles' partials (seeded, p={p}): bitwise equal "
+        f"to its plain version; {fold['ms']:.3f} ms against plain "
+        f"{fold['plain_ms']:.3f} ms; bound {fold['bound_ms']:.3f} ms "
+        f"({fold['bound_by']}: {fold['bytes'] / 1e9:.3f} GB), "
+        f"{100 * fold['bound_ms'] / fold['ms']:.1f}% of it; library "
+        f"yardstick (index_add_ of the row and column partials) "
+        f"{fold['library_ms']:.3f} ms; on {card}")
     out["split_corr annot"] = {"ms": min(ms, ms2), "plain_ms": plain_ms,
-                               "max_abs_err": err, **work2_a}
+                               "max_abs_err": err, "epilogue_ms": epi,
+                               "library_ms": lib["ms"], "peak_gib": peak,
+                               "live_tiles": n_live, "device": dev_a,
+                               "device_plain": dev_p, **work2_a}
     say("19 timing", f"split_corrections(annot=) p={p}, "
         f"{sargs[-1]['n_miss']} contaminated rows: {ms:.3f} / {ms2:.3f} ms "
         f"against {ms_plain:.3f} / {ms_plain2:.3f} ms without annotations "
-        f"(plain, annot, annot, plain); bound {work2_a['bound_ms']:.3f} ms "
-        f"({work2_a['bound_by']}: {work2['pairs']} counted pairs, "
-        f"{work2_a['annot_f32_ops'] / 1e9:.2f} G f32 ops more, "
-        f"{work2_a['bytes'] / 1e9:.2f} GB), "
+        f"(plain, annot, annot, plain): the epilogue's own cost {epi:.3f} "
+        f"ms; device time per call (profiler): K2 fused "
+        f"{dev_a['fused']:.3f} + d {dev_a['products']:.3f} ms, "
+        f"{dev_a['n_other']} other ops {dev_a['other']:.3f} ms (plain call: "
+        f"{dev_p['fused']:.3f} + {dev_p['products']:.3f} ms, "
+        f"{dev_p['n_other']} other ops {dev_p['other']:.3f} ms); bound "
+        f"{work2_a['bound_ms']:.3f} ms ({work2_a['bound_by']}: "
+        f"{work2['pairs']} counted pairs, "
+        f"{work2_a['annot_f32_ops'] / 1e9:.2f} G f32 ops more as "
+        f"{work2_a['annot_rate']}, {work2_a['bytes'] / 1e9:.2f} GB), "
         f"{100 * work2_a['bound_ms'] / min(ms, ms2):.1f}% of it; plain δ "
         "bitwise equal to the plain call's, max |annotation δ| diff vs twin "
         f"{err:.3g} (KERNEL_TOL); twin with "
-        f"annotations {plain_ms:.1f} ms; peak device memory of a call "
-        f"{peak:.3f} GiB; on {card}")
+        f"annotations {plain_ms:.1f} ms; library yardstick (float32 "
+        f"torch.bmm, TF32 off, {lib['shape']}) {lib['ms']:.3f} ms "
+        f"({lib['rows_ms']:.3f} + {lib['cols_ms']:.3f}); {n_live} live "
+        f"tiles, {part_gb:.3f} GB of annotation partials; peak device "
+        f"memory of a call {peak:.3f} GiB; on {card}")
     out["path"] = apath
     return out
 
@@ -1923,8 +2127,8 @@ def bf16_kernel_phase(torch, prefix5: str, prefix9: str, m5: int, rng, dev,
 
     out = {}
     say("20 probe", bf16_exactness_probe(torch, dev))
-    for name in ("ld_sym", "split_corr"):
-        say("20 ptxas", ptxas_instantiations(name, 8))
+    for name, want in (("ld_sym", 8), ("split_corr", 10)):
+        say("20 ptxas", ptxas_instantiations(name, want))
     ds5, ds9 = PlinkDataset.parse(prefix5), PlinkDataset.parse(prefix9)
     pos5 = ds5.positions("bp")
     annot = np.round(annot_values(np.random.default_rng(2027), m5, p), 4)
@@ -2003,7 +2207,7 @@ def bf16_kernel_phase(torch, prefix5: str, prefix9: str, m5: int, rng, dev,
         if a is not None:
             work = {**work, **annot_bound(work, work["pairs"], m_pad, p,
                                           work["int8_ops"], work["f32_ops"],
-                                          BF16_OPS)}
+                                          BF16_OPS, tensor_cores=True)}
         kern = k_bf16()
         t0 = time.time()
         twin = ld_split.split_corrections_plain(*bsargs, a, n_samples=n,
@@ -2021,6 +2225,28 @@ def bf16_kernel_phase(torch, prefix5: str, prefix9: str, m5: int, rng, dev,
                                       cat3[:2 * plan["p_band"]]),
                           (m_xc, cat3)]
         lib_ms, what = library_bf16_ms(torch, lib_pairs, 5)
+        epi_text = ""
+        if a is not None:
+            # the epilogue's own cost on bf16 operands, in turns with the
+            # bf16 call without annotations, its device split and yardstick
+            def k_plain(bs=bsargs):
+                return ld_split.split_corrections(*bs, n_samples=n)
+
+            t_p, t_a, t_a2, t_p2 = (cuda_ms(torch, f, 10) for f in (
+                k_plain, k_bf16, k_bf16, k_plain))
+            epi = min(t_a, t_a2) - min(t_p, t_p2)
+            dev_a = k2_device_split(torch, k_bf16)
+            blib = k2_epilogue_bmm_ms(torch, ld_split.annot_tiles, p, dev)
+            work = {**work, "epilogue_ms": epi, "device": dev_a,
+                    "epilogue_library_ms": blib["ms"]}
+            epi_text = (
+                f"; bf16 without annotations, in turns: {t_p:.3f}, "
+                f"annotated {t_a:.3f} / {t_a2:.3f}, {t_p2:.3f} ms: the "
+                f"epilogue's own cost {epi:.3f} ms; device time per call "
+                f"(profiler): K2 fused {dev_a['fused']:.3f} + d "
+                f"{dev_a['products']:.3f} ms, {dev_a['n_other']} other ops "
+                f"{dev_a['other']:.3f} ms; epilogue yardstick (float32 "
+                f"torch.bmm, TF32 off, {blib['shape']}) {blib['ms']:.3f} ms")
         del kern, twin, lib_pairs, bsargs
         out[name] = {"ms": min(ms, ms_b), "plain_ms": plain_ms,
                      "max_abs_err": err, "library_ms": lib_ms,
@@ -2032,7 +2258,8 @@ def bf16_kernel_phase(torch, prefix5: str, prefix9: str, m5: int, rng, dev,
             f"{work['bound_ms']:.3f} ms ({work['bound_by']}), "
             f"{100 * work['bound_ms'] / min(ms, ms_b):.1f}% of it; twin "
             f"{plain_ms:.1f} ms; {what} on the same products (a, b with h "
-            f"read from memory, d, per segment) {lib_ms:.3f} ms; on {card}")
+            f"read from memory, d, per segment) {lib_ms:.3f} ms{epi_text}; "
+            f"on {card}")
     del args, sargs, a_dev
     torch.cuda.empty_cache()
     a = torch.randint(0, 3, (8192, 16384), dtype=torch.int8,
@@ -3676,13 +3903,18 @@ def main() -> int:
         "bound_ms": annot19[name]["bound_ms"],
         "bound_by": annot19[name]["bound_by"],
         "library_ms": annot19[name].get("library_ms"),
-        **({k: annot19[name][k] for k in ("epilogue_ms", "peak_gib", "p97")}
-           if "p97" in annot19[name] else {})}
+        **{k: annot19[name][k] for k in ("epilogue_ms", "peak_gib", "p97",
+                                          "live_tiles", "device")
+           if k in annot19[name]}}
         for name, src, replaces in (
             ("ld_sym annot", "ld_sym", "nldsc_tpu/ld/ld_pallas_sym.py:52"),
             ("ld_sym annot 8-product", "ld_sym",
              "nldsc_tpu/ld/ld_pallas_sym.py:52"),
             ("split_corr annot", "split_corr",
+             "scripts/pallas_corr_probe.py:54"),
+            ("split_tile_reach", "split_corr",
+             "scripts/pallas_corr_probe.py:54"),
+            ("split_annot_fold", "split_corr",
              "scripts/pallas_corr_probe.py:54"))] + [{
         "name": name, "route": "cuda",
         "source": f"nldsc_tpu_torch/csrc/{name.split()[0]}.cu",

@@ -14,8 +14,9 @@
 // fixed order and is written once as a per-tile partial, which the wrapper
 // folds in a fixed order: no float atomics, two runs are bitwise equal.
 //
-// What bounds it: float32 operations, 4 * 2 * p per pair, small beside the
-// int8 products, and the shared-memory traffic that feeds them.
+// What bounds it: float32 operations, 4 * 2 * p per pair, each as three
+// tf32 products, small beside the int8 products, and the shared-memory
+// traffic that feeds them.
 //
 // K1 (tc_chunk and its helpers): the contraction runs on the tensor cores,
 // wgmma.m64nNk8.f32.tf32.tf32, float32 accuracy kept by splitting both
@@ -32,9 +33,15 @@
 // copy would land them unsplit).  N is the chunk's annotations rounded up
 // to 8, so p = 53 runs N = 32 + 24.
 //
-// K2 (annot_contract, below): the contraction on CUDA cores, K2's alone:
-// its staged tile is the live TM x TC block of a segment, whose rows and
-// columns come from different matrices, and it contracts each tile once.
+// K2 (split_corr.cu) contracts each live tile once on the same products:
+// rows (credits to its 128 x rows: A = the staged values, K = its 32
+// compact columns, B = the columns' annotations) as K1's rows, with the
+// values TC + 4 words a row (tc_chunk's LD); its mirrored columns
+// transposed, since 32 columns are fewer than a warpgroup's M = 64: A = a
+// chunk of 64 annotations of the x rows (a float tile read as K1 reads
+// its staged columns), K = the 128 x rows, B = the staged column values,
+// written split and swizzled by the pass that computes them (slab_offset)
+// and N = the 32 columns (tc_store_t writes the transposed accumulator).
 
 #pragma once
 
@@ -46,136 +53,13 @@
 
 namespace nldsc {
 
-constexpr int ANNOT_CHUNK = 32;      // annotations contracted per pass: a warp
 constexpr int ANNOT_THREADS = 256;   // the two consumer warpgroups
-
-// NV value tiles of ROWS x COLS pairs; rows 16-byte aligned (they are read
-// four columns at a time) and four words apart in the banks
-template <int ROWS, int COLS, int NV>
-struct AnnotValues {
-  alignas(16) float v[NV][ROWS][COLS + 4];
-};
-
-// one chunk of the annotations of the block's rows and columns
-template <int ROWS, int COLS>
-struct AnnotChunk {
-  float a_rows[ROWS][ANNOT_CHUNK];
-  float a_cols[COLS][ANNOT_CHUNK];
-};
 
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(ANNOT_THREADS) : "memory");
 }
 
-// ---- K2: the contraction on CUDA cores ----
-
-// K2's contraction of its staged block, all consumer threads together.
-//   rows:  out(val, r)[q] = sum_c v[vr[val]][r][c] * annot of column c
-//   cols:  out(val, c)[q] = sum_r v[vc[val]][r][c] * annot of row r
-// for val = 0 (additive) and 1 (dominance) and every annotation q < p.
-// row_annot(r) / col_annot(c) give the p annotations of a row or column
-// of the block, or null (zeros); row_out(val, r) / col_out(val, c) the p
-// sums to write, or null (not written).  Starts and ends with a barrier
-// of the consumer threads: the staged values are complete before, and
-// free after.
-//
-// A warp's 32 lanes take the 32 annotations of a chunk, and each of the 8
-// warps a slab of rows (columns): annotation loads hit 32 banks, value
-// loads are broadcasts, and every load and store of the sums in device
-// memory is 32 consecutive floats (a thread per row instead made each
-// store 32 separate sectors, and the epilogue as long as the products).
-template <int ROWS, int COLS, int NV, class RowAnnot, class ColAnnot,
-          class RowOut, class ColOut>
-__device__ __forceinline__ void annot_contract(
-    AnnotValues<ROWS, COLS, NV>& sv, AnnotChunk<ROWS, COLS>& s, int tid,
-    int p, const int (&vr)[2], const int (&vc)[2], RowAnnot row_annot,
-    ColAnnot col_annot, RowOut row_out, ColOut col_out) {
-  constexpr int WARPS = ANNOT_THREADS / 32;
-  constexpr int RPT = ROWS / WARPS, CPT = COLS / WARPS;
-  constexpr int RS = 4;
-  static_assert(ANNOT_CHUNK == 32 && ROWS % WARPS == 0 && COLS % 4 == 0 &&
-                    CPT % 4 == 0 && RPT % RS == 0,
-                "a lane per annotation, a warp per slab of rows (columns), "
-                "values read four columns at a time");
-  const int lane = tid & 31, warp = tid >> 5;
-  consumer_sync();
-  for (int q0 = 0; q0 < p; q0 += ANNOT_CHUNK) {
-    const int q = q0 + lane;
-    for (int r = warp; r < ROWS; r += WARPS) {
-      const float* a = row_annot(r);
-      s.a_rows[r][lane] = (a != nullptr && q < p) ? a[q] : 0.f;
-    }
-    for (int c = warp; c < COLS; c += WARPS) {
-      const float* a = col_annot(c);
-      s.a_cols[c][lane] = (a != nullptr && q < p) ? a[q] : 0.f;
-    }
-    consumer_sync();
-    // rows, 4 of the warp's slab at a time: 8 sums and 8 loaded values a thread
-    // beside the product accumulators the kernel still holds
-#pragma unroll 1
-    for (int r0 = warp * RPT; r0 < (warp + 1) * RPT; r0 += RS) {
-      float acc[2][RS];
-#pragma unroll
-      for (int i = 0; i < RS; ++i) acc[0][i] = acc[1][i] = 0.f;
-      for (int c = 0; c < COLS; c += 4) {
-        const float a[4] = {s.a_cols[c][lane], s.a_cols[c + 1][lane],
-                            s.a_cols[c + 2][lane], s.a_cols[c + 3][lane]};
-#pragma unroll
-        for (int val = 0; val < 2; ++val)
-#pragma unroll
-          for (int i = 0; i < RS; ++i) {
-            const float4 x = *reinterpret_cast<const float4*>(
-                &sv.v[vr[val]][r0 + i][c]);
-            float t = acc[val][i];
-            t = __fmaf_rn(x.x, a[0], t);
-            t = __fmaf_rn(x.y, a[1], t);
-            t = __fmaf_rn(x.z, a[2], t);
-            acc[val][i] = __fmaf_rn(x.w, a[3], t);
-          }
-      }
-      if (q < p) {
-#pragma unroll
-        for (int val = 0; val < 2; ++val)
-#pragma unroll
-          for (int i = 0; i < RS; ++i) {
-            float* out = row_out(val, r0 + i);
-            if (out != nullptr) out[q] = acc[val][i];
-          }
-      }
-    }
-    const int c0 = warp * CPT;
-    float acc[2][CPT];
-#pragma unroll
-    for (int i = 0; i < CPT; ++i) acc[0][i] = acc[1][i] = 0.f;
-#pragma unroll 2
-    for (int r = 0; r < ROWS; ++r) {
-      const float a = s.a_rows[r][lane];
-#pragma unroll
-      for (int val = 0; val < 2; ++val)
-#pragma unroll
-        for (int i = 0; i < CPT; i += 4) {
-          const float4 x = *reinterpret_cast<const float4*>(
-              &sv.v[vc[val]][r][c0 + i]);
-          acc[val][i] = __fmaf_rn(x.x, a, acc[val][i]);
-          acc[val][i + 1] = __fmaf_rn(x.y, a, acc[val][i + 1]);
-          acc[val][i + 2] = __fmaf_rn(x.z, a, acc[val][i + 2]);
-          acc[val][i + 3] = __fmaf_rn(x.w, a, acc[val][i + 3]);
-        }
-    }
-    if (q < p) {
-#pragma unroll
-      for (int val = 0; val < 2; ++val)
-#pragma unroll
-        for (int i = 0; i < CPT; ++i) {
-          float* out = col_out(val, c0 + i);
-          if (out != nullptr) out[q] = acc[val][i];
-        }
-    }
-    consumer_sync();
-  }
-}
-
-// ---- K1: the contraction on the tensor cores ----
+// ---- the contraction on the tensor cores ----
 
 constexpr int TC_NS = 32;   // annotations per chunk: the rows of a B slab
 constexpr int TC_LD = 68;   // words per staged row: 64 values and 4 apart,
@@ -225,10 +109,20 @@ __device__ __forceinline__ void with_width(int n, F&& f) {
 // direction's A fragments.  A thread issues its loads 8 at a time before
 // it splits and stores them.  Ends with the proxy fence; the caller's
 // barrier then publishes the slabs.
+// Byte offset of B(k, n) in a slab (n < TC_NS, K/32 blocks of TC_NS rows x
+// 128 bytes in the 128-byte swizzle); PERM: block row k of each 8 at K
+// index (k >> 1) | ((k & 1) << 2)
+template <bool PERM>
+__device__ __forceinline__ int slab_offset(int k, int n) {
+  const int kk = PERM ? (k & ~7) | ((k & 7) >> 1) | ((k & 1) << 2) : k;
+  return (kk / 32) * TC_KB + (n / 8) * ATOM + (n % 8) * 128 +
+         ((((kk % 32) / 4) ^ (n % 8)) * 16) + (kk % 4) * 4;
+}
+
 template <int K, bool PERM, class Row>
 __device__ __forceinline__ void load_slab(uint8_t* hi_s, uint8_t* lo_s,
                                           Row row, int q0, int p, int tid) {
-  constexpr int PER = K * TC_NS / ANNOT_THREADS, BATCH = 8;
+  constexpr int PER = K * TC_NS / ANNOT_THREADS, BATCH = PER < 8 ? PER : 8;
   static_assert(PER % BATCH == 0, "whole batches of loads");
   const int n = tid % TC_NS;       // the same annotation for every element
   const bool live = q0 + n < p;
@@ -246,9 +140,7 @@ __device__ __forceinline__ void load_slab(uint8_t* hi_s, uint8_t* lo_s,
       const int k = (tid + (b0 + i) * ANNOT_THREADS) / TC_NS;
       uint32_t h, l;
       split_tf32(x[i], h, l);
-      const int kk = PERM ? (k & ~7) | ((k & 7) >> 1) | ((k & 1) << 2) : k;
-      const int off = (kk / 32) * TC_KB + (n / 8) * ATOM + (n % 8) * 128 +
-                      ((((kk % 32) / 4) ^ (n % 8)) * 16) + (kk % 4) * 4;
+      const int off = slab_offset<PERM>(k, n);
       *reinterpret_cast<uint32_t*>(hi_s + off) = h;
       *reinterpret_cast<uint32_t*>(lo_s + off) = l;
     }
@@ -276,27 +168,28 @@ __device__ __forceinline__ void hold_frags(const uint32_t (&h)[NV][4],
 
 // One warpgroup: acc_v (64 x N) (+)= A_v (64 x K) . B (K x N) for the NV
 // (1 or 2) value tiles v0 (, v1), B the chunk's slabs at hi_s / lo_s
-// (shared-memory addresses).  ROWDIR: A(m, k) = v[m * TC_LD + k], v at the
-// warpgroup's first row; else A(m, k) = v[k' * TC_LD + m], v at the first
-// of the 64 columns, k' the block row that load_slab<K, true> puts at K
-// index k.  fresh: the first product overwrites the accumulators.  Per k8
+// (shared-memory addresses).  ROWDIR: A(m, k) = v[m * LD + k], v at the
+// warpgroup's first row; else A(m, k) = v[k' * LD + m], v at the first of
+// the 64 columns, k' the block row that load_slab<K, true> puts at K index
+// k.  LD = 4 mod 32 keeps either direction's A loads on 32 banks.  fresh: the first product overwrites the accumulators.  Per k8
 // step three products per value; the next step's A fragments are loaded
 // and split while they run (two register sets, one group in flight).
-template <int N, int K, int NV, bool ROWDIR>
+template <int N, int K, int NV, bool ROWDIR, int LD = TC_LD>
 __device__ __forceinline__ void tc_chunk(float (&acc0)[16],
                                          float (&acc1)[16], const float* v0,
                                          const float* v1, uint32_t hi_s,
                                          uint32_t lo_s, bool fresh, int wi,
                                          int lane) {
   static_assert(NV == 1 || NV == 2, "one or two value tiles");
+  static_assert(LD % 32 == 4, "A loads on 32 banks");
   constexpr int KS = K / 8;
   const int gq = lane >> 2, tq = lane & 3;
-  const int off = ROWDIR ? (16 * wi + gq) * TC_LD + tq
-                         : (2 * tq) * TC_LD + 16 * wi + gq;
+  const int off = ROWDIR ? (16 * wi + gq) * LD + tq
+                         : (2 * tq) * LD + 16 * wi + gq;
   // the A fragment's four elements, from the fragment's first element
-  constexpr int D1 = ROWDIR ? 8 * TC_LD : 8;        // a[1]: m + 8
-  constexpr int D2 = ROWDIR ? 4 : TC_LD;            // a[2]: k + 4
-  constexpr int STEP = ROWDIR ? 8 : 8 * TC_LD;      // the next k8 step
+  constexpr int D1 = ROWDIR ? 8 * LD : 8;        // a[1]: m + 8
+  constexpr int D2 = ROWDIR ? 4 : LD;            // a[2]: k + 4
+  constexpr int STEP = ROWDIR ? 8 : 8 * LD;      // the next k8 step
   uint32_t ah[2][NV][4], al[2][NV][4];
   auto load = [&](int ks, uint32_t (&h)[NV][4], uint32_t (&l)[NV][4]) {
 #pragma unroll
@@ -355,6 +248,43 @@ __device__ __forceinline__ void tc_store(const float (&acc)[16], float* out,
         const int n = 8 * j + 2 * tq + v;
         if (n < nq)
           out[(16 * wi + gq + 8 * u) * ld + n] = acc[4 * j + 2 * u + v];
+      }
+}
+
+// The same accumulator, two adjacent columns a store: out 8-byte aligned
+// and ld even, so that a warp writes whole 32-byte sectors (n < nq; the
+// column past an odd nq is written too)
+template <int N>
+__device__ __forceinline__ void tc_store2(const float (&acc)[16], float* out,
+                                          size_t ld, int nq, int wi,
+                                          int lane) {
+  const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int n = 8 * j + 2 * tq;
+      if (n < nq)
+        *reinterpret_cast<float2*>(out + (16 * wi + gq + 8 * u) * ld + n) =
+            make_float2(acc[4 * j + 2 * u], acc[4 * j + 2 * u + 1]);
+    }
+}
+
+// The same accumulator transposed: out[n * ld + m] for m < nm (a column
+// direction computed with the annotations as M)
+template <int N>
+__device__ __forceinline__ void tc_store_t(const float (&acc)[16], float* out,
+                                          size_t ld, int nm, int wi,
+                                          int lane) {
+  const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const int m = 16 * wi + gq + 8 * u;
+        if (m < nm) out[(8 * j + 2 * tq + v) * ld + m] = acc[4 * j + 2 * u + v];
       }
 }
 

@@ -36,12 +36,17 @@
 //   * products: a (and b, when the wrapper asks for it) written to device
 //     memory.  It computes d, and serves ld_split.corr_products.
 // The fused mode's ANNOT instantiation adds the annotation delta credits
-// of nldsc_tpu/ld/ld_split.py::split_corrections (annot branch): a live
-// tile stages its four masked delta values in the freed ring and
-// annot_epilogue.cuh contracts them with the annotations of the compact
-// columns (credits to x) and of the x rows (mirrored credits), written as
-// row and column partials beside the plain ones.  The plain sums of an
-// ANNOT launch are those of a plain launch bit for bit.
+// of nldsc_tpu/ld/ld_split.py::split_corrections (annot branch).  The pass
+// that computes a live tile's deltas stages its four masked values in the
+// freed ring, every slot once (zeros where no pair is counted): the
+// credits to x as floats, the mirrored credits to the compact columns
+// split into tf32 hi and lo and swizzled as a wgmma B operand.  Then
+// annot_epilogue.cuh's tc_chunk contracts them on the tensor cores with
+// the annotations of the compact columns (credits to x) and of the x rows
+// (mirrored credits; the annotations as M, since the tile has 32 columns).
+// Each live tile writes one slot of row and column partials, numbered by
+// the wrapper (tile_slot), which folds them in a fixed order.  The plain
+// sums of an ANNOT launch are those of a plain launch bit for bit.
 //
 // bf16 operands (the BF16 instantiations, under --dot-dtype bf16, as the
 // probe casts each K chunk to bf16, scripts/pallas_corr_probe.py:55-73):
@@ -90,10 +95,32 @@ constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
 constexpr int SEG_FIELDS = 4;            // first x row, c0, c_cnt, seg_lo
 enum { FL_OWNED = 1, FL_USABLE = 2, FL_DOM_OK = 4, FL_ROWMISS = 8 };
-// staged delta tiles of the annotation epilogue: credits to x (additive,
-// dominance) and mirrored credits to the compact column
-enum { V_XADD, V_XDOM, V_CADD, V_CDOM, V_TILES };
-using AnnotTile = AnnotValues<TM, TC, V_TILES>;
+// The annotation epilogue contracts QS annotations a pass: two row
+// chunks of TC_NS, one column chunk.  Its regions in the ring the products
+// have freed, as byte offsets: the staged credits to x (additive,
+// dominance: TM x TC floats each, XLD words a row); the staged mirrored
+// credits to the compact columns (additive, dominance: a hi and a lo slab
+// each, K = the TM x rows, N = the TC columns); the two row chunks' hi and
+// lo slabs of the compact columns' annotations (B of the rows, K = TC);
+// the pass's annotations of the x rows (A of the columns, TM x QS, TC_LD
+// words a row).  Once the pass has read the last two, its credits to x are
+// staged from ROWS_B on (2 values x TM rows x QS, OLD words a row) for
+// stores of whole lines.
+constexpr int XLD = TC + 4;
+constexpr int QS = 2 * TC_NS;
+// floats per row of the annotation partials: p rounded up to 8
+__host__ __device__ constexpr int annot_ld(int p) { return (p + 7) & ~7; }
+struct AnnotLayout {
+  static constexpr int X_VALS = 0;
+  static constexpr int C_SLAB = tc_slab_bytes<TM>();
+  static constexpr int C_SLABS = 2 * TM * XLD * 4;   // V_CADD hi, lo; V_CDOM
+  static constexpr int R_SLAB = tc_slab_bytes<TC>();
+  static constexpr int ROWS_B = C_SLABS + 4 * C_SLAB;   // chunk h: hi, lo
+  static constexpr int COLS_A = ROWS_B + 4 * R_SLAB;
+  static constexpr int END = COLS_A + tc_tile_bytes<TM>();
+  static constexpr int OLD = TC_LD;
+  static constexpr int OUT_END = ROWS_B + 2 * TM * OLD * 4;
+};
 
 struct Params {
   CUtensorMap tm_a;        // the x rows, boxes of TM rows
@@ -124,15 +151,18 @@ struct Params {
   int32_t* rpart_i;        // [n_ct][m_pad] (wse)
   float* cpart_f;          // [n_segs][n_xt][2][P]
   int32_t* cpart_i;        // [n_segs][n_xt][P]
-  // fused mode with annotations (zero-filled by the caller: a tile that
-  // skips its products writes none of them)
+  // fused mode with annotations: the live tile (sg, xt, ct) writes slot
+  // tile_slot[sg][xt][ct] of the partials, annotations [0, p) of each
+  // row; pld = p rounded up to 8 (annot_ld), so that rows start on
+  // 32-byte sectors
   const float* annot;      // (m_pad, p)
   const float* annot_c;    // (mm_pad, p), compact order
-  float* rpart_a;          // [n_ct][2][m_pad][p]
-  float* cpart_a;          // [n_segs][n_xt][2][P][p]
+  float* rpart_a;          // [n_live][2][TM][pld]
+  float* cpart_a;          // [n_live][TC][2][pld]
   int p;
   int p_x, m_pad, own_hi;
   float n, inv_n, n_padf, pad_const, adj_c, rsq;   // inv_n = f32(1/n)
+  const int32_t* tile_slot;   // [n_segs][n_xt][n_ct]: slot, or -1
 };
 
 // the fused epilogue's per-row and per-column inputs, staged while the
@@ -168,6 +198,21 @@ __device__ __forceinline__ uint32_t ld_shared_u32(uint32_t addr) {
   return v;
 }
 
+// fused mode: a tile counts no pair unless one of the x rows it owns has
+// a window that reaches one of its real compact columns.  Those are
+// sorted, so the first and the last bound them.  Row tid of the tile
+// (x0, cl0) of the segment with these fields (its first x row a_row0 and
+// compact row c0): does it reach?
+__device__ __forceinline__ int reaches(const int32_t* fields, int a_row0,
+                                       int c0, const int32_t* lo,
+                                       const int32_t* hi, const int32_t* cidx,
+                                       int rows_a, int x0, int cl0, int tid) {
+  const int c_end = min(cl0 + TC, fields[2]);
+  const int xl = x0 + tid, gx = a_row0 + xl;
+  return tid < TM && cl0 < c_end && xl < rows_a && gx >= fields[3] &&
+         lo[gx] <= cidx[c0 + c_end - 1] && hi[gx] >= cidx[c0 + cl0];
+}
+
 template <bool FUSED, bool WITH_H, bool ANNOT, bool BF16>
 __global__ void __launch_bounds__(THREADS, 1)
     split_corr_kernel(const __grid_constant__ Params p) {
@@ -195,18 +240,12 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int cl0 = ct * TC;
   const int nk = p.n_pad / KE;
 
-  // fused mode: a tile counts no pair unless one of the x rows it owns
-  // has a window that reaches one of its real compact columns.  Those
-  // are sorted, so the first and the last bound them.  Such a tile skips
-  // its products and writes zero partials.
+  // fused mode: a tile that no window reaches (reaches()) skips its
+  // products and writes zero partials
   int reach = 1;
-  if constexpr (FUSED) {
-    const int c_end = min(cl0 + TC, fields[2]);
-    const int xl = x0 + tid, gx = a_row0 + xl;
-    reach = tid < TM && cl0 < c_end && xl < p.rows_a && gx >= fields[3] &&
-            p.lo[gx] <= p.cidx[c0 + c_end - 1] &&
-            p.hi[gx] >= p.cidx[c0 + cl0];
-  }
+  if constexpr (FUSED)
+    reach = reaches(fields, a_row0, c0, p.lo, p.hi, p.cidx, p.rows_a, x0,
+                    cl0, tid);
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -244,6 +283,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int wi = (tid / 32) % 4;         // warp of the warpgroup
   const int lane = tid & 31, gq = lane >> 2, tq = lane & 3;
   const int row0 = 64 * wg + 16 * wi + gq;   // this thread's rows: +0, +8
+  // the annotation epilogue's slot: a live tile's, CTA-uniform
+  const int slot =
+      ANNOT ? p.tile_slot[(static_cast<size_t>(sg) * gridDim.y + xt) *
+                              gridDim.x + ct]
+            : -1;
 
   if constexpr (FUSED) {
     const int c_cnt = fields[2], seg_lo = fields[3];
@@ -391,18 +435,85 @@ __global__ void __launch_bounds__(THREADS, 1)
     float rl2[2] = {0.f, 0.f}, rl2d[2] = {0.f, 0.f};
     int rwse[2] = {0, 0};
     const int warp8 = 4 * wg + wi;
-    auto& as = *reinterpret_cast<AnnotTile*>(ring);
-    auto& ac = *reinterpret_cast<AnnotChunk<TM, TC>*>(ring + sizeof(AnnotTile));
+    using AL = AnnotLayout;
+    // a pass's annotations: of the x rows as floats (thread t: annotation
+    // q0 + t % QS of rows t / QS + RS k), of the compact columns split into
+    // the row chunks' slabs (annotation q0 + TC_NS h + t % TC_NS of columns
+    // t / TC_NS + CS k); zeros past their ends, loaded only where they
+    // are not
+    const int np = ANNOT ? p.p : 0, pld = annot_ld(np);
+    auto fetch = [&](int q0) {
+      constexpr int RS = CONSUMERS / QS, CS = CONSUMERS / TC_NS;
+      {
+        const int r0 = tid / QS, q = q0 + tid % QS;
+        const int rows = q < np ? p.rows_a - x0 - r0 : 0;
+        const float* src = p.annot + static_cast<size_t>(gx0 + r0) * np + q;
+        const size_t step = static_cast<size_t>(RS) * np;
+        float* at = reinterpret_cast<float*>(ring + AL::COLS_A) +
+                    r0 * TC_LD + tid % QS;
+#pragma unroll 16
+        for (int k = 0; k < TM / RS; ++k)
+          at[k * RS * TC_LD] = RS * k < rows ? src[k * step] : 0.f;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = tid % TC_NS, q = q0 + TC_NS * h + n;
+        const int cols = q < np ? P - cl0 - tid / TC_NS : 0;
+        const float* src =
+            p.annot_c + static_cast<size_t>(c0 + cl0 + tid / TC_NS) * np + q;
+        const size_t step = static_cast<size_t>(CS) * np;
+#pragma unroll
+        for (int k = 0; k < TC / CS; ++k) {
+          uint32_t hi, lo;
+          split_tf32(CS * k < cols ? src[k * step] : 0.f, hi, lo);
+          uint8_t* b = ring + AL::ROWS_B + 2 * h * AL::R_SLAB +
+                       slab_offset<false>(tid / TC_NS + CS * k, n);
+          *reinterpret_cast<uint32_t*>(b) = hi;
+          *reinterpret_cast<uint32_t*>(b + AL::R_SLAB) = lo;
+        }
+      }
+      fence_proxy_async();   // the slabs, for wgmma
+    };
+    // the tile's annotation rows (x rows and compact columns, each block
+    // contiguous) into L2 while the deltas are computed
     if constexpr (ANNOT) {
-      // only counted pairs are staged below: the rest stay zero
-      if (live) {
-        float* v = &as.v[0][0][0];
-        for (int i = tid; i < static_cast<int>(sizeof(AnnotTile) / 4);
-             i += CONSUMERS)
-          v[i] = 0.f;
-        consumer_sync();
+      if (slot >= 0) {
+        const int xr = min(TM, p.rows_a - x0), cr = min(TC, P - cl0);
+        const char* xs = reinterpret_cast<const char*>(
+            p.annot + static_cast<size_t>(gx0) * np);
+        const char* cs = reinterpret_cast<const char*>(
+            p.annot_c + static_cast<size_t>(c0 + cl0) * np);
+        const int xl_n = (xr * np * 4 + 127) / 128;
+        const int cl_n = (cr * np * 4 + 127) / 128;
+        for (int i = tid; i < xl_n + cl_n; i += CONSUMERS)
+          prefetch_l2(i < xl_n ? xs + 128 * i : cs + 128 * (i - xl_n));
       }
     }
+    // the pass's four values of pair (row0 + 8 u, 8 j + 2 tq + v) staged
+    // for the annotation epilogue; a slab column's swizzle depends on the
+    // column mod 8 alone, so each (u, v) has one offset, plus j atoms
+    int soff[2][2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int v = 0; v < 2; ++v)
+        soff[u][v] = slab_offset<true>(row0 + 8 * u, 2 * tq + v);
+    auto stage = [&](int u, int j, int v, float xadd, float xdom, float cadd,
+                     float cdom) {
+      float* xv = reinterpret_cast<float*>(ring + AL::X_VALS) +
+                  (row0 + 8 * u) * XLD + 8 * j + 2 * tq + v;
+      xv[0] = xadd;
+      xv[TM * XLD] = xdom;
+      uint8_t* cs = ring + AL::C_SLABS + soff[u][v] + j * ATOM;
+      const float cv[2] = {cadd, cdom};
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        uint32_t h, l;
+        split_tf32(cv[q], h, l);
+        *reinterpret_cast<uint32_t*>(cs + 2 * q * AL::C_SLAB) = h;
+        *reinterpret_cast<uint32_t*>(cs + (2 * q + 1) * AL::C_SLAB) = l;
+      }
+    };
 
 #pragma unroll
     for (int j = 0; j < TC / 8; ++j)
@@ -421,7 +532,11 @@ __global__ void __launch_bounds__(THREADS, 1)
                             (fx[u] & FL_USABLE) && gc != gx[u] &&
                             gc >= rlo[u] && gc <= rhi[u] &&
                             min(gx[u], gc) < p.own_hi;
-          if (!pair) continue;
+          if (!pair) {
+            if constexpr (ANNOT)
+              if (slot >= 0) stage(u, j, v, 0.f, 0.f, 0.f, 0.f);
+            continue;
+          }
           const int e = 4 * j + 2 * u + v;
           const float sgg = static_cast<float>(a1[e]);
           const float sgm = static_cast<float>(a1[16 + e]);
@@ -471,15 +586,11 @@ __global__ void __launch_bounds__(THREADS, 1)
               cwse += (aDbx > rsq ? 1 : 0) - (aDb0 > rsq ? 1 : 0);
             }
           }
-          if constexpr (ANNOT) {
-            const int lr = row0 + 8 * u;
-            as.v[V_XADD][lr][lc] = d_add;
-            if (fc & FL_DOM_OK) as.v[V_XDOM][lr][lc] = aDax - aDa0;
-            if (cln) {
-              as.v[V_CADD][lr][lc] = d_add;
-              if (fx[u] & FL_DOM_OK) as.v[V_CDOM][lr][lc] = aDbx - aDb0;
-            }
-          }
+          if constexpr (ANNOT)
+            if (slot >= 0)
+              stage(u, j, v, d_add,
+                    (fc & FL_DOM_OK) ? aDax - aDa0 : 0.f, cln ? d_add : 0.f,
+                    (cln && (fx[u] & FL_DOM_OK)) ? aDbx - aDb0 : 0.f);
         }
         // the column over the warp's 8 row groups, then per warp to
         // shared memory
@@ -495,6 +606,11 @@ __global__ void __launch_bounds__(THREADS, 1)
           es.coli[warp8][lc] = cwse;
         }
       }
+
+    // the staged column slabs are read by wgmma: fenced before the
+    // barrier below publishes them
+    if constexpr (ANNOT)
+      if (slot >= 0) fence_proxy_async();
 
     // rows: over the 4 lanes of a quad, then straight out (one warp holds
     // every column of its rows); only the rows the segment owns
@@ -535,31 +651,137 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
 
     if constexpr (ANNOT) {
-      if (live) {
-        const size_t np = static_cast<size_t>(p.p);
-        const size_t m_pad = static_cast<size_t>(p.m_pad);
-        const size_t t = static_cast<size_t>(sg) * gridDim.y + xt;
-        annot_contract(
-            as, ac, tid, p.p, {V_XADD, V_XDOM}, {V_CADD, V_CDOM},
-            [&](int r) {
-              return x0 + r < p.rows_a ? p.annot + (gx0 + r) * np : nullptr;
-            },
-            [&](int c) {
-              return cl0 + c < P ? p.annot_c + (c0 + cl0 + c) * np : nullptr;
-            },
-            [&](int val, int r) {
-              return (es.fx[r] & FL_OWNED)
-                         ? p.rpart_a + ((2 * ct + val) * m_pad + gx0 + r) * np
-                         : nullptr;
-            },
-            [&](int val, int c) {
-              return cl0 + c < P
-                         ? p.cpart_a + ((2 * t + val) * P + cl0 + c) * np
-                         : nullptr;
+      if (slot >= 0) {
+        const float* xv = reinterpret_cast<const float*>(ring + AL::X_VALS);
+        const float* at = reinterpret_cast<const float*>(ring + AL::COLS_A);
+        float* rout = p.rpart_a + static_cast<size_t>(slot) * 2 * TM * pld;
+        float* cout = p.cpart_a + static_cast<size_t>(slot) * TC * 2 * pld;
+        const uint32_t rb = ring_s + AL::ROWS_B;
+        const uint32_t cb = ring_s + AL::C_SLABS + 2 * wg * AL::C_SLAB;
+        float* ro = reinterpret_cast<float*>(ring + AL::ROWS_B);
+        for (int q0 = 0; q0 < np; q0 += QS) {
+          if (q0 > 0) consumer_sync();   // the last pass's are read
+          fetch(q0);
+          consumer_sync();
+          // mirrored credits: M = the pass's annotations of the x rows
+          // (A), N = the TC columns (B, the staged slabs); warpgroup wg
+          // the value V_CADD + wg; stored from the accumulator, each
+          // lane group a whole sector
+          {
+            float acc[16];
+            tc_chunk<TC, TM, 1, false>(acc, acc, at, nullptr, cb,
+                                       cb + AL::C_SLAB, true, wi, lane);
+            tc_store_t<TC>(acc, cout + wg * pld + q0, 2 * pld,
+                           min(QS, np - q0), wi, lane);
+          }
+          // credits to x: both values per warpgroup (its 64 rows), held
+          // until ROWS_B and COLS_A are read, then staged in their place
+          float racc[2][2][16];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int nq = np - q0 - TC_NS * h;
+            if (nq <= 0) break;
+            with_width<TC_NS>(min(TC_NS, (nq + 7) & ~7), [&](auto W) {
+              tc_chunk<decltype(W)::value, TC, 2, true, XLD>(
+                  racc[h][0], racc[h][1], xv + 64 * wg * XLD,
+                  xv + (TM + 64 * wg) * XLD, rb + 2 * h * AL::R_SLAB,
+                  rb + (2 * h + 1) * AL::R_SLAB, true, wi, lane);
             });
+          }
+          consumer_sync();
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if (q0 + TC_NS * h >= np) break;
+#pragma unroll
+            for (int v = 0; v < 2; ++v)
+              tc_store2<TC_NS>(racc[h][v],
+                               ro + (v * TM + 64 * wg) * AL::OLD + TC_NS * h,
+                               AL::OLD, TC_NS, wi, lane);
+          }
+          consumer_sync();
+          // the pass's columns of each row: whole 16-byte words, the rows
+          // of a slot contiguous when one pass covers them
+          const int w4 = min(QS, pld - q0) / 4;
+          for (int i = tid; i < 2 * TM * w4; i += CONSUMERS) {
+            const int r = i / w4, c = 4 * (i % w4);
+            *reinterpret_cast<float4*>(rout + static_cast<size_t>(r) * pld +
+                                       q0 + c) =
+                *reinterpret_cast<const float4*>(ro + r * AL::OLD + c);
+          }
+        }
       }
     }
   }
+}
+
+// The annotation partials of a fused launch folded in a fixed order, a
+// thread per output float out[v][gx][q]: the row credits over the live
+// column tiles of gx's x tile, in order; then, if gx is a contaminated row
+// (compact row c), plus its mirrored credits over the segments whose real
+// compact columns hold c, in order, and their live x tiles, in order.  No
+// atomics: each of the two sums runs from zero in that order.
+struct FoldParams {
+  const float* rpart;     // [n_live][2][TM][annot_ld(p)]
+  const float* cpart;     // [n_live][TC][2][annot_ld(p)]
+  const int32_t* slot;    // [n_segs][n_xt][n_ct]
+  const int32_t* seg;     // [n_segs][SEG_FIELDS]
+  const int32_t* cmap;    // [m_pad]: a row's compact row, or -1
+  float* out;             // [2][m_pad][p]
+  int n_segs, n_xt, n_ct, S, m_pad, p;
+};
+
+__global__ void __launch_bounds__(256) annot_fold_kernel(
+    const __grid_constant__ FoldParams f) {
+  const size_t total = 2ull * f.m_pad * f.p;
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+       i < total; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const int q = static_cast<int>(i % f.p);
+    const size_t vg = i / f.p;
+    const int gx = static_cast<int>(vg % f.m_pad);
+    const int v = static_cast<int>(vg / f.m_pad);
+    const int s = gx / f.S, xl = gx - f.seg[s * SEG_FIELDS];
+    const int32_t* sl =
+        f.slot + (static_cast<size_t>(s) * f.n_xt + xl / TM) * f.n_ct;
+    const int pld = annot_ld(f.p);
+    float acc = 0.f;
+    for (int ct = 0; ct < f.n_ct; ++ct) {
+      const int k = sl[ct];
+      if (k >= 0)
+        acc += f.rpart[((static_cast<size_t>(k) * 2 + v) * TM + xl % TM) *
+                           pld + q];
+    }
+    const int c = f.cmap[gx];
+    if (c >= 0) {
+      float col = 0.f;
+      for (int t = 0; t < f.n_segs; ++t) {
+        const int cl = c - f.seg[t * SEG_FIELDS + 1];
+        if (cl < 0 || cl >= f.seg[t * SEG_FIELDS + 2]) continue;
+        const int32_t* st = f.slot + static_cast<size_t>(t) * f.n_xt * f.n_ct;
+        for (int xt = 0; xt < f.n_xt; ++xt) {
+          const int k = st[xt * f.n_ct + cl / TC];
+          if (k >= 0)
+            col += f.cpart[((static_cast<size_t>(k) * TC + cl % TC) * 2 + v) *
+                               pld + q];
+        }
+      }
+      acc += col;
+    }
+    f.out[i] = acc;
+  }
+}
+
+// The fused launch's live tiles, a CTA per tile: live[sg][xt][ct] = 1 iff
+// a row of it reaches (reaches(), the fused launch's own rule)
+__global__ void __launch_bounds__(TM) tile_reach_kernel(
+    const int32_t* seg, const int32_t* lo, const int32_t* hi,
+    const int32_t* cidx, int rows_a, int32_t* live) {
+  const int ct = blockIdx.x, xt = blockIdx.y, sg = blockIdx.z;
+  const int32_t* fields = seg + sg * SEG_FIELDS;
+  const int any = __syncthreads_or(reaches(fields, fields[0], fields[1], lo,
+                                           hi, cidx, rows_a, xt * TM, ct * TC,
+                                           threadIdx.x));
+  if (threadIdx.x == 0)
+    live[(static_cast<size_t>(sg) * gridDim.y + xt) * gridDim.x + ct] = any;
 }
 
 template <bool FUSED, bool WITH_H, bool ANNOT, bool BF16>
@@ -569,11 +791,18 @@ cudaError_t launch(Params& p, const void* a_mat, int a_rows,
   constexpr int SMEM = ATOM + STAGES * (STAGE_BYTES + 16) +
                        static_cast<int>(sizeof(EpiSmem));
   static_assert(SMEM <= 232448, "shared memory of one CTA");
-  static_assert(sizeof(AnnotTile) % 16 == 0 &&
-                    sizeof(AnnotTile) + sizeof(AnnotChunk<TM, TC>) <=
-                        STAGES * STAGE_BYTES,
-                "the staged annotation values and the annotation chunk must "
-                "fit in the ring");
+  using AL = AnnotLayout;
+  static_assert(AL::END <= STAGES * STAGE_BYTES &&
+                    AL::OUT_END <= STAGES * STAGE_BYTES &&
+                    AL::OLD >= QS && AL::OLD % 4 == 0 &&
+                    AL::C_SLABS % ATOM == 0 &&
+                    AL::C_SLAB % ATOM == 0 && AL::ROWS_B % ATOM == 0 &&
+                    AL::R_SLAB % ATOM == 0 && TC == TC_NS && TM % 64 == 0 &&
+                    QS == 64 && CONSUMERS % QS == 0 &&
+                    CONSUMERS % TC_NS == 0,
+                "the annotation epilogue's regions fit in the ring, its slabs "
+                "on swizzle atoms, a column tile one slab's N, a pass one "
+                "warpgroup's M");
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   if (!encode<BF16>(fn, &p.tm_a, a_mat, a_rows, p.n_pad, TM))
@@ -598,6 +827,9 @@ extern "C" int split_corr_tiles(int* tm, int* tc) {
   *tc = TC;
   return 0;
 }
+
+// floats per row of the annotation partials for p annotations
+extern "C" int split_annot_ld(int p) { return annot_ld(p); }
 
 // products mode: for each of n_segs segments (fields in seg, or one
 // segment at row 0 when seg is null), x rows a_mat[first x row + i] for
@@ -642,8 +874,9 @@ extern "C" int split_corr_products_launch(
 
 // fused mode over every segment of the split plan: x rows g[s0 + i],
 // i < S, against [g_c; m_c; h_c][c0 + c], c < P; with annot (and annot_c,
-// the partials rpart_a and cpart_a, n_annot >= 1) the annotation delta
-// credits too; g, g_c, m_c, h_c bf16 when bf16 != 0, else int8
+// the partials rpart_a and cpart_a, the live tiles' slots tile_slot,
+// n_annot >= 1) the annotation delta credits too; g, g_c, m_c, h_c bf16
+// when bf16 != 0, else int8
 extern "C" int split_corr_fused_launch(
     const void* g, int m_pad, const void* g_c, const void* m_c,
     const void* h_c, int mm_pad, const void* seg, int n_segs, int S, int P,
@@ -652,7 +885,8 @@ extern "C" int split_corr_fused_launch(
     const void* rowmiss, const void* scal_c, const void* cidx,
     const void* usable_c, const void* dom_ok_c, void* rpart_f,
     void* rpart_i, void* cpart_f, void* cpart_i, const void* annot,
-    const void* annot_c, void* rpart_a, void* cpart_a, int n_annot,
+    const void* annot_c, void* rpart_a, void* cpart_a, const void* tile_slot,
+    int n_annot,
     int own_hi, float n, float inv_n, float n_padf, float pad_const,
     float adj_c, float rsq, int bf16, void* stream) {
   Params p = {};
@@ -680,6 +914,7 @@ extern "C" int split_corr_fused_launch(
   p.annot_c = static_cast<const float*>(annot_c);
   p.rpart_a = static_cast<float*>(rpart_a);
   p.cpart_a = static_cast<float*>(cpart_a);
+  p.tile_slot = static_cast<const int32_t*>(tile_slot);
   p.p = n_annot;
   p.p_x = p_x;
   p.m_pad = m_pad;
@@ -706,4 +941,48 @@ extern "C" int split_corr_fused_launch(
               : launch<true, true, false, false>(p, g, m_pad, b, mm_pad,
                                                  n_segs, s);
   return static_cast<int>(err);
+}
+
+// the annotation partials of split_corr_fused_launch (rpart_a, cpart_a,
+// tile_slot over n_segs x n_xt x n_ct tiles, the segment fields seg of S
+// rows each) folded into out (2, m_pad, p): each row's credits, a
+// contaminated row's (cmap: its compact row, else -1) mirrored ones added
+extern "C" int split_annot_fold_launch(const void* rpart, const void* cpart,
+                                       const void* slot, const void* seg,
+                                       const void* cmap, int n_segs,
+                                       int n_xt, int n_ct, int S, int m_pad,
+                                       int p, void* out, void* stream) {
+  FoldParams f = {};
+  f.rpart = static_cast<const float*>(rpart);
+  f.cpart = static_cast<const float*>(cpart);
+  f.slot = static_cast<const int32_t*>(slot);
+  f.seg = static_cast<const int32_t*>(seg);
+  f.cmap = static_cast<const int32_t*>(cmap);
+  f.out = static_cast<float*>(out);
+  f.n_segs = n_segs;
+  f.n_xt = n_xt;
+  f.n_ct = n_ct;
+  f.S = S;
+  f.m_pad = m_pad;
+  f.p = p;
+  const size_t total = 2ull * m_pad * p;
+  const unsigned blocks = static_cast<unsigned>(
+      total / 256 + 1 < 132 * 16 ? total / 256 + 1 : 132 * 16);
+  annot_fold_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the fused launch's live tiles over n_segs segments of S x rows and P
+// compact columns (its fields seg, windows lo, hi, compact rows cidx):
+// live (n_segs, ceil(S / TM), ceil(P / TC)) int32, 1 where it computes
+extern "C" int split_tile_reach_launch(const void* seg, const void* lo,
+                                       const void* hi, const void* cidx,
+                                       int n_segs, int S, int P, void* live,
+                                       void* stream) {
+  dim3 grid((P + TC - 1) / TC, (S + TM - 1) / TM, n_segs);
+  tile_reach_kernel<<<grid, TM, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(seg), static_cast<const int32_t*>(lo),
+      static_cast<const int32_t*>(hi), static_cast<const int32_t*>(cidx), S,
+      static_cast<int32_t*>(live));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -33,8 +33,12 @@ picks the instantiation, and on the CPU the twin's contraction
 With ``annot`` (partitioned LD scores) the corrections also return the
 per-annotation δ-credits ``(l2a_δ, l2da_δ)``, each ``(M_pad, p)``: every
 corrected pair's δ weighted by its neighbour's annotation row, in both
-directions.  The fused launch's annotation epilogue computes them on the
-card; the twin by four skinny float32 contractions per segment.
+directions.  On the card the fused launch's annotation epilogue contracts
+each live tile on the tensor cores (tf32 hi + lo) into one slot of
+partials; a small kernel first finds the live tiles by the fused launch's
+own rule (:func:`live_tiles`), whose count sizes the partials, and
+another folds them in a fixed order (:func:`fold_annot`).  The twin
+computes four skinny float32 contractions per segment.
 """
 
 from __future__ import annotations
@@ -65,10 +69,26 @@ annot_launches = 0
 bf16_launches = 0
 #: K2's launches (either mode) per device (``str(device)``)
 device_launches: Counter = Counter()
+#: the live tiles of the last fused launch with annotations and the bytes
+#: of annotation partials that call allocated (one slot of row and column
+#: partials per live tile, :func:`live_tiles`); launches of the kernels
+#: that find the live tiles (:func:`live_tiles`) and fold the partials
+#: (:func:`fold_annot`)
+annot_tiles = 0
+annot_partial_bytes = 0
+reach_launches = 0
+fold_launches = 0
 
 #: x rows and compact columns of one CTA of K2, checked against the library
 TILE_X = 128
 TILE_C = 32
+
+
+def annot_ld(p: int) -> int:
+    """Floats per row of K2's annotation partials for ``p`` annotations:
+    ``p`` rounded up to 8, so that each row starts on a 32-byte sector
+    (checked against the library)."""
+    return -(-p // 8) * 8
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -161,13 +181,21 @@ def _library() -> ctypes.CDLL:
         lib.split_corr_products_launch.restype = _I
         lib.split_corr_fused_launch.argtypes = (
             [_P, _I] + [_P] * 3 + [_I, _P] + [_I] * 4 + [_P, _I]
-            + [_P] * 19 + [_I] * 2 + [_F] * 6 + [_I, _P])
+            + [_P] * 20 + [_I] * 2 + [_F] * 6 + [_I, _P])
         lib.split_corr_fused_launch.restype = _I
+        lib.split_annot_fold_launch.argtypes = (
+            [_P] * 5 + [_I] * 6 + [_P] * 2)
+        lib.split_annot_fold_launch.restype = _I
+        lib.split_tile_reach_launch.argtypes = [_P] * 4 + [_I] * 3 + [_P] * 2
+        lib.split_tile_reach_launch.restype = _I
+        lib.split_annot_ld.argtypes = [_I]
+        lib.split_annot_ld.restype = _I
         lib.split_corr_tiles.argtypes = [ctypes.POINTER(_I)] * 2
         lib.split_corr_tiles.restype = _I
     tm, tc = _I(), _I()
     lib.split_corr_tiles(ctypes.byref(tm), ctypes.byref(tc))
-    if (tm.value, tc.value) != (TILE_X, TILE_C):
+    if (tm.value, tc.value) != (TILE_X, TILE_C) or any(
+            lib.split_annot_ld(p) != annot_ld(p) for p in (1, 8, 53)):
         raise RuntimeError("split_corr.cu and ld_split's tiles disagree")
     return lib
 
@@ -512,27 +540,160 @@ def _fold(rpart_f, rpart_i, cpart_f, cpart_i, c0, mm_pad: int):
                                   pad_i.sum(dim=0, dtype=torch.int32))
 
 
-def _fold_annot(rpart_a, cpart_a, c0s, mm_pad: int):
-    """The fused kernel's annotation partials in :func:`_fold`'s order:
-    ``rpart_a`` (n_ct, 2, m_pad, p) over the compact-column tiles;
-    ``cpart_a`` (n_segs, n_xt, 2, P, p) over the x tiles, then the
-    segments in order, each added at its compact rows ``c0s[s]`` on (host
-    integers).  No atomics."""
-    full = rpart_a.sum(dim=0)
-    n_segs, _, _, P, p = cpart_a.shape
-    seg = cpart_a.sum(dim=1)                                 # (n_segs, 2, P, p)
-    compact = torch.zeros((2, mm_pad, p), dtype=torch.float32,
-                          device=cpart_a.device)
-    for s in range(n_segs):
-        c0 = int(c0s[s])
-        compact[:, c0:c0 + P] += seg[s]
-    return tuple(full), tuple(compact)
+def live_tiles(seg, lo, hi, cidx, S: int, P: int) -> torch.Tensor:
+    """(n_segs, n_xt, n_ct) bool: the tiles of the fused launch that
+    compute, by the kernel's own rule (``split_corr.cu``, ``reaches``):
+    an x row the segment owns whose window ``[lo, hi]`` reaches the span
+    of the tile's real compact columns, ``lo <= cidx[last]`` and ``hi >=
+    cidx[first]``.  ``seg`` (n_segs, 4) int32: each segment's first x
+    row, first compact row, compact count and first owned row (the
+    kernel's fields); ``lo``, ``hi``, ``cidx`` (the compact rows' global
+    indices, sorted) int32.  On CUDA tensors one launch of
+    ``split_corr.cu``'s reach kernel (that rule's own code), on CPU
+    tensors :func:`live_tiles_plain`."""
+    global reach_launches
+    if seg.device.type == "cpu":
+        return live_tiles_plain(seg, lo, hi, cidx, S, P)
+    shape = (seg.shape[0], -(-S // TILE_X), -(-P // TILE_C))
+    live = torch.empty(shape, dtype=torch.int32, device=seg.device)
+    with torch.cuda.device(seg.device):
+        err = _library().split_tile_reach_launch(
+            seg.data_ptr(), lo.data_ptr(), hi.data_ptr(), cidx.data_ptr(),
+            shape[0], S, P, live.data_ptr(), _stream(seg))
+    _check_launch(err, "tile reach")
+    reach_launches += 1
+    return live.bool()
+
+
+def live_tiles_plain(seg, lo, hi, cidx, S: int, P: int) -> torch.Tensor:
+    """The plain version of :func:`live_tiles`, on any device.  A row's
+    rule holds for the column tiles from the one holding the first
+    compact column at or past ``lo`` to the one holding the last at or
+    before ``hi``, so each row adds one interval to its x tile, summed as
+    a difference array: integer work linear in the rows."""
+    dev = seg.device
+    n_segs, n_xt, n_ct = seg.shape[0], -(-S // TILE_X), -(-P // TILE_C)
+    s0, c0, c_cnt, seg_lo = (f[:, None] for f in seg.long().unbind(1))
+    gx = s0 + torch.arange(S, device=dev)                    # (n_segs, S)
+    a = torch.searchsorted(cidx, lo[gx]) - c0                # first >= lo
+    b = torch.searchsorted(cidx, hi[gx], right=True) - 1 - c0  # last <= hi
+    first = torch.div(a, TILE_C, rounding_mode="floor").clamp(min=0)
+    last = torch.minimum(torch.div(b, TILE_C, rounding_mode="floor"),
+                         (c_cnt + TILE_C - 1) // TILE_C - 1)
+    ok = (gx >= seg_lo) & (a < c_cnt) & (first <= last)
+    tile = (torch.arange(n_segs, device=dev)[:, None] * n_xt
+            + torch.arange(S, device=dev) // TILE_X) * (n_ct + 1)
+    diff = torch.zeros(n_segs * n_xt * (n_ct + 1), dtype=torch.int32,
+                       device=dev)
+    one = ok.to(torch.int32).view(-1)
+    diff.scatter_add_(0, torch.where(ok, tile + first, 0).view(-1), one)
+    diff.scatter_add_(0, torch.where(ok, tile + last + 1, 0).view(-1), -one)
+    return (diff.view(n_segs * n_xt, n_ct + 1).cumsum(1)[:, :n_ct] > 0).view(
+        n_segs, n_xt, n_ct)
+
+
+def tile_slots(live: torch.Tensor) -> torch.Tensor:
+    """int32 of ``live``'s shape: each live tile's slot, numbered in
+    (segment, x tile, column tile) order, else −1."""
+    slot = live.view(-1).cumsum(0, dtype=torch.int32).view(live.shape) - 1
+    return torch.where(live, slot, -1).to(torch.int32)
+
+
+def fold_annot(rpart_a, cpart_a, slot, seg, cidx, S: int, m_pad: int,
+               p: int):
+    """The fused kernel's annotation partials folded in a fixed order into
+    the full-length ``(l2a_δ, l2da_δ)``, each ``(m_pad, p)``
+    (:func:`fold_annot_plain` says how): on CUDA tensors one launch of
+    ``split_corr.cu``'s fold kernel, on CPU tensors the plain version.
+    The two are bitwise equal: each sum runs from zero in one order."""
+    global fold_launches
+    if rpart_a.device.type == "cpu":
+        return fold_annot_plain(rpart_a, cpart_a, slot, seg, cidx, S, m_pad,
+                                p)
+    n_segs, n_xt, n_ct = slot.shape
+    if rpart_a.shape[-1] != annot_ld(p) or cpart_a.shape[-1] != annot_ld(p):
+        raise ValueError(f"partials of {p} annotations have rows of "
+                         f"{annot_ld(p)} floats")
+    for t in (rpart_a, cpart_a, slot, seg, cidx):
+        if not t.is_contiguous() or t.device != rpart_a.device:
+            raise ValueError("the fold's inputs must be contiguous, on one "
+                             "device")
+    dev = rpart_a.device
+    cmap = torch.full((m_pad,), -1, dtype=torch.int32, device=dev)
+    cmap[cidx.long()] = torch.arange(cidx.shape[0], dtype=torch.int32,
+                                     device=dev)
+    out = torch.empty((2, m_pad, p), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _library().split_annot_fold_launch(
+            rpart_a.data_ptr(), cpart_a.data_ptr(), slot.data_ptr(),
+            seg.data_ptr(), cmap.data_ptr(), n_segs, n_xt, n_ct, S, m_pad,
+            p, out.data_ptr(), _stream(rpart_a))
+    _check_launch(err, "annotation fold")
+    fold_launches += 1
+    return tuple(out)
+
+
+def fold_annot_plain(rpart_a, cpart_a, slot, seg, cidx, S: int,
+                     m_pad: int, p: int):
+    """The plain version of :func:`fold_annot`, on any device.  The
+    partials hold one slot per live tile (``slot``, :func:`tile_slots`):
+    ``rpart_a`` (n_live, 2, TILE_X, annot_ld(p)), the credits to the x
+    rows, and ``cpart_a`` (n_live, TILE_C, 2, annot_ld(p)), the mirrored
+    credits to the compact columns; annotations [0, p) of each row.  Each x tile's row slots are consecutive: summed over
+    its live column tiles in order; each compact row's column slots over
+    the segments, then the x tiles, in order; both by
+    ``torch.segment_reduce`` (one sequential sum per output element, from
+    zero), so every sum has a fixed order: no atomics, and nothing is read
+    that no tile wrote.  A contaminated row (``cidx``: the real compact
+    rows' global indices, sorted) then gains its compact row's sum."""
+    dev = rpart_a.device
+    n_segs, n_xt, n_ct = slot.shape
+    n_live, n_miss = rpart_a.shape[0], cidx.shape[0]
+    TM, TC = TILE_X, TILE_C
+    rpart_a, cpart_a = (t[..., :p].contiguous() for t in (rpart_a, cpart_a))
+    rows = torch.segment_reduce(
+        rpart_a.view(n_live, 2 * TM * p), "sum",
+        lengths=(slot >= 0).sum(dim=2).view(-1),
+        unsafe=True, initial=0.0).view(n_segs * n_xt * 2 * TM, p)
+    # row gx belongs to segment gx // S, at gx - s0 in it
+    s0 = seg[:, 0].long()
+    gx = torch.arange(m_pad, device=dev)
+    sg = gx // S
+    xl = gx - s0[sg]
+    at = ((sg * n_xt + xl // TM) * 2) * TM + xl % TM
+    full = rows.index_select(0, (at + torch.arange(2, device=dev)[:, None]
+                                 * TM).view(-1)).view(2, m_pad, p)
+    # the live tiles' coordinates, by slot
+    flat = slot.view(-1).long()
+    tiles = torch.empty(n_live + 1, dtype=torch.int64, device=dev).scatter_(
+        0, torch.where(flat >= 0, flat, n_live),
+        torch.arange(flat.shape[0], device=dev))[:n_live]
+    t_sx, ct = tiles // n_ct, tiles % n_ct
+    t_s = t_sx // n_xt
+    # each slot column's compact row (n_miss: past the segment's real
+    # columns, not summed), sorted by compact row, then segment and x tile
+    c_loc = ct[:, None] * TC + torch.arange(TC, device=dev)
+    c = torch.where(c_loc < seg[t_s, 2].long()[:, None],
+                    seg[t_s, 1].long()[:, None] + c_loc, n_miss)
+    key = (c * (n_segs * n_xt) + t_sx[:, None]) * TC + torch.arange(
+        TC, device=dev)
+    order = torch.argsort(key.view(-1))
+    lengths = torch.zeros(n_miss + 1, dtype=torch.int64, device=dev)
+    lengths.scatter_add_(0, c.view(-1), torch.ones_like(c.view(-1)))
+    compact = torch.segment_reduce(
+        cpart_a.view(n_live * TC, 2 * p).index_select(0, order), "sum",
+        lengths=lengths, unsafe=True, initial=0.0)[:n_miss].view(
+            n_miss, 2, p).transpose(0, 1)
+    rows_c = cidx.long()
+    full[:, rows_c] = full[:, rows_c] + compact
+    return tuple(full)
 
 
 def _kernel_corrections(g, m_c, h, scal, lo, hi, usable, dom_ok, rowmiss,
                         rsq_thr: float, own_hi: int, plan: dict, annot=None,
                         *, n_samples: int):
     global corr_launches, fused_launches, annot_launches, bf16_launches
+    global annot_tiles, annot_partial_bytes
     m_pad, n_pad = g.shape
     dev = g.device
     S, P, p_x, n_segs = (plan["seg_rows"], plan["p_band"], plan["p_x"],
@@ -560,6 +721,13 @@ def _kernel_corrections(g, m_c, h, scal, lo, hi, usable, dom_ok, rowmiss,
                          f"{S} rows exceeds the kernel's range")
 
     ops = _operands(g, m_c, h, plan)
+    if annot is not None:
+        # the live tiles and their count, which sizes the annotation
+        # partials: the one wait on the device, while it has nothing else
+        # queued (the table's copy has just waited)
+        slot = tile_slots(live_tiles(ops["seg_x"], lo, hi, ops["cidx"], S,
+                                     P))
+        n_live = int(slot.max()) + 1
     idx = ops["idx"]
     _, scal_c, usable_c, dom_ok_c = _compact(scal, usable, dom_ok, idx)
     d = _d_products(m_c, ops, plan)
@@ -574,14 +742,19 @@ def _kernel_corrections(g, m_c, h, scal, lo, hi, usable, dom_ok, rowmiss,
         scal, lo, hi, usable, dom_ok, rowmiss, scal_c, ops["cidx"], usable_c,
         dom_ok_c, rpf, rpi, cpf, cpi)]
     if annot is None:
-        a_ptrs, p = [None] * 4, 0
+        a_ptrs, p = [None] * 5, 0
     else:
-        # zero-filled: a tile that no window reaches writes none of them
+        # one slot of row and column partials per live tile, each written
+        # whole by its tile
         p = annot.shape[1]
         a_c = annot.index_select(0, idx)
-        rpa = torch.zeros((n_ct, 2, m_pad, p), dtype=f32, device=dev)
-        cpa = torch.zeros((n_segs, n_xt, 2, P, p), dtype=f32, device=dev)
-        a_ptrs = [t.data_ptr() for t in (annot, a_c, rpa, cpa)]
+        rpa = torch.empty((n_live, 2, TILE_X, annot_ld(p)), dtype=f32,
+                          device=dev)
+        cpa = torch.empty((n_live, TILE_C, 2, annot_ld(p)), dtype=f32,
+                          device=dev)
+        annot_tiles = n_live
+        annot_partial_bytes = rpa.nbytes + cpa.nbytes
+        a_ptrs = [t.data_ptr() for t in (annot, a_c, rpa, cpa, slot)]
     g_c, _, h_c = ops["blocks"]
     err = _library().split_corr_fused_launch(
         g.data_ptr(), m_pad, g_c.data_ptr(), m_c.data_ptr(), h_c.data_ptr(),
@@ -598,11 +771,12 @@ def _kernel_corrections(g, m_c, h, scal, lo, hi, usable, dom_ok, rowmiss,
     bf16_launches += int(bf16)
     full, compact = _fold(rpf, rpi, cpf, cpi,
                           ops["seg_x"][:, 1], m_c.shape[0])
-    if annot is not None:
-        annot_launches += 1
-        full_a, compact_a = _fold_annot(rpa, cpa, plan["cs"], m_c.shape[0])
-        full, compact = full + full_a, compact + compact_a
-    return _scatter_columns(idx, full, compact)
+    deltas = _scatter_columns(idx, full, compact)
+    if annot is None:
+        return deltas
+    annot_launches += 1
+    return deltas + fold_annot(rpa, cpa, slot, ops["seg_x"],
+                               ops["cidx"][:plan["n_miss"]], S, m_pad, p)
 
 
 def split_corrections(g, m_c, h, scal, lo, hi, usable, dom_ok, rowmiss,

@@ -3,7 +3,7 @@
 
     python3 scripts/time_split_corr_cuda.py [--m 65536] [--n 16384]
         [--half-window 1000] [--row-frac 0.05] [--entry-rate 0.02]
-        [--reps 5] [--dot-dtype bf16] [--annot 53]
+        [--reps 5] [--dot-dtype bf16] [--annot 5,53]
 
 Seeded random genotype codes are made on the card (MAF 0.05-0.5 per SNP),
 then ``--entry-rate`` of the codes of ``--row-frac`` of the rows are set
@@ -21,15 +21,17 @@ K2's bf16 instantiations are held bitwise against the int8 ones
 (``chip_smoke.check_k2_bf16``: products mode and ``split_corrections``)
 and timed beside them (int8, bf16, bf16, int8) with the bf16 bound, and
 the yardstick is a bf16 product with float32 sums on the same products.
-With ``--annot P`` the fused annotation instantiation is held against the
-twin (plain δ bitwise the plain call's, annotation δ within KERNEL_TOL)
-and ``split_corrections(annot=)`` with P seeded annotations is timed
-beside the plain call (plain, annot, annot, plain), with the device time
-inside K2 and in the other ops (profiler) and the bound
-(``chip_smoke.annot_bound``).  Every mode prints, per kernel function of
-the build, its SASS instruction count and a hash of its SASS and of its
-opcodes (``cuobjdump -sass``), so that two checkouts' builds of K2 can be
-compared.  The last line is one JSON object of the numbers.
+With ``--annot P[,P...]`` the fused annotation instantiations are held
+against the twin (plain δ bitwise the plain call's, annotation δ within
+KERNEL_TOL, bf16 bitwise int8) and ``split_corrections(annot=)`` with P
+seeded annotations is timed beside the call without them (plain, annot,
+annot, plain) on int8 and on bf16 operands, with the device time inside
+K2 and in the other ops (profiler) and the bound
+(``chip_smoke.annot_bound``, the epilogue at the tf32 rate).  Every mode
+prints, per kernel function of the build of K2 and of K1, its SASS
+instruction count and a hash of its SASS and of its opcodes
+(``cuobjdump -sass``), so that two checkouts' builds can be compared.
+The last line is one JSON object of the numbers.
 """
 
 from __future__ import annotations
@@ -163,52 +165,70 @@ def device_split(fn, reps: int = 3) -> tuple[float, float]:
 
 def time_annot(sargs, opt, card: str, ptxas: list, sass: dict,
                dev) -> int:
-    """``split_corrections(annot=)`` with ``opt.annot`` seeded
-    annotations: held against the plain call and the twin, then timed
-    beside the plain call in turns."""
+    """``split_corrections(annot=)`` with each of ``opt.annot`` seeded
+    annotation counts: held against the plain call and the twin, bf16
+    against int8, then timed beside the plain call in turns on each
+    operand type."""
     from nldsc_tpu_torch.ld import ld_split
 
-    p = opt.annot
     m_pad = sargs[0].shape[0]
-    annot = chip_smoke.seeded_annot(torch, m_pad, opt.m, p, opt.seed, dev)
-
-    def k2(a=None):
-        return ld_split.split_corrections(*sargs, a, n_samples=opt.n)
-
-    kern, plain = k2(annot), k2()
-    if not all(torch.equal(a, b) for a, b in zip(kern[:3], plain)):
-        raise RuntimeError("the plain δ of an annot call differ from a "
-                           "plain call's")
-    err = chip_smoke.hold_accumulators(
-        kern[3:], ld_split.split_corrections_plain(
-            *sargs, annot, n_samples=opt.n)[3:],
-        "split_corrections annotation δ against its twin")
-    del kern, plain
-    ms_plain, ms, ms2, ms_plain2 = (
-        chip_smoke.cuda_ms(torch, f, 2 * opt.reps)
-        for f in (k2, lambda: k2(annot), lambda: k2(annot), k2))
-    k2_ms, other_ms = device_split(lambda: k2(annot))
-    k2_plain_ms, other_plain_ms = device_split(k2)
+    bsargs = chip_smoke.as_bf16(sargs)
     work = chip_smoke.k2_work(sargs)
-    work_a = chip_smoke.annot_bound(work, work["pairs"], m_pad, p,
-                                    work["int8_ops"], work["f32_ops"])
-    print(f"split_corrections(annot=) p={p}, {sargs[-1]['n_miss']} "
-          f"contaminated rows: {ms:.3f} / {ms2:.3f} ms against "
-          f"{ms_plain:.3f} / {ms_plain2:.3f} ms without annotations "
-          f"(plain, annot, annot, plain); device time per call: K2 "
-          f"{k2_ms:.3f} ms, other ops {other_ms:.3f} ms (plain: "
-          f"{k2_plain_ms:.3f} / {other_plain_ms:.3f}); bound "
-          f"{work_a['bound_ms']:.3f} ms ({work_a['bound_by']}), "
-          f"{100 * work_a['bound_ms'] / min(ms, ms2):.1f}% of it; max "
-          f"|annotation δ| diff vs twin {err:.3g}; on {card}", flush=True)
-    print(json.dumps({"card": card, "m": opt.m, "n": opt.n, "p": p,
-                      "n_miss": sargs[-1]["n_miss"], "ms": [ms, ms2],
-                      "plain_ms": [ms_plain, ms_plain2], "k2_ms": k2_ms,
-                      "other_ms": other_ms, "k2_plain_ms": k2_plain_ms,
-                      "other_plain_ms": other_plain_ms,
-                      "max_abs_err": err, "bound_ms": work_a["bound_ms"],
-                      "bound_by": work_a["bound_by"], "ptxas": ptxas,
-                      "sass": sass}))
+    rows = []
+    for p in opt.annot:
+        annot = chip_smoke.seeded_annot(torch, m_pad, opt.m, p, opt.seed,
+                                        dev)
+
+        def k2(a=None, args=sargs):
+            return ld_split.split_corrections(*args, a, n_samples=opt.n)
+
+        kern, plain = k2(annot), k2()
+        plain_sha = hashlib.sha256(b"".join(
+            t.cpu().numpy().tobytes() for t in plain)).hexdigest()[:16]
+        if not all(torch.equal(a, b) for a, b in zip(kern[:3], plain)):
+            raise RuntimeError("the plain δ of an annot call differ from a "
+                               "plain call's")
+        if not chip_smoke.all_bits_equal(torch, k2(annot, bsargs), kern):
+            raise RuntimeError("bf16 split_corrections(annot=) differs from "
+                               "int8")
+        err = chip_smoke.hold_accumulators(
+            kern[3:], ld_split.split_corrections_plain(
+                *sargs, annot, n_samples=opt.n)[3:],
+            "split_corrections annotation δ against its twin")
+        del kern, plain
+        work_a = chip_smoke.annot_bound(work, work["pairs"], m_pad, p,
+                                        work["int8_ops"], work["f32_ops"],
+                                        tensor_cores=True)
+        for dtype, args in (("int8", sargs), ("bf16", bsargs)):
+            ms_plain, ms, ms2, ms_plain2 = (
+                chip_smoke.cuda_ms(torch, f, 2 * opt.reps)
+                for f in (lambda: k2(None, args), lambda: k2(annot, args),
+                          lambda: k2(annot, args), lambda: k2(None, args)))
+            k2_ms, other_ms = device_split(lambda: k2(annot, args))
+            k2_plain_ms, other_plain_ms = device_split(lambda: k2(None, args))
+            epi = min(ms, ms2) - min(ms_plain, ms_plain2)
+            print(f"split_corrections(annot=) p={p} {dtype}, "
+                  f"{sargs[-1]['n_miss']} contaminated rows: {ms:.3f} / "
+                  f"{ms2:.3f} ms against {ms_plain:.3f} / {ms_plain2:.3f} ms "
+                  f"without annotations (plain, annot, annot, plain): the "
+                  f"epilogue's own cost {epi:.3f} ms; device time per call: "
+                  f"K2 {k2_ms:.3f} ms, other ops {other_ms:.3f} ms (plain: "
+                  f"{k2_plain_ms:.3f} / {other_plain_ms:.3f}); int8 bound "
+                  f"{work_a['bound_ms']:.3f} ms ({work_a['bound_by']}), "
+                  f"{100 * work_a['bound_ms'] / min(ms, ms2):.1f}% of it; "
+                  f"max |annotation δ| diff vs twin {err:.3g}; plain δ "
+                  f"sha256 {plain_sha}; on {card}", flush=True)
+            rows.append({"p": p, "dot_dtype": dtype, "ms": [ms, ms2],
+                         "plain_ms": [ms_plain, ms_plain2],
+                         "epilogue_ms": epi, "k2_ms": k2_ms,
+                         "other_ms": other_ms, "k2_plain_ms": k2_plain_ms,
+                         "other_plain_ms": other_plain_ms,
+                         "max_abs_err": err, "plain_sha": plain_sha,
+                         "bound_ms": work_a["bound_ms"],
+                         "bound_by": work_a["bound_by"]})
+    print(json.dumps({"card": card, "m": opt.m, "n": opt.n,
+                      "n_miss": sargs[-1]["n_miss"], "annot": rows,
+                      "ptxas": ptxas, "sass": sass}))
     return 0
 
 
@@ -223,9 +243,10 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=2026)
     ap.add_argument("--dot-dtype", choices=["int8", "bf16"], default="int8",
                     help="the operand type of the instantiations timed")
-    ap.add_argument("--annot", type=int, default=0, metavar="P",
+    ap.add_argument("--annot", default=[], metavar="P[,P...]",
+                    type=lambda v: [int(x) for x in v.split(",")],
                     help="check and time split_corrections with P "
-                         "annotations instead")
+                         "annotations instead, on int8 and bf16 operands")
     opt = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -241,7 +262,7 @@ def main() -> int:
              .splitlines() if "registers" in ln or "spill" in ln
              or "C75" in ln]
     print("ptxas: " + " | ".join(ptxas), flush=True)
-    sass = sass_digest("split_corr")
+    sass = {**sass_digest("split_corr"), **sass_digest("ld_sym")}
     for k, v in sass.items():
         print(f"sass {k}: {v}", flush=True)
     args, codes = engine_args(opt.m, opt.n, opt.half_window, opt.row_frac,

@@ -630,15 +630,27 @@ def test_k1_annot_fold_matches_twin(rng, case):
 
 
 def test_k2_annot_fold_adds_segments_at_their_columns():
-    n_ct, m_pad, p, n_segs, n_xt, P, mm_pad = 2, 8, 3, 2, 2, 4, 10
+    # two segments of one x tile each, P = 40 (two column tiles); segment
+    # 0 reaches both column tiles, segment 1 its first only; 40
+    # contaminated rows, compact row c at global row 5 c + 1
+    TM, TC, p, S, m_pad = ld_split.TILE_X, ld_split.TILE_C, 3, 128, 256
+    seg = torch.tensor([[0, 0, 40, 0], [128, 3, 30, 128]], dtype=torch.int32)
+    cidx = torch.arange(40, dtype=torch.int32) * 5 + 1
+    live = torch.tensor([[[True, True]], [[True, False]]])
+    slot = ld_split.tile_slots(live)
+    assert slot.tolist() == [[[0, 1]], [[2, -1]]]
     gen = torch.Generator().manual_seed(5)
-    rpa = torch.rand((n_ct, 2, m_pad, p), generator=gen)
-    cpa = torch.rand((n_segs, n_xt, 2, P, p), generator=gen)
-    full, compact = ld_split._fold_annot(rpa, cpa, np.array([0, 3]), mm_pad)
-    assert len(full) == len(compact) == 2
+    # rows of annot_ld(p) = 8 floats: the 5 past p are not summed
+    rpa = torch.rand((3, 2, TM, ld_split.annot_ld(p)), generator=gen)
+    cpa = torch.rand((3, TC, 2, ld_split.annot_ld(p)), generator=gen)
+    full = ld_split.fold_annot(rpa, cpa, slot, seg, cidx, S, m_pad, p)
+    assert len(full) == 2
+    rpa, cpa = rpa[..., :p], cpa[..., :p]
     for v in range(2):
-        torch.testing.assert_close(full[v], rpa[0, v] + rpa[1, v])
-        want = torch.zeros((mm_pad, p))
-        want[0:4] += cpa[0, 0, v] + cpa[0, 1, v]
-        want[3:7] += cpa[1, 0, v] + cpa[1, 1, v]
-        torch.testing.assert_close(compact[v], want)
+        rows = torch.cat([rpa[0, v] + rpa[1, v], rpa[2, v]])
+        cols = torch.zeros((40, p))
+        cols[0:32] += cpa[0, :, v]                 # segment 0, columns 0-31
+        cols[32:40] += cpa[1, :8, v]               # 32-39: its c_cnt ends
+        cols[3:33] += cpa[2, :30, v]               # segment 1 at c0 = 3
+        rows[cidx.long()] += cols                  # at their global rows
+        torch.testing.assert_close(full[v], rows)

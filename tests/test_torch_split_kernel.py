@@ -18,6 +18,7 @@ from nldsc_tpu_torch.ld import ld_int8, ld_pallas_sym, ld_split, pipeline
 from nldsc_tpu_torch.ld import windows
 
 from test_torch_kernel import seeded_annot
+from test_torch_split_plan import kernel_reach, seg_fields, windows_case
 from utils import adversarial_genotypes, make_positions, random_genotypes
 
 RSQ = 1e-3
@@ -128,7 +129,9 @@ def test_split_corrections_kernel_matches_twin(rng, cuda, m, n, seg_rows,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("p", [1, 37])
+# one chunk of 8; a ragged last chunk; the baseline model's 53; more
+# chunks than two in either direction
+@pytest.mark.parametrize("p", [1, 8, 37, 53, 130])
 @pytest.mark.parametrize("m, n, seg_rows, wind, own", [
     (700, 389, 256, 20000.0, None),   # 3 segments, the last one clamped
     (300, 101, 64, 20000.0, None),    # segments shorter than a tile
@@ -161,6 +164,64 @@ def test_split_corrections_annot_kernel_matches_twin(rng, cuda, m, n,
         assert tuple(a.shape) == (args[0].shape[0], p)
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), **TOL)
     assert twin[3].abs().max() > 0 and twin[4].abs().max() > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m, n, seg_rows, wind, skips", [
+    (700, 389, 256, 20000.0, False),   # 3 segments, the last one clamped
+    (3000, 203, 2048, 5000.0, True),   # narrow windows: tiles skip
+])
+def test_annot_partials_are_sized_by_live_tiles(rng, cuda, m, n, seg_rows,
+                                               wind, skips):
+    args, n, _, _ = split_inputs(rng, m, n, seg_rows, cuda, wind)
+    p = 7
+    annot = seeded_annot(rng, args[0].shape[0], m, p, cuda)
+    torch.cuda.synchronize()
+    ld_split.split_corrections(*args, annot, n_samples=n)
+    torch.cuda.synchronize()
+    plan, m_pad = args[-1], args[0].shape[0]
+    live = kernel_reach(plan, args[4].cpu().numpy(), args[5].cpu().numpy(),
+                        m_pad)
+    assert ld_split.annot_tiles == int(live.sum())
+    if skips:
+        assert ld_split.annot_tiles < live.size
+    assert ld_split.annot_partial_bytes == (
+        ld_split.annot_tiles * 2 * (ld_split.TILE_X + ld_split.TILE_C)
+        * ld_split.annot_ld(p) * 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["clamped last segment", "band own_hi",
+                                  "narrow windows"])
+def test_annot_reach_and_fold_kernels_equal_plain(rng, cuda, case):
+    m_pad, S, rowmiss, lo, hi = windows_case(rng, case)
+    plan = ld_split.plan_split_v2(rowmiss, lo, hi, S, m_pad)
+    seg = seg_fields(plan, m_pad)
+    host = (torch.from_numpy(lo), torch.from_numpy(hi),
+            torch.from_numpy(plan["miss_idx"]))
+    live = ld_split.live_tiles(seg, *host, S, plan["p_band"])
+    before = ld_split.reach_launches
+    on_card = ld_split.live_tiles(seg.to(cuda), *(t.to(cuda) for t in host),
+                                  S, plan["p_band"])
+    assert ld_split.reach_launches == before + 1
+    assert torch.equal(on_card.cpu(), live)          # the kernel's own rule
+    slot = ld_split.tile_slots(live)
+    n_live, p = int(live.sum()), 37
+    pld = ld_split.annot_ld(p)
+    rpa = torch.from_numpy(rng.standard_normal(
+        (n_live, 2, ld_split.TILE_X, pld)).astype(np.float32))
+    cpa = torch.from_numpy(rng.standard_normal(
+        (n_live, ld_split.TILE_C, 2, pld)).astype(np.float32))
+    cidx = torch.from_numpy(plan["miss_idx"][:plan["n_miss"]])
+    args = (rpa, cpa, slot, seg, cidx, S, m_pad, p)
+    before = ld_split.fold_launches
+    kern = ld_split.fold_annot(*(a.to(cuda) if torch.is_tensor(a) else a
+                                 for a in args))
+    torch.cuda.synchronize()
+    assert ld_split.fold_launches == before + 1
+    plain = ld_split.fold_annot(*args)          # CPU: the plain version
+    for a, b in zip(kern, plain):
+        assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
 
 
 @pytest.mark.gpu
@@ -293,7 +354,7 @@ def test_bf16_products_equal_int8(rng, cuda, rows_x, rows_cat, p2, n_pad):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("p", [0, 37])
+@pytest.mark.parametrize("p", [0, 37, 53])
 @pytest.mark.parametrize("m, n, seg_rows, wind", [
     (700, 389, 256, 20000.0), (300, 101, 64, 20000.0),
     (1500, 389, 512, 60000.0)])

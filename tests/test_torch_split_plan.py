@@ -132,3 +132,125 @@ def test_fold_equals_per_segment_sums(rng):
     for got, w in zip((l2_c, l2d_c, wse_c), want):
         np.testing.assert_array_equal(got.numpy(), w)
     assert wse_c.dtype == torch.int32 and l2_c.dtype == torch.float32
+
+
+def kernel_reach(plan: dict, lo, hi, m_pad: int) -> np.ndarray:
+    """The fused launch's live tiles by brute force: ``split_corr.cu``'s
+    ``reach`` evaluated for every thread of every CTA."""
+    TM, TC = ld_split.TILE_X, ld_split.TILE_C
+    S, P = plan["seg_rows"], plan["p_band"]
+    tab = ld_split.segment_table(plan, m_pad)
+    cidx = plan["miss_idx"]
+    n_xt, n_ct = -(-S // TM), -(-P // TC)
+    live = np.zeros((plan["n_segs"], n_xt, n_ct), bool)
+    for s in range(plan["n_segs"]):
+        a_row0, c0, c_cnt, seg_lo = (int(tab[k][s]) for k in (
+            "s0", "c0", "c_cnt", "seg_lo"))
+        for xt in range(n_xt):
+            for ct in range(n_ct):
+                cl0 = ct * TC
+                c_end = min(cl0 + TC, c_cnt)
+                for tid in range(TM):
+                    xl = xt * TM + tid
+                    gx = a_row0 + xl
+                    if (cl0 < c_end and xl < S and gx >= seg_lo
+                            and lo[gx] <= cidx[c0 + c_end - 1]
+                            and hi[gx] >= cidx[c0 + cl0]):
+                        live[s, xt, ct] = True
+                        break
+    return live
+
+
+def windows_case(rng, case: str):
+    """(m_pad, S, rowmiss, lo, hi) of one of the fused launch's layouts."""
+    m_pad, S, half, own_hi = {
+        # 640 rows in segments of 256: the last one clamped
+        "clamped last segment": (640, 256, 60, None),
+        # a band: rows past its pivots carry emptied windows (lo > hi)
+        "band own_hi": (1024, 512, 90, 768),
+        # narrow windows: most tiles no window reaches
+        "narrow windows": (2048, 1024, 6, None),
+    }[case]
+    rows = np.arange(m_pad)
+    rowmiss = rng.random(m_pad) < 0.3        # P spans several column tiles
+    lo = np.maximum(rows - half - rng.integers(0, 5, m_pad), 0)
+    hi = np.minimum(rows + half + rng.integers(0, 5, m_pad), m_pad - 1)
+    if own_hi is not None:
+        lo[own_hi:], hi[own_hi:] = m_pad, -1
+    empty = rng.choice(m_pad, 8, replace=False)   # unusable rows
+    lo[empty], hi[empty] = m_pad, -1
+    return m_pad, S, rowmiss, lo.astype(np.int32), hi.astype(np.int32)
+
+
+def seg_fields(plan: dict, m_pad: int) -> torch.Tensor:
+    """The kernel's per-segment fields, as ``ld_split._operands`` makes
+    them."""
+    tab = ld_split.segment_table(plan, m_pad)
+    return torch.from_numpy(np.stack(
+        [tab["s0"], tab["c0"], tab["c_cnt"], tab["seg_lo"]], axis=1))
+
+
+@pytest.mark.parametrize("case", ["clamped last segment", "band own_hi",
+                                  "narrow windows"])
+def test_live_tiles_match_the_kernels_rule(rng, case):
+    m_pad, S, rowmiss, lo, hi = windows_case(rng, case)
+    plan = ld_split.plan_split_v2(rowmiss, lo, hi, S, m_pad)
+    live = ld_split.live_tiles(
+        seg_fields(plan, m_pad), torch.from_numpy(lo), torch.from_numpy(hi),
+        torch.from_numpy(plan["miss_idx"]), S, plan["p_band"])
+    want = kernel_reach(plan, lo, hi, m_pad)
+    assert want.shape[2] >= 3                    # several column tiles
+    np.testing.assert_array_equal(live.numpy(), want)
+    assert 0 < want.sum() < want.size            # some tiles skip
+    slot = ld_split.tile_slots(live)
+    assert slot.dtype == torch.int32
+    np.testing.assert_array_equal(np.sort(slot[live].numpy()),
+                                  np.arange(int(want.sum())))
+    assert (slot[~live] == -1).all()
+
+
+@pytest.mark.parametrize("case", ["clamped last segment", "narrow windows"])
+def test_fold_annot_matches_float64_sums(rng, case):
+    m_pad, S, rowmiss, lo, hi = windows_case(rng, case)
+    plan = ld_split.plan_split_v2(rowmiss, lo, hi, S, m_pad)
+    seg = seg_fields(plan, m_pad)
+    live = ld_split.live_tiles(seg, torch.from_numpy(lo),
+                               torch.from_numpy(hi),
+                               torch.from_numpy(plan["miss_idx"]), S,
+                               plan["p_band"])
+    slot = ld_split.tile_slots(live)
+    TM, TC, p = ld_split.TILE_X, ld_split.TILE_C, 5
+    n_live = int(live.sum())
+    # rows of annot_ld(p) = 8 floats: the 3 past p are not summed
+    pld = ld_split.annot_ld(p)
+    rpa = torch.from_numpy(rng.standard_normal((n_live, 2, TM, pld))
+                           .astype(np.float32))
+    cpa = torch.from_numpy(rng.standard_normal((n_live, TC, 2, pld))
+                           .astype(np.float32))
+    n_miss = plan["n_miss"]
+    cidx = torch.from_numpy(plan["miss_idx"][:n_miss])
+    full = ld_split.fold_annot(rpa, cpa, slot, seg, cidx, S, m_pad, p)
+    again = ld_split.fold_annot(rpa, cpa, slot, seg, cidx, S, m_pad, p)
+    for a, b in zip(full, again):
+        assert torch.equal(a, b)                       # a fixed order
+    # float64: each owned row from its x tile's live slots, each
+    # contaminated row also from every live tile whose real columns hold
+    # its compact row
+    tab = ld_split.segment_table(plan, m_pad)
+    r64, c64 = (t[..., :p].double().numpy() for t in (rpa, cpa))
+    want_f = np.zeros((2, m_pad, p))
+    want_c = np.zeros((2, n_miss, p))
+    for s, xt, ct in zip(*np.nonzero(live.numpy())):
+        k = int(slot[s, xt, ct])
+        for r in range(TM):
+            gx = int(tab["s0"][s]) + xt * TM + r
+            if gx >= tab["seg_lo"][s] and xt * TM + r < S:
+                want_f[:, gx] += r64[k, :, r]
+        for j in range(TC):
+            if ct * TC + j < tab["c_cnt"][s]:
+                want_c[:, tab["c0"][s] + ct * TC + j] += c64[k, j]
+    want_f[:, plan["miss_idx"][:n_miss]] += want_c
+    for got, want in zip(full, want_f):
+        assert got.dtype == torch.float32 and got.is_contiguous()
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    assert np.abs(want_c).max() > 0
