@@ -30,7 +30,8 @@ Phases, one line each (or a few):
   7. at phase 5's shape: K1's clean branch and its 8-product branch
      (on the same genotypes, with an all-zero missing matrix: every pair
      equals the clean one) against the twin, their times, int8 TOPS and
-     share of the bound, the twin's time, and ``torch._int_mm`` on a
+     share of the bound, the twin's time (512-row blocks), and
+     ``torch._int_mm`` on a
      dense 8,192 x 16,384 by 16,384 x 8,192 int8 product as a yardstick
      of the card's int8 rate (the port never calls it);
   8. K2 at M=4096, N=3001, 5% of the rows contaminated, adversarial rows
@@ -209,7 +210,22 @@ Phases, one line each (or a few):
      missing genotypes) bitwise equal to the CPU port's in the same
      process, and K1's and K2's times at the chromosome shape (phases 7
      and 10) beside the card's name and power limit.
+ 32. UK Biobank width: a bfile of M = 8,192 SNPs x N = 315,599 samples
+     (the reference's UK Biobank count; N_pad = 315,648, the codes past
+     2^31 bytes), drawn and packed into .bed bytes on the card by
+     ``write_chromosome`` (``scripts/ukb_width_cuda.py``'s chromosome:
+     phase 5's local-LD model, 5% missing genotypes in every 50th SNP),
+     seed 2026: ``ld`` in core on the split
+     and global routes (counters equal, each route's peak device bytes per
+     padded genotype within ``pipeline.INCORE_BYTES_PER_GENOTYPE``),
+     streamed at ``--chunk-rows 2048`` and resumed with shards 1-3 deleted
+     (.L2 byte-identical, the cached rowmiss read); K1 clean, K1 8-product
+     and K2 against their twins on 256 rows at full N, the card's per-SNP
+     scalars there bitwise the CPU port's; and K1 clean, K1 8-product
+     (m = 0) and K2 timed on all M rows beside their bounds (the kernels
+     line's ``ms_wide``/``bound_ms_wide``).
 
+Every line starts ``[phase +t s]``: the seconds since the script began.
 Then one JSON line of the kernels (each with its time, its plain
 version's, its bound from this run's inputs, its launches on the main
 path of phases 5 and 9, in phases 13-14, on the SNP shards of phase 26,
@@ -242,11 +258,16 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 RSQ = 1e-3
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
+GOLDEN_TOL = dict(rtol=2e-5, atol=2e-4)      # tests/test_golden.py:29-36
 H2_TOL = dict(rtol=1e-8, atol=1e-12)
 
 
+#: the script's start: ``say`` prints the seconds since it
+T_START = time.time()
+
+
 def say(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    print(f"[{phase} +{time.time() - T_START:.1f}s] {msg}", flush=True)
 
 
 def synthetic_genotypes(rng, m: int, n: int, missing_rate: float = 0.0,
@@ -272,6 +293,99 @@ def synthetic_genotypes(rng, m: int, n: int, missing_rate: float = 0.0,
         if missing_rate > 0:
             miss = rng.random((c, n), dtype=np.float32) < missing_rate
             out[s:s + c][miss] = -1
+    return out
+
+
+#: the UK Biobank-width chromosome (phase 32, scripts/ukb_width_cuda.py):
+#: every ``MISS_EVERY``-th SNP carries ``MISS_RATE`` missing genotypes, the
+#: copy rate is drawn once per ``RATE_SPAN`` SNPs, SNPs ``SPACING`` bp apart
+MISS_EVERY, MISS_RATE, RATE_SPAN, SPACING = 50, 0.05, 512, 100
+
+
+def pack_codes(torch, codes):
+    """int8 (rows, n) codes {0, 1, 2, -1} -> uint8 (rows, ceil(n / 4)) .bed
+    bytes, on the codes' device: the bytes
+    ``nldsc_tpu_torch.io.plink.encode_bed_bytes`` gives (missing 01, het
+    10, hom-A2 11, pad bitpairs 00, the first sample in the low bits)."""
+    rows, n = codes.shape
+    bits = torch.where(codes < 0, 1, torch.where(codes > 0, codes + 1, 0))
+    bps = (n + 3) // 4
+    padded = torch.zeros((rows, 4 * bps), dtype=torch.uint8,
+                         device=codes.device)
+    padded[:, :n] = bits.to(torch.uint8)
+    q = padded.view(rows, bps, 4)
+    return q[..., 0] | (q[..., 1] << 2) | (q[..., 2] << 4) | (q[..., 3] << 6)
+
+
+def chromosome_blocks(torch, m: int, n: int, seed: int, device,
+                      block: int = 256):
+    """Yield ``(r0, codes)``: int8 (rows, n) genotype codes of SNPs
+    ``[r0, r0 + rows)`` of the UK Biobank-width chromosome, drawn on
+    ``device`` from a ``torch.Generator`` seeded with ``seed``, ``block``
+    SNPs at a time.  The model is :func:`synthetic_genotypes`'s with a copy
+    rate per ``RATE_SPAN`` SNPs (a SNP takes its predecessor's genotype
+    where a uniform draw is below the rate, else a fresh binomial(2, MAF)
+    one, drawn from a second uniform by its inverse CDF; one ``torch.where``
+    per row), then ``MISS_RATE`` of the genotypes of every
+    ``MISS_EVERY``-th SNP set missing."""
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    maf = torch.rand(m, generator=gen, device=dev) * 0.45 + 0.05
+    rate = (torch.rand(-(-m // RATE_SPAN), generator=gen, device=dev) * 0.67
+            + 0.3).repeat_interleave(RATE_SPAN)[:m]
+    prev = None
+    for r0 in range(0, m, block):
+        rows = min(block, m - r0)
+        u = torch.rand((2, rows, n), generator=gen, device=dev)
+        p = maf[r0:r0 + rows, None]
+        # binomial(2, MAF) from one draw: 0 below (1 - p)^2, 2 above 1 - p^2
+        fresh = ((u[0] >= (1 - p) ** 2).to(torch.int8)
+                 + (u[0] >= 1 - p * p).to(torch.int8))
+        keep = u[1] < rate[r0:r0 + rows, None]
+        del u
+        codes = torch.empty((rows, n), dtype=torch.int8, device=dev)
+        for i in range(rows):
+            if prev is None:
+                codes[i] = fresh[i]
+            else:
+                torch.where(keep[i], prev, fresh[i], out=codes[i])
+            prev = codes[i]
+        del fresh, keep
+        prev = prev.clone()
+        first = -(-r0 // MISS_EVERY) * MISS_EVERY
+        hit = torch.arange(first, r0 + rows, MISS_EVERY, device=dev) - r0
+        if len(hit):
+            miss = torch.rand((len(hit), n), generator=gen,
+                              device=dev) < MISS_RATE
+            codes[hit] = torch.where(miss, -1, codes[hit]).to(torch.int8)
+        yield r0, codes
+
+
+def write_chromosome(torch, prefix: str, m: int, n: int, seed: int, device,
+                     block: int = 256) -> str:
+    """The chromosome of :func:`chromosome_blocks` as a bfile: the .bed
+    written block by block from bytes packed on ``device`` (host memory
+    stays one block's), the .bim/.fam as ``write_plink`` writes them."""
+    from nldsc_tpu_torch.io.plink import PLINK_MAGIC, write_bim_fam
+
+    with open(prefix + ".bed", "wb") as f:
+        f.write(PLINK_MAGIC)
+        for _, codes in chromosome_blocks(torch, m, n, seed, device, block):
+            f.write(pack_codes(torch, codes).cpu().numpy().tobytes())
+    write_bim_fam(prefix, m, n,
+                  bp=np.arange(1, m + 1, dtype=np.int64) * SPACING)
+    return prefix
+
+
+def clean_copy(raw: np.ndarray, n: int) -> np.ndarray:
+    """The packed rows ``raw`` with every missing genotype (01) set to
+    hom-A1 (00), row by contaminated row."""
+    from nldsc_tpu_torch.io.plink import _miss_bytes, packed_rowmiss
+
+    out = raw.copy()
+    for r in np.flatnonzero(packed_rowmiss(raw, n)):
+        out[r] &= ~_miss_bytes(raw[r:r + 1], n)[0]
     return out
 
 
@@ -2750,30 +2864,35 @@ def counters_equal(a: dict, b: dict, what: str) -> None:
                                f"{int((a[k] != b[k]).sum())} rows")
 
 
-def within(a: dict, b: dict, keys, what: str) -> float:
+def within(a: dict, b: dict, keys, what: str, tol=KERNEL_TOL) -> float:
     """The largest difference of ``keys`` between two results, held to
-    KERNEL_TOL."""
+    ``tol``."""
     worst = 0.0
     for k in keys:
         np.testing.assert_allclose(a[k], b[k], equal_nan=True,
-                                   err_msg=f"{what}: {k}", **KERNEL_TOL)
+                                   err_msg=f"{what}: {k}", **tol)
         d = np.abs(np.asarray(a[k], np.float64) - b[k])
         worst = max(worst, float(np.nanmax(d)) if np.isfinite(d).any()
                     else 0.0)
     return worst
 
 
-def timed_run(torch, fn, devices):
+def timed_run(torch, fn, devices, profile: bool = True):
     """``fn()`` once: its result, wall seconds, the CUDA-event span and the
     peak memory above the start (GiB) on each distinct device, and the
-    device time of K1's kernels (profiler, ms)."""
+    device time of K1's kernels (profiler, ms; None without ``profile``,
+    for runs that launch no kernel: tracing their thousands of torch ops
+    costs tens of seconds)."""
+    import contextlib
+
     distinct = sorted({d.index for d in devices})
     torch.cuda.synchronize()
     base = {i: torch.cuda.memory_allocated(i) for i in distinct}
     ev = {}
-    with torch.profiler.profile(activities=[
+    with (torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.profiler.ProfilerActivity.CUDA]) if profile
+          else contextlib.nullcontext()) as prof:
         for i in distinct:
             torch.cuda.reset_peak_memory_stats(i)
             with torch.cuda.device(i):
@@ -2787,9 +2906,10 @@ def timed_run(torch, fn, devices):
                 ev[i][1].record()
         torch.cuda.synchronize()
         wall = time.time() - t0
-    k1_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and "ld_sym_kernel" in e.key) / 1e3
+    k1_ms = None if prof is None else sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and "ld_sym_kernel" in e.key) / 1e3
     per_dev = {f"cuda:{i}": {
         "event_ms": ev[i][0].elapsed_time(ev[i][1]),
         "peak_gib": (torch.cuda.max_memory_allocated(i) - base[i]) / 2**30}
@@ -2901,7 +3021,8 @@ def multi_device_phase(torch, tmp: str, prefix5: str, out5: str,
         flat = [d for row in layout for d in
                 (row if isinstance(row, list) else [row])]
         res, wall, per_dev, _ = timed_run(
-            torch, lambda: run(packed5, pos5, cfg, layout), flat)
+            torch, lambda: run(packed5, pos5, cfg, layout), flat,
+            profile=False)
         if launch_counts()["ld_sym"] or launch_counts()["split_corr"]:
             raise RuntimeError(f"phase 26 {name}: a kernel ran")
         counters_equal(res, full, f"phase 26 {name}")
@@ -3038,7 +3159,7 @@ def multi_stream_phase(torch, tmp: str, prefix9: str, out14: str, m5: int,
         res, wall, per_dev, _ = timed_run(
             torch, lambda kw=kw: compute_ld_scores_streaming(
                 ds.bed, pos, cfg, chunk_rows=chunk, device="cuda", **kw),
-            flat)
+            flat, profile=False)
         if launch_counts()["ld_sym"] or launch_counts()["split_corr"]:
             raise RuntimeError(f"phase 27 {name}: a kernel ran")
         n_exempt = assert_counters_match(res, full, codes, pos, cfg,
@@ -3469,6 +3590,165 @@ def xla_f32_phase(torch, tmp: str, dev, card: str, times: dict) -> None:
         + f"; phase {time.time() - t0:.1f} s; on {card}")
 
 
+#: phase 32's shape: the reference's UK Biobank sample count (n_pad
+#: 315,648: the sample padding runs at width), its in-core codes past
+#: 2^31 bytes
+WIDE_M, WIDE_N = 8192, 315_599
+
+
+def wide_phase(torch, tmp: str, dev, card: str) -> dict:
+    """Phase 32: UK Biobank width, N = 315,599 x M = 8,192; returns K1's
+    and K2's times and bounds at that width."""
+    from nldsc_tpu_torch.io.plink import PlinkDataset
+    from nldsc_tpu_torch.ld import ld_int8, ld_pallas_sym, ld_split, preprocess
+    from nldsc_tpu_torch.ld.pipeline import (INCORE_BYTES_PER_GENOTYPE,
+                                             padded_shape)
+
+    m, n = WIDE_M, WIDE_N
+    t0 = time.time()
+    prefix = write_chromosome(torch, os.path.join(tmp, "wide"), m, n,
+                              2026, dev)
+    torch.cuda.empty_cache()
+    ds = PlinkDataset.parse(prefix)
+    packed, pos = ds.bed.read_raw(), ds.positions("bp")
+    m_pad, n_pad = padded_shape(m, n, "cuda", ld_pallas_sym.ROW_ALIGN)
+    say("32 data", f"M={m} N={n} (n_pad {n_pad}; the codes "
+        f"{m_pad * n_pad / 2**31:.2f} x 2^31 bytes), seed 2026, "
+        f"{int(MISS_RATE * 100)}% missing in every {MISS_EVERY}th "
+        f"SNP: drawn and packed on the card, {packed.raw.nbytes / 1e6:.0f} "
+        f"MB .bed, in {time.time() - t0:.1f} s")
+
+    # in core on the split and global routes: counters equal, the peak
+    # within the auto-streaming rule's bytes per genotype
+    base = ["--bfile", prefix, "-kb", "100", "-maf", "0.01", "--extra"]
+    limit = INCORE_BYTES_PER_GENOTYPE["int8"]
+    tabs, over = {}, []
+    for route, flags, want in (("split", [], ("ld_sym", "split_fused")),
+                               ("global", ["--no-split-missing"],
+                                ("ld_sym_8prod",))):
+        out = os.path.join(tmp, f"wide_{route}.L2")
+        r = run_ld(torch, base + flags + ["-o", out])
+        c = r["launches"]
+        if not all(c[k] for k in want) or (route == "split") == bool(
+                c["ld_sym_8prod"]):
+            raise RuntimeError(f"phase 32 {route}: launches {c}")
+        check_outputs(out, m)
+        tabs[route] = read_l2(out)
+        per = r["peak"] * 2**30 / (m_pad * n_pad)
+        if per > limit:
+            over.append(f"{route} {per:.3f}")
+        say(f"32 ld {route}", f"in core: {r['wall']:.2f} s wall; stages "
+            f"{r['stages']}; peak device memory {r['peak']:.3f} GiB = "
+            f"{per:.3f} bytes per padded genotype (INCORE_BYTES_PER_GENOTYPE "
+            f"{limit}); launches "
+            f"{ {k: v for k, v in c.items() if v and 'by_device' not in k} }"
+            f"; on {card}")
+    cols = ("L2", "L2D", "WSA", "WSD", "WSDE")
+    err = compare([tabs["split"][k] for k in cols],
+                  [tabs["global"][k] for k in cols])
+
+    # streamed at 2,048 rows a chunk, then resumed
+    ck = os.path.join(tmp, "wide_ck")
+    stream = base + ["--streaming", "--chunk-rows", "2048", "--resume", ck]
+    out_s, out_r = (os.path.join(tmp, f"wide_stream{s}.L2") for s in ("", "_r"))
+    r = run_ld(torch, stream + ["-o", out_s])
+    shards = sorted(Path(ck).glob("chunk_*.npz"))
+    for f in shards[1:]:
+        f.unlink()
+    rr = run_ld(torch, stream + ["-o", out_r])
+    if Path(out_s).read_bytes() != Path(out_r).read_bytes() or not rr[
+            "log"].has("rowmiss: read the cached bitmap"):
+        raise RuntimeError("phase 32: the resumed .L2 is not byte-identical, "
+                           "or the resume scanned the .bed again")
+    st = read_l2(out_s)
+    err_s = compare([st[k] for k in cols], [tabs["split"][k] for k in cols])
+    say("32 stream", f"--streaming --chunk-rows 2048: {len(shards)} chunks, "
+        f"{r['wall']:.2f} s wall, peak {r['peak']:.3f} GiB, launches "
+        f"{ {k: v for k, v in r['launches'].items() if v and 'by_device' not in k} }"
+        f"; shards 1-{len(shards) - 1} deleted and resumed in "
+        f"{rr['wall']:.2f} s: .L2 byte-identical, cached rowmiss read; "
+        f"split = global in core (counters equal, max |L2,L2D| diff "
+        f"{err:.3g}), streamed = in core (max diff {err_s:.3g})")
+
+    # each kernel against its twin on 256 rows at full N; the per-SNP
+    # scalars against the CPU port's
+    wind = 100_000.0
+    rows = slice(m // 2, m // 2 + 256)
+    win_raw = packed.raw[rows]
+    clean_raw = clean_copy(win_raw, n)
+    errs = {}
+    for name, raw_w, has_missing in (("K1 clean", clean_raw, False),
+                                     ("K1 8-product", win_raw, True)):
+        args, n_, _, _ = packed_inputs(torch, raw_w, n, has_missing,
+                                       pos[rows], wind, dev)
+        T = ld_pallas_sym.tile(has_missing)
+        kern = ld_pallas_sym.sym_credits(*args, RSQ, n_samples=n_,
+                                         has_missing=has_missing,
+                                         block_size=T)
+        errs[name] = compare(finalized(kern, args), finalized(
+            twin_credits(args, n_, has_missing, T), args))
+    args, n_, _, raw = packed_inputs(torch, win_raw, n, True, pos[rows],
+                                     wind, dev, materialize_m=False)
+    sargs = split_args(args, raw, n_)
+    errs["K2"] = compare_deltas(
+        ld_split.split_corrections(*sargs, n_samples=n_),
+        ld_split.split_corrections_plain(*sargs, n_samples=n_))
+    n_miss = sargs[-1]["n_miss"]
+    del args, sargs
+    cpu = torch.device("cpu")
+    for tag, raw_w, clean in (("clean", clean_raw, True),
+                              ("missing", win_raw, False)):
+        gd = preprocess.unpack_bed(torch.from_numpy(raw_w).to(dev), n,
+                                   n_pad, 0 if clean else -1)
+        ok = torch.ones(gd.shape[0], dtype=torch.bool)
+        pre = {d: ld_int8.preprocess_int8(gd.to(d), ok.to(d), 0.01, n,
+                                          assume_no_missing=clean)
+               for d in (dev, cpu)}
+        for k in (*ld_int8.SCAL_FIELDS, "maf", "rstd"):
+            a, b = pre[dev][k].cpu().numpy(), pre[cpu][k].numpy()
+            if not np.array_equal(a.view(np.int32), b.view(np.int32)):
+                raise RuntimeError(f"phase 32: the card's {tag} {k} at "
+                                   f"N={n} differs from the CPU port's")
+    say("32 kernels=twins", f"rows [{rows.start}, {rows.stop}) at N={n}: "
+        f"K1 clean, K1 8-product and K2 ({n_miss} contaminated rows) "
+        "against their twins on the card: counters equal, max abs diff "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + "; every per-SNP scalar (clean and with missing genotypes) "
+        "bitwise the CPU port's")
+
+    # K1 and K2 at width, on all M rows
+    times = {}
+    args, n_, _, _ = packed_inputs(torch, clean_copy(packed.raw, n), n,
+                                   False, pos, wind, dev)
+    m0 = torch.zeros_like(args[0])
+    for name, has_missing, mm in (("K1 clean", False, args[1]),
+                                  ("K1 8-product", True, m0)):
+        T = ld_pallas_sym.tile(has_missing)
+        ms = cuda_ms(torch, lambda mm=mm, h=has_missing, T=T:
+                     ld_pallas_sym.sym_credits(
+                         args[0], mm, *args[2:], RSQ, n_samples=n_,
+                         has_missing=h, block_size=T), reps=3)
+        times[name] = {"ms": ms, **k1_work(args[5], n_pad, has_missing, T)}
+    del args, m0
+    torch.cuda.empty_cache()
+    args, n_, _, raw = packed_inputs(torch, packed.raw, n, True, pos, wind,
+                                     dev, materialize_m=False)
+    sargs = split_args(args, raw, n_)
+    del raw
+    times["K2"] = {"ms": cuda_ms(torch, lambda: ld_split.split_corrections(
+        *sargs, n_samples=n_), reps=3), **k2_work(sargs)}
+    del args, sargs
+    torch.cuda.empty_cache()
+    say("32 timing", f"M={m} N={n} (n_pad {n_pad}) +-1000 SNPs: " + "; ".join(
+        f"{k} {t['ms']:.3f} ms, bound {t['bound_ms']:.3f} ms "
+        f"({t['bound_by']}), {100 * t['bound_ms'] / t['ms']:.1f}% of it"
+        for k, t in times.items()) + f"; on {card}")
+    if over:
+        raise RuntimeError("phase 32: in-core peak above "
+                           f"INCORE_BYTES_PER_GENOTYPE {limit}: {over}")
+    return {"errs": errs, "times": times}
+
+
 def main() -> int:
     if not (ROOT / "nldsc_tpu_torch" / "csrc" / "ld_sym.cu").exists():
         print("chip_smoke.py must run from a checkout that holds "
@@ -3644,9 +3924,10 @@ def main() -> int:
         del twin
         ms = cuda_ms(torch, kernel, reps=10)
         ms8 = cuda_ms(torch, kernel8, reps=5)
-        plain = {B: cuda_ms(torch, lambda B=B: twin_credits(
-            args, n, False, B), reps=2) for B in (Tc, 512)}
-        best_b = min(plain, key=plain.get)
+        # the twin's time at its fastest block (512 rows), one call after
+        # the warm-up: it is seconds of plain torch ops, checked above
+        plain_ms = cuda_ms(torch, lambda: twin_credits(args, n, False, 512),
+                           reps=1)
         work = k1_work(args[5], args[0].shape[1], False, Tc)
         work8 = k1_work(args[5], args[0].shape[1], True, Tm)
         k1_line = {"ld_sym": (ms, work), "ld_sym 8-product": (ms8, work8)}
@@ -3657,8 +3938,8 @@ def main() -> int:
                 f"{w['ops'] / 1e12:.3f} T ops of the in-window pairs); bound "
                 f"{w['bound_ms']:.3f} ms ({w['bound_by']}), "
                 f"{100 * w['bound_ms'] / t:.1f}% of it; on {card}")
-        say("7 timing", f"twin {plain[Tc]:.3f} ms (B={Tc}), {plain[512]:.3f} "
-            f"ms (B=512); max |l2,l2d| diff vs twin {err5:.3g} clean, "
+        say("7 timing", f"twin {plain_ms:.3f} ms (B=512); max |l2,l2d| "
+            f"diff vs twin {err5:.3g} clean, "
             f"{err5m:.3g} 8-product (counters equal); peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {card}")
         del args, m0
@@ -3856,6 +4137,11 @@ def main() -> int:
         xla_f32_phase(torch, tmp, dev, card, {
             "K1 clean": ms, "K1 8-product": ms8, "K2": t10["ms_k2"]})
 
+        # 32. UK Biobank width: N = 315,599
+        torch.cuda.empty_cache()
+        wide = wide_phase(torch, tmp, dev, card)
+        wt, we = wide["times"], wide["errs"]
+
     bad = sorted({k.split(".")[0] for k in sys.modules}
                  & {"jax", "nldsc_tpu", "pandas"})
     if bad:
@@ -3872,12 +4158,17 @@ def main() -> int:
         "launches_progress": prog["launches"],
         "launches_multiprocess": ranks,
         "ms_sharded": multi["k1_ms"], "ms_progress": prog["k1_ms"],
-        "max_abs_err": max(errs + [err5, err5m]),
-        "ms": ms, "plain_ms": plain[best_b], "bound_ms": work["bound_ms"],
+        "max_abs_err": max(errs + [err5, err5m, we["K1 clean"],
+                                   we["K1 8-product"]]),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": work["bound_ms"],
         "bound_by": work["bound_by"], "library_ms": None,
         "tops": work["tile_ops"] / ms / 1e9, "ms_8prod": ms8,
         "bound_ms_8prod": work8["bound_ms"],
-        "tops_8prod": work8["tile_ops"] / ms8 / 1e9}, {
+        "tops_8prod": work8["tile_ops"] / ms8 / 1e9,
+        "ms_wide": wt["K1 clean"]["ms"],
+        "bound_ms_wide": wt["K1 clean"]["bound_ms"],
+        "ms_8prod_wide": wt["K1 8-product"]["ms"],
+        "bound_ms_8prod_wide": wt["K1 8-product"]["bound_ms"]}, {
         "name": "split_corr", "route": "cuda",
         "source": "nldsc_tpu_torch/csrc/split_corr.cu",
         "replaces": "scripts/pallas_corr_probe.py:54",
@@ -3885,14 +4176,15 @@ def main() -> int:
         "launches_stream_clean": streamed["13"]["split_corr"],
         "launches_stream_split": streamed["14"]["split_corr"],
         "launches_ring": ring["split_corr"],
-        "max_abs_err": max(err8, err10, float(k2_err)),
+        "max_abs_err": max(err8, err10, float(k2_err), we["K2"]),
         "ms": t10["ms_corr"], "plain_ms": t10["ms_corr_plain"],
         "bound_ms": work2["bound_ms"], "bound_by": work2["bound_by"],
         "library_ms": t10["ms_library"], "ms_products": t10["ms_products"],
         "ms_kernels": t10["ms_k2"],
         "tops": (work2["tile_ops"] / t10["ms_k2"] / 1e9 if t10["ms_k2"]
                  else None),
-        "bound_ms_old": work2["old_k2_ms"] + work2["old_delta_ms"]}] + [{
+        "bound_ms_old": work2["old_k2_ms"] + work2["old_delta_ms"],
+        "ms_wide": wt["K2"]["ms"], "bound_ms_wide": wt["K2"]["bound_ms"]}] + [{
         "name": name, "route": "cuda",
         "source": f"nldsc_tpu_torch/csrc/{src}.cu", "replaces": replaces,
         "launches": annot19["launches"][name],

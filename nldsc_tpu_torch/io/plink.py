@@ -127,30 +127,54 @@ def _miss_bytes(raw: np.ndarray, n_samples: int) -> np.ndarray:
     return miss
 
 
+#: bytes of packed rows per step of the missing-genotype tests: their
+#: four uint8 temporaries stay small and in the CPU's caches
+MISS_STEP_BYTES = 1 << 20
+#: bytes of packed rows per read of :func:`scan_rowmiss`
+SCAN_BLOCK_BYTES = 64 << 20
+
+
+def _row_steps(raw: np.ndarray, step_bytes: int = MISS_STEP_BYTES):
+    """Slices of ``raw``'s rows, each about ``step_bytes`` bytes (at least
+    one row)."""
+    rows = max(1, step_bytes // max(raw.shape[1], 1))
+    return (slice(s, s + rows) for s in range(0, raw.shape[0], rows))
+
+
 def _packed_has_missing(raw: np.ndarray, n_samples: int) -> bool:
-    """True iff any valid bitpair is the missing code."""
-    return bool(_miss_bytes(raw, n_samples).any())
+    """True iff any valid bitpair is the missing code (in steps of rows,
+    so that the temporaries stay small at any width)."""
+    return any(_miss_bytes(raw[s], n_samples).any() for s in _row_steps(raw))
 
 
 def packed_rowmiss(raw: np.ndarray, n_samples: int) -> np.ndarray:
     """Per-row missing flags from packed 2-bit rows (bool (rows,)): one
-    bitwise pass over the raw bytes, no decode."""
-    return _miss_bytes(raw, n_samples).any(axis=1)
+    bitwise pass over the raw bytes, no decode, in steps of rows."""
+    out = np.zeros(raw.shape[0], dtype=bool)
+    for s in _row_steps(raw):
+        out[s] = _miss_bytes(raw[s], n_samples).any(axis=1)
+    return out
 
 
-def scan_rowmiss(bed: BedReader, block_rows: int = 65536) -> np.ndarray:
+def scan_rowmiss(bed: BedReader, block_rows: int | None = None) -> np.ndarray:
     """Per-row missing flags of a whole .bed (bool (n_snp,)): one
-    sequential pass over the file's bytes in slices of ``block_rows``
-    rows, which lets the streaming route pick the split-missing engine
-    before any chunk runs."""
+    sequential pass over the file's bytes in reads of ``block_rows`` rows
+    (default: :data:`SCAN_BLOCK_BYTES` of them), which lets the streaming
+    route pick the split-missing engine before any chunk runs.  Host
+    memory stays one read and its small temporaries at any width: a
+    fixed 65,536-row read held 4-5x the .bed of a UK Biobank-width
+    chromosome (ROADMAP F6)."""
     m, bps = bed.n_snp, bed.bytes_per_snp
+    if block_rows is None:
+        block_rows = max(1, SCAN_BLOCK_BYTES // bps)
     out = np.zeros(m, dtype=bool)
+    buf = np.empty((min(block_rows, m), bps), dtype=np.uint8)
     with open(bed.path, "rb", buffering=0) as f:
         f.seek(3)
         for s in range(0, m, block_rows):
             c = min(block_rows, m - s)
-            raw = _read_exact(f, c * bps)
-            out[s:s + c] = packed_rowmiss(raw.reshape(c, bps), bed.n_samples)
+            _fill(f, buf[:c])
+            out[s:s + c] = packed_rowmiss(buf[:c], bed.n_samples)
     return out
 
 
@@ -246,7 +270,16 @@ def write_plink(prefix: str | os.PathLike, genotypes: np.ndarray,
     with open(prefix + ".bed", "wb") as f:
         f.write(PLINK_MAGIC)
         f.write(encode_bed_bytes(codes).tobytes())
+    write_bim_fam(prefix, n_snp, n_samples, chrom, bp, cm)
+    return prefix
 
+
+def write_bim_fam(prefix: str, n_snp: int, n_samples: int, chrom: int = 22,
+                  bp: np.ndarray | None = None,
+                  cm: np.ndarray | None = None) -> None:
+    """The .bim and .fam of :func:`write_plink` (positions ``bp``, by
+    default 1 kb apart; ``cm`` by default ``bp · 1e-6``), for a .bed
+    written elsewhere."""
     if bp is None:
         bp = np.arange(1, n_snp + 1) * 1000
     if cm is None:
@@ -259,4 +292,3 @@ def write_plink(prefix: str | os.PathLike, genotypes: np.ndarray,
                                                     bp.tolist())))
     with open(prefix + ".fam", "w") as f:
         f.writelines(f"F{i}\tI{i}\t0\t0\t0\t-9\n" for i in range(n_samples))
-    return prefix

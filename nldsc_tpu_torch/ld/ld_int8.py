@@ -127,18 +127,25 @@ def finish_preprocess_int8(n_valid_raw, c1, c2, cm, pos_ok, maf_thr: float,
     }
 
 
-#: rows per step of the per-row counts: ``sum(dtype=float32)`` of a bool
-#: matrix first casts the whole of it to float32, so the rows go in steps
-#: that bound that temporary (256 MB at N = 16,384)
-_COUNT_ROWS = 4096
+#: genotypes per step of the per-row counts (4,096 rows at N = 16,384):
+#: ``sum(dtype=float32)`` of a bool matrix first casts the whole of it to
+#: float32, so the rows go in steps that bound that temporary to 256 MB at
+#: any width (ROADMAP F5)
+COUNT_GENOTYPES = 4096 * 16384
+
+
+def step_rows(n_cols: int, genotypes: int) -> int:
+    """Rows of one step over rows of ``n_cols`` columns that holds at most
+    ``genotypes`` of them (at least one row)."""
+    return max(1, genotypes // max(n_cols, 1))
 
 
 def _row_counts(g: torch.Tensor, pred) -> torch.Tensor:
     """Exact float32 count, per row of ``g``, of the samples where
     ``pred(rows)`` holds."""
-    return torch.cat([pred(g[r:r + _COUNT_ROWS]).sum(dim=1,
-                                                     dtype=torch.float32)
-                      for r in range(0, g.shape[0], _COUNT_ROWS)])
+    step = step_rows(g.shape[1], COUNT_GENOTYPES)
+    return torch.cat([pred(g[r:r + step]).sum(dim=1, dtype=torch.float32)
+                      for r in range(0, g.shape[0], step)])
 
 
 def code_matrices(genotypes: torch.Tensor, n_samples: int,

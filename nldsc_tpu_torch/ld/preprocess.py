@@ -14,14 +14,17 @@ from __future__ import annotations
 import torch
 
 from ..core.numerics import recip_f32, sqrt_rn
-from .ld_int8 import dom_class_stats, f32
+from .ld_int8 import dom_class_stats, f32, step_rows
 
-#: rows unpacked per step: bounds the uint8 temporaries to ~1 GB at
-#: chromosome widths
-_ROWS_PER_STEP = 8192
-#: rows of :func:`preprocess_block` per step: bounds its float32
-#: temporaries to a few hundred MB at chromosome widths
-_F32_ROWS_PER_STEP = 2048
+#: genotypes unpacked per step (8,192 rows at N = 16,384): bounds the
+#: uint8 temporaries to ~1 GB at any width.  A step of a fixed number of
+#: rows would grow with N: 8,192 rows at N = 315,599 held ~2.6 GB a
+#: temporary, and the in-core peak then passed the bytes per genotype
+#: that the auto-streaming rule assumes (ROADMAP F5)
+STEP_GENOTYPES = 8192 * 16384
+#: genotypes of :func:`preprocess_block` per step (2,048 rows at N =
+#: 16,384): bounds its float32 temporaries to a few hundred MB
+F32_STEP_GENOTYPES = 2048 * 16384
 
 
 def unpack_bed(raw: torch.Tensor, n_samples: int, n_pad: int,
@@ -48,8 +51,9 @@ def unpack_bed(raw: torch.Tensor, n_samples: int, n_pad: int,
                          f"not fit {bps} bytes per row and n_pad={n_pad}")
     out = torch.full((m, n_pad), pad_val, dtype=torch.int8, device=raw.device)
     shifts = torch.arange(0, 8, 2, dtype=torch.uint8, device=raw.device)
-    for r0 in range(0, m, _ROWS_PER_STEP):
-        part = raw[r0:r0 + _ROWS_PER_STEP]
+    step = step_rows(max(n_pad, 4 * bps), STEP_GENOTYPES)
+    for r0 in range(0, m, step):
+        part = raw[r0:r0 + step]
         codes = (part.unsqueeze(-1) >> shifts) & 3            # (rows, bps, 4)
         codes = codes.reshape(part.shape[0], 4 * bps)[:, :n_local]
         hi = (codes >> 1).to(torch.int8)
@@ -82,8 +86,9 @@ def preprocess_block(genotypes: torch.Tensor, pos_ok: torch.Tensor,
              for k in ("maf", "rstd")}
     flags = {k: torch.empty(m, dtype=torch.bool, device=dev)
              for k in ("usable", "add_sd_zero")}
-    for r0 in range(0, m, _F32_ROWS_PER_STEP):
-        rows = slice(r0, r0 + _F32_ROWS_PER_STEP)
+    step = step_rows(n_pad, F32_STEP_GENOTYPES)
+    for r0 in range(0, m, step):
+        rows = slice(r0, r0 + step)
         g = genotypes[rows]
         valid = g >= 0
         gf = torch.where(valid, g, 0).to(torch.float32)

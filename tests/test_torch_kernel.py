@@ -40,6 +40,9 @@ CASES = {
     # 16 pivot blocks of 128 rows: the 16 segments of a pass with progress
     "segments_clean": (2048, 203, 0.0, 100, 30000.0),
     "segments_missing": (2048, 203, 0.02, 100, 30000.0),
+    # UK Biobank width (N_pad 315,648): 2,466 ring stages of 128 samples
+    "wide_clean": (256, 315_599, 0.0, 100, 5000.0),
+    "wide_missing": (256, 315_599, 0.02, 100, 5000.0),
 }
 
 
@@ -508,3 +511,37 @@ def test_sharded_kernel_runs_equal_the_incore_run(rng, cuda, monkeypatch,
         assert ld_pallas_sym.launches == before + d
         for k, v in res.items():
             np.testing.assert_array_equal(v, incore[k], err_msg=f"{k}@{d}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split", [None, False])
+def test_incore_peak_within_the_streaming_rule_at_width(rng, cuda, split):
+    # at UK Biobank width (N = 315,599) the in-core split and global
+    # routes peak within the bytes per padded genotype that the
+    # auto-streaming rule assumes: the unpack and the class counts go in
+    # steps of a fixed number of genotypes, not rows (ROADMAP F5: steps of
+    # 8,192 and 4,096 rows peaked at 7.25 bytes a genotype at M = 8,192)
+    from nldsc_tpu_torch.config import LDConfig
+    from nldsc_tpu_torch.io.plink import PackedBed, _miss_bytes
+    from nldsc_tpu_torch.ld.pipeline import (INCORE_BYTES_PER_GENOTYPE,
+                                             compute_ld_scores)
+
+    m, n = 4096, 315_599
+    raw = rng.integers(0, 256, (m, (n + 3) // 4), dtype=np.uint8)
+    clean = np.ones(m, bool)
+    clean[::50] = False                      # 2% of the rows contaminated
+    raw[clean] &= ~_miss_bytes(raw[clean], n)
+    pos = np.arange(1, m + 1, dtype=np.float64) * 100
+    cfg = LDConfig(ld_wind=20000.0, maf_thr=0.01, std_thr=1e-4,
+                   rsq_thr=RSQ, split_missing=split)
+    m_pad, n_pad = padded_shape(m, n, "cuda", ld_pallas_sym.ROW_ALIGN)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = compute_ld_scores(PackedBed(raw, m, n, True), pos, cfg,
+                            device="cuda")
+    torch.cuda.synchronize()
+    per = (torch.cuda.max_memory_allocated() - base) / (m_pad * n_pad)
+    assert np.isfinite(out["l2"]).all()
+    assert per <= INCORE_BYTES_PER_GENOTYPE["int8"], per

@@ -108,6 +108,7 @@ def test_corr_products_are_exact(rng, cuda, rows_x, rows_cat, p2, n_pad):
     (300, 101, 64, 20000.0),      # segments shorter than a tile, N_pad 128
     (1500, 389, 512, 60000.0),    # P = 80: three column tiles, ragged
     (3000, 203, 2048, 5000.0),    # narrow windows: most tiles skip
+    (256, 315_599, 4096, 5000.0),  # UK Biobank width: N_pad 315,648
 ])
 def test_split_corrections_kernel_matches_twin(rng, cuda, m, n, seg_rows,
                                                wind):
