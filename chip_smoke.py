@@ -11,8 +11,10 @@ Phases, one line each (or a few):
      every instantiation (any spill fails the phase).  Both run their
      int8 products on ``wgmma`` fed by a TMA ring (one producer thread,
      two consumer warpgroups): K1 on 128 x 128 tiles with 3 products on
-     the clean branch, 64 x 64 with 8 on the missing one; K2 on 128 x
-     rows by 32 compact columns with 5 products, h derived in registers;
+     the clean branch, 64 x 64 with 8 on the missing one, on wide rows
+     in 2 x 2 thread-block clusters that multicast each shared tile; K2
+     on 128 x rows by 32 compact columns with 5 products, h derived in
+     registers;
   3. K1 against its plain PyTorch twin at M=4096, N=3001, clean and
      2% missing (both branches), adversarial rows included: counters
      exactly equal, l2/l2d within rtol 1e-5 and atol 1e-5, two kernel
@@ -30,7 +32,9 @@ Phases, one line each (or a few):
   7. at phase 5's shape: K1's clean branch and its 8-product branch
      (on the same genotypes, with an all-zero missing matrix: every pair
      equals the clean one) against the twin, their times, int8 TOPS and
-     share of the bound, the twin's time (512-row blocks), and
+     share of the bound beside K1's cluster shape and resident clusters
+     (``cudaOccupancyMaxActiveClusters``), the twin's time (512-row
+     blocks), and
      ``torch._int_mm`` on a
      dense 8,192 x 16,384 by 16,384 x 8,192 int8 product as a yardstick
      of the card's int8 rate (the port never calls it);
@@ -121,8 +125,9 @@ Phases, one line each (or a few):
      beside int8 (int8, bf16, bf16, int8) with its bf16 bound (K2
      annotated also beside bf16 without annotations, with its device
      time and the ``torch.bmm`` yardstick); the
-     exactness probe at N_pad = 4,194,304 (Sgg = 2^24); ptxas's 16
-     instantiations without a spill; a dense bf16 product with float32
+     exactness probe at N_pad = 4,194,304 (Sgg = 2^24); ptxas's 26
+     entry functions (K1's 16, in clusters and out, and K2's 10) without
+     a spill; a dense bf16 product with float32
      sums as a yardstick (the port never calls it);
  21. ``ld --dot-dtype bf16`` on the bfiles of phases 5, 9 and 6 in core,
      phase 13's streamed and phase 19's ``--annot`` (clean, split,
@@ -223,7 +228,9 @@ Phases, one line each (or a few):
      and K2 against their twins on 256 rows at full N, the card's per-SNP
      scalars there bitwise the CPU port's; and K1 clean, K1 8-product
      (m = 0) and K2 timed on all M rows beside their bounds (the kernels
-     line's ``ms_wide``/``bound_ms_wide``).
+     line's ``ms_wide``/``bound_ms_wide``), K1's beside its cluster shape
+     and resident clusters and ``torch._int_mm`` on exactly its products
+     (``library_products_ms_wide``).
 
 Every line starts ``[phase +t s]``: the seconds since the script began.
 Then one JSON line of the kernels (each with its time, its plain
@@ -231,7 +238,9 @@ version's, its bound from this run's inputs, its launches on the main
 path of phases 5 and 9, in phases 13-14, on the SNP shards of phase 26,
 the ring of phase 27, with and without progress (phase 28) and per rank
 of phase 29, and ``library_ms``: null
-for K1, which no PyTorch call computes; for K2 ``torch._int_mm`` on its
+for K1, which no PyTorch call computes (its line adds ``torch._int_mm``
+on its products alone at width, and its cluster shape and resident
+clusters); for K2 ``torch._int_mm`` on its
 products, which the port never calls; null for the annotation
 instantiations, whose epilogues no one PyTorch call fuses), the
 ``nvidia-smi`` line, and last
@@ -564,6 +573,96 @@ def k1_work(hi, n_pad: int, has_missing: bool, tile: int,
     return {"ops": ops, "tile_ops": 2.0 * nprod * n_pad * ctas * tile * tile,
             "ctas": ctas, "pairs": pairs, "bytes": nbytes,
             **bound(ops, nbytes, peak)}
+
+
+def k1_cluster(torch, dev, has_missing: bool, n_pad: int,
+               annot: bool = False, bf16: bool = False) -> str:
+    """The cluster shape K1 runs in on rows of ``n_pad`` samples and
+    ``cudaOccupancyMaxActiveClusters`` of that instantiation on ``dev``,
+    for the lines beside its times."""
+    from nldsc_tpu_torch.ld import ld_pallas_sym
+
+    cp, cn = ld_pallas_sym.cluster_shape(n_pad, has_missing, bf16)
+    n = ld_pallas_sym.max_active_clusters(dev, has_missing, annot, bf16,
+                                          (cp, cn) != (1, 1))
+    return (f"clusters of {cp} x {cn} CTAs (pivot x neighbour tiles; 2 x 2 "
+            f"from {ld_pallas_sym.CLUSTER_MIN_STAGES[has_missing]} ring "
+            f"stages), {n} resident ({n * cp * cn} CTAs)")
+
+
+def k1_products_library_ms(torch, args, has_missing: bool, tile: int,
+                           reps: int = 3) -> dict:
+    """``torch._int_mm`` (cuBLASLt) on the products K1 computes, in two
+    forms, CUDA events over the calls alone after a warm-up pass.
+
+    Per tile (``ms``, ``calls``, ``ops``): exactly K1's products, one call
+    a product of a pivot tile b (``tile`` rows) against its band's rows
+    ``[b T, (tile_hi[b] + 1) T)`` with the right operands stacked: clean
+    g_b [g; h]^T and h_b g^T, with missing genotypes g_b [h; g; m]^T, h_b
+    [g; m]^T and m_b [h; g; m]^T (the stacked operands interleaved tile by
+    tile, so a band is one slice: the same products, the columns in
+    another order).  Stacked (``stacked_ms``, ``stacked_calls``,
+    ``stacked_ops``): the same calls over groups of 1,024 pivot rows
+    against the union of their bands, which fill the card but compute up
+    to twice the products.  The port never calls either: K1 fuses its
+    epilogue onto these products."""
+    from nldsc_tpu_torch.ld import ld_int8
+
+    g, m, h = args[:3]
+    nt, n = g.shape[0] // tile, g.shape[1]
+    mats = {"g": g, "h": h, "m": m}
+    pairs = ({"g": "hgm", "h": "gm", "m": "hgm"} if has_missing
+             else {"g": "gh", "h": "g"})
+    tile_hi = ld_int8.block_hi(args[5], tile).clamp(max=nt - 1).tolist()
+    group = max(1, 1024 // tile)
+
+    def stacked(cs, x0, x1):
+        """Tiles [x0, x1) of the operands ``cs``, interleaved tile by
+        tile: (x1 - x0) * len(cs) * tile rows."""
+        parts = torch.stack([mats[c][x0 * tile:x1 * tile].view(
+            x1 - x0, tile, n) for c in cs], dim=1)
+        return parts.view(-1, n)
+
+    def one_pass(per_tile: bool):
+        """The pass's calls, group by group: the group's stacked operands
+        built outside the timed spans; (milliseconds, calls, ops)."""
+        spans, calls, ops = [], 0, 0.0
+        for x0 in range(0, nt, group):
+            x1 = min(x0 + group, nt)
+            live = [b for b in range(x0, x1) if tile_hi[b] >= b]
+            if not live:
+                continue
+            y1 = max(tile_hi[b] for b in live) + 1
+            right = {cs: stacked(cs, x0, y1) for cs in set(pairs.values())}
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in "se")
+            start.record()
+            for a, cs in pairs.items():
+                k = len(cs) * tile
+                if per_tile:
+                    for b in live:
+                        y = right[cs][(b - x0) * k:(tile_hi[b] + 1 - x0) * k]
+                        torch._int_mm(mats[a][b * tile:(b + 1) * tile], y.t())
+                        calls += 1
+                        ops += 2.0 * tile * y.shape[0] * n
+                else:
+                    y = right[cs]
+                    torch._int_mm(mats[a][x0 * tile:x1 * tile], y.t())
+                    calls += 1
+                    ops += 2.0 * (x1 - x0) * tile * y.shape[0] * n
+            end.record()
+            spans.append((start, end))
+            del right
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in spans), calls, ops
+
+    out = {}
+    for per_tile, key in ((True, ""), (False, "stacked_")):
+        one_pass(per_tile)                                  # warm up
+        runs = [one_pass(per_tile) for _ in range(reps)]
+        out.update({f"{key}ms": sum(r[0] for r in runs) / reps,
+                    f"{key}calls": runs[0][1], f"{key}ops": runs[0][2]})
+    return out
 
 
 def annot_bound(work: dict, pairs: int, m_pad: int, p: int,
@@ -1683,8 +1782,9 @@ def annot_kernel_phase(torch, rng, dev) -> dict:
         "bitwise equal to the plain call, max |annotation δ| diff vs twin "
         f"{errs['split_corr annot']:.3g}, runs bitwise equal; its reach "
         "and fold kernels bitwise equal to their plain versions")
+    # ld_sym.cu: K1's eight instantiations in clusters and out of them;
     # split_corr.cu: K2's eight instantiations, its reach and fold kernels
-    for name, want in (("ld_sym", 8), ("split_corr", 10)):
+    for name, want in (("ld_sym", 16), ("split_corr", 10)):
         log = _build.BUILD_INFO[name]["log"]
         entries = re.findall(r"Compiling entry function '(\w+)'", log)
         regs = re.findall(r"Used (\d+) registers", log)
@@ -2241,7 +2341,7 @@ def bf16_kernel_phase(torch, prefix5: str, prefix9: str, m5: int, rng, dev,
 
     out = {}
     say("20 probe", bf16_exactness_probe(torch, dev))
-    for name, want in (("ld_sym", 8), ("split_corr", 10)):
+    for name, want in (("ld_sym", 16), ("split_corr", 10)):
         say("20 ptxas", ptxas_instantiations(name, want))
     ds5, ds9 = PlinkDataset.parse(prefix5), PlinkDataset.parse(prefix9)
     pos5 = ds5.positions("bp")
@@ -3728,7 +3828,16 @@ def wide_phase(torch, tmp: str, dev, card: str) -> dict:
                      ld_pallas_sym.sym_credits(
                          args[0], mm, *args[2:], RSQ, n_samples=n_,
                          has_missing=h, block_size=T), reps=3)
-        times[name] = {"ms": ms, **k1_work(args[5], n_pad, has_missing, T)}
+        lib = k1_products_library_ms(torch, (args[0], mm, *args[2:]),
+                                     has_missing, T)
+        times[name] = {"ms": ms, "library_products_ms": lib["ms"],
+                       "library_calls": lib["calls"],
+                       "library_stacked_ms": lib["stacked_ms"],
+                       "library_stacked_extra": lib["stacked_ops"]
+                       / lib["ops"],
+                       "cluster": k1_cluster(torch, dev, has_missing,
+                                             n_pad),
+                       **k1_work(args[5], n_pad, has_missing, T)}
     del args, m0
     torch.cuda.empty_cache()
     args, n_, _, raw = packed_inputs(torch, packed.raw, n, True, pos, wind,
@@ -3742,6 +3851,12 @@ def wide_phase(torch, tmp: str, dev, card: str) -> dict:
     say("32 timing", f"M={m} N={n} (n_pad {n_pad}) +-1000 SNPs: " + "; ".join(
         f"{k} {t['ms']:.3f} ms, bound {t['bound_ms']:.3f} ms "
         f"({t['bound_by']}), {100 * t['bound_ms'] / t['ms']:.1f}% of it"
+        + (f" ({t['cluster']}); torch._int_mm on its products "
+           f"({t['library_calls']} calls, one a product of a pivot tile "
+           f"and its band) {t['library_products_ms']:.3f} ms, stacked "
+           f"over 1,024 pivot rows ({t['library_stacked_extra']:.2f}x the "
+           f"products) {t['library_stacked_ms']:.3f} ms"
+           if "cluster" in t else "")
         for k, t in times.items()) + f"; on {card}")
     if over:
         raise RuntimeError("phase 32: in-core peak above "
@@ -3930,14 +4045,16 @@ def main() -> int:
                            reps=1)
         work = k1_work(args[5], args[0].shape[1], False, Tc)
         work8 = k1_work(args[5], args[0].shape[1], True, Tm)
-        k1_line = {"ld_sym": (ms, work), "ld_sym 8-product": (ms8, work8)}
-        for name, (t, w) in k1_line.items():
+        k1_line = {"ld_sym": (ms, work, False),
+                   "ld_sym 8-product": (ms8, work8, True)}
+        for name, (t, w, hm) in k1_line.items():
             say("7 timing", f"M={M5} N={N5} +-1000 SNPs, {name}: {t:.3f} ms "
                 f"over {w['ctas']} tiles, {w['tile_ops'] / t / 1e9:.0f} "
                 f"int8 TOPS in its tiles ({w['ops'] / t / 1e9:.0f} on the "
                 f"{w['ops'] / 1e12:.3f} T ops of the in-window pairs); bound "
                 f"{w['bound_ms']:.3f} ms ({w['bound_by']}), "
-                f"{100 * w['bound_ms'] / t:.1f}% of it; on {card}")
+                f"{100 * w['bound_ms'] / t:.1f}% of it; "
+                f"{k1_cluster(torch, dev, hm, N5)}; on {card}")
         say("7 timing", f"twin {plain_ms:.3f} ms (B=512); max |l2,l2d| "
             f"diff vs twin {err5:.3g} clean, "
             f"{err5m:.3g} 8-product (counters equal); peak device memory "
@@ -4168,7 +4285,18 @@ def main() -> int:
         "ms_wide": wt["K1 clean"]["ms"],
         "bound_ms_wide": wt["K1 clean"]["bound_ms"],
         "ms_8prod_wide": wt["K1 8-product"]["ms"],
-        "bound_ms_8prod_wide": wt["K1 8-product"]["bound_ms"]}, {
+        "bound_ms_8prod_wide": wt["K1 8-product"]["bound_ms"],
+        "library_products_ms_wide": wt["K1 clean"]["library_products_ms"],
+        "library_products_ms_8prod_wide":
+            wt["K1 8-product"]["library_products_ms"],
+        "library_stacked_ms_wide": wt["K1 clean"]["library_stacked_ms"],
+        "library_stacked_ms_8prod_wide":
+            wt["K1 8-product"]["library_stacked_ms"],
+        "cluster": list(ld_pallas_sym.CLUSTER),
+        "cluster_min_stages": ld_pallas_sym.CLUSTER_MIN_STAGES[False],
+        "cluster_min_stages_8prod": ld_pallas_sym.CLUSTER_MIN_STAGES[True],
+        "max_active_clusters": ld_pallas_sym.max_active_clusters(
+            dev, False, False, False)}, {
         "name": "split_corr", "route": "cuda",
         "source": "nldsc_tpu_torch/csrc/split_corr.cu",
         "replaces": "scripts/pallas_corr_probe.py:54",

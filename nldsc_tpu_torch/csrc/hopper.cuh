@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: shared
-// memory addresses, mbarriers, TMA box loads, the K-major 128-byte-swizzle
-// wgmma descriptor, the int8 and bf16 wgmma products, the tf32 products of
-// the annotation epilogue, and the host-side
-// encoding of the tensor maps the TMA loads read.
+// memory addresses, mbarriers (arrivals on a cluster peer's too), TMA box
+// loads (plain, and multicast to the CTAs of a cluster), the cluster
+// barrier, the K-major 128-byte-swizzle wgmma descriptor, the int8 and
+// bf16 wgmma products, the tf32 products of the annotation epilogue, and
+// the host-side encoding of the tensor maps the TMA loads read.
 //
 // ld_sym.cu (K1) and split_corr.cu (K2) both keep their operands as
 // row-major (rows, samples) matrices, loaded in boxes of KC bytes (one
@@ -70,6 +71,39 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n"
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x),
       "r"(y) : "memory");
+}
+
+// the same box written into shared memory at dst of every CTA of the
+// cluster in `mask` (bit r: the CTA of rank r), each completing on its own
+// barrier at offset `bar`: one read of the box from L2 feeds them all
+__device__ __forceinline__ void tma_load_multicast(uint32_t dst,
+                                                   const CUtensorMap* map,
+                                                   uint32_t bar, int x, int y,
+                                                   uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x),
+      "r"(y), "h"(mask) : "memory");
+}
+
+// arrive on the barrier at offset `bar` in the shared memory of the
+// cluster's CTA of rank `rank` (this CTA's own included)
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
+                                                    uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n"
+      ::"r"(bar), "r"(rank) : "memory");
+}
+
+// every thread of every CTA of the cluster: this thread's earlier writes,
+// to its own and to the other CTAs' shared memory, are visible to them all
+// after it; no CTA passes it while another may still write into its
+// shared memory or arrive on its barriers
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n"
+               "barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
 // 16 bytes to and from shared memory, opaque to the compiler (which would

@@ -29,7 +29,30 @@
 //   * 128 x 128 tiles on the clean branch (192 accumulator registers a
 //     consumer thread: each warpgroup takes 64 pivot rows), 64 x 64 on
 //     the missing branch (8 products, 128 registers: each warpgroup
-//     takes 32 neighbour rows).
+//     takes 32 neighbour rows);
+//   * on wide rows, thread-block clusters of CP x CN = 2 x 2 CTAs: pivot
+//     tiles b0, b0+1 against neighbour tiles t0, t0+1.  The CTAs of a
+//     cluster that share a tile each load a share of its boxes and
+//     multicast it to all of them (TMA .multicast::cluster), so a stage
+//     costs each CTA half the L2 and HBM reads of its 64 KiB (clean; 48
+//     KiB missing): 384 int8 operations per loaded byte instead of 192
+//     (171 -> 341 missing), where the card needs 591 to be bound by its
+//     tensor cores.  A slot is refilled once the consumers of every CTA it
+//     lands in have released it (remote arrivals on each sender's empty
+//     barrier), so the four CTAs stream the samples in step and the shared
+//     tiles are read once at any width: at N = 300,032 a CTA streams 2,344
+//     stages, and CTAs that run apart would each fetch the shared tiles
+//     from HBM again.  A CTA whose slot lies outside the band still loads
+//     its share for its peers and computes nothing; a cluster with no CTA
+//     in the band exits at once.  The caller picks per launch between
+//     clusters and the plain launch (ld_pallas_sym.cluster_shape): on
+//     narrow rows, where L2 still serves CTAs that run apart, the
+//     clusters' costs (120 of the 132 multiprocessors hold clusters of
+//     four; dead members) outweigh the halved reads, and each CTA loads
+//     its own tiles;
+//   * neighbour tiles fastest in the grid, so that the CTAs, or clusters,
+//     that start together share their pivot tile and most neighbours in
+//     L2.
 // No (tile x tile) correlation block is ever written: a CTA writes only
 // its row and column partial sums, which a fixed-order reduction outside
 // the kernel folds (no float atomics, so run-to-run results are bitwise
@@ -93,11 +116,21 @@
 // pivot tiles (zeros outside the band and in the pivot tile's column
 // slots), so apart needs no fill.  CTAs of pivot tiles from n_piv on
 // write nothing.
+//
+// Grid: x = CN x NJ neighbour tiles, NJ = ceil((band + CP - 1) / CN),
+// y = CP x ceil(n_piv / CP) pivot tiles; CTA (j, b) of cluster (t0, b0)
+// takes pivot tile b and neighbour tile t = t0 + j % CN, t0 = b0 + CN x
+// (j / CN), b0 = b rounded down to a multiple of CP, and owns slot k = t - b
+// of pivot tile b when b < n_piv and 0 <= k < band.  So every slot of
+// every pivot tile below n_piv has exactly one owner
+// (ld_pallas_sym.cluster_tile_ctas counts the grid's CTAs).  Out of clusters
+// (CP = CN = 1) this is the grid (band, n_piv) of one CTA per slot.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 #include "annot_epilogue.cuh"
@@ -113,6 +146,27 @@ constexpr int THREADS = CONSUMERS + 128; // and the producer warpgroup
 constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
 enum { FL_USABLE = 1, FL_DOM_OK = 2, FL_POISON = 4 };
+
+// the cluster of a launch: CP pivot tiles x CN neighbour tiles, a CTA
+// each, 2 x 2 when CLUSTERED, else 1 x 1 (each CTA loads its own tiles); a
+// CTA sends its loads to, and releases its slots to, the PEERS CTAs that
+// share its pivot tile or its neighbour tile (itself included)
+template <bool CLUSTERED>
+struct Clu {
+  static constexpr int CP = CLUSTERED ? 2 : 1;
+  static constexpr int CN = CLUSTERED ? 2 : 1;
+  static constexpr int PEERS = CP + CN - 1;
+  static_assert(PEERS <= 4, "one arriving warp of a warpgroup per peer");
+};
+template <bool MISSING>
+struct Cfg;
+
+// rows per TMA box of a launch: Cfg::BOX, halved on the clean branch in
+// clusters so that the two CTAs sharing a tile load half of it each
+template <bool MISSING, bool CLUSTERED>
+__host__ __device__ constexpr int box_rows() {
+  return CLUSTERED && !MISSING ? Cfg<MISSING>::BOX / 2 : Cfg<MISSING>::BOX;
+}
 
 template <bool MISSING>
 struct Cfg {
@@ -185,7 +239,7 @@ __host__ __device__ constexpr int ring_area() {
 }
 
 struct Params {
-  CUtensorMap tm_g, tm_h, tm_m;   // boxes of Cfg::BOX rows x KC bytes
+  CUtensorMap tm_g, tm_h, tm_m;   // boxes of box_rows() rows x KC bytes
   const float* scal;
   const int32_t* lo;
   const int32_t* hi;
@@ -232,21 +286,44 @@ struct RedSmem {
   int coli[C::COL_SLOTS][4][C::TILE];
 };
 
-template <bool MISSING, bool ANNOT, bool BF16>
+// the cluster rank of peer d of the CTA at (pb, pt) (rank pt + CN pb):
+// d < CN the CTAs of its pivot tile (itself at d = pt), then those of its
+// neighbour tile
+template <int CP, int CN>
+__device__ __forceinline__ uint32_t peer_rank(int pb, int pt, int d) {
+  if (d < CN) return CN * pb + d;
+  const int i = d - CN < pb ? d - CN : d - CN + 1;
+  return pt + CN * i;
+}
+
+template <bool MISSING, bool ANNOT, bool BF16, bool CLUSTERED>
 __global__ void __launch_bounds__(THREADS, 1)
     ld_sym_kernel(const __grid_constant__ Params p) {
   using C = Cfg<MISSING>;
+  constexpr int CP = Clu<CLUSTERED>::CP, CN = Clu<CLUSTERED>::CN;
+  constexpr int PEERS = Clu<CLUSTERED>::PEERS;
   using Acc = std::conditional_t<BF16, float, int>;
   constexpr int T = C::TILE;
   constexpr int KE = stage_samples<BF16>();   // samples per ring stage
   extern __shared__ __align__(16) uint8_t smem_raw[];
 
-  const int k = blockIdx.x;
-  const int b = blockIdx.y;
-  const int t = b + k;
-  if (b >= p.n_piv) return;
-  if (t >= p.n_tiles || t > p.tile_hi[b]) {         // outside the band
-    if constexpr (ANNOT) {
+  // this CTA's place in its cluster: pivot tile b = b0 + pb, neighbour
+  // tile t = b0 + j (t0 + pt); cluster rank pt + CN pb.  Neighbours run
+  // fastest, so the CTAs (clusters) that start together share tiles
+  const int j = blockIdx.x, b = blockIdx.y;
+  const int pb = b % CP, pt = j % CN;
+  const int b0 = b - pb;
+  const int t = b0 + j, k = t - b;
+  // the slot (b, k) this CTA owns, and whether its tiles are in the band
+  auto owner = [&](int bb, int kk) {
+    return bb < p.n_piv && kk >= 0 && kk < p.band;
+  };
+  auto live_at = [&](int bb, int tt) {
+    return owner(bb, tt - bb) && tt < p.n_tiles && tt <= p.tile_hi[bb];
+  };
+  const bool live = live_at(b, t);
+  if constexpr (ANNOT) {
+    if (owner(b, k) && !live) {
       // every annotation slot of a pivot tile is written, zeros here
       const size_t ld = static_cast<size_t>(p.p_ld);
       float* aout = p.apart + (static_cast<size_t>(b) * p.band + k) *
@@ -254,11 +331,17 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int i = threadIdx.x; i < 2 * 2 * C::TILE * p.p; i += THREADS)
         aout[(i / p.p) * ld + i % p.p] = 0.f;
     }
-    return;
   }
+  bool cluster_live = false;
+#pragma unroll
+  for (int i = 0; i < CP; ++i)
+#pragma unroll
+    for (int q = 0; q < CN; ++q)
+      cluster_live |= live_at(b0 + i, b0 + j - pt + q);
+  if (!cluster_live) return;   // the whole cluster, at once
 
   // the ring first, on a swizzle-atom boundary; then the barriers and
-  // the epilogue's inputs
+  // the epilogue's inputs, at the same offsets in every CTA of the cluster
   uint8_t* ring =
       smem_raw + (ATOM - smem_u32(smem_raw) % ATOM) % ATOM;
   const uint32_t ring_s = smem_u32(ring);
@@ -274,50 +357,94 @@ __global__ void __launch_bounds__(THREADS, 1)
   if (tid == 0) {
     for (int s = 0; s < C::STAGES; ++s) {
       mbar_init(full0 + 8 * s, 1);
-      mbar_init(empty0 + 8 * s, CONSUMERS);
+      // in clusters one arrival from each consumer warpgroup of each CTA
+      // the slot's loads land in, else one from each consumer thread
+      mbar_init(empty0 + 8 * s, CLUSTERED ? 2 * PEERS : CONSUMERS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
+  // every barrier of the cluster initialised before any load or arrival
+  if constexpr (CLUSTERED)
+    cluster_sync();
+  else
+    __syncthreads();
 
   if (tid >= CONSUMERS) {
-    // ---- producer warpgroup: one thread keeps the ring full
+    // ---- producer warpgroup: one thread loads this CTA's share of every
+    // stage: 1 / CN of the pivot tile's boxes, multicast to the CTAs of
+    // the pivot tile (ranks CN pb + q), and 1 / CP of the neighbour tile's,
+    // multicast to the CTAs of the neighbour tile (ranks pt + CN i); out of
+    // clusters, all of both with plain loads
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (tid == CONSUMERS) {
+      const uint16_t piv_mask = ((1u << CN) - 1) << (CN * pb);
+      uint16_t nbr_mask = 0;
+#pragma unroll
+      for (int i = 0; i < CP; ++i) nbr_mask |= 1u << (pt + CN * i);
+      constexpr int BX = box_rows<MISSING, CLUSTERED>(), BB = BX * KC;
+      constexpr int NBOX = T / BX;      // boxes per tile (per side)
+      static_assert(NBOX % CP == 0 && NBOX % CN == 0,
+                    "a tile's boxes split evenly among the CTAs sharing it");
+      constexpr int PQ = NBOX / CN, NQ = NBOX / CP;
       for (int kb = 0; kb < nk; ++kb) {
         const int s = kb % C::STAGES;
         mbar_wait(empty0 + 8 * s, ((kb / C::STAGES) & 1) ^ 1);
         const uint32_t full = full0 + 8 * s;
+        // the whole stage lands here: this CTA's share and its peers'
         mbar_expect_tx(full, C::STAGE_BYTES);
         const uint32_t st = ring_s + s * C::STAGE_BYTES;
         const uint32_t nb = st + C::SIDE_BYTES;
         const int x = kb * KE;
+        auto load = [&](uint32_t dst, const CUtensorMap* map, int row,
+                        uint16_t mask) {
+          if constexpr (CLUSTERED)
+            tma_load_multicast(dst, map, full, x, row, mask);
+          else
+            tma_load(dst, map, full, x, row);
+        };
         if constexpr (MISSING) {
           // pivot g, h, m of 64 rows, two boxes each; then per consumer
-          // warpgroup its 32 neighbour rows as [h; g; m]
-          constexpr int BB = C::BOX * KC;
+          // warpgroup w its 32 neighbour rows (box w) as [h; g; m]
 #pragma unroll
-          for (int q = 0; q < 2; ++q) {
-            tma_load(st + q * BB, &p.tm_g, full, x, r0 + q * C::BOX);
-            tma_load(st + T * KC + q * BB, &p.tm_h, full, x, r0 + q * C::BOX);
-            tma_load(st + 2 * T * KC + q * BB, &p.tm_m, full, x,
-                     r0 + q * C::BOX);
+          for (int q = pt * PQ; q < (pt + 1) * PQ; ++q) {
+            const int row = r0 + q * BX;
+            load(st + q * BB, &p.tm_g, row, piv_mask);
+            load(st + T * KC + q * BB, &p.tm_h, row, piv_mask);
+            load(st + 2 * T * KC + q * BB, &p.tm_m, row, piv_mask);
           }
 #pragma unroll
-          for (int w = 0; w < 2; ++w) {
-            const int row = c0 + w * C::BOX;
-            tma_load(nb + (3 * w) * BB, &p.tm_h, full, x, row);
-            tma_load(nb + (3 * w + 1) * BB, &p.tm_g, full, x, row);
-            tma_load(nb + (3 * w + 2) * BB, &p.tm_m, full, x, row);
+          for (int w = pb * NQ; w < (pb + 1) * NQ; ++w) {
+            const int row = c0 + w * BX;
+            load(nb + (3 * w) * BB, &p.tm_h, row, nbr_mask);
+            load(nb + (3 * w + 1) * BB, &p.tm_g, row, nbr_mask);
+            load(nb + (3 * w + 2) * BB, &p.tm_m, row, nbr_mask);
           }
         } else {
-          // pivot g, h; neighbour [g; h], one 128-row box each
-          tma_load(st, &p.tm_g, full, x, r0);
-          tma_load(st + T * KC, &p.tm_h, full, x, r0);
-          tma_load(nb, &p.tm_g, full, x, c0);
-          tma_load(nb + T * KC, &p.tm_h, full, x, c0);
+          // pivot g, h; neighbour [g; h]
+#pragma unroll
+          for (int q = pt * PQ; q < (pt + 1) * PQ; ++q) {
+            const int row = r0 + q * BX;
+            load(st + q * BB, &p.tm_g, row, piv_mask);
+            load(st + T * KC + q * BB, &p.tm_h, row, piv_mask);
+          }
+#pragma unroll
+          for (int q = pb * NQ; q < (pb + 1) * NQ; ++q) {
+            const int row = c0 + q * BX;
+            load(nb + q * BB, &p.tm_g, row, nbr_mask);
+            load(nb + T * KC + q * BB, &p.tm_h, row, nbr_mask);
+          }
         }
       }
+    }
+  } else if (!live) {
+    // ---- a CTA outside the band: its consumers only hand each slot back
+    // to the CTAs that fill it, once its loads have landed
+    const int wi = (tid / 32) % 4, lane = tid & 31;
+    for (int kb = 0; kb < nk; ++kb) {
+      const int s = kb % C::STAGES;
+      mbar_wait(full0 + 8 * s, (kb / C::STAGES) & 1);
+      if (lane == 0 && wi < PEERS)
+        mbar_arrive_cluster(empty0 + 8 * s, peer_rank<CP, CN>(pb, pt, wi));
     }
   } else {
     // ---- two consumer warpgroups: products, then the epilogue
@@ -383,12 +510,18 @@ __global__ void __launch_bounds__(THREADS, 1)
         }
       }
       wgmma_commit();
-      // this stage's products are done: hand its slot back
+      // this stage's products are done: hand its slot back to every CTA
+      // whose loads land in it (in clusters lane 0 of warp wi to peer wi)
       wgmma_wait_all();
       fence_regs(a1);
       fence_regs(a2);
       fence_regs(a3);
-      mbar_arrive(empty0 + 8 * s);
+      if constexpr (CLUSTERED) {
+        if (lane == 0 && wi < PEERS)
+          mbar_arrive_cluster(empty0 + 8 * s, peer_rank<CP, CN>(pb, pt, wi));
+      } else {
+        mbar_arrive(empty0 + 8 * s);
+      }
     }
 
     // every consumer is past its last product (the ring is free) and
@@ -674,15 +807,112 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int q = 0; q < 4; ++q) iout[(dir * 4 + q) * T + r] = cnt[q];
     }
   }
+  // no CTA leaves while a peer may still load into its ring or arrive on
+  // its barriers
+  if constexpr (CLUSTERED) cluster_sync();
+}
+
+template <bool MISSING, bool ANNOT>
+constexpr int smem_bytes() {
+  return ATOM + ring_area<MISSING, ANNOT>() + 16 * Cfg<MISSING>::STAGES +
+         static_cast<int>(sizeof(EpiSmem<Cfg<MISSING>::TILE>));
+}
+
+// a launch of `grid` CTAs in clusters of CP x CN, the kernel's shared
+// memory allowed (once per device: a pass with progress launches 16
+// times); out of clusters a plain launch (with a cluster dimension of
+// 1 x 1 the same kernel ran 10-70% slower on wide rows)
+template <bool MISSING, bool ANNOT, bool BF16, bool CLUSTERED>
+cudaError_t cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
+                           dim3 grid, cudaStream_t stream) {
+  constexpr int SMEM = smem_bytes<MISSING, ANNOT>();
+  static std::atomic<uint64_t> allowed{0};   // a bit per device below 64
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if ((allowed.load(std::memory_order_relaxed) & bit) == 0 || bit == 0) {
+    err = cudaFuncSetAttribute(ld_sym_kernel<MISSING, ANNOT, BF16, CLUSTERED>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM);
+    if (err != cudaSuccess) return err;
+    allowed.fetch_or(bit, std::memory_order_relaxed);
+  }
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = Clu<CLUSTERED>::CN;
+  attr.val.clusterDim.y = Clu<CLUSTERED>::CP;
+  attr.val.clusterDim.z = 1;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = SMEM;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = CLUSTERED ? 1 : 0;
+  return cudaSuccess;
+}
+
+// clusters of the instantiation the current device runs at once (a
+// cluster's CTAs share a GPC; out of clusters, CTAs), or minus the CUDA
+// error
+template <bool MISSING, bool ANNOT, bool BF16, bool CLUSTERED>
+int max_clusters() {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config<MISSING, ANNOT, BF16, CLUSTERED>(
+      cfg, attr, dim3(Clu<CLUSTERED>::CN, Clu<CLUSTERED>::CP), nullptr);
+  const void* kernel = reinterpret_cast<const void*>(
+      &ld_sym_kernel<MISSING, ANNOT, BF16, CLUSTERED>);
+  int n = 0;
+  if (err == cudaSuccess && CLUSTERED) {
+    err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  } else if (err == cudaSuccess) {
+    int per_sm = 0, dev = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, THREADS, cfg.dynamicSmemBytes);
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    n = per_sm * sms;
+  }
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
+template <bool MISSING, bool ANNOT, bool BF16, bool CLUSTERED>
+cudaError_t launch_in(Params& p, const void* g, const void* m, const void* h,
+                      cudaStream_t stream) {
+  constexpr int CP = Clu<CLUSTERED>::CP, CN = Clu<CLUSTERED>::CN;
+  constexpr int BX = box_rows<MISSING, CLUSTERED>();
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const int m_pad = p.n_tiles * Cfg<MISSING>::TILE;
+  if (!encode<BF16>(fn, &p.tm_g, g, m_pad, p.n_pad, BX) ||
+      !encode<BF16>(fn, &p.tm_h, h, m_pad, p.n_pad, BX) ||
+      !encode<BF16>(fn, &p.tm_m, m, m_pad, p.n_pad, BX))
+    return cudaErrorInvalidValue;
+  // neighbour tiles (x) from each pivot group's first up to its last's
+  // band end, in groups of CN; pivot tiles (y) in groups of CP, at least
+  // one
+  const int groups = p.n_piv > 0 ? (p.n_piv + CP - 1) / CP : 1;
+  const int nj = (p.band + CP - 1 + CN - 1) / CN;
+  if (p.band < 1 || CP * groups > 65535) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config<MISSING, ANNOT, BF16, CLUSTERED>(
+      cfg, attr, dim3(CN * nj, CP * groups), stream);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, ld_sym_kernel<MISSING, ANNOT, BF16, CLUSTERED>,
+                           p);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 template <bool MISSING, bool ANNOT, bool BF16>
 cudaError_t launch(Params& p, const void* g, const void* m, const void* h,
-                   cudaStream_t stream) {
+                   bool clustered, cudaStream_t stream) {
   using C = Cfg<MISSING>;
   using AL = AnnotLayout<MISSING>;
-  constexpr int SMEM = ATOM + ring_area<MISSING, ANNOT>() + 16 * C::STAGES +
-                       static_cast<int>(sizeof(EpiSmem<C::TILE>));
+  constexpr int SMEM = smem_bytes<MISSING, ANNOT>();
   static_assert(sizeof(RedSmem<MISSING>) <= C::STAGE_BYTES,
                 "the partial sums must fit in the ring's first stage");
   static_assert(MISSING || (C::STAGES - 1) * C::STAGE_BYTES >=
@@ -712,31 +942,36 @@ cudaError_t launch(Params& p, const void* g, const void* m, const void* h,
                                                     tc_slab_bytes<C::TILE>()),
                 "annotation slabs on swizzle atoms, apart");
   static_assert(SMEM <= 232448, "shared memory of one CTA");
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  const int m_pad = p.n_tiles * C::TILE;
-  if (!encode<BF16>(fn, &p.tm_g, g, m_pad, p.n_pad, C::BOX) ||
-      !encode<BF16>(fn, &p.tm_h, h, m_pad, p.n_pad, C::BOX) ||
-      !encode<BF16>(fn, &p.tm_m, m, m_pad, p.n_pad, C::BOX))
-    return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      ld_sym_kernel<MISSING, ANNOT, BF16>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (err != cudaSuccess) return err;
-  dim3 grid(p.band, p.n_tiles);
-  ld_sym_kernel<MISSING, ANNOT, BF16><<<grid, THREADS, SMEM, stream>>>(p);
-  return cudaGetLastError();
+  return clustered
+             ? launch_in<MISSING, ANNOT, BF16, true>(p, g, m, h, stream)
+             : launch_in<MISSING, ANNOT, BF16, false>(p, g, m, h, stream);
 }
 
 template <bool BF16>
 cudaError_t launch_branch(Params& p, const void* g, const void* m,
                           const void* h, int has_missing, bool annot,
-                          cudaStream_t s) {
+                          bool clustered, cudaStream_t s) {
   if (annot)
-    return has_missing ? launch<true, true, BF16>(p, g, m, h, s)
-                       : launch<false, true, BF16>(p, g, m, h, s);
-  return has_missing ? launch<true, false, BF16>(p, g, m, h, s)
-                     : launch<false, false, BF16>(p, g, m, h, s);
+    return has_missing ? launch<true, true, BF16>(p, g, m, h, clustered, s)
+                       : launch<false, true, BF16>(p, g, m, h, clustered, s);
+  return has_missing ? launch<true, false, BF16>(p, g, m, h, clustered, s)
+                     : launch<false, false, BF16>(p, g, m, h, clustered, s);
+}
+
+template <bool CLUSTERED>
+int max_clusters_of(int has_missing, int annot, int bf16) {
+  if (bf16 != 0) {
+    if (annot != 0)
+      return has_missing ? max_clusters<true, true, true, CLUSTERED>()
+                         : max_clusters<false, true, true, CLUSTERED>();
+    return has_missing ? max_clusters<true, false, true, CLUSTERED>()
+                       : max_clusters<false, false, true, CLUSTERED>();
+  }
+  if (annot != 0)
+    return has_missing ? max_clusters<true, true, false, CLUSTERED>()
+                       : max_clusters<false, true, false, CLUSTERED>();
+  return has_missing ? max_clusters<true, false, false, CLUSTERED>()
+                     : max_clusters<false, false, false, CLUSTERED>();
 }
 
 }  // namespace
@@ -751,6 +986,20 @@ extern "C" int ld_sym_tile(int has_missing) {
   return has_missing ? Cfg<true>::TILE : Cfg<false>::TILE;
 }
 
+// the pivot tiles (pivots != 0) or neighbour tiles of a clustered
+// launch's cluster
+extern "C" int ld_sym_cluster(int pivots) {
+  return pivots ? Clu<true>::CP : Clu<true>::CN;
+}
+
+// cudaOccupancyMaxActiveClusters of an instantiation on the current
+// device (clusters of one CTA when not clustered), or minus the CUDA error
+extern "C" int ld_sym_max_clusters(int has_missing, int annot, int bf16,
+                                   int clustered) {
+  return clustered != 0 ? max_clusters_of<true>(has_missing, annot, bf16)
+                        : max_clusters_of<false>(has_missing, annot, bf16);
+}
+
 extern "C" int ld_sym_launch(const void* g, const void* m, const void* h,
                              const void* scal, const void* lo, const void* hi,
                              const void* usable, const void* dom_ok,
@@ -760,8 +1009,7 @@ extern "C" int ld_sym_launch(const void* g, const void* m, const void* h,
                              int n_piv, int n_tiles, int band,
                              int n_pad, float n, float inv_n, float n_padf,
                              float adj_c, float rsq_thr, int has_missing,
-                             int bf16,
-                             void* stream) {
+                             int bf16, int clustered, void* stream) {
   Params p;
   p.scal = static_cast<const float*>(scal);
   p.lo = static_cast<const int32_t*>(lo);
@@ -789,8 +1037,8 @@ extern "C" int ld_sym_launch(const void* g, const void* m, const void* h,
   const void* mm = has_missing ? m : g;   // clean: never read
   // annot (with apart and 1 <= n_annot <= annot_ld; on the clean branch
   // n_annot <= ANNOT_ROW_MAX) selects the annotation epilogue, bf16 the
-  // instantiations on bf16 operands; n_piv <= n_tiles pivot tiles write
-  // their slots
+  // instantiations on bf16 operands, clustered the launch in clusters of
+  // CP x CN; n_piv <= n_tiles pivot tiles write their slots
   if (n_piv < 0 || n_piv > n_tiles ||
       (annot != nullptr &&
        (n_annot < 1 || n_annot > annot_ld ||
@@ -798,8 +1046,10 @@ extern "C" int ld_sym_launch(const void* g, const void* m, const void* h,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   if (bf16 != 0)
-    err = launch_branch<true>(p, g, mm, h, has_missing, annot != nullptr, s);
+    err = launch_branch<true>(p, g, mm, h, has_missing, annot != nullptr,
+                              clustered != 0, s);
   else
-    err = launch_branch<false>(p, g, mm, h, has_missing, annot != nullptr, s);
+    err = launch_branch<false>(p, g, mm, h, has_missing, annot != nullptr,
+                               clustered != 0, s);
   return static_cast<int>(err);
 }

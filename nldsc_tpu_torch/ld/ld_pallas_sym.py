@@ -7,7 +7,12 @@ int8 products over all samples with ``wgmma`` on operands that a TMA
 ring brings into shared memory, and keeps the whole adjusted-r²
 epilogue in registers; it writes only per-tile row and mirrored-column
 partial sums, which :func:`_fold` reduces in a fixed order
-(bitwise-reproducible, no float atomics).
+(bitwise-reproducible, no float atomics).  On rows of at least
+:data:`CLUSTER_MIN_STAGES` ring stages (UK Biobank widths) the CTAs run
+in thread-block clusters of :data:`CLUSTER` (two pivot tiles by two
+neighbour tiles) that multicast each shared tile's loads to the CTAs that
+use it and stream the samples in step; narrower rows run the plain launch
+(:func:`cluster_shape`).
 
 Geometry: pivot and neighbour tiles are :data:`TILE_CLEAN` rows on the
 clean (3-product) branch and :data:`TILE_MISSING` rows on the missing
@@ -68,6 +73,19 @@ from . import ld_int8
 TILE_CLEAN = 128
 TILE_MISSING = 64
 ROW_ALIGN = math.lcm(TILE_CLEAN, TILE_MISSING)
+#: pivot tiles x neighbour tiles of one thread-block cluster of a
+#: clustered launch (``ld_sym.cu``'s CP x CN): the CTAs that share a tile
+#: load it once between them
+CLUSTER = (2, 2)
+#: the ring stages of a row (N_pad over the samples a stage holds: 128
+#: int8, 64 bf16) from which a launch of the clean (False) or missing
+#: (True) branch runs in clusters: the clean branch from 131,072 int8 or
+#: 65,536 bf16 samples, the missing one from 32,768 or 16,384.  On
+#: narrower rows L2 serves the shared tiles to CTAs that run apart, and
+#: the clusters' costs (120 of the 132 multiprocessors hold clusters of
+#: four; a pivot pair's clusters carry dead members) match or outweigh the
+#: halved loads (measured on the H100 in turns: PERF.md §6)
+CLUSTER_MIN_STAGES = {False: 1024, True: 256}
 
 #: kernel launches made by :func:`sym_credits` and :func:`sym_partials`
 #: (CUDA tensors only), how many of them ran the 8-product (missing-data)
@@ -84,20 +102,27 @@ partials_allocs = 0
 
 _P = ctypes.c_void_p
 _ARGTYPES = [_P] * 14 + [ctypes.c_int] * 6 + [ctypes.c_float] * 5 + [
-    ctypes.c_int, ctypes.c_int, _P]
+    ctypes.c_int] * 3 + [_P]
 
 
 def _library() -> ctypes.CDLL:
     lib = _build.load("ld_sym")
     if lib.ld_sym_launch.argtypes is None:
-        lib.ld_sym_launch.argtypes = _ARGTYPES
+        # the library's geometry is checked once, when it is first bound:
+        # a launch of the pass with progress is 16 calls of this
+        for f in (lib.ld_sym_tile, lib.ld_sym_annot_max, lib.ld_sym_cluster):
+            f.argtypes = [ctypes.c_int]
+            f.restype = ctypes.c_int
+        lib.ld_sym_max_clusters.argtypes = [ctypes.c_int] * 4
+        lib.ld_sym_max_clusters.restype = ctypes.c_int
+        if (lib.ld_sym_tile(0), lib.ld_sym_tile(1)) != (TILE_CLEAN,
+                                                        TILE_MISSING):
+            raise RuntimeError("ld_sym.cu and ld_pallas_sym's tiles disagree")
+        if (lib.ld_sym_cluster(1), lib.ld_sym_cluster(0)) != CLUSTER:
+            raise RuntimeError("ld_sym.cu and ld_pallas_sym's clusters "
+                               "disagree")
         lib.ld_sym_launch.restype = ctypes.c_int
-        lib.ld_sym_tile.argtypes = [ctypes.c_int]
-        lib.ld_sym_tile.restype = ctypes.c_int
-        lib.ld_sym_annot_max.argtypes = [ctypes.c_int]
-        lib.ld_sym_annot_max.restype = ctypes.c_int
-    if (lib.ld_sym_tile(0), lib.ld_sym_tile(1)) != (TILE_CLEAN, TILE_MISSING):
-        raise RuntimeError("ld_sym.cu and ld_pallas_sym's tiles disagree")
+        lib.ld_sym_launch.argtypes = _ARGTYPES
     return lib
 
 
@@ -110,6 +135,73 @@ def annot_max(has_missing: bool) -> int:
     """The most annotations one launch of the branch takes (the kernel's
     ``ld_sym_annot_max``)."""
     return _library().ld_sym_annot_max(int(has_missing))
+
+
+def cluster_shape(n_pad: int, has_missing: bool, bf16: bool) -> tuple:
+    """The cluster a launch on rows of ``n_pad`` samples runs in:
+    :data:`CLUSTER` from :data:`CLUSTER_MIN_STAGES` ring stages of a row
+    on, else ``(1, 1)``."""
+    stages = n_pad // (64 if bf16 else 128)
+    return CLUSTER if stages >= CLUSTER_MIN_STAGES[has_missing] else (1, 1)
+
+
+#: (device index, has_missing, annot, bf16, clustered) -> the kernel's
+#: clusters resident at once on that device
+_max_clusters: dict = {}
+
+
+def max_active_clusters(device, has_missing: bool, annot: bool, bf16: bool,
+                        clustered: bool = True) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the instantiation on
+    ``device``: the clusters of :data:`CLUSTER` (of one CTA when not
+    ``clustered``) that run at once (a cluster's CTAs share a GPC, so
+    their CTAs may be fewer than the multiprocessors), queried once per
+    device and instantiation."""
+    device = torch.device(device)
+    key = (device.index if device.index is not None
+           else torch.cuda.current_device(), has_missing, annot, bf16,
+           clustered)
+    if key not in _max_clusters:
+        with torch.cuda.device(key[0]):
+            n = _library().ld_sym_max_clusters(int(has_missing), int(annot),
+                                               int(bf16), int(clustered))
+        if n <= 0:
+            raise RuntimeError("ld_sym cluster occupancy query failed: "
+                               f"CUDA error {-n}")
+        _max_clusters[key] = n
+    return _max_clusters[key]
+
+
+def cluster_tile_ctas(tile_hi: list, n_piv: int, n_tiles: int, band: int,
+                      cluster: tuple = CLUSTER) -> list:
+    """Per pivot tile below ``n_piv``, the CTAs of the running clusters
+    of ``cluster`` that take it, dead members included: the CTAs
+    :func:`wave_bounds` shares out.  ``tile_hi[x]`` (a list) is the last
+    neighbour tile of pivot tile x (:func:`ld_int8.block_hi`).
+
+    ``ld_sym.cu``'s grid: CTA (b, j) of a cluster takes pivot tile b and
+    neighbour tile t = b0 + j, b0 = b rounded down to a multiple of CP,
+    and owns slot t - b of tile b when that is in ``[0, band)``.  Pivot
+    tile ``b0 + i`` is live against j in ``[i, i + e]``, e = min(tile_hi,
+    n_tiles - 1, b + band - 1) - b; a pivot group's clusters that run
+    are the CN-wide groups of j that meet the union of those intervals
+    (one interval: CP <= 2), and a cluster with no live member exits at
+    once."""
+    cp, cn = cluster
+    ext = [min(x_hi, n_tiles - 1, x + band - 1) - x
+           for x, x_hi in enumerate(tile_hi[:n_piv])]
+    if cp == 1:
+        return [cn * (e // cn + 1) if e >= 0 else 0 for e in ext]
+    out = []
+    for b0 in range(0, n_piv, cp):
+        spans = [(i, i + e) for i, e in enumerate(ext[b0:b0 + cp]) if e >= 0]
+        n = 0
+        if spans:
+            lo = min(s for s, _ in spans)
+            top = max(t for _, t in spans)
+            n = cn * (top // cn - lo // cn + 1)
+        out += [n] * min(cp, n_piv - b0)
+    return out
 
 
 def partials_shapes(n_tiles: int, band: int, T: int, p: int = 0) -> list:
@@ -210,7 +302,8 @@ def _fold_annot(apart):
 def _launch_partials(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
                      rsq_thr: float, n_samples: int, has_missing: bool,
                      annot=None, band: int | None = None, out=None,
-                     out_tiles: int | None = None, check_band: bool = True):
+                     out_tiles: int | None = None, check_band: bool = True,
+                     clustered: bool | None = None):
     """One kernel launch (one per group of :func:`annot_max` annotations):
     the unfolded partials ``(fpart, ipart, apart)`` (``apart`` None
     without ``annot``) of :func:`_fold`'s layout.  The launch runs with
@@ -221,7 +314,9 @@ def _launch_partials(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
     partials to write into (:func:`new_partials`, or views of a larger
     set), of at least ``out_tiles`` pivot tiles (default: all the rows'),
     whose slots the launch writes; the pivot tiles past them write
-    nothing (their windows must be empty).  Else new ones."""
+    nothing (their windows must be empty).  Else new ones.
+    ``clustered``: launch in clusters of :data:`CLUSTER` or plainly
+    (default: :func:`cluster_shape`'s rule)."""
     global launches, missing_launches, annot_launches, bf16_launches
     _check_inputs(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
                   has_missing, annot)
@@ -230,6 +325,8 @@ def _launch_partials(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
     T = tile(has_missing)
     nt = m_pad // T
     p = 0 if annot is None else annot.shape[1]
+    if clustered is None:
+        clustered = cluster_shape(n_pad, has_missing, bf16) != (1, 1)
     with torch.cuda.device(g.device):
         if band is None or check_band:
             tile_hi, depth = ld_int8.band_extent(hi, T)
@@ -262,7 +359,7 @@ def _launch_partials(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
                 q, p, nt if out_tiles is None else out_tiles, nt, band, n_pad,
                 float(n_samples), recip_f32(n_samples), float(n_pad),
                 ld_int8.adj_constant(n_samples), ld_int8.f32(rsq_thr),
-                int(has_missing), int(bf16), stream)
+                int(has_missing), int(bf16), int(clustered), stream)
             if err != 0:
                 raise RuntimeError(
                     f"ld_sym kernel launch failed: CUDA error {err}")
@@ -356,7 +453,7 @@ def sym_partials(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
 def range_partials(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
                    rsq_thr: float, x0: int, x1: int, *, n_samples: int,
                    has_missing: bool, band: int, block_size: int,
-                   annot=None, out=None):
+                   annot=None, out=None, clustered: bool | None = None):
     """:func:`sym_partials` of the pivot tiles ``[x0, x1)`` alone: the
     rows ``[x0·T, min(x1·T + halo, rows))`` (``halo`` = ``(band - 1)·T``,
     T the kernel's tile on CUDA, ``block_size`` on the CPU), the halo
@@ -372,7 +469,8 @@ def range_partials(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
     for the device.  ``out``: partials of at least ``x1 - x0`` tiles
     (views of tiles ``[x0, x1)`` of the whole pass's,
     :func:`new_partials`) that the range's slots are written into and
-    returned, as the segments of :func:`sym_credits_segmented` do."""
+    returned, as the segments of :func:`sym_credits_segmented` do.
+    ``clustered``: on CUDA, as :func:`_launch_partials` takes it."""
     T = tile(has_missing) if g.device.type == "cuda" else block_size
     r0, r1 = x0 * T, min((x1 + band - 1) * T, g.shape[0])
     lo, hi = lo[r0:r1] - r0, hi[r0:r1] - r0
@@ -385,7 +483,8 @@ def range_partials(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
            rows(dom_ok), rows(add_sd_zero), rsq_thr)
     if g.device.type == "cuda":
         got = _launch_partials(*sub, n_samples, has_missing, rows(annot),
-                               band, out, x1 - x0, check_band=False)
+                               band, out, x1 - x0, check_band=False,
+                               clustered=clustered)
     else:
         got = sym_partials(*sub, n_samples=n_samples,
                            has_missing=has_missing, band=band,
@@ -411,17 +510,21 @@ def segments(m: int, block_size: int, progress: bool) -> list:
             for s0 in range(0, n_blocks, step)]
 
 
-def wave_bounds(ctas: list, n: int, sms: int) -> list:
+def wave_bounds(ctas: list, n: int, sms: int, align: int = 1) -> list:
     """Tile boundaries ``[0, b_1, ..., b_{n-1}, n_tiles]`` of ``n``
     launches over pivot tiles of ``ctas[x]`` CTAs each (``n`` at most
     the tiles).  The waves of one launch over all the tiles (``sms``
-    CTAs a wave, one a multiprocessor) are shared out evenly, and launch
-    i takes the most tiles whose CTAs fit in its waves (at least one,
-    leaving one for each later launch; the last takes the rest).  So no
-    launch but the last leaves most multiprocessors idle while a last
-    wave of a few CTAs runs, and the launches take about the waves of
-    one launch."""
+    CTAs a wave) are shared out evenly, and launch i takes the most tiles
+    whose CTAs fit in its waves (at least one, leaving one for each later
+    launch; the last takes the rest).  So no launch but the last leaves
+    most multiprocessors idle while a last wave of a few CTAs runs, and
+    the launches take about the waves of one launch.  With ``align`` (the
+    cluster's pivot tiles) the launches take whole groups of ``align``
+    tiles, where there are at least ``n`` groups."""
     nt = len(ctas)
+    if align > 1 and -(-nt // align) >= n:
+        units = [sum(ctas[x:x + align]) for x in range(0, nt, align)]
+        return [min(align * x, nt) for x in wave_bounds(units, n, sms)]
     cum = list(itertools.accumulate(ctas, initial=0))
     waves = -(-cum[-1] // sms)
     bounds = [0]
@@ -450,9 +553,12 @@ def sym_credits_segmented(g, m, h, scal, lo, hi, usable, dom_ok,
     partials (:func:`new_partials`), all enqueued before the first wait:
     an event after each launch, and a segment's tick once the launch
     that holds its last tile has completed.  The launches' tiles are cut
-    at whole waves of the card's multiprocessors (:func:`wave_bounds`:
-    one CTA a multiprocessor, the kernel's shared memory), not at the
-    segments' edges.  One fold of all the partials: the result equals one
+    at whole waves of the kernel's clusters (:func:`wave_bounds` over the
+    CTAs of :func:`cluster_tile_ctas`, :func:`max_active_clusters`
+    clusters a wave), at whole clusters where it can, not at the
+    segments' edges.  The clean branch's launches run plainly at any
+    width (launches of about a wave keep their CTAs in step without
+    clusters); the missing branch's follow :func:`cluster_shape`.  One fold of all the partials: the result equals one
     launch's bit for bit.  CPU tensors
     run the twin (``ld_int8.sym_scan_segment``) per segment and add the
     segments' credit vectors in order, as the reference adds its
@@ -486,11 +592,20 @@ def sym_credits_segmented(g, m, h, scal, lo, hi, usable, dom_ok,
     # segment i's last pivot tile ends at edges[i + 1]
     edges = [0, *(min(-(-s0 * B // T), nt) for s0, _ in segs[1:]), nt]
     n_launch = sum(x1 > x0 for x0, x1 in zip(edges, edges[1:]))
-    ctas = [max(0, min(x_hi, nt - 1) - x + 1)
-            for x, x_hi in enumerate(tile_hi.tolist())]
+    bf16 = g.dtype == torch.bfloat16
+    # a launch of about a wave runs its CTAs in step: on the clean branch
+    # multicast then saves nothing the clusters' costs do not outweigh
+    # (measured on the H100 in turns: PERF.md §6), so its segments launch
+    # plainly
+    shape = cluster_shape(g.shape[1], has_missing, bf16) if has_missing \
+        else (1, 1)
+    cp, cn = shape
+    wave = cp * cn * max_active_clusters(g.device, has_missing,
+                                         annot is not None, bf16,
+                                         shape != (1, 1))
     bounds = wave_bounds(
-        ctas, n_launch,
-        torch.cuda.get_device_properties(g.device).multi_processor_count)
+        cluster_tile_ctas(tile_hi.tolist(), nt, nt, band, shape), n_launch,
+        wave, cp)
     parts = new_partials(nt, band, T, 0 if annot is None else annot.shape[1],
                          g.device)
     stream = torch.cuda.current_stream(g.device)
@@ -499,7 +614,8 @@ def sym_credits_segmented(g, m, h, scal, lo, hi, usable, dom_ok,
     for x0, x1 in zip(bounds, bounds[1:]):
         range_partials(*args, x0, x1, band=band, block_size=B, annot=annot,
                        out=tuple(None if x is None else x[x0:x1]
-                                 for x in parts), **kw)
+                                 for x in parts),
+                       clustered=shape != (1, 1), **kw)
         events.append(torch.cuda.Event())
         events[-1].record(stream)
     for end, done in zip(edges[1:], rows_done):

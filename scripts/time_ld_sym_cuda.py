@@ -10,7 +10,8 @@ Seeded random genotype codes are made on the card (MAF 0.05-0.5 per SNP;
 given windows of ``--half-window`` SNPs on each side.  Each branch is
 first held against the plain twin at a small shape (counters equal,
 l2/l2d within 1e-5, two runs bitwise equal), then timed with CUDA events
-at the full shape beside its bound (``chip_smoke.k1_work``).  Also
+at the full shape beside its bound (``chip_smoke.k1_work``), its
+cluster shape and resident clusters (``chip_smoke.k1_cluster``).  Also
 printed: the ptxas report of the build, and ``torch._int_mm`` (cuBLASLt)
 on a dense 8,192 x 16,384 by 16,384 x 8,192 int8 product, a yardstick of
 the card's int8 rate that the port never calls.  The script times
@@ -196,16 +197,20 @@ def main() -> int:
                                   ld_pallas_sym.tile(has_missing), dt)
         ms = chip_smoke.cuda_ms(
             torch, lambda: k1(args, opt.n, has_missing), opt.reps)
+        cluster = chip_smoke.k1_cluster(torch, dev, has_missing,
+                                        args[0].shape[1], bf16=dt == "bf16")
         out[name] = {"ms": ms, "max_abs_err_small": err, **work,
                      "tops": work["tile_ops"] / ms / 1e9,
                      "window_tops": work["ops"] / ms / 1e9,
-                     "share_of_bound": work["bound_ms"] / ms}
-        print(f"{name}: {ms:.3f} ms; {work['ctas']} CTAs; "
+                     "share_of_bound": work["bound_ms"] / ms,
+                     "cluster": cluster}
+        print(f"{name}: {ms:.3f} ms; {work['ctas']} tiles; "
               f"{out[name]['tops']:.0f} TOPS in tiles, "
               f"{out[name]['window_tops']:.0f} TOPS in window; bound "
               f"{work['bound_ms']:.3f} ms ({work['bound_by']}), "
-              f"{100 * out[name]['share_of_bound']:.1f}% of it; small-shape "
-              f"max |diff| vs twin {err:.3g}; on {card}", flush=True)
+              f"{100 * out[name]['share_of_bound']:.1f}% of it; {cluster}; "
+              f"small-shape max |diff| vs twin {err:.3g}; on {card}",
+              flush=True)
         if opt.annot:
             annot = chip_smoke.seeded_annot(torch, args[0].shape[0], opt.m,
                                             opt.annot, opt.seed, dev)

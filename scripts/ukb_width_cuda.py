@@ -28,7 +28,9 @@ apart and every run uses ``-kb 100`` (+-1000 SNPs).  Then:
      equal, l2/l2d within tests/test_golden.py's tolerances;
   f. K1 clean, K1 8-product (m = 0 on the clean rows) and K2
      (``split_corrections``) alone on e's inputs, CUDA events after a
-     warm-up, with their bounds (``chip_smoke.k1_work``/``k2_work``) and
+     warm-up, with their bounds (``chip_smoke.k1_work``/``k2_work``), K1's
+     cluster shape and resident clusters, ``torch._int_mm`` on exactly
+     K1's products (``chip_smoke.k1_products_library_ms``) and
      each checked against its twin on a 512-row window at full N
      (counters equal, sums within ``chip_smoke.KERNEL_TOL``).
 
@@ -304,12 +306,22 @@ def kernel_runs(card: str, e: dict, window: int = 512) -> dict:
 
         ms = cs.cuda_ms(torch, k1, reps=5)
         w = cs.k1_work(args[5], n_pad, has_missing, T)
-        out[name] = {"ms": ms, **w}
+        lib = cs.k1_products_library_ms(torch, (args[0], m, *args[2:]),
+                                        has_missing, T)
+        out[name] = {"ms": ms, "library_products_ms": lib["ms"],
+                     "library_stacked_ms": lib["stacked_ms"],
+                     "library_stacked_extra": lib["stacked_ops"] / lib["ops"],
+                     **w}
         cs.say(f"f {name}", f"M={len(pos)} N={N} (n_pad {n_pad}) +-1000 "
                f"SNPs: {ms:.3f} ms over {w['ctas']} tiles, "
                f"{w['ops'] / ms / 1e9:.0f} int8 TOPS on the in-window pairs; "
                f"bound {w['bound_ms']:.3f} ms ({w['bound_by']}), "
-               f"{100 * w['bound_ms'] / ms:.1f}% of it; on {card}")
+               f"{100 * w['bound_ms'] / ms:.1f}% of it; "
+               f"{cs.k1_cluster(torch, DEV, has_missing, n_pad)}; torch._int_mm on "
+               f"its products ({lib['calls']} calls, one a product of a "
+               f"pivot tile and its band) {lib['ms']:.3f} ms, stacked over "
+               f"1,024 pivot rows ({lib['stacked_ops'] / lib['ops']:.2f}x "
+               f"the products) {lib['stacked_ms']:.3f} ms; on {card}")
     del args, m0
     torch.cuda.empty_cache()
     args, n_, _, raw = cs.packed_inputs(torch, e["packed"].raw, N, True,
@@ -371,7 +383,8 @@ def main() -> int:
         f = kernel_runs(card, e)
         print(json.dumps({"shape": [M, N], "card": card,
                           "kernels": {k: {x: v[x] for x in (
-                              "ms", "bound_ms", "bound_by")}
+                              "ms", "bound_ms", "bound_by",
+                              "library_products_ms") if x in v}
                               for k, v in f.items()}}))
     finally:
         if a.out_dir is None:

@@ -43,6 +43,13 @@ CASES = {
     # UK Biobank width (N_pad 315,648): 2,466 ring stages of 128 samples
     "wide_clean": (256, 315_599, 0.0, 100, 5000.0),
     "wide_missing": (256, 315_599, 0.02, 100, 5000.0),
+    # the narrowest rows that run in 2 x 2 clusters (N_pad 131,072 clean:
+    # 1,024 ring stages; 32,768 with missing genotypes: 256): 5 clean
+    # tiles (odd), 10 of 64 rows, bands of 3-5 tiles; and the 16 segments
+    "cluster_clean": (600, 131_001, 0.0, 100, 30000.0),
+    "cluster_missing": (600, 32_701, 0.05, 100, 20000.0),
+    "cluster_segments_clean": (2048, 131_001, 0.0, 100, 30000.0),
+    "cluster_segments_missing": (2048, 32_701, 0.02, 100, 30000.0),
 }
 
 
@@ -122,7 +129,9 @@ def test_kernel_matches_twin(rng, cuda, case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["segments_clean", "segments_missing"])
+@pytest.mark.parametrize("case", ["segments_clean", "segments_missing",
+                                  "cluster_segments_clean",
+                                  "cluster_segments_missing"])
 def test_segments_fold_once_to_one_launch(rng, cuda, case):
     # the pass with progress: K1 once per segment (its halo tiles' CTAs
     # exit at once), a fence and a tick after each, one fold over all the
@@ -145,7 +154,13 @@ def test_segments_fold_once_to_one_launch(rng, cuda, case):
 @pytest.mark.gpu
 @pytest.mark.parametrize("case, pivot_rows", [("clean", 128),
                                               ("missing", 192),
-                                              ("multi_tile_band", 256)])
+                                              ("multi_tile_band", 256),
+                                              ("multi_tile_band", 320),
+                                              ("clean_multi_tile_band", 384),
+                                              ("cluster_clean", 256),
+                                              ("cluster_clean", 384),
+                                              ("cluster_missing", 192),
+                                              ("cluster_missing", 256)])
 def test_kernel_band_matches_twin_over_pivots(rng, cuda, case, pivot_rows):
     # a streaming band: pivots, then halo rows that are neighbours only
     # (their windows emptied, their tiles' CTAs exit at once)
@@ -167,6 +182,108 @@ def test_kernel_band_matches_twin_over_pivots(rng, cuda, case, pivot_rows):
     for a, b in zip(ours[2:], ref[2:]):
         np.testing.assert_array_equal(a, b)
     assert int(kern[1][pivot_rows:].sum()) > 0   # the halo's column credits
+
+
+# the kernel's 2 x 2 clusters: ranges of pivot tiles that start at odd
+# tiles and hold odd counts (a cluster's second pivot tile past n_piv),
+# put together into one set of partials, are bitwise one launch's
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["clean", "missing", "multi_tile_band",
+                                  "clean_multi_tile_band",
+                                  "segments_missing", "cluster_clean",
+                                  "cluster_missing",
+                                  "cluster_segments_missing"])
+def test_odd_ranges_equal_one_launch(rng, cuda, case):
+    args, n, has_missing, _ = engine_args(rng, case, cuda)
+    T = ld_pallas_sym.tile(has_missing)
+    nt = args[0].shape[0] // T
+    band = ld_int8.band_extent(args[5], T)[1]
+    kw = dict(n_samples=n, has_missing=has_missing, band=band,
+              block_size=T)
+    one = ld_pallas_sym.sym_partials(*args, RSQ, **kw)
+    cuts = sorted({0, *(x for x in (1, 2, 5, 8, 11) if x < nt), nt})
+    parts = ld_pallas_sym.new_partials(nt, band, T, 0, cuda)
+    for x0, x1 in zip(cuts, cuts[1:]):
+        ld_pallas_sym.range_partials(*args, RSQ, x0, x1,
+                                     out=tuple(None if x is None else
+                                               x[x0:x1] for x in parts),
+                                     **kw)
+    torch.cuda.synchronize()
+    assert nt % 2 or len(cuts) > 2
+    for a, b in zip(parts[:2], one[:2]):
+        assert torch.equal(a, b)
+
+
+# pivot tiles whose bands end one or two tiles apart from their cluster
+# pair's: tile x's rows reach the end of tile x + reach(x)
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["clean_multi_tile_band",
+                                  "multi_tile_band", "cluster_clean",
+                                  "cluster_missing"])
+@pytest.mark.parametrize("stagger", ["one_before", "two_before",
+                                     "odd_short"])
+def test_kernel_staggered_pair_bands_match_twin(rng, cuda, case, stagger):
+    args, n, has_missing, m = engine_args(rng, case, cuda)
+    T = ld_pallas_sym.tile(has_missing)
+    reach = {"one_before": lambda x: 1 + x % 2,
+             "two_before": lambda x: 1 + 2 * (x % 2),
+             "odd_short": lambda x: 2 - 2 * (x % 2)}[stagger]
+    hi = args[5].cpu().numpy().copy()
+    rows = np.arange(len(hi))
+    ends = np.array([T * (r // T + 1 + reach(r // T)) - 1 for r in rows])
+    hi[:m] = np.minimum(ends[:m], m - 1)
+    args = args[:5] + (torch.from_numpy(hi).to(cuda),) + args[6:]
+    tile_hi = ld_int8.block_hi(args[5], T).tolist()
+    assert any(tile_hi[x] != tile_hi[x + 1] - 1
+               for x in range(0, len(tile_hi) - 1, 2) if tile_hi[x + 1] >= 0)
+    kern = ld_pallas_sym.sym_credits(*args, RSQ, n_samples=n,
+                                     has_missing=has_missing, block_size=T)
+    twin = ld_int8.sym_scan_segment(
+        *args, RSQ, 0, block_size=T,
+        right_k=ld_int8.band_extent(args[5], T)[1], n_samples=n,
+        n_scan_blocks=args[0].shape[0] // T, has_missing=has_missing)
+    ours, ref = finalized(kern, args), finalized(twin, args)
+    for a, b in zip(ours[:2], ref[:2]):
+        np.testing.assert_allclose(a, b, **TOL)
+    for a, b in zip(ours[2:], ref[2:]):
+        np.testing.assert_array_equal(a, b)
+
+
+# a launch's unfolded partials, slot for slot in the layout the fold reads
+# ([n_tiles][band][row, col][...][T]), against the twin's: the counters
+# equal, the sums within TOL, and every slot the twin leaves zero (past a
+# tile's band, the pivot tile's column credits) exactly zero
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [0, 5])
+@pytest.mark.parametrize("case", ["clean", "missing", "edge_clamp",
+                                  "multi_tile_band", "clean_multi_tile_band",
+                                  "cluster_clean", "cluster_missing"])
+def test_kernel_partials_equal_the_twins_slot_for_slot(rng, cuda, case, p):
+    args, n, has_missing, m = engine_args(rng, case, cuda)
+    T = ld_pallas_sym.tile(has_missing)
+    band = ld_int8.band_extent(args[5], T)[1] + 1    # one slot past all
+    annot = seeded_annot(rng, args[0].shape[0], m, p, cuda) if p else None
+    kern = ld_pallas_sym.sym_partials(
+        *args, RSQ, n_samples=n, has_missing=has_missing, band=band,
+        block_size=T, annot=annot)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        twin = ld_int8.sym_tile_partials(
+            *args, RSQ, annot, tile=T, band=band, n_samples=n,
+            has_missing=has_missing)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    assert torch.equal(kern[1], twin[1])
+    for a, b in zip((kern[0], kern[2]), (twin[0], twin[2])):
+        if b is None:
+            assert a is None
+            continue
+        assert a.shape == b.shape
+        assert bool((a[b == 0] == 0).all()), "a slot the twin leaves zero"
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), **TOL)
+    assert bool((kern[1][:, -1] == 0).all()) and bool(
+        (kern[0][:, -1] == 0).all())
 
 
 def seeded_annot(rng, m_pad, m, p, device):
@@ -201,7 +318,8 @@ def twin_annot(args, n, has_missing, T, annot, scan_rows=None):
 @pytest.mark.parametrize("p", [1, 5, 37, 64, 97, 130])
 @pytest.mark.parametrize("case", ["clean", "missing", "multi_tile_band",
                                   "clean_multi_tile_band", "edge_clamp",
-                                  "ring_wrap_clean"])
+                                  "ring_wrap_clean", "cluster_clean",
+                                  "cluster_missing"])
 def test_kernel_annot_matches_twin(rng, cuda, case, p):
     args, n, has_missing, m = engine_args(rng, case, cuda)
     T = ld_pallas_sym.tile(has_missing)
@@ -391,7 +509,8 @@ def bf16_args(args):
 @pytest.mark.parametrize("p", [0, 37])
 @pytest.mark.parametrize("case", ["clean", "missing", "ring_wrap_clean",
                                   "ring_wrap_missing", "single_stage_clean",
-                                  "multi_tile_band"])
+                                  "multi_tile_band", "cluster_clean",
+                                  "cluster_missing"])
 def test_bf16_instantiations_equal_int8(rng, cuda, case, p):
     args, n, has_missing, m = engine_args(rng, case, cuda)
     T = ld_pallas_sym.tile(has_missing)
