@@ -264,6 +264,8 @@ from pathlib import Path
 
 import numpy as np
 
+from nldsc_tpu_torch.core.timing import launch_counts
+
 ROOT = Path(__file__).resolve().parent
 RSQ = 1e-3
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -1192,23 +1194,6 @@ def device_busy_ms(torch, prof) -> float:
     """Milliseconds of device work (kernels and copies) in a profile."""
     return sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-
-
-def launch_counts() -> dict:
-    from nldsc_tpu_torch.ld import ld_pallas_sym, ld_split
-
-    return {"ld_sym": ld_pallas_sym.launches,
-            "ld_sym_8prod": ld_pallas_sym.missing_launches,
-            "ld_sym_annot": ld_pallas_sym.annot_launches,
-            "ld_sym_bf16": ld_pallas_sym.bf16_launches,
-            "split_corr": ld_split.corr_launches,
-            "split_fused": ld_split.fused_launches,
-            "split_annot": ld_split.annot_launches,
-            "split_reach": ld_split.reach_launches,
-            "split_fold": ld_split.fold_launches,
-            "split_bf16": ld_split.bf16_launches,
-            "ld_sym_by_device": dict(ld_pallas_sym.device_launches),
-            "split_by_device": dict(ld_split.device_launches)}
 
 
 def reset_counts() -> None:

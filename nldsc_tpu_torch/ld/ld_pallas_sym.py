@@ -65,6 +65,7 @@ from collections import Counter
 import torch
 
 from .. import _build
+from ..core import timing
 from ..core.numerics import recip_f32
 from . import ld_int8
 
@@ -204,6 +205,25 @@ def cluster_tile_ctas(tile_hi: list, n_piv: int, n_tiles: int, band: int,
     return out
 
 
+def count_tile_pairs(tile_hi: torch.Tensor, T: int, n_piv: int) -> None:
+    """Add to the traced call's counter ``k1.tile_pairs`` the row pairs of
+    the tiles that a launch (or its twin) over the first ``n_piv`` pivot
+    tiles of ``T`` rows computes: T² for each pivot tile x and each
+    neighbour tile from x to ``tile_hi[x]``, the last one its rows reach
+    (the bounds the launch takes), whole tiles whatever share of them the
+    windows fill.  Counted after the call (``timing.defer``), so the
+    launch waits for nothing."""
+    if not timing.tracing():
+        return
+
+    def counters():
+        last = tile_hi[:n_piv].cpu().long()
+        reach = (last - torch.arange(last.shape[0]) + 1).clamp(min=0)
+        return {"k1.tile_pairs": T * T * int(reach.sum())}
+
+    timing.defer(counters)
+
+
 def partials_shapes(n_tiles: int, band: int, T: int, p: int = 0) -> list:
     """The shapes of ``(fpart, ipart, apart)`` for ``n_tiles`` pivot
     tiles of ``T`` rows, ``band`` slots and ``p`` annotations (``apart``
@@ -337,6 +357,7 @@ def _launch_partials(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
                                  f"{depth}")
         else:
             tile_hi = ld_int8.block_hi(hi, T)
+        count_tile_pairs(tile_hi, T, nt if out_tiles is None else out_tiles)
         if out is None:
             out = new_partials(nt, band, T, p, g.device)
         else:
@@ -430,6 +451,10 @@ def sym_partials(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
     them; on the CPU the twin's are copied there.  Returns the partials
     written."""
     if g.device.type == "cpu":
+        if timing.tracing():
+            count_tile_pairs(ld_int8.block_hi(hi, block_size), block_size,
+                             hi.shape[0] // block_size if out_tiles is None
+                             else out_tiles)
         parts = ld_int8.sym_tile_partials(
             g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero, rsq_thr,
             annot, tile=block_size, band=band, n_samples=n_samples,
@@ -575,7 +600,8 @@ def sym_credits_segmented(g, m, h, scal, lo, hi, usable, dom_ok,
     rows_done = [min(sum(nb for _, nb in segs[:i + 1]) * B, n_rows)
                  for i in range(len(segs))]
     if g.device.type != "cuda":
-        right_k = ld_int8.band_extent(hi, B)[1]
+        blk_hi, right_k = ld_int8.band_extent(hi, B)
+        count_tile_pairs(blk_hi, B, blk_hi.shape[0])
         totals = None
         progress(0, n_rows)
         for (s0, nb), done in zip(segs, rows_done):
@@ -651,7 +677,8 @@ def sym_credits(g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero,
         lo[pivot_rows:] = rows
         hi[pivot_rows:] = -1
     if g.device.type == "cpu":
-        _, right_k = ld_int8.band_extent(hi, block_size)
+        blk_hi, right_k = ld_int8.band_extent(hi, block_size)
+        count_tile_pairs(blk_hi, block_size, blk_hi.shape[0])
         scan = rows if pivot_rows is None else pivot_rows
         return ld_int8.sym_scan_segment(
             g, m, h, scal, lo, hi, usable, dom_ok, add_sd_zero, rsq_thr, 0,

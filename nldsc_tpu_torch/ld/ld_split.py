@@ -592,6 +592,23 @@ def live_tiles_plain(seg, lo, hi, cidx, S: int, P: int) -> torch.Tensor:
         n_segs, n_xt, n_ct)
 
 
+def tile_counts(plan: dict, lo: torch.Tensor,
+                hi: torch.Tensor) -> tuple[int, int]:
+    """The tiles of the fused launch of ``plan`` and those that compute,
+    by :func:`live_tiles_plain` on host copies of the launch's inputs (the
+    arrays :func:`_operands` uploads, and the windows ``lo``, ``hi``): no
+    kernel on the device."""
+    lo, hi = lo.cpu(), hi.cpu()
+    tab = segment_table(plan, hi.shape[0])
+    seg = np.stack([tab["s0"], tab["c0"], tab["c_cnt"], tab["seg_lo"]],
+                   axis=1)
+    live = live_tiles_plain(
+        torch.from_numpy(seg), lo, hi,
+        torch.from_numpy(np.asarray(plan["miss_idx"], np.int32)),
+        plan["seg_rows"], plan["p_band"])
+    return live.numel(), int(live.sum())
+
+
 def tile_slots(live: torch.Tensor) -> torch.Tensor:
     """int32 of ``live``'s shape: each live tile's slot, numbered in
     (segment, x tile, column tile) order, else −1."""

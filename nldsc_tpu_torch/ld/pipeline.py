@@ -38,7 +38,8 @@ import torch
 from ..config import LDConfig
 from ..core.errors import NLDSCParameterError
 from ..core.logging import log
-from ..core.timing import STAGE_TIMES, elapsed_time, stage_add
+from ..core import timing
+from ..core.timing import STAGE_TIMES, elapsed_time, span, stage_add
 from ..io.ldscores import (make_output, make_output_annot, read_annot,
                            write_l2, write_m_files, write_m_files_annot)
 from ..io.plink import PackedBed, PlinkDataset
@@ -102,28 +103,32 @@ def incore_route(rowmiss: np.ndarray, m: int, block_size: int,
 
 
 def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    t0 = time.time()
-    out = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    stage_add("transfer_s", t0)
+    with span("ld.transfer"):
+        t0 = time.time()
+        out = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        stage_add("transfer_s", t0)
     return out
 
 
-def to_host_result(l2, l2d, ws, wsd, wse, maf, rstd, m: int) -> dict:
-    """Assemble the reference ``LDScoreResult`` fields on host (first m rows)."""
-    def host(x, dtype):
-        return x[:m].cpu().numpy().astype(dtype)
-
-    return {
-        "l2": host(l2, np.float64),
-        "l2d": host(l2d, np.float64),
-        "maf": host(maf, np.float64),
-        "residuals_std": host(rstd, np.float64),
-        "l2_ws": host(ws, np.int64),
-        "l2d_ws": host(wsd, np.int64),
-        "l2d_wse": host(wse, np.int64),
-    }
+def to_host_result(l2, l2d, ws, wsd, wse, maf, rstd, m: int,
+                   annot=None) -> dict:
+    """Assemble the reference ``LDScoreResult`` fields on host (first m
+    rows), with ``annot`` = ``(l2_annot, l2d_annot)`` also those: every
+    output fetched first (span ``ld.fetch``), then each converted to
+    float64 or int64 (``ld.to_float64``)."""
+    fields = {"l2": l2, "l2d": l2d, "maf": maf, "residuals_std": rstd,
+              "l2_ws": ws, "l2d_ws": wsd, "l2d_wse": wse}
+    if annot is not None:
+        fields["l2_annot"], fields["l2d_annot"] = annot
+    with span("ld.fetch"):
+        fetched = {k: x[:m].cpu() for k, x in fields.items()}
+    with span("ld.to_float64"):
+        return {k: x.numpy().astype(np.int64 if k in ("l2_ws", "l2d_ws",
+                                                      "l2d_wse")
+                                    else np.float64)
+                for k, x in fetched.items()}
 
 
 def resolve_symmetric(symmetric: bool | None, annot, has_missing: bool,
@@ -144,34 +149,37 @@ def _f32_pass(g_dev, pos_ok, lo: np.ndarray, hi: np.ndarray, lo_dev,
     """The f32 engine on the padded int8 codes ``g_dev`` (sample padding
     missing): ``preprocess_block``, then ``ld_xla``'s symmetric or
     full-band pass, or its partitioned pass (full band) with ``a_dev``
-    (``nldsc_tpu/ld/pipeline.py:396-437``)."""
+    (``nldsc_tpu/ld/pipeline.py:396-437``), as one span (``ld.pass``)."""
     B = config.block_size
     m_pad = g_dev.shape[0]
-    pre = preprocess.preprocess_block(g_dev, pos_ok, config.maf_thr, n)
-    dom_ok = pre["usable"] & (pre["rstd"] > ld_int8.f32(config.std_thr))
-    blk_lo, blk_hi, band_k = windows.band_blocks(lo, hi, B, m_pad // B)
-    args = (pre.pop("add"), pre.pop("res"), lo_dev, hi_dev, pre["usable"],
-            dom_ok, pre["add_sd_zero"], blk_lo, blk_hi, config.rsq_thr)
-    kw = dict(block_size=B, band_k=band_k, n_samples=n)
-    log.info("LD route: f32 engine, %s%s",
-             "symmetric" if symmetric and a_dev is None else "full band",
-             "" if a_dev is None else f", {a_dev.shape[1]} annotations")
-    if config.matmul_precision == "high":
-        log.info("matmul_precision 'high' (the TPU's bf16_3x pass): the "
-                 "f32 engine runs full float32 products, as for 'highest'")
-    if progress is not None:
-        progress(0, m)
-    if a_dev is not None:
-        l2_a, l2d_a, *fin = ld_xla.ld_scores_xla_annot(*args, a_dev, **kw)
-    elif symmetric:
-        fin = ld_xla.ld_scores_xla_sym(
-            *args, right_k=windows.right_band_blocks(blk_hi, B), **kw)
-    else:
-        fin = ld_xla.ld_scores_xla(*args, **kw)
-    out = to_host_result(*fin, pre["maf"], pre["rstd"], m)
-    if a_dev is not None:
-        out["l2_annot"] = l2_a[:m].cpu().numpy().astype(np.float64)
-        out["l2d_annot"] = l2d_a[:m].cpu().numpy().astype(np.float64)
+    with span("ld.pass"):
+        pre = preprocess.preprocess_block(g_dev, pos_ok, config.maf_thr, n)
+        dom_ok = pre["usable"] & (pre["rstd"] > ld_int8.f32(config.std_thr))
+        blk_lo, blk_hi, band_k = windows.band_blocks(lo, hi, B, m_pad // B)
+        args = (pre.pop("add"), pre.pop("res"), lo_dev, hi_dev,
+                pre["usable"], dom_ok, pre["add_sd_zero"], blk_lo, blk_hi,
+                config.rsq_thr)
+        kw = dict(block_size=B, band_k=band_k, n_samples=n)
+        log.info("LD route: f32 engine, %s%s",
+                 "symmetric" if symmetric and a_dev is None else "full band",
+                 "" if a_dev is None else f", {a_dev.shape[1]} annotations")
+        if config.matmul_precision == "high":
+            log.info("matmul_precision 'high' (the TPU's bf16_3x pass): the "
+                     "f32 engine runs full float32 products, as for "
+                     "'highest'")
+        if progress is not None:
+            progress(0, m)
+        annot_out = None
+        if a_dev is not None:
+            l2_a, l2d_a, *fin = ld_xla.ld_scores_xla_annot(*args, a_dev,
+                                                           **kw)
+            annot_out = (l2_a, l2d_a)
+        elif symmetric:
+            fin = ld_xla.ld_scores_xla_sym(
+                *args, right_k=windows.right_band_blocks(blk_hi, B), **kw)
+        else:
+            fin = ld_xla.ld_scores_xla(*args, **kw)
+    out = to_host_result(*fin, pre["maf"], pre["rstd"], m, annot_out)
     if progress is not None:
         progress(m, m)
     return out
@@ -206,6 +214,19 @@ def compute_ld_scores(genotypes, positions: np.ndarray, config: LDConfig, *,
     if config.rsq_thr is None:
         raise NLDSCParameterError("resolve rsq_thr first (LDConfig.resolve_rsq)")
     dev = resolve_device(device)
+    with span("ld.call", root=True, device=dev):
+        return _compute_ld_scores(genotypes, positions, config, annot, dev,
+                                  progress)
+
+
+def _compute_ld_scores(genotypes, positions: np.ndarray, config: LDConfig,
+                       annot, dev: torch.device, progress) -> dict:
+    """:func:`compute_ld_scores` on the resolved device, in the spans of
+    ``core.timing``: ``ld.windows``, ``ld.transfer``, ``ld.unpack``,
+    ``ld.annot_prep``, ``ld.preprocess``, ``ld.route``, ``ld.operands``,
+    ``ld.k2``, ``ld.k1``, ``ld.finalize`` (the full-band and f32 engines:
+    one ``ld.pass``), ``ld.fetch`` and ``ld.to_float64``, with the
+    windows' and K2's counters (:func:`_counters`)."""
     packed = isinstance(genotypes, PackedBed)
     m, n = genotypes.shape
     use_int8 = config.use_int8 is not False
@@ -241,11 +262,12 @@ def compute_ld_scores(genotypes, positions: np.ndarray, config: LDConfig, *,
         raise NLDSCParameterError(
             f"annot must be ({m}, p >= 1), got {annot.shape}")
 
-    lo, hi, pos_ok = windows.window_bounds(positions, config.ld_wind)
-
-    pos_ok_pad = _pad_to(pos_ok, m_pad, False)
-    lo_pad = _pad_to(lo, m_pad, np.int32(m_pad))   # empty window for padding
-    hi_pad = _pad_to(hi, m_pad, np.int32(-1))
+    with span("ld.windows"):
+        lo, hi, pos_ok = windows.window_bounds(positions, config.ld_wind)
+        pos_ok_pad = _pad_to(pos_ok, m_pad, False)
+        # an empty window for each padding row
+        lo_pad = _pad_to(lo, m_pad, np.int32(m_pad))
+        hi_pad = _pad_to(hi, m_pad, np.int32(-1))
 
     if packed:
         # pad rows in byte space (0x55 = four missing bitpairs, 0x00 =
@@ -253,8 +275,9 @@ def compute_ld_scores(genotypes, positions: np.ndarray, config: LDConfig, *,
         pad_byte = np.uint8(0x55) if pad_val == -1 else np.uint8(0x00)
         raw_dev = _to_device(_pad_to(genotypes.raw, m_pad, pad_byte), dev)
         t_dev = time.time()
-        g_dev = preprocess.unpack_bed(raw_dev, n_samples=n, n_pad=n_pad,
-                                      pad_val=pad_val)
+        with span("ld.unpack"):
+            g_dev = preprocess.unpack_bed(raw_dev, n_samples=n, n_pad=n_pad,
+                                          pad_val=pad_val)
         del raw_dev
     else:
         g = np.full((m_pad, n_pad), pad_val, dtype=np.int8)
@@ -264,10 +287,14 @@ def compute_ld_scores(genotypes, positions: np.ndarray, config: LDConfig, *,
 
     lo_dev = torch.from_numpy(lo_pad).to(dev)
     hi_dev = torch.from_numpy(hi_pad).to(dev)
-    # zero rows for the padding, float32, sent once
-    a_dev = (None if annot is None else _to_device(
-        _pad_to(np.ascontiguousarray(annot, dtype=np.float32), m_pad,
-                np.float32(0.0)), dev))
+    a_dev = None
+    if annot is not None:
+        # zero rows for the padding, float32, sent once
+        with span("ld.annot_prep"):
+            a_host = _pad_to(np.ascontiguousarray(annot, dtype=np.float32),
+                             m_pad, np.float32(0.0))
+        a_dev = _to_device(a_host, dev)
+        del a_host
     if not use_int8:
         out = _f32_pass(g_dev, torch.from_numpy(pos_ok_pad).to(dev), lo, hi,
                         lo_dev, hi_dev, config, a_dev, n, symmetric,
@@ -279,89 +306,116 @@ def compute_ld_scores(genotypes, positions: np.ndarray, config: LDConfig, *,
     # contaminated rows, and the global route decides it needs all of them
     # only after the per-row missing counts: defer the full m to that
     lazy_m = has_missing and symmetric and not config.use_pallas
-    pre = ld_int8.preprocess_int8(
-        g_dev, torch.from_numpy(pos_ok_pad).to(dev), config.maf_thr,
-        n_samples=n, assume_no_missing=not has_missing,
-        materialize_m=not lazy_m)
-    dom_ok = pre["usable"] & (pre["rstd"] > ld_int8.f32(config.std_thr))
-    scal = ld_int8.stack_scalars(pre)
+    with span("ld.preprocess"):
+        pre = ld_int8.preprocess_int8(
+            g_dev, torch.from_numpy(pos_ok_pad).to(dev), config.maf_thr,
+            n_samples=n, assume_no_missing=not has_missing,
+            materialize_m=not lazy_m)
+        dom_ok = pre["usable"] & (pre["rstd"] > ld_int8.f32(config.std_thr))
+        scal = ld_int8.stack_scalars(pre)
 
     # the products' operands, taken out of pre so that under bf16 each
     # int8 matrix is freed once its bf16 copy exists
     route, split = "global" if has_missing else "clean", None
     ops = {"g": pre.pop("g"), "m": pre.pop("m"), "h": pre.pop("h")}
     if lazy_m:
-        rowmiss = (pre["cm"] > float(n_pad - n)) & pre["usable"]
-        rowmiss_h = rowmiss.cpu().numpy()
-        route, frac = incore_route(rowmiss_h, m, config.block_size,
-                                   config.split_missing)
-        if route == "split":
-            plan = ld_split.plan_split_v2(
-                rowmiss_h, lo_pad, hi_pad,
-                min(ld_split.SEG_ROWS_DEFAULT, m_pad), m_pad)
-            log.info("Split-missing engine: %.2f%% contaminated rows "
-                     "(P=%d, Px=%d, %d segments)", 100.0 * frac,
-                     plan["p_band"], plan["p_x"], plan["n_segs"])
-            ops["m_c"] = ld_split.compact_missing_rows(g_dev,
-                                                       plan["miss_idx"])
-            split = (rowmiss, plan)
-        elif route == "global":
-            ops["m"] = ld_int8.materialize_missing(g_dev)
-    del g_dev                      # the raw codes are not read past here
+        with span("ld.route"):
+            rowmiss = (pre["cm"] > float(n_pad - n)) & pre["usable"]
+            rowmiss_h = rowmiss.cpu().numpy()
+            route, frac = incore_route(rowmiss_h, m, config.block_size,
+                                       config.split_missing)
+            if route == "split":
+                plan = ld_split.plan_split_v2(
+                    rowmiss_h, lo_pad, hi_pad,
+                    min(ld_split.SEG_ROWS_DEFAULT, m_pad), m_pad)
+                log.info("Split-missing engine: %.2f%% contaminated rows "
+                         "(P=%d, Px=%d, %d segments)", 100.0 * frac,
+                         plan["p_band"], plan["p_x"], plan["n_segs"])
+                split = (rowmiss, plan)
     dot_dtype = config.int8_dot_dtype
-    ld_int8.to_operands(ops, dot_dtype)
+    with span("ld.operands"):
+        if split is not None:
+            ops["m_c"] = ld_split.compact_missing_rows(g_dev,
+                                                       split[1]["miss_idx"])
+        elif lazy_m and route == "global":
+            ops["m"] = ld_int8.materialize_missing(g_dev)
+        del g_dev                  # the raw codes are not read past here
+        ld_int8.to_operands(ops, dot_dtype)
     log.info("LD route: %s%s%s%s", route,
              "" if symmetric else ", full-band engine",
              "" if dot_dtype == "int8" else f", {dot_dtype} operands",
              "" if annot is None else f", {annot.shape[1]} annotations")
 
+    annot_out = None
     if symmetric:
         deltas = ()
         if split is not None:
             # dispatched before the pass, so that its ticks cover both
             rowmiss, plan = split
-            deltas = ld_split.split_corrections(
-                ops["g"], ops["m_c"], ops["h"], scal, lo_dev, hi_dev,
-                pre["usable"], dom_ok, rowmiss, config.rsq_thr, m_pad, plan,
-                a_dev, n_samples=n)
-        accs = list(ld_pallas_sym.sym_credits_segmented(
-            ops["g"], ops["m"], ops["h"], scal, lo_dev, hi_dev,
-            pre["usable"], dom_ok, pre["add_sd_zero"], config.rsq_thr,
-            n_samples=n, has_missing=route == "global",
-            block_size=config.block_size, n_rows=m, progress=progress,
-            annot=a_dev))
-        # δ-credits of (l2, l2d, wse[, l2_annot, l2d_annot])
-        for at, delta in zip((0, 3, 5, 6, 7), deltas):
-            accs[at] = accs[at] + delta
-        l2_c, ws_c, poi_c, l2d_c, wsd_c, wse_c = accs[:6]
-        l2, l2d, ws, wsd, wse = finalize_outputs(
-            l2_c, l2d_c, ws_c, wsd_c, wse_c, poi_c, pre["usable"],
-            pre["add_sd_zero"])
-        if a_dev is not None:
-            l2_a, l2d_a = ld_int8.finalize_annot(
-                accs[6], accs[7], a_dev, pre["usable"], pre["add_sd_zero"],
-                poi_c, wsd_c)
+            with span("ld.k2"):
+                deltas = ld_split.split_corrections(
+                    ops["g"], ops["m_c"], ops["h"], scal, lo_dev, hi_dev,
+                    pre["usable"], dom_ok, rowmiss, config.rsq_thr, m_pad,
+                    plan, a_dev, n_samples=n)
+        timing.defer(lambda: _counters(
+            lo_dev, hi_dev, m, None if split is None else split[1]))
+        with span("ld.k1"):
+            accs = list(ld_pallas_sym.sym_credits_segmented(
+                ops["g"], ops["m"], ops["h"], scal, lo_dev, hi_dev,
+                pre["usable"], dom_ok, pre["add_sd_zero"], config.rsq_thr,
+                n_samples=n, has_missing=route == "global",
+                block_size=config.block_size, n_rows=m, progress=progress,
+                annot=a_dev))
+        with span("ld.finalize"):
+            # δ-credits of (l2, l2d, wse[, l2_annot, l2d_annot])
+            for at, delta in zip((0, 3, 5, 6, 7), deltas):
+                accs[at] = accs[at] + delta
+            l2_c, ws_c, poi_c, l2d_c, wsd_c, wse_c = accs[:6]
+            l2, l2d, ws, wsd, wse = finalize_outputs(
+                l2_c, l2d_c, ws_c, wsd_c, wse_c, poi_c, pre["usable"],
+                pre["add_sd_zero"])
+            if a_dev is not None:
+                annot_out = ld_int8.finalize_annot(
+                    accs[6], accs[7], a_dev, pre["usable"],
+                    pre["add_sd_zero"], poi_c, wsd_c)
     else:
         if progress is not None:
             progress(0, m)
-        blk_lo, blk_hi, band_k = windows.band_blocks(
-            lo, hi, config.block_size, m_pad // config.block_size)
-        fin = ld_int8.ld_scores_int8(
-            ops["g"], ops["m"], ops["h"], scal, lo_dev, hi_dev,
-            pre["usable"], dom_ok, pre["add_sd_zero"], blk_lo, blk_hi,
-            config.rsq_thr, a_dev, block_size=config.block_size,
-            band_k=band_k, n_samples=n, has_missing=has_missing,
-            dot_dtype=dot_dtype)
+        with span("ld.pass"):
+            blk_lo, blk_hi, band_k = windows.band_blocks(
+                lo, hi, config.block_size, m_pad // config.block_size)
+            fin = ld_int8.ld_scores_int8(
+                ops["g"], ops["m"], ops["h"], scal, lo_dev, hi_dev,
+                pre["usable"], dom_ok, pre["add_sd_zero"], blk_lo, blk_hi,
+                config.rsq_thr, a_dev, block_size=config.block_size,
+                band_k=band_k, n_samples=n, has_missing=has_missing,
+                dot_dtype=dot_dtype)
         l2, l2d, ws, wsd, wse = fin[-5:]
         if a_dev is not None:
-            l2_a, l2d_a = fin[:2]
-    out = to_host_result(l2, l2d, ws, wsd, wse, pre["maf"], pre["rstd"], m)
-    if a_dev is not None:
-        out["l2_annot"] = l2_a[:m].cpu().numpy().astype(np.float64)
-        out["l2d_annot"] = l2d_a[:m].cpu().numpy().astype(np.float64)
+            annot_out = fin[:2]
+    out = to_host_result(l2, l2d, ws, wsd, wse, pre["maf"], pre["rstd"], m,
+                         annot_out)
     if progress is not None and not symmetric:
         progress(m, m)
     stage_add("device_s", t_dev)
+    return out
+
+
+def _counters(lo: torch.Tensor, hi: torch.Tensor, m: int, plan) -> dict:
+    """The symmetric pass's counters that the host can work out, run
+    after the call (:func:`timing.defer`) on the call's windows ``lo``,
+    ``hi`` (padded, on its device: the call keeps no host copy for them):
+    ``k1.window_pairs``, the pairs (i, j) with i <= j <= hi[i] of the
+    real rows; with the split route's ``plan`` also K2's contaminated
+    rows, compact width after padding, and the tiles of its fused launch
+    and those that compute (:func:`ld_split.tile_counts`).  K1's
+    ``k1.tile_pairs`` its launcher counts."""
+    out = {"k1.window_pairs": windows.window_pairs(hi.cpu().numpy(), m)}
+    if plan is not None:
+        out["k2.tiles"], out["k2.live_tiles"] = ld_split.tile_counts(
+            plan, lo, hi)
+        out["k2.contaminated_rows"] = plan["n_miss"]
+        out["k2.compact_cols"] = len(plan["miss_idx"])
     return out
 
 
@@ -499,9 +553,11 @@ def profiled(profile_dir: str | None, device: torch.device):
     ``<profile_dir>/ld_trace.json`` (Chrome trace format, as the
     reference's ``jax.profiler.trace`` wraps its compute pass,
     ``nldsc_tpu/ld/pipeline.py:601-605``): CPU activity, and CUDA activity
-    on a CUDA device.  A profiler that cannot trace the card raises; it
-    never writes a CPU-only trace of a CUDA run.  Nothing when
-    ``profile_dir`` is None."""
+    on a CUDA device, with the ``nldsc.ld.*`` ranges of each traced call
+    (``core.timing.span``); then one log line per traced call, each span's
+    ``device_ms`` and the call's counters.  A profiler that cannot trace
+    the card raises; it never writes a CPU-only trace of a CUDA run.
+    Nothing when ``profile_dir`` is None."""
     if profile_dir is None:
         yield
         return
@@ -512,10 +568,13 @@ def profiled(profile_dir: str | None, device: torch.device):
             raise RuntimeError("--profile-dir: this torch cannot trace CUDA "
                                "activity (no CUPTI)")
         activities.append(act.CUDA)
+    first = len(timing.calls())
     with torch.profiler.profile(activities=activities) as prof:
         yield
         if device.type == "cuda":
             torch.cuda.synchronize(device)
+    for call in timing.calls()[first:]:
+        log.info("Traced %s", timing.call_line(call))
     if device.type == "cuda" and not any(
             e.device_type == torch.autograd.DeviceType.CUDA
             for e in prof.events()):

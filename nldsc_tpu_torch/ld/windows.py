@@ -99,3 +99,11 @@ def max_halo_rows(lo: np.ndarray, hi: np.ndarray) -> int:
         return 0
     idx = np.arange(len(lo), dtype=np.int64)
     return int(max((idx - lo).max(), (hi - idx).max(), 0))
+
+
+def window_pairs(hi: np.ndarray, m: int) -> int:
+    """The pairs (i, j), i <= j <= hi[i], of the first ``m`` rows: the
+    pairs of the rows' windows, each of which the symmetric pass credits
+    once."""
+    reach = hi[:m].astype(np.int64) - np.arange(m) + 1
+    return int(reach.clip(min=0).sum())
